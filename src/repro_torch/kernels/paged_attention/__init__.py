@@ -1,0 +1,6 @@
+from repro_torch.kernels.paged_attention.ops import (
+    paged_attention,
+    paged_prefill_attention,
+)
+
+__all__ = ["paged_attention", "paged_prefill_attention"]

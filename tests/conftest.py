@@ -10,6 +10,13 @@ import jax
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel of repro_torch; skips on a "
+        "host without a CUDA device")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)

@@ -1,0 +1,239 @@
+"""PyTorch port vs JAX: paged decode and chunked-prefill attention.
+
+The same pools, block tables, queries and positions (numpy, from a seed) go
+through the JAX package's ``paged_attention_ref`` / ``paged_prefill_ref``,
+its ``gather`` read path (``attend_paged_decode`` / ``attend_paged_prefill``)
+and its Pallas kernels in interpret mode, and through the port's plain
+versions (``kernels/paged_attention/ref.py`` via the ``ops`` wrappers on CPU
+tensors) and its ``gather`` path.  Cases: ragged last blocks, reshuffled
+block tables, a sliding window, mid-page ``pos0``, a ragged last lane, and
+float32 / bfloat16 / int8 pools.
+
+Tolerances:
+* float32 pools: rtol = atol = 1e-5 (float32 sums in another order);
+* int8 pools: rtol = atol = 2e-3.  Both packages round ``p * s_v`` to
+  bf16 after a float32 softmax, and JAX's (XLA's) ``exp`` and PyTorch's
+  differ in the last bit for about one element in ten, so a bf16 rounding
+  can fall the other way: one bf16 ulp (2^-8 relative) of one probability;
+* bfloat16 pools: one bf16 ulp of the output.
+
+The CUDA kernels have no CPU mode: their cases against the plain versions
+are in ``tests/test_torch_cuda_kernels.py``.
+"""
+
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_attention.ops import synthetic_prefill_case
+from repro.kernels.paged_attention.ref import (
+    paged_attention_ref as jax_decode_ref,
+    paged_prefill_ref as jax_prefill_ref,
+)
+from repro.models.attention import (
+    attend_paged_decode as jax_attend_decode,
+    attend_paged_prefill as jax_attend_prefill,
+)
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import kernel as pa_kernel
+from repro_torch.kernels.paged_attention.ops import (
+    paged_attention,
+    paged_prefill_attention,
+)
+from repro_torch.models.attention import (
+    attend_paged_decode,
+    attend_paged_prefill,
+)
+
+torch.set_num_threads(1)
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+INT8_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def _t(a):
+    """A JAX or numpy array as a torch tensor (bf16 stays bf16, exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).bfloat16()
+    return torch.from_numpy(np.array(a))
+
+
+def _pool(rng, n_pages, page, hkv, dh, kv_bits):
+    if kv_bits:
+        kp = rng.integers(-127, 128, (n_pages, page, hkv, dh)).astype(np.int8)
+        vp = rng.integers(-127, 128, (n_pages, page, hkv, dh)).astype(np.int8)
+        ks = jnp.asarray(rng.uniform(0.004, 0.02, (n_pages, page, hkv)),
+                         jnp.bfloat16)
+        vs = jnp.asarray(rng.uniform(0.004, 0.02, (n_pages, page, hkv)),
+                         jnp.bfloat16)
+        return kp, vp, np.asarray(ks), np.asarray(vs)
+    kp = rng.standard_normal((n_pages, page, hkv, dh)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, page, hkv, dh)).astype(np.float32)
+    return kp, vp, None, None
+
+
+def _jx(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _tx(a):
+    return None if a is None else _t(a)
+
+
+# ------------------------------------------------------------------ decode
+def _decode_case(page, group, kv_bits, seed=7):
+    rng = np.random.default_rng(seed)
+    b, hkv, dh, nblk = 3, 2, 8, 4
+    n_pages = b * nblk + 1
+    kp, vp, ks, vs = _pool(rng, n_pages, page, hkv, dh, kv_bits)
+    bt = (1 + rng.permutation(b * nblk).reshape(b, nblk)).astype(np.int32)
+    q = rng.standard_normal((b, 1, hkv * group, dh)).astype(np.float32)
+    # no lane on a page boundary; lane 2 has a nearly empty last block
+    pos = np.asarray([page * nblk - 2, page + 1, 0], np.int32)
+    return q, kp, vp, bt, pos, ks, vs
+
+
+@pytest.mark.parametrize(
+    "page,group,window,kv_bits",
+    [(p, g, w, kb) for p, g in itertools.product((2, 4), (1, 3))
+     for w, kb in ((0, 0), (5, 0), (0, 8), (5, 8))])
+def test_decode_matches_jax(page, group, window, kv_bits):
+    q, kp, vp, bt, pos, ks, vs = _decode_case(page, group, kv_bits)
+    tol = INT8_TOL if kv_bits else F32_TOL
+    jargs = (jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+             jnp.asarray(bt), jnp.asarray(pos), window)
+    targs = (_t(q), _t(kp), _t(vp), _t(bt), _t(pos), window)
+    want_ref = np.asarray(jax_decode_ref(*jargs, _jx(ks), _jx(vs)))
+    got_ref = paged_attention(*targs, _tx(ks), _tx(vs))
+    assert got_ref.shape == q.shape and got_ref.dtype == torch.float32
+    np.testing.assert_allclose(got_ref.numpy(), want_ref, **tol)
+
+    want_gather = np.asarray(jax_attend_decode(
+        *jargs, k_scale=_jx(ks), v_scale=_jx(vs), attn_backend="gather"))
+    got_gather = attend_paged_decode(*targs, k_scale=_tx(ks), v_scale=_tx(vs),
+                                     attn_backend="gather")
+    np.testing.assert_allclose(got_gather.numpy(), want_gather, **tol)
+
+    want_pallas = np.asarray(jax_attend_decode(
+        *jargs, k_scale=_jx(ks), v_scale=_jx(vs),
+        attn_backend="pallas_interpret"))
+    np.testing.assert_allclose(got_ref.numpy(), want_pallas,
+                               **(dict(rtol=1e-2, atol=1e-2) if kv_bits
+                                  else F32_TOL))
+
+
+def test_decode_invariant_under_page_reshuffle():
+    """A resumed request gets other physical pages: the same logical
+    content through a permuted block table gives bit-identical output."""
+    q, kp, vp, bt, pos, _, _ = _decode_case(4, 2, 0, seed=11)
+    rng = np.random.default_rng(12)
+    perm = np.concatenate([[0], 1 + rng.permutation(kp.shape[0] - 1)])
+    inv = np.argsort(perm)
+    out1 = paged_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(pos))
+    out2 = paged_attention(_t(q), _t(kp[perm]), _t(vp[perm]),
+                           _t(inv[bt].astype(np.int32)), _t(pos))
+    assert torch.equal(out1, out2)
+
+
+def test_decode_bf16_pools_match_jax():
+    """bf16 pools and queries, the served model's dtype: q and p are
+    rounded to the pool dtype as in JAX; one bf16 ulp of the output."""
+    q, kp, vp, bt, pos, _, _ = _decode_case(4, 2, 0, seed=5)
+    qb, kb, vb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kp, vp))
+    want = np.asarray(jax_decode_ref(qb, kb, vb, jnp.asarray(bt),
+                                     jnp.asarray(pos), 0)).astype(np.float32)
+    got = paged_attention(_t(qb), _t(kb), _t(vb), _t(bt), _t(pos))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=2 ** -9)
+
+
+# ----------------------------------------------------------------- prefill
+def _prefill_case(seed, **kw):
+    case = synthetic_prefill_case(np.random.default_rng(seed), **kw)
+    return {k: (None if v is None else np.asarray(v)) for k, v in case.items()}
+
+
+def _prefill_both(case, window):
+    """(JAX ref, JAX gather, JAX interpret, port ref, port gather)."""
+    b, c = case["q"].shape[:2]
+    positions = case["pos0"][:, None] + np.arange(c, dtype=np.int32)[None]
+    names = ("q", "k_pages", "v_pages", "block_tables")
+    jx = [jnp.asarray(case[n]) for n in names]
+    tx = [_t(case[n]) for n in names]
+    jks, jvs = _jx(case["k_scale"]), _jx(case["v_scale"])
+    tks, tvs = _tx(case["k_scale"]), _tx(case["v_scale"])
+    jpos0, jseq = jnp.asarray(case["pos0"]), jnp.asarray(case["seq_lens"])
+    tpos0, tseq = _t(case["pos0"]), _t(case["seq_lens"])
+    out = [jax_prefill_ref(*jx, jpos0, jseq, window, jks, jvs)]
+    for abk in ("gather", "pallas_interpret"):
+        out.append(jax_attend_prefill(*jx, jnp.asarray(positions), jpos0,
+                                      jseq, window, k_scale=jks, v_scale=jvs,
+                                      attn_backend=abk))
+    out = [np.asarray(o) for o in out]
+    out.append(paged_prefill_attention(*tx, tpos0, tseq, window, tks,
+                                       tvs).numpy())
+    out.append(attend_paged_prefill(*tx, _t(positions), tpos0, tseq, window,
+                                    k_scale=tks, v_scale=tvs,
+                                    attn_backend="gather").numpy())
+    return out
+
+
+@pytest.mark.parametrize("window,kv_bits", [(0, 0), (6, 0), (0, 8), (6, 8)])
+def test_prefill_matches_jax(window, kv_bits):
+    """Every lane's ``pos0`` lands mid-page and the last lane's chunk is
+    ragged (``seq_lens < pos0 + chunk``)."""
+    case = _prefill_case(17, batch=3, nblk=5, page=4, hkv=2, group=2, dh=16,
+                         chunk=6, kv_bits=kv_bits)
+    j_ref, j_gather, j_pallas, t_ref, t_gather = _prefill_both(case, window)
+    tol = INT8_TOL if kv_bits else F32_TOL
+    np.testing.assert_allclose(t_ref, j_ref, **tol)
+    np.testing.assert_allclose(t_gather, j_gather, **tol)
+    np.testing.assert_allclose(t_ref, j_pallas,
+                               **(dict(rtol=1e-2, atol=1e-2) if kv_bits
+                                  else F32_TOL))
+
+
+def test_prefill_ragged_last_page():
+    """One valid token on the last page: the ``kv_pos < limit`` mask drops
+    exactly the unwritten tail."""
+    case = _prefill_case(23, batch=1, nblk=4, page=4, hkv=2, group=1, dh=8,
+                         chunk=9, kv_bits=0)
+    case["pos0"] = np.zeros_like(case["pos0"])
+    case["seq_lens"] = np.full_like(case["seq_lens"], 9)
+    j_ref, j_gather, j_pallas, t_ref, t_gather = _prefill_both(case, 0)
+    for want in (j_ref, j_gather, j_pallas):
+        np.testing.assert_allclose(t_ref, want, **F32_TOL)
+    np.testing.assert_allclose(t_gather, j_gather, **F32_TOL)
+
+
+def test_prefill_midpage_pos0():
+    """Suffix prefill after a match that ends inside a page."""
+    case = _prefill_case(29, batch=2, nblk=5, page=4, hkv=2, group=2, dh=8,
+                         chunk=5, kv_bits=0)
+    case["pos0"] = np.asarray([4 + 2, 8 + 3], np.int32)
+    case["seq_lens"] = case["pos0"] + 5
+    j_ref, j_gather, j_pallas, t_ref, t_gather = _prefill_both(case, 0)
+    for want in (j_ref, j_gather, j_pallas):
+        np.testing.assert_allclose(t_ref, want, **F32_TOL)
+    np.testing.assert_allclose(t_gather, j_gather, **F32_TOL)
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    q, kp, vp, bt, pos, _, _ = _decode_case(4, 2, 0)
+    b, _, hq, dh = q.shape
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="not on the query's CUDA device"):
+        pa_kernel.paged_decode_attention_cuda(
+            _t(q).reshape(b, 2, hq // 2, dh), _t(kp), _t(vp), _t(bt),
+            _t(pos))
+    with pytest.raises(ValueError, match="not on the query's CUDA device"):
+        pa_kernel.paged_prefill_attention_cuda(
+            _t(q).reshape(b, 1, 2, hq // 2, dh), _t(kp), _t(vp), _t(bt),
+            _t(pos), _t(pos + 1))
+    assert _build.LAUNCHES == before
