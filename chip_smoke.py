@@ -12,21 +12,36 @@ exits non-zero:
 1. ``env``      torch / CUDA versions, the card, its power limit.
 2. ``build``    nvcc of every kernel source, in parallel; build seconds.
 3. ``parity``   each kernel against its plain PyTorch version on card
-                tensors at the main path's shapes, with the tolerance;
-   ``time``     kernel, plain-version and PyTorch-library times at the main
-                path's shapes, with the bytes and operations each call
-                needs and the least time the card could take for them.
-4. ``main``     ``ServeEngine`` on full-width qwen2.5-3b (36 layers, bf16,
-                ``EngineConfig(weight_bits=4, kv_bits=8)``): 16 seeded
-                prompts of 33-300 tokens, 32 new tokens each.
+                tensors at its path's shapes, with the tolerance;
+   ``time``     kernel, plain-version and PyTorch-library times at those
+                shapes, with the bytes and operations each call needs and
+                the least time the card could take for them.
+4. ``main``     paged serving: ``ServeEngine`` on full-width qwen2.5-3b (36
+                layers, bf16, ``EngineConfig(weight_bits=4, kv_bits=8)``):
+                16 seeded prompts of 33-300 tokens, 32 new tokens each.
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
                 on the plain backends (``reference`` GEMV, ``gather``
                 attention); same greedy tokens, first-step logits within
                 tolerance.
-7. ``kernels``  one line: every kernel, its launches on the main path, its
-                error against the plain version and its times.
+7. ``long``     the full-sequence path: full-width qwen2.5-3b
+                (``weight_bits=4``, full-precision slots cache),
+                ``init_cache`` for 2 x 4160, one-shot ``prefill`` of two
+                seeded 4096-token prompts (flash attention), 32 greedy
+                ``decode_step`` s.
+8. ``ssm``      the same for full-width mamba2-130m (24 layers,
+                ``weight_bits=4``): four 4096-token prompts (SSD scan),
+                32 decode steps.
+9. ``long_whole`` at 2 layers, full width, both models: the kernel path
+                against the plain path (same greedy tokens, first-step
+                logits within tolerance), and ``forward`` over prompt and
+                continuation against ``prefill`` + ``decode_step`` logits
+                (teacher forcing).
+10. ``kernels`` one line: every kernel, its launches on its path (paged
+                serving for the first three, ``long`` and ``ssm`` for flash
+                attention and the SSD scan), its error against the plain
+                version and its times.
 
 The card's ``nvidia-smi`` name and power limit line and the ``kernels``
 line come before the last line, which is
@@ -58,7 +73,10 @@ DEVICE = "cuda"
 
 GEMV_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 GEMV_NAMES = {(2048, 2048): "wq/wo", (2048, 256): "wk/wv",
-              (2048, 11008): "w_gate/w_up", (11008, 2048): "w_down"}
+              (2048, 11008): "w_gate/w_up", (11008, 2048): "w_down",
+              (768, 3352): "in_proj", (1536, 768): "out_proj"}
+# mamba2-130m's linears (K, N): in_proj to [z, x, B, C, dt], out_proj
+SSM_GEMV_SHAPES = [(768, 3352), (1536, 768)]
 KERNELS = {
     "bitplane_gemv": dict(
         route="cuda", source="src/repro_torch/csrc/bitplane_gemv.cu",
@@ -69,7 +87,20 @@ KERNELS = {
     "paged_prefill_attention": dict(
         route="cuda", source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention/kernel.py:312"),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:82"),
+    "ssd_scan": dict(
+        route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:66"),
 }
+PAGED_KERNELS = ("bitplane_gemv", "paged_decode_attention",
+                 "paged_prefill_attention")
+# the full-sequence paths' shapes: qwen2.5-3b attention (Hq 16, Hkv 2,
+# D 128) over two 4096-token prompts; mamba2-130m SSD (H 24, P 64, N 128,
+# chunk 256) over four
+FLASH_SHAPE = dict(b=2, s=4096, hq=16, hkv=2, d=128)
+SSD_SHAPE = dict(b=4, s=4096, h=24, p=64, n=128)
 
 
 def emit(phase: str, **rec) -> None:
@@ -523,7 +554,7 @@ def serve(torch, name, eng, prompts, max_new):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=launches)
     emit(name, **rec)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PAGED_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched: {missing}")
     return rec
@@ -599,6 +630,381 @@ def whole_path_check(torch, dev):
          first_step_logit_max_abs_err=first_err, logit_tol=logit_tol)
 
 
+# ---------------------------------------------- full-sequence kernels
+def flash_inputs(torch, dev, gen, dt, s=None):
+    sh = FLASH_SHAPE
+    s = s or sh["s"]
+    q = torch.randn((sh["b"], s, sh["hq"], sh["d"]), generator=gen,
+                    device=dev).to(dt)
+    k = torch.randn((sh["b"], s, sh["hkv"], sh["d"]), generator=gen,
+                    device=dev).to(dt)
+    v = torch.randn((sh["b"], s, sh["hkv"], sh["d"]), generator=gen,
+                    device=dev).to(dt)
+    return q, k, v
+
+
+def flash_plain(q, k, v, window):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2),
+                               window=window).transpose(1, 2)
+
+
+def flash_tol(torch, dt):
+    # float32: sum order and 64-key online-softmax steps against one
+    # softmax per row; bfloat16 output: one rounding of float32 values
+    # that may differ in their last bits, one bf16 ulp (2^-7 of the value)
+    return (1e-5, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-5)
+
+
+def flash_parity(torch, dev):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst, worst_used, cases = 0.0, 0.0, []
+    for dt, s, window in ((torch.bfloat16, 4096, 0),
+                          (torch.bfloat16, 4100, 0),
+                          (torch.bfloat16, 4096, 1024),
+                          (torch.float32, 4096, 0)):
+        q, k, v = flash_inputs(torch, dev, gen, dt, s)
+        y = flash_attention(q, k, v, window=window)
+        r = flash_plain(q, k, v, window)
+        rtol, atol = flash_tol(torch, dt)
+        err, used = check_close("flash_attention", y, r, rtol, atol, s=s,
+                                window=window, dtype=str(dt))
+        worst, worst_used = max(worst, err), max(worst_used, used)
+        cases.append(dict(s=s, window=window, dtype=str(dt).split(".")[-1],
+                          max_abs_err=err))
+        del q, k, v, y, r
+    torch.cuda.synchronize()
+    emit("parity", kernel="flash_attention", cases=cases,
+         shape="B=2, Hq=16, Hkv=2, D=128",
+         tolerance="float32: rtol=atol=1e-5; bfloat16: rtol 2^-7 (one "
+                   "ulp), atol 1e-5", max_abs_err=worst,
+         max_share_of_tol=worst_used)
+
+
+def flash_time(torch, dev):
+    """Kernel / plain / library times of one prefill attention call:
+    two 4096-token prompts, bf16, window 0."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda,
+    )
+
+    sh = FLASH_SHAPE
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q, k, v = flash_inputs(torch, dev, gen, dt)
+    y = flash_attention_cuda(q, k, v)
+    rtol, atol = flash_tol(torch, dt)
+    err, _ = check_close("flash_attention", y, flash_plain(q, k, v, 0),
+                         rtol, atol)
+    eb = q.element_size()
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * eb
+    pairs = sh["s"] * (sh["s"] + 1) // 2 * sh["b"] * sh["hq"]
+    n_ops = 4 * sh["d"] * pairs
+    bms, by = bound_ms(n_bytes, n_ops, "bfloat16")
+    sets = [tuple(t.clone() for t in (q, k, v))
+            for _ in range(n_copies(n_bytes))]
+    ms = timed_ms(lambda a, b, c: flash_attention_cuda(a, b, c), sets, torch)
+    plain_ms = timed_ms(lambda a, b, c: flash_plain(a, b, c, 0), sets[:3],
+                        torch)
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in ts)
+                for ts in sets]
+    del sets
+    lib = timed_ms(lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, is_causal=True, enable_gqa=True), lib_sets, torch)
+    del lib_sets
+    rec = dict(kernel="flash_attention", **sh, window=0, dtype="bfloat16",
+               max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
+               plain_ms=plain_ms, library_ms=lib,
+               library="F.scaled_dot_product_attention(is_causal=True, "
+                       "enable_gqa=True) on (B, H, S, D) copies",
+               bytes=n_bytes, ops=n_ops, bound_ms=bms, bound_by=by)
+    emit("time", **rec)
+    return rec
+
+
+def ssd_inputs(torch, dev, gen):
+    sh = SSD_SHAPE
+    xdt = (0.1 * torch.randn((sh["b"], sh["s"], sh["h"], sh["p"]),
+                             generator=gen, device=dev)).to(torch.bfloat16)
+    la = -0.2 * torch.rand((sh["b"], sh["s"], sh["h"]), generator=gen,
+                           device=dev)
+    b_in = torch.randn((sh["b"], sh["s"], sh["n"]), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    c_in = torch.randn((sh["b"], sh["s"], sh["n"]), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    return xdt, la, b_in, c_in
+
+
+def ssd_tol(r):
+    # chunked float32 sums and exponentials of float32 cumulative decays
+    # against the float64 recurrence: 1e-4 of the largest output
+    return 1e-4, 1e-4 * float(r.abs().max())
+
+
+def ssd_parity(torch, dev):
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    inputs = ssd_inputs(torch, dev, gen)
+    ry, rh = ssd_scan_ref(*inputs)
+    worst, worst_used, cases = 0.0, 0.0, []
+    for chunk in (256, 128):
+        y, h = ssd_scan(*inputs, chunk=chunk)
+        for name, out, ref in (("y", y, ry), ("h", h, rh)):
+            rtol, atol = ssd_tol(ref)
+            err, used = check_close("ssd_scan", out, ref, rtol, atol,
+                                    chunk=chunk, output=name)
+            worst, worst_used = max(worst, err), max(worst_used, used)
+            cases.append(dict(chunk=chunk, output=name, max_abs_err=err))
+    torch.cuda.synchronize()
+    emit("parity", kernel="ssd_scan", cases=cases,
+         shape="B=4, S=4096, H=24, P=64, N=128, bf16 inputs",
+         tolerance="rtol 1e-4, atol 1e-4*max|ref| against the float64 "
+                   "recurrence", max_abs_err=worst,
+         max_share_of_tol=worst_used)
+
+
+def ssd_time(torch, dev):
+    """Kernel / plain times of one prefill SSD call (mamba2-130m heads,
+    four 4096-token prompts, chunk 256).  No single PyTorch call computes
+    the scan: library_ms is null."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    sh, chunk = SSD_SHAPE, 256
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    inputs = ssd_inputs(torch, dev, gen)
+    y, _ = ssd_scan_cuda(*inputs, chunk=chunk)
+    ry, _ = ssd_scan_ref(*inputs)
+    rtol, atol = ssd_tol(ry)
+    err, _ = check_close("ssd_scan", y, ry, rtol, atol)
+    b, s, nh, p, n = sh["b"], sh["s"], sh["h"], sh["p"], sh["n"]
+    n_bytes = (sum(t.numel() * t.element_size() for t in inputs)
+               + 4 * (b * s * nh * p + b * nh * p * n))
+    # the chunked algorithm at this chunk: C B^T under the diagonal once per
+    # lane and chunk; per head the decayed intra product, the inter term
+    # and the state update
+    tri = chunk * (chunk + 1) // 2
+    nc = s // chunk
+    n_ops = b * nc * (2 * n * tri + nh * (tri + 2 * p * tri
+                                          + 4 * chunk * n * p))
+    bms, by = bound_ms(n_bytes, n_ops, "bfloat16")
+    sets = [tuple(t.clone() for t in inputs)
+            for _ in range(n_copies(n_bytes))]
+    ms = timed_ms(lambda *a: ssd_scan_cuda(*a, chunk=chunk), sets, torch)
+    plain_ms = timed_ms(lambda *a: ssd_scan_ref(*a), sets[:2], torch)
+    del sets
+    rec = dict(kernel="ssd_scan", **sh, chunk=chunk, dtype="bfloat16",
+               max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
+               plain_ms=plain_ms, library_ms=None,
+               blocks=b * nh, bytes=n_bytes, ops=n_ops, bound_ms=bms,
+               bound_by=by)
+    emit("time", **rec)
+    return rec
+
+
+# ------------------------------------------------ full-sequence phases
+def seeded_tokens(torch, dev, cfg, b, s, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(
+        dev, torch.int32)
+
+
+def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
+                 expect):
+    """``init_cache`` + one-shot ``prefill`` + greedy ``decode_step`` s;
+    checks finite logits and the kernel launches, returns the record."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, s + n_decode + 32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens}, cfg, cache, ecfg)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    pf_launches = dict(_build.LAUNCHES)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: non-finite prefill logits")
+    _build.reset_launches()
+    out = []
+    nxt = torch.argmax(logits[:, -1].float(), -1)[:, None].int()
+    t0 = time.perf_counter()
+    for _ in range(n_decode):
+        out.append(nxt)
+        logits, cache = decode_step(params, cache, nxt, cfg, ecfg)
+        nxt = torch.argmax(logits[:, -1].float(), -1)[:, None].int()
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    dec_launches = dict(_build.LAUNCHES)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: non-finite decode logits")
+    toks = torch.cat(out, 1)
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{name}: token outside the vocabulary")
+    rec = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=b, prompt_tokens=s, weight_bits=ecfg.weight_bits,
+               prefill_s=t_prefill, prefill_tok_s=b * s / t_prefill,
+               decode_steps=n_decode, decode_step_ms=1e3 * t_decode / n_decode,
+               decode_tok_s=b * n_decode / t_decode,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               prefill_launches=pf_launches, decode_launches=dec_launches)
+    emit(name, **rec)
+    for kernel, want in expect.items():
+        if pf_launches[kernel] != want:
+            raise AssertionError(f"{name}: {kernel} launched "
+                                 f"{pf_launches[kernel]} times in prefill, "
+                                 f"expected {want}")
+    if dec_launches["bitplane_gemv"] == 0:
+        raise AssertionError(f"{name}: decode launched no GEMV")
+    return rec
+
+
+def long_path(torch, dev):
+    from repro_torch.config import EngineConfig
+    from repro_torch.models import init_params
+
+    cfg = full_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, engine_bits=4)
+    tokens = seeded_tokens(torch, dev, cfg, 2, 4096, SEED + 7)
+    # per prefill: one flash call per layer, seven GEMVs per layer
+    return run_sequence(torch, dev, "long", cfg, params, tokens, 32,
+                        EngineConfig(weight_bits=4),
+                        {"flash_attention": cfg.n_layers,
+                         "bitplane_gemv": 7 * cfg.n_layers})
+
+
+def ssm_config(**changes):
+    from repro_torch.config import get_arch
+
+    return dataclasses.replace(get_arch("mamba2-130m"), **changes)
+
+
+def ssm_path(torch, dev):
+    from repro_torch.config import EngineConfig
+    from repro_torch.models import init_params
+
+    cfg = ssm_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, engine_bits=4)
+    tokens = seeded_tokens(torch, dev, cfg, 4, 4096, SEED + 8)
+    # per prefill: one SSD scan per layer, in_proj and out_proj per layer
+    return run_sequence(torch, dev, "ssm", cfg, params, tokens, 32,
+                        EngineConfig(weight_bits=4),
+                        {"ssd_scan": cfg.n_layers,
+                         "bitplane_gemv": 2 * cfg.n_layers})
+
+
+def greedy_run(torch, cfg, params, tokens, n_decode, ecfg):
+    """Prefill + greedy decode; returns (tokens (B, n), logits per step as
+    float32 (B, V) each)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, s + n_decode, device=tokens.device)
+    logits, cache = prefill(params, {"tokens": tokens}, cfg, cache, ecfg)
+    steps, out = [logits[:, -1].float()], []
+    for _ in range(n_decode):
+        nxt = torch.argmax(steps[-1], -1)[:, None].int()
+        out.append(nxt)
+        logits, cache = decode_step(params, cache, nxt, cfg, ecfg)
+        steps.append(logits[:, -1].float())
+    torch.cuda.synchronize()
+    return torch.cat(out, 1), steps
+
+
+def check_tokens(name, tok_a, tok_b, steps_b, logit_tol):
+    """Greedy streams agree, up to a near tie: where they first differ,
+    the second path's top two logits lie within ``2 * logit_tol``."""
+    identical, near_ties = 0, []
+    for lane in range(tok_a.shape[0]):
+        a, b = tok_a[lane].tolist(), tok_b[lane].tolist()
+        if a == b:
+            identical += 1
+            continue
+        i = next(j for j in range(len(b)) if a[j] != b[j])
+        top2 = steps_b[i][lane].topk(2).values
+        margin = float(top2[0] - top2[1])
+        if margin > 2 * logit_tol:
+            raise AssertionError(f"{name}: lane {lane} differs at token {i} "
+                                 f"where the margin is {margin}")
+        near_ties.append(dict(lane=lane, token=i, margin=margin))
+    return identical, near_ties
+
+
+def long_whole_check(torch, dev):
+    """At 2 layers, full width, for qwen2.5-3b (two 4096-token prompts) and
+    mamba2-130m (two 3840-token prompts, so prompt and continuation fill
+    whole 256-step chunks):
+
+    * kernel path (cuda GEMV, flash attention / SSD scan) against the plain
+      path (``reference`` GEMV, ``gather``: plain ``attend_flash`` /
+      ``ssd_chunked``): first-step logits within ``logit_tol``, greedy
+      tokens equal up to near ties (as the ``whole`` phase holds them);
+    * teacher forcing on the kernel path: ``forward`` over prompt and the
+      generated tokens against the logits of ``prefill`` and each
+      ``decode_step``, within ``logit_tol``.
+
+    ``logit_tol``: the logits stay below 8 in magnitude, where a bf16 ulp is
+    2^-5; two layers of bf16 activations whose roundings may fall either way
+    (sums in other orders: flash vs cached decode attention, the GEMV's
+    decode and prefill tilings, the SSD chunks vs the recurrence), then the
+    bf16 rounding of each logit, stay within four such ulps.
+    """
+    from repro_torch.config import EngineConfig
+    from repro_torch.models import forward, init_params
+
+    logit_tol = 0.125
+    for cfg, s, n_decode in ((full_config(n_layers=2), 4096, 32),
+                             (ssm_config(n_layers=2), 3840, 256)):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, engine_bits=4)
+        tokens = seeded_tokens(torch, dev, cfg, 2, s, SEED + 9)
+        kern = EngineConfig(weight_bits=4)
+        plain = EngineConfig(weight_bits=4, backend="reference",
+                             attn_backend="gather")
+        tok_k, steps_k = greedy_run(torch, cfg, params, tokens, n_decode,
+                                    kern)
+        tok_p, steps_p = greedy_run(torch, cfg, params, tokens, n_decode,
+                                    plain)
+        first_err = float((steps_k[0] - steps_p[0]).abs().max())
+        if first_err > logit_tol:
+            raise AssertionError(f"long_whole {cfg.name}: first-step logits "
+                                 f"differ by {first_err} > {logit_tol}")
+        identical, near_ties = check_tokens(f"long_whole {cfg.name}", tok_k,
+                                            tok_p, steps_p, logit_tol)
+        full_tokens = torch.cat([tokens, tok_k], 1)
+        logits, _ = forward(params, {"tokens": full_tokens}, cfg, kern)
+        tf = logits[:, s - 1:].float()
+        steps = torch.stack(steps_k, 1)
+        tf_err = float((tf - steps).abs().max())
+        if not bool(torch.isfinite(logits).all()) or tf_err > logit_tol:
+            raise AssertionError(f"long_whole {cfg.name}: forward vs "
+                                 f"prefill + decode logits differ by "
+                                 f"{tf_err} > {logit_tol}")
+        emit("long_whole", model=cfg.name, layers=cfg.n_layers,
+             prompt_tokens=s, decode_steps=n_decode,
+             identical_lanes=identical, near_tie_divergences=near_ties,
+             first_step_logit_max_abs_err=first_err,
+             teacher_forcing_logit_max_abs_err=tf_err,
+             logit_tol=logit_tol)
+        del params, logits
+        torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -640,6 +1046,8 @@ def main() -> int:
     with Phase("parity"):
         gemv_parity(torch, dev)
         attn_parity(torch, dev)
+        flash_parity(torch, dev)
+        ssd_parity(torch, dev)
 
     with Phase("time"):
         gemv_rows = [gemv_time(torch, dev, m, k, n)
@@ -647,6 +1055,13 @@ def main() -> int:
         attn_rows = {(kind, mode): attn_time(torch, dev, kind, mode)
                      for kind in ("int8", "bfloat16")
                      for mode in ("decode", "prefill")}
+        # the one-shot prefills' GEMVs: M = 2 x 4096 (long), 4 x 4096 (ssm)
+        for (k, n) in GEMV_SHAPES:
+            gemv_time(torch, dev, 8192, k, n)
+        for (k, n) in SSM_GEMV_SHAPES:
+            gemv_time(torch, dev, 16384, k, n)
+        flash_rec = flash_time(torch, dev)
+        ssd_rec = ssd_time(torch, dev)
 
     with Phase("main"):
         cfg = full_config()
@@ -667,21 +1082,43 @@ def main() -> int:
     with Phase("whole"):
         whole_path_check(torch, dev)
 
+    with Phase("long"):
+        long_rec = long_path(torch, dev)
+        torch.cuda.empty_cache()
+
+    with Phase("ssm"):
+        ssm_rec = ssm_path(torch, dev)
+        torch.cuda.empty_cache()
+
+    with Phase("long_whole"):
+        long_whole_check(torch, dev)
+
     reps = {"bitplane_gemv": next(r for r in gemv_rows if r["m"] == 8
                                   and (r["k"], r["n"]) == GEMV_SHAPES[2]),
             "paged_decode_attention": attn_rows[("int8", "decode")],
-            "paged_prefill_attention": attn_rows[("int8", "prefill")]}
+            "paged_prefill_attention": attn_rows[("int8", "prefill")],
+            "flash_attention": flash_rec, "ssd_scan": ssd_rec}
     shapes = {"bitplane_gemv": "decode w_gate/w_up: M=8, K=2048, N=11008, "
                                "4-bit, bf16",
               "paged_decode_attention": "decode: 8 lanes, 41-332 keys, "
                                         "int8 pools, G=8, Dh=128, page 16",
               "paged_prefill_attention": "prefill chunk: 8 lanes x 32, "
-                                         "int8 pools, G=8, Dh=128, page 16"}
+                                         "int8 pools, G=8, Dh=128, page 16",
+              "flash_attention": "prefill: B=2, S=4096, Hq=16, Hkv=2, "
+                                 "D=128, bf16, causal",
+              "ssd_scan": "prefill: B=4, S=4096, H=24, P=64, N=128, "
+                          "chunk 256, bf16 inputs"}
+    # launches on each kernel's own path: paged serving (main) for the
+    # first three, the one-shot prefills of long and ssm for the others
+    launches = dict(main_rec["launches"])
+    launches["flash_attention"] = long_rec["prefill_launches"][
+        "flash_attention"]
+    launches["ssd_scan"] = ssm_rec["prefill_launches"]["ssd_scan"]
     kernels = []
     for name, meta in KERNELS.items():
         rep = reps[name]
         kernels.append(dict(
-            name=name, **meta, launches=main_rec["launches"][name],
+            name=name, **meta, launches=launches[name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],

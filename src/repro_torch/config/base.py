@@ -19,8 +19,9 @@ class ModelConfig:
     """A decoder-family model definition.
 
     Block kinds are derived from ``family`` (dense / vlm / audio: attention
-    + dense MLP every layer; moe; ssm; hybrid).  The port serves the dense
-    family; the other fields are kept so configs stay interchangeable.
+    + dense MLP every layer; moe; ssm; hybrid).  The port runs the dense
+    and ssm families; the other fields are kept so configs stay
+    interchangeable.
     """
 
     name: str
@@ -76,6 +77,15 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads if self.n_heads else 0
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def is_global_layer(self, i: int) -> bool:
         """Gemma3-style local:global pattern: layer i uses global attention."""

@@ -32,6 +32,7 @@ def register_arch(arch_id: str, config: ModelConfig,
 
 
 _ARCH_MODULES = {
+    "mamba2-130m": "mamba2_130m",
     "qwen2.5-3b": "qwen2_5_3b",
 }
 

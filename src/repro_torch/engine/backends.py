@@ -11,7 +11,10 @@ kernel runs for 3-D serve activations too).  Shipped backends:
                   (``repro_torch.kernels.bitplane_gemv``).
 
 Attention read paths: ``gather`` (materialise the logical KV view, then
-attend; the reference) and ``cuda`` (the in-place paged kernels).
+attend; the reference) and ``cuda`` (the in-place paged kernels).  The
+same name picks the sequence mixers of the full-sequence path: ``cuda``
+runs the flash-attention and SSD-scan kernels, ``gather`` their plain
+versions.
 
 ``auto`` resolves by device: ``cuda`` for a CUDA device, ``reference`` /
 ``gather`` for the CPU.

@@ -37,6 +37,8 @@ LAUNCHES: Dict[str, int] = {
     "bitplane_gemv": 0,
     "paged_decode_attention": 0,
     "paged_prefill_attention": 0,
+    "flash_attention": 0,
+    "ssd_scan": 0,
 }
 
 _lock = threading.Lock()

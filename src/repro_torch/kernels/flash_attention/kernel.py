@@ -1,0 +1,81 @@
+"""Launcher of the CUDA flash-attention kernel
+(``csrc/flash_attention.cu``).
+
+Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
+allocates the output with ``torch.empty``, launches on the current stream
+and raises if the launch reports an error.  It never falls back to the
+plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.library().imagine_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, window):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention_cuda: {name} is on {t.device},"
+                             " not on the query's CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_cuda: {name} is not "
+                             "contiguous")
+        if t.dtype != q.dtype:
+            raise ValueError("flash_attention_cuda: q, k and v must share a "
+                             f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention_cuda: dtype {q.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention_cuda: q must be (B, S, Hq, D) and "
+                         "k, v (B, S, Hkv, D)")
+    b, s, hq, d = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not match")
+    if hq % k.shape[2]:
+        raise ValueError(f"flash_attention_cuda: Hq={hq} is not a multiple "
+                         f"of Hkv={k.shape[2]}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if s == 0 or b == 0:
+        raise ValueError("flash_attention_cuda: empty input")
+    if window < 0:
+        raise ValueError(f"flash_attention_cuda: window {window}")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, window: int = 0) -> torch.Tensor:
+    """Causal (+ window) GQA attention on the card; q ``(B, S, Hq, D)``,
+    k/v ``(B, S, Hkv, D)`` -> ``(B, S, Hq, D)`` in q's dtype."""
+    window = int(window)
+    _check(q, k, v, window)
+    b, s, hq, d = q.shape
+    out = torch.empty_like(q)
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b, s, hq, k.shape[2], d, window, d ** -0.5,
+                   _DTYPE_CODES[q.dtype],
+                   torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err} "
+                           f"(B={b}, S={s}, Hq={hq}, Hkv={k.shape[2]}, "
+                           f"D={d})")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,6 +1,6 @@
-"""Attention paths of the serving model: dense masked attention, decode
-over a KV view (full precision or int8), and decode / chunked-prefill
-reads through a paged-KV block table.
+"""Attention paths of the model: dense masked attention, chunked flash
+attention over a whole sequence, decode over a KV view (full precision or
+int8), and decode / chunked-prefill reads through a paged-KV block table.
 
 All paths share GQA semantics: Hq query heads grouped over Hkv KV heads.
 Contractions that the JAX package runs with
@@ -15,6 +15,9 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+FLASH_THRESHOLD = 4096  # full-sequence paths switch to flash at this length
+FLASH_BLOCK_Q = 512
+FLASH_BLOCK_KV = 1024
 
 
 def _neg_inf(device) -> torch.Tensor:
@@ -50,6 +53,87 @@ def attend_dense(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attend_flash(
+    q: torch.Tensor,             # (B, S, Hq, D)
+    k: torch.Tensor,             # (B, S, Hkv, D)
+    v: torch.Tensor,
+    positions: torch.Tensor,     # (B, S)
+    window: int = 0,
+    block_q: int = FLASH_BLOCK_Q,
+    block_kv: int = FLASH_BLOCK_KV,
+    *,
+    attn_backend: str = "gather",
+    sequential: bool = False,
+) -> torch.Tensor:
+    """Causal (+ window) attention over a whole sequence without S×S
+    scores.
+
+    ``cuda`` runs the flash kernel (``repro_torch.kernels.flash_attention``),
+    which masks by index from 0, so it needs positions ``0..S-1`` in every
+    row: the caller says so with ``sequential=True`` (``forward`` and
+    ``prefill`` without batch-given positions), and anything else raises
+    rather than attending with the wrong mask.  ``gather`` is the plain
+    version: the JAX package's chunked online softmax over query and key
+    blocks (``attention.py:154-220``), scores in float32 and ``p`` cast to
+    v's dtype before ``p·v``.  Fully masked key blocks are still computed
+    and contribute nothing, as there.
+    """
+    if attn_backend == "cuda":
+        if not sequential:
+            raise NotImplementedError(
+                "attend_flash: the flash kernel masks by index from 0 and "
+                "needs positions 0..S-1 in every row; batch-given positions "
+                "are not supported on this route")
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+
+        return flash_attention(q, k, v, window=window)
+    if attn_backend != "gather":
+        raise ValueError(f"unknown attention backend {attn_backend!r}")
+    b, s, hq, d = q.shape
+    n_kv = k.shape[2]
+    g = hq // n_kv
+    block_q = min(block_q, s)
+    block_kv = min(block_kv, s)
+    blk = max(block_q, block_kv)
+    if s % blk:
+        # pad to a block multiple; padded keys sit at position 2^30, above
+        # every real query, and padded query rows are sliced off
+        pad = blk - s % blk
+        padded = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                  for t in (q, k, v)]
+        pos = torch.nn.functional.pad(positions, (0, pad), value=2 ** 30)
+        return attend_flash(*padded, pos, window, block_q, block_kv)[:, :s]
+    scale = d ** -0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, s, block_q):
+        qg = q[:, q0:q0 + block_q].reshape(b, block_q, n_kv, g, d).float()
+        q_pos = positions[:, q0:q0 + block_q]
+        m = torch.full((b, n_kv, g, block_q), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, n_kv, g, block_q, d), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, s, block_kv):
+            k_blk = k[:, k0:k0 + block_kv]
+            v_blk = v[:, k0:k0 + block_kv]
+            sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_blk.float()) * scale
+            msk = _mask(q_pos, positions[:, k0:k0 + block_kv],
+                        window)[:, None, None]
+            sc = torch.where(msk, sc, _neg_inf(q.device))
+            new_m = torch.maximum(m, sc.amax(dim=-1))
+            corr = torch.exp(m - new_m)
+            p = torch.exp(sc - new_m[..., None])
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd",
+                              p.to(v_blk.dtype).float(), v_blk.float())
+            acc = acc * corr[..., None] + pv
+            m = new_m
+        o = acc / torch.clamp(l, min=1e-30)[..., None]      # (B,Hkv,G,bq,D)
+        out[:, q0:q0 + block_q] = o.permute(0, 3, 1, 2, 4).reshape(
+            b, block_q, hq, d).to(q.dtype)
+    return out
 
 
 def attend_dense_quant(

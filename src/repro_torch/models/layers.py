@@ -1,5 +1,5 @@
-"""Shared building blocks: linears (dense or engine-packed), RMSNorm,
-SwiGLU, rotary embeddings and initialisers.
+"""Shared building blocks: linears (dense or engine-packed), RMSNorm (plain
+and gated), SwiGLU, rotary embeddings and initialisers.
 
 Every matmul of the model goes through :func:`dense`, which dispatches a
 plain ``{"w", "bias"?}`` weight to ``torch.matmul`` and an engine
@@ -40,6 +40,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(dt)
+
+
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: ``norm(x) * silu(z)``, the gate taken in
+    float32 and rounded to x's dtype."""
+    return rms_norm(x, scale, eps) * F.silu(z.to(torch.float32)).to(x.dtype)
 
 
 def swiglu(p: dict, x: torch.Tensor, plan: Optional[EnginePlan] = None

@@ -6,6 +6,8 @@ layers); the port keeps one dictionary per layer, so every leaf under
 ``"layers"`` is unstacked here.  An engine-packed linear arrives as a dict
 ``{"packed", "scale", "bias", "bits"}`` and becomes a
 :class:`~repro_torch.engine.PackedLinear` whose bytes are the JAX bytes.
+The ssm family's per-head parameters (``a_log``, ``dt_bias``, ``d_skip``)
+are float32 in every model dtype, as the JAX package keeps them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.packed import PackedLinear, validate_bits
+
+_FLOAT32_LEAVES = ("a_log", "dt_bias", "d_skip")
 
 
 def _tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -45,7 +49,9 @@ def _convert(node: Any, layer: Optional[int], device, dtype) -> Any:
         kp, n = packed.shape
         return PackedLinear(packed, scale, bias, bits, kp * (8 // bits), n)
     if isinstance(node, dict):
-        return {k: _convert(v, layer, device, dtype) for k, v in node.items()}
+        return {k: _convert(v, layer, device,
+                            torch.float32 if k in _FLOAT32_LEAVES else dtype)
+                for k, v in node.items()}
     return _tensor(pick(node), device, dtype)
 
 
@@ -54,7 +60,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX parameter tree (numpy leaves, packed linears as dicts) as the
     port's parameters on ``device`` (None means the GPU).  ``dtype`` casts
-    the float leaves except the per-channel scales, which stay float32."""
+    the float leaves except the per-channel scales and the ssm per-head
+    parameters, which stay float32."""
     device = resolve_device(device)
     out = {k: _convert(v, None, device, dtype)
            for k, v in tree.items() if k != "layers"}

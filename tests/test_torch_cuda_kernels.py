@@ -15,6 +15,13 @@ order of float32 sums (rtol 1e-5, atol 1e-5 of the largest output);
 bfloat16 outputs by one bf16 ulp (at most 2^-7 of the value); attention
 over bf16 / int8 pools also rounds p to bf16 after a softmax whose ``exp``
 may differ in its last bit, so two bf16 ulps of values near 1 (2^-6).
+Flash attention keeps p in float32 and takes its online softmax in 64-key
+steps where the plain version takes one softmax over the row: float32
+outputs within 1e-5, bfloat16 outputs within one bf16 ulp of the value
+plus 1e-5 (the sums differ in their last float32 bits before the one
+rounding).  The SSD scan is chunked float32 arithmetic against the plain
+float64 recurrence: within 1e-4 of the largest output (cumulative decays
+summed in float32 over a chunk, exponentials of float32 arguments).
 """
 
 import pytest
@@ -24,6 +31,8 @@ from repro_torch.core import pack_weights, quantize_symmetric
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention,
     paged_prefill_attention,
@@ -32,6 +41,8 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref,
     paged_prefill_ref,
 )
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 CASES = [(bits, radix) for bits in (2, 4, 8) for radix in (1, 2, 4)
          if bits % radix == 0]
@@ -147,3 +158,55 @@ def test_prefill_attention_matches_plain(cuda_device, kind, window):
     torch.testing.assert_close(y[:3].float(), r[:3].float(),
                                **_attn_tol(kind))
     assert bool(torch.isfinite(y[3]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hq,hkv,d,window", [
+    (256, 8, 1, 128, 0), (200, 4, 4, 64, 0), (333, 8, 2, 32, 64),
+    (4100, 16, 2, 128, 0), (1030, 16, 2, 128, 1024), (64, 2, 1, 128, 1)])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_flash_attention_matches_plain(cuda_device, s, hq, hkv, d, window,
+                                       xdt):
+    """Ragged S (no padded copy), GQA groups 1-8, head dims 32-128, windows
+    of 1 key up to 1024, and the sequence longer than the window."""
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + hq + d)
+    q = torch.randn((2, s, hq, d), generator=gen, device=cuda_device).to(dt)
+    k = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
+    v = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
+    before = _build.LAUNCHES["flash_attention"]
+    y = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    r = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), window=window).transpose(1, 2)
+    assert y.shape == q.shape and y.dtype == dt
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,s,nh,n,chunk", [
+    (2, 512, 3, 128, 256), (1, 384, 2, 64, 128), (2, 256, 2, 128, 64),
+    (1, 96, 1, 128, 32), (1, 300, 2, 64, 100)])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_ssd_scan_matches_plain(cuda_device, bsz, s, nh, n, chunk, xdt):
+    """Chunks of 256 down to 32 steps, a chunk that is not a multiple of the
+    kernel's 64-step tile, both state sizes the kernel takes."""
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(s + nh + n)
+    xdt_in = (0.1 * torch.randn((bsz, s, nh, 64), generator=gen,
+                                device=cuda_device)).to(dt)
+    la = -0.2 * torch.rand((bsz, s, nh), generator=gen, device=cuda_device)
+    b_in = torch.randn((bsz, s, n), generator=gen, device=cuda_device).to(dt)
+    c_in = torch.randn((bsz, s, n), generator=gen, device=cuda_device).to(dt)
+    before = _build.LAUNCHES["ssd_scan"]
+    y, h = ssd_scan(xdt_in, la, b_in, c_in, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_scan"] == before + 1
+    ry, rh = ssd_scan_ref(xdt_in, la, b_in, c_in, chunk)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (bsz, s, nh, 64) and h.shape == (bsz, nh, 64, n)
+    for out, ref in ((y, ry), (h, rh)):
+        torch.testing.assert_close(out, ref, rtol=1e-4,
+                                   atol=1e-4 * ref.abs().max().item())

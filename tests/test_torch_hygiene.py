@@ -21,7 +21,9 @@ import torch
 
 import repro_torch
 from repro_torch.kernels.bitplane_gemv import ops as gemv_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -116,3 +118,29 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
         pa_ops.paged_attention(q, pool, pool, bt, pos)
     with pytest.raises(ValueError, match="CUDA device"):
         pa_ops.paged_prefill_attention(q, pool, pool, bt, pos, pos + 1)
+
+
+def test_sequence_wrappers_never_run_the_plain_version_off_the_cpu(
+        monkeypatch):
+    monkeypatch.setattr(flash_ops, "flash_attention_ref", _sentinel)
+    monkeypatch.setattr(ssd_ops, "ssd_scan_ref", _sentinel)
+    meta = torch.device("meta")
+    q = torch.empty((1, 8, 4, 64), device=meta)
+    kv = torch.empty((1, 8, 2, 64), device=meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_ops.flash_attention(q, kv, kv)
+    xdt = torch.empty((1, 8, 2, 64), device=meta)
+    la = torch.empty((1, 8, 2), device=meta)
+    bc = torch.empty((1, 8, 64), device=meta)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_ops.ssd_scan(xdt, la, bc, bc, chunk=8)
+
+
+def test_full_sequence_entry_points_raise_without_a_gpu(monkeypatch):
+    from repro_torch.config import get_reduced
+    from repro_torch.models import init_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("qwen2.5-3b", "mamba2-130m"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_cache(get_reduced(arch), 1, 8)
