@@ -15,7 +15,10 @@ exits non-zero:
                 tensors at its path's shapes, with the tolerance;
    ``time``     kernel, plain-version and PyTorch-library times at those
                 shapes, with the bytes and operations each call needs and
-                the least time the card could take for them.
+                the least time the card could take for them; with the
+                bit-plane GEMV at 8 (radix 1, 2), 4 and 2 bits beside the
+                int8 bit-parallel baseline, the card's version of the
+                paper's bit-serial against bit-parallel comparison.
 4. ``main``     paged serving: ``ServeEngine`` on full-width qwen2.5-3b (36
                 layers, bf16, ``EngineConfig(weight_bits=4, kv_bits=8)``):
                 16 seeded prompts of 33-300 tokens, 32 new tokens each.
@@ -38,10 +41,18 @@ exits non-zero:
                 logits within tolerance), and ``forward`` over prompt and
                 continuation against ``prefill`` + ``decode_step`` logits
                 (teacher forcing).
-10. ``kernels`` one line: every kernel, its launches on its path (paged
+10. ``engine``   the paper's GEMV engine path: ``repro_torch.paper_demo``
+                at dim 96 on the card, then at d = 2048 (qwen2.5-3b's wq)
+                and d = 1983 (the largest 8-bit GEMV the U55 holds) the
+                cycle-counted tile-controller model, the bit-plane GEMV at
+                radix 1 and 2 and the int8 bit-parallel kernel on seeded
+                integer weights and activations: all four must equal
+                ``w @ x`` exactly.
+11. ``kernels`` one line: every kernel, its launches on its path (paged
                 serving for the first three, ``long`` and ``ssm`` for flash
-                attention and the SSD scan), its error against the plain
-                version and its times.
+                attention and the SSD scan, ``engine`` for the int8
+                baseline), its error against the plain version and its
+                times.
 
 The card's ``nvidia-smi`` name and power limit line and the ``kernels``
 line come before the last line, which is
@@ -93,6 +104,9 @@ KERNELS = {
     "ssd_scan": dict(
         route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:66"),
+    "int8_matvec": dict(
+        route="cuda", source="src/repro_torch/csrc/int8_matvec.cu",
+        replaces="src/repro/kernels/int8_matvec/kernel.py:40"),
 }
 PAGED_KERNELS = ("bitplane_gemv", "paged_decode_attention",
                  "paged_prefill_attention")
@@ -101,6 +115,11 @@ PAGED_KERNELS = ("bitplane_gemv", "paged_decode_attention",
 # chunk 256) over four
 FLASH_SHAPE = dict(b=2, s=4096, hq=16, hkv=2, d=128)
 SSD_SHAPE = dict(b=4, s=4096, h=24, p=64, n=128)
+# the int8 baseline's ragged case: K and N multiples of neither 4 nor 128
+INT8_RAGGED = (2001, 1003)
+# the engine phase's exact GEMVs: qwen2.5-3b's wq (K = N = 2048); the U55's
+# largest resident 8-bit square GEMV is added at run time
+ENGINE_DIMS = (2048,)
 
 
 def emit(phase: str, **rec) -> None:
@@ -473,6 +492,187 @@ def attn_time(torch, dev, kind, mode):
                bound_by=by)
     emit("time", **rec)
     return rec
+
+
+# ------------------------------------------- int8 bit-parallel kernel
+def int8_tol(torch, q, scale, x, dt):
+    """Per-element bound: a float32 sum of K products in two orders,
+    within 16·√K·2^-24 of Σ|x|·|q|·scale (rounding errors of a K-term sum
+    grow as √K; 16 covers their spread); a bfloat16 output adds one rounding
+    of a sum that may differ in its last bits, one bf16 ulp (2^-7)."""
+    s = (x.float().abs() @ q.float().abs()) * scale
+    atol = 2.0 ** -20 * math.sqrt(q.shape[0]) * s
+    return (0.0 if dt == torch.float32 else 2 ** -7), atol
+
+
+def int8_case(torch, dev, gen, k, n, m, dt):
+    from repro_torch.core import quantize_symmetric
+
+    w = torch.randn((k, n), generator=gen, device=dev)
+    q, scale = quantize_symmetric(w, 8)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+    return q, scale, x
+
+
+def int8_parity(torch, dev):
+    from repro_torch.kernels.int8_matvec.ops import int8_matvec
+    from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    worst, worst_used, n_cases = 0.0, 0.0, 0
+    for (k, n) in GEMV_SHAPES + [INT8_RAGGED]:
+        for m in (1, 3, 8, 256):
+            for dt in (torch.float32, torch.bfloat16):
+                q, scale, x = int8_case(torch, dev, gen, k, n, m, dt)
+                y = int8_matvec(q, scale, x, out_dtype=dt)
+                r = int8_matvec_ref(q, scale, x, out_dtype=dt)
+                rtol, atol = int8_tol(torch, q, scale, x, dt)
+                err, used = check_close("int8_matvec", y, r, rtol, atol,
+                                        m=m, k=k, n=n, dtype=str(dt))
+                worst, worst_used = max(worst, err), max(worst_used, used)
+                n_cases += 1
+    torch.cuda.synchronize()
+    emit("parity", kernel="int8_matvec", cases=n_cases,
+         sweep="M{1,3,8,256} x 4 qwen2.5-3b shapes + ragged K=2001, N=1003 "
+               "x {float32,bfloat16} x and output",
+         tolerance="|y - ref| <= rtol*|ref| + 16*sqrt(K)*2^-24 * "
+                   "(|x| @ |q|)*scale per element; rtol 0 for float32, "
+                   "2^-7 (one ulp) for bfloat16 output",
+         max_abs_err=worst, max_share_of_tol=worst_used)
+
+
+def int8_time(torch, dev, m, k, n, dt=None):
+    from repro_torch.kernels.int8_matvec.kernel import int8_matvec_cuda
+    from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
+
+    dt = dt or torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11 + m + k + n)
+    q, scale, x = int8_case(torch, dev, gen, k, n, m, dt)
+    y = int8_matvec_cuda(q, scale, x, out_dtype=dt)
+    r = int8_matvec_ref(q, scale, x, out_dtype=dt)
+    rtol, atol = int8_tol(torch, q, scale, x, dt)
+    err, _ = check_close("int8_matvec", y, r, rtol, atol, m=m, k=k, n=n)
+    xb = x.element_size()
+    n_bytes = k * n + 4 * n + m * k * xb + m * n * xb
+    n_ops = 2 * m * k * n
+    dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+    bms, by = bound_ms(n_bytes, n_ops, dname)
+    qs = [q.clone() for _ in range(n_copies(k * n))]
+    ms = timed_ms(lambda qq: int8_matvec_cuda(qq, scale, x, out_dtype=dt),
+                  [(qq,) for qq in qs], torch)
+    plain = timed_ms(lambda qq: int8_matvec_ref(qq, scale, x, out_dtype=dt),
+                     [(qq,) for qq in qs[:8]], torch)
+    del qs
+    w_deq = (q.float() * scale).to(dt)
+    lib_copies = [w_deq.clone() for _ in
+                  range(n_copies(w_deq.numel() * w_deq.element_size()))]
+    lib = timed_ms(lambda w: torch.matmul(x, w), [(w,) for w in lib_copies],
+                   torch)
+    del lib_copies
+    rec = dict(kernel="int8_matvec", linear=GEMV_NAMES.get((k, n), ""), m=m,
+               k=k, n=n, dtype=dname, max_abs_err=err,
+               tol=dict(rtol=rtol, atol_max=float(atol.max())), ms=ms,
+               plain_ms=plain, library_ms=lib,
+               library="torch.matmul on the dequantized bf16 weight",
+               bytes=n_bytes, ops=n_ops, bound_ms=bms, bound_by=by)
+    emit("time", **rec)
+    return rec
+
+
+# ------------------------------------------------- the engine's path
+def engine_path(torch, dev):
+    """The paper's engine path on the card; see the module docstring.
+
+    Launches are read before the timing loops, so they count the path's
+    own calls: one int8 launch and one bit-plane launch in the demo, and
+    per dimension one int8 and two bit-plane (radix 1, 2) launches.
+    """
+    import numpy as np
+
+    from repro_torch import paper_demo
+    from repro_torch.core import QuantizedLinear, gemv, pack_weights
+    from repro_torch.core.controller import run_gemv
+    from repro_torch.core.isa import MAX_ELEMS
+    from repro_torch.core.latency_model import IMAGINE_FSYS_MHZ
+    from repro_torch.core.tile_array import u55_geometry
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.int8_matvec import int8_matvec
+
+    dims = ENGINE_DIMS + (u55_geometry().max_square_gemv(8),)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    demo = paper_demo.run(96, device=dev)
+    if demo["backend"] != "cuda":
+        raise AssertionError(f"engine: demo resolved {demo['backend']}")
+    cases = []
+    for d in dims:
+        rng = np.random.default_rng(SEED + d)
+        r_max = (2 ** 24 - 1) // (d * 127)   # |partial sums| < 2^24
+        w = rng.integers(-127, 128, size=(d, d))
+        x = rng.integers(-r_max, r_max + 1, size=(d,))
+        want = (w @ x).astype(np.float64)
+        t0 = time.perf_counter()
+        res = run_gemv(w, x, rows=16, cols=-(-d // MAX_ELEMS))
+        model_s = time.perf_counter() - t0
+        # the engine's weight is (K, N) with y = x @ W: the codes of w.T
+        codes = torch.as_tensor(np.ascontiguousarray(w.T), dtype=torch.int8,
+                                device=dev)
+        ql = QuantizedLinear(pack_weights(codes, 8),
+                             torch.ones((1, d), device=dev), 8, d, d)
+        xt = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        outs = {"tile_model": res.y.astype(np.float64),
+                "bitplane_radix1": gemv(ql, xt, radix=1),
+                "bitplane_radix2": gemv(ql, xt, radix=2),
+                "int8_matvec": int8_matvec(ql.packed, ql.scale, xt)}
+        for name, y in outs.items():
+            if isinstance(y, torch.Tensor):
+                y = y.double().cpu().numpy()
+            if not np.array_equal(y, want):
+                raise AssertionError(
+                    f"engine d={d}: {name} differs from w @ x in "
+                    f"{int((y != want).sum())} of {d} elements")
+        cases.append(dict(d=d, r_max=r_max, ql=ql, xt=xt, res=res,
+                          model_s=model_s))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want_launches = {"int8_matvec": 1 + len(dims),
+                     "bitplane_gemv": 1 + 2 * len(dims)}
+    for kernel, n in want_launches.items():
+        if launches[kernel] != n:
+            raise AssertionError(f"engine: {kernel} launched "
+                                 f"{launches[kernel]} times, expected {n}")
+    rows = [dict(d=c["d"], r_max=c["r_max"], exact=True,
+                 controller_cycles=c["res"].cycles,
+                 controller_instrs=c["res"].instrs,
+                 fpga_us_at_737mhz=c["res"].cycles / IMAGINE_FSYS_MHZ,
+                 model_host_s=c["model_s"], **engine_times(torch, c))
+            for c in cases]
+    rec = dict(demo=dict(dim=demo["dim"], cycles=demo["cycles"],
+                         fpga_us_at_737mhz=demo["exec_us"],
+                         rel_err_bitplane=demo["rel_err_bitplane"],
+                         rel_err_int8=demo["rel_err_int8"]),
+               exact=rows, launches=launches)
+    emit("engine", **rec)
+    return rec
+
+
+def engine_times(torch, case):
+    """Card µs of the three kernels on one exact-GEMV case (M = 1, float32
+    x and output) beside the bytes bound of the int8 weight."""
+    from repro_torch.kernels.bitplane_gemv.kernel import bitplane_gemv_cuda
+    from repro_torch.kernels.int8_matvec.kernel import int8_matvec_cuda
+
+    d, ql, x = case["d"], case["ql"], case["xt"][None]
+    n_bytes = d * d + 4 * d + 4 * d + 4 * d
+    bms, by = bound_ms(n_bytes, 2 * d * d, "float32")
+    packs = [(ql.packed.clone(),) for _ in range(n_copies(d * d))]
+    card = {f"bitplane_radix{r}_us": 1e3 * timed_ms(
+        lambda p, _r=r: bitplane_gemv_cuda(p, ql.scale, x, bits=8, radix=_r),
+        packs, torch) for r in (1, 2)}
+    card["int8_matvec_us"] = 1e3 * timed_ms(
+        lambda p: int8_matvec_cuda(p, ql.scale, x), packs, torch)
+    return dict(card_us=card, bytes=n_bytes, bound_us=1e3 * bms,
+                bound_by=by)
 
 
 # ----------------------------------------------------- serving phases
@@ -1048,6 +1248,7 @@ def main() -> int:
         attn_parity(torch, dev)
         flash_parity(torch, dev)
         ssd_parity(torch, dev)
+        int8_parity(torch, dev)
 
     with Phase("time"):
         gemv_rows = [gemv_time(torch, dev, m, k, n)
@@ -1062,6 +1263,13 @@ def main() -> int:
             gemv_time(torch, dev, 16384, k, n)
         flash_rec = flash_time(torch, dev)
         ssd_rec = ssd_time(torch, dev)
+        # bit-serial at 8 (radix 1, 2) and 2 bits against the bit-parallel
+        # baseline, beside the 4-bit rows above
+        for bits, radix in ((8, 1), (8, 2), (2, 1)):
+            for (k, n) in GEMV_SHAPES:
+                gemv_time(torch, dev, 8, k, n, bits=bits, radix=radix)
+        int8_rows = [int8_time(torch, dev, m, k, n)
+                     for m in (1, 8, 256) for (k, n) in GEMV_SHAPES]
 
     with Phase("main"):
         cfg = full_config()
@@ -1093,11 +1301,16 @@ def main() -> int:
     with Phase("long_whole"):
         long_whole_check(torch, dev)
 
+    with Phase("engine"):
+        engine_rec = engine_path(torch, dev)
+
     reps = {"bitplane_gemv": next(r for r in gemv_rows if r["m"] == 8
                                   and (r["k"], r["n"]) == GEMV_SHAPES[2]),
             "paged_decode_attention": attn_rows[("int8", "decode")],
             "paged_prefill_attention": attn_rows[("int8", "prefill")],
-            "flash_attention": flash_rec, "ssd_scan": ssd_rec}
+            "flash_attention": flash_rec, "ssd_scan": ssd_rec,
+            "int8_matvec": next(r for r in int8_rows if r["m"] == 8
+                                and (r["k"], r["n"]) == GEMV_SHAPES[2])}
     shapes = {"bitplane_gemv": "decode w_gate/w_up: M=8, K=2048, N=11008, "
                                "4-bit, bf16",
               "paged_decode_attention": "decode: 8 lanes, 41-332 keys, "
@@ -1107,13 +1320,16 @@ def main() -> int:
               "flash_attention": "prefill: B=2, S=4096, Hq=16, Hkv=2, "
                                  "D=128, bf16, causal",
               "ssd_scan": "prefill: B=4, S=4096, H=24, P=64, N=128, "
-                          "chunk 256, bf16 inputs"}
+                          "chunk 256, bf16 inputs",
+              "int8_matvec": "M=8, K=2048, N=11008, bf16 x and output"}
     # launches on each kernel's own path: paged serving (main) for the
-    # first three, the one-shot prefills of long and ssm for the others
+    # first three, the one-shot prefills of long and ssm for flash and the
+    # SSD scan, the engine path for the int8 baseline
     launches = dict(main_rec["launches"])
     launches["flash_attention"] = long_rec["prefill_launches"][
         "flash_attention"]
     launches["ssd_scan"] = ssm_rec["prefill_launches"]["ssd_scan"]
+    launches["int8_matvec"] = engine_rec["launches"]["int8_matvec"]
     kernels = []
     for name, meta in KERNELS.items():
         rep = reps[name]

@@ -14,9 +14,12 @@ import torch
 
 
 def pack_weights(q: torch.Tensor, bits: int, axis: int = 0) -> torch.Tensor:
-    """Pack signed ``bits``-bit integers (held in int8) along ``axis``."""
+    """Pack signed ``bits``-bit integers (held in int8) along ``axis``.
+
+    The packed words are contiguous, as the kernels take them, whatever
+    the strides of ``q`` (a transposed view, for one)."""
     if bits == 8:
-        return q.to(torch.int8)
+        return q.to(torch.int8).contiguous()
     per_byte = 8 // bits
     mask = (1 << bits) - 1
     if q.shape[axis] % per_byte != 0:

@@ -63,11 +63,18 @@ def pack_linear(w: torch.Tensor, bits: int = 8, *,
 
 
 def as_packed(p: Any, *, bits_hint: Optional[int] = None) -> PackedLinear:
-    """A ``PackedLinear`` (identity) or a ``{"packed", "scale"[, "bits",
+    """A ``PackedLinear`` (identity), the legacy ``QuantizedLinear``
+    (``repro_torch.core.gemv_engine``) or a ``{"packed", "scale"[, "bits",
     "bias"]}`` dict as ``PackedLinear``; a dict without ``bits`` needs an
     explicit ``bits_hint``."""
     if isinstance(p, PackedLinear):
         return p
+    # QuantizedLinear and other NamedTuple-likes with the same fields
+    if hasattr(p, "packed") and hasattr(p, "scale") and hasattr(p, "bits"):
+        bits = validate_bits(p.bits)
+        k = getattr(p, "in_features", p.packed.shape[-2] * (8 // bits))
+        n = getattr(p, "out_features", p.packed.shape[-1])
+        return PackedLinear(p.packed, p.scale, None, bits, k, n)
     if isinstance(p, dict) and "packed" in p:
         bits = validate_bits(p.get("bits", bits_hint))
         packed = p["packed"]

@@ -39,6 +39,7 @@ LAUNCHES: Dict[str, int] = {
     "paged_prefill_attention": 0,
     "flash_attention": 0,
     "ssd_scan": 0,
+    "int8_matvec": 0,
 }
 
 _lock = threading.Lock()

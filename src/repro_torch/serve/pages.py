@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 
 NULL_PAGE = 0  # physical page 0 is never allocated; garbage writes land here
 
@@ -55,8 +56,9 @@ class KVPages:
 
 def init_kv_pages(cfg: ModelConfig, n_pages: int, page_size: int,
                   dtype=None, kv_bits: int = 0, *,
-                  device="cpu") -> KVPages:
-    """An all-zeros page pool for ``cfg`` on ``device``."""
+                  device: DeviceLike = None) -> KVPages:
+    """An all-zeros page pool for ``cfg`` on ``device`` (None: the GPU)."""
+    device = resolve_device(device)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"paged KV for family {cfg.family!r} is not ported yet")

@@ -22,16 +22,34 @@ plus 1e-5 (the sums differ in their last float32 bits before the one
 rounding).  The SSD scan is chunked float32 arithmetic against the plain
 float64 recurrence: within 1e-4 of the largest output (cumulative decays
 summed in float32 over a chunk, exponentials of float32 arguments).
+The int8 bit-parallel GEMV adds K products in float32 in another order than
+the plain version: within 16·√K·2^-24 of Σ|x|·|q|·scale per element (one
+bf16 ulp more for bfloat16 outputs).  The engine's exact case feeds integer
+weights and activations whose partial sums stay below 2^24, so the tile
+model and every kernel must equal ``w @ x`` exactly.
 """
+
+import math
+
+import numpy as np
 
 import pytest
 import torch
 
-from repro_torch.core import pack_weights, quantize_symmetric
+from repro_torch.core import (
+    QuantizedLinear,
+    gemv,
+    pack_weights,
+    quantize_symmetric,
+)
+from repro_torch.core.controller import run_gemv
+from repro_torch.core.isa import MAX_ELEMS
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.int8_matvec.ops import int8_matvec
+from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention,
@@ -210,3 +228,57 @@ def test_ssd_scan_matches_plain(cuda_device, bsz, s, nh, n, chunk, xdt):
     for out, ref in ((y, ry), (h, rh)):
         torch.testing.assert_close(out, ref, rtol=1e-4,
                                    atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 72, 33), (3, 200, 100), (8, 2048, 256),
+                                   (9, 520, 300), (40, 2001, 1003),
+                                   (256, 2048, 2048)])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_int8_matvec_matches_plain(cuda_device, m, k, n, xdt):
+    """Both block shapes (M <= 8 and more rows), several K tiles, and K and
+    N that are multiples of neither 4 nor 128 (byte loads, masked edges)."""
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w = torch.randn((k, n), generator=gen, device=cuda_device)
+    q, scale = quantize_symmetric(w, 8)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+    before = _build.LAUNCHES["int8_matvec"]
+    y = int8_matvec(q, scale, x, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["int8_matvec"] == before + 1
+    r = int8_matvec_ref(q, scale, x, out_dtype=dt)
+    assert y.shape == (m, n) and y.dtype == dt
+    s = (x.float().abs() @ q.float().abs()) * scale
+    atol = 2.0 ** -20 * math.sqrt(k) * s
+    rtol = 0.0 if dt == torch.float32 else 2 ** -7
+    err = (y.float() - r.float()).abs()
+    assert bool((err <= atol + rtol * r.float().abs()).all()), float(
+        err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [200, 1000])
+def test_engine_exact_integer_gemv(cuda_device, d):
+    """The tile model, the bit-plane GEMV at radix 1 and 2 and the int8
+    kernel all equal ``w @ x`` on integer weights and activations."""
+    rng = np.random.default_rng(d)
+    r_max = (2 ** 24 - 1) // (d * 127)
+    w = rng.integers(-127, 128, size=(d, d))
+    x = rng.integers(-r_max, r_max + 1, size=(d,))
+    want = (w @ x).astype(np.float64)
+    res = run_gemv(w, x, rows=16, cols=-(-d // MAX_ELEMS))
+    np.testing.assert_array_equal(res.y, w @ x)
+    codes = torch.as_tensor(np.ascontiguousarray(w.T), dtype=torch.int8,
+                            device=cuda_device)
+    ql = QuantizedLinear(pack_weights(codes, 8),
+                         torch.ones((1, d), device=cuda_device), 8, d, d)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    outs = [gemv(ql, xt, radix=1), gemv(ql, xt, radix=2),
+            int8_matvec(ql.packed, ql.scale, xt)]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bitplane_gemv"] == before["bitplane_gemv"] + 2
+    assert _build.LAUNCHES["int8_matvec"] == before["int8_matvec"] + 1
+    for y in outs:
+        np.testing.assert_array_equal(y.double().cpu().numpy(), want)

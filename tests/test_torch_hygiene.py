@@ -22,6 +22,7 @@ import torch
 import repro_torch
 from repro_torch.kernels.bitplane_gemv import ops as gemv_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.int8_matvec import ops as int8_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
@@ -82,8 +83,12 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
+    import numpy as np
+
+    from repro_torch import paper_demo
     from repro_torch.config import get_reduced
-    from repro_torch.serve import ServeEngine
+    from repro_torch.core import gemv, quantize_linear
+    from repro_torch.serve import ServeEngine, init_kv_pages
     from repro_torch.weights import params_from_numpy
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -93,6 +98,16 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         ServeEngine(get_reduced("qwen2.5-3b"), {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"layers": {}}, get_reduced("qwen2.5-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_kv_pages(get_reduced("qwen2.5-3b"), 4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paper_demo.run(16)
+    # a tensor keeps its device; an array goes to the GPU
+    ql = quantize_linear(torch.ones((16, 4)), 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gemv(ql, np.ones(16, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize_linear(np.ones((16, 4), dtype=np.float32), 8)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -118,6 +133,17 @@ def test_wrappers_never_run_the_plain_version_off_the_cpu(monkeypatch):
         pa_ops.paged_attention(q, pool, pool, bt, pos)
     with pytest.raises(ValueError, match="CUDA device"):
         pa_ops.paged_prefill_attention(q, pool, pool, bt, pos, pos + 1)
+
+
+def test_int8_wrapper_never_runs_the_plain_version_off_the_cpu(monkeypatch):
+    monkeypatch.setattr(int8_ops, "int8_matvec_ref", _sentinel)
+    meta = torch.device("meta")
+    q = torch.empty((16, 4), dtype=torch.int8, device=meta)
+    scale = torch.empty((1, 4), dtype=torch.float32, device=meta)
+    for x in (torch.empty((16,), device=meta),
+              torch.empty((2, 3, 16), device=meta)):
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            int8_ops.int8_matvec(q, scale, x)
 
 
 def test_sequence_wrappers_never_run_the_plain_version_off_the_cpu(
