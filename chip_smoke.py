@@ -12,13 +12,18 @@ exits non-zero:
 1. ``env``      torch / CUDA versions, the card, its power limit.
 2. ``build``    nvcc of every kernel source, in parallel; build seconds.
 3. ``parity``   each kernel against its plain PyTorch version on card
-                tensors at its path's shapes, with the tolerance;
+                tensors at its path's shapes, with the tolerance; the two
+                GEMVs through each of their routes (``decode`` M <= 8,
+                ``rows`` float32 x, ``tensor_core`` bfloat16 x at larger M),
+                the last at ragged prefill M (100, 8192), K and N (300,
+                1983, 3352);
    ``time``     kernel, plain-version and PyTorch-library times at those
                 shapes, with the bytes and operations each call needs and
-                the least time the card could take for them; with the
-                bit-plane GEMV at 8 (radix 1, 2), 4 and 2 bits beside the
-                int8 bit-parallel baseline, the card's version of the
-                paper's bit-serial against bit-parallel comparison.
+                the least time the card could take for them, and the GEMV
+                route each row took; with the bit-plane GEMV at 8 (radix
+                1, 2), 4 and 2 bits beside the int8 bit-parallel baseline,
+                the card's version of the paper's bit-serial against
+                bit-parallel comparison.
 4. ``main``     paged serving: ``ServeEngine`` on full-width qwen2.5-3b (36
                 layers, bf16, ``EngineConfig(weight_bits=4, kv_bits=8)``):
                 16 seeded prompts of 33-300 tokens, 32 new tokens each.
@@ -52,7 +57,15 @@ exits non-zero:
                 serving for the first three, ``long`` and ``ssm`` for flash
                 attention and the SSD scan, ``engine`` for the int8
                 baseline), its error against the plain version and its
-                times.
+                times; for the two GEMVs a decode record (M = 8) and
+                ``prefill`` records (M = 8192 and 256, w_gate/w_up) of the
+                tensor-core route, with that route's launches on the same
+                paths (``long`` and ``main`` prefill; ``engine``, which
+                runs the int8 baseline at M = 1 only, for ``int8_matvec``).
+
+``main``, ``long`` and ``ssm`` check that the GEMV took its tensor-core
+route in every prefill and its decode route in every decode step
+(``main`` and ``second`` step by step, through ``ServeEngine.step``).
 
 The card's ``nvidia-smi`` name and power limit line and the ``kernels``
 line come before the last line, which is
@@ -117,6 +130,11 @@ FLASH_SHAPE = dict(b=2, s=4096, hq=16, hkv=2, d=128)
 SSD_SHAPE = dict(b=4, s=4096, h=24, p=64, n=128)
 # the int8 baseline's ragged case: K and N multiples of neither 4 nor 128
 INT8_RAGGED = (2001, 1003)
+# the GEMVs' tensor-core route at ragged prefill shapes (K, N): K not a
+# multiple of the 64-deep K step, N neither 16- nor 8-byte aligned, or only
+# 8-byte aligned (mamba2-130m's in_proj)
+TC_RAGGED = [(520, 300), (200, 1983), (768, 3352)]
+TC_ROWS = (100, 8192)
 # the engine phase's exact GEMVs: qwen2.5-3b's wq (K = N = 2048); the U55's
 # largest resident 8-bit square GEMV is added at run time
 ENGINE_DIMS = (2048,)
@@ -219,14 +237,24 @@ def gemv_tol(dt, r):
     return 2 ** -7, 1e-5 * big
 
 
+def route_counts(kernel):
+    """The launches of ``kernel`` by route since the last reset."""
+    from repro_torch.kernels import _build
+
+    return {k.split("/")[1]: v for k, v in _build.ROUTE_LAUNCHES.items()
+            if k.startswith(kernel + "/")}
+
+
 def gemv_parity(torch, dev):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
     from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
 
+    _build.reset_launches()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst, worst_used, n_cases = 0.0, 0.0, 0
     for bits in (2, 4, 8):
-        for radix in (1, 2, 4):
+        for radix in (1, 2, 4, 8):
             if bits % radix:
                 continue
             for (k, n) in GEMV_SHAPES:
@@ -245,17 +273,41 @@ def gemv_parity(torch, dev):
                         worst = max(worst, err)
                         worst_used = max(worst_used, used)
                         n_cases += 1
+            # ragged prefill M, K and N: the tensor-core route in bf16,
+            # the rows route in float32 (at M = 100)
+            for (k, n) in TC_RAGGED:
+                for m in TC_ROWS:
+                    for dt in ((torch.float32, torch.bfloat16) if m < 1000
+                               else (torch.bfloat16,)):
+                        packed, scale, x = gemv_case(torch, dev, gen, bits,
+                                                     k, n, m, dt)
+                        y = bitplane_gemv(packed, scale, x, bits=bits,
+                                          radix=radix, out_dtype=dt)
+                        r = bitplane_gemv_ref(packed, scale, x, bits=bits,
+                                              radix=radix, out_dtype=dt)
+                        rtol, atol = gemv_tol(dt, r)
+                        err, used = check_close(
+                            "bitplane_gemv", y, r, rtol, atol, bits=bits,
+                            radix=radix, m=m, k=k, n=n, dtype=str(dt))
+                        worst = max(worst, err)
+                        worst_used = max(worst_used, used)
+                        n_cases += 1
     torch.cuda.synchronize()
+    routes = route_counts("bitplane_gemv")
+    if not all(routes.values()):
+        raise AssertionError(f"bitplane_gemv parity missed a route: {routes}")
     emit("parity", kernel="bitplane_gemv", cases=n_cases,
-         sweep="bits{2,4,8} x radix{1,2,4} x M{1,8,256} x 4 shapes x "
-               "{float32,bfloat16}",
+         sweep="bits{2,4,8} x radix{1,2,4,8} x (M{1,8,256} x 4 shapes x "
+               "{float32,bfloat16} + M{100,8192} x (K,N){(520,300),"
+               "(200,1983),(768,3352)} x bfloat16, float32 at M=100)",
          tolerance="float32: rtol 1e-5, atol 1e-5*max|ref|; bfloat16 "
                    "output: rtol 2^-7 (one ulp), atol 1e-5*max|ref|",
-         max_abs_err=worst, max_share_of_tol=worst_used)
+         max_abs_err=worst, max_share_of_tol=worst_used, routes=routes)
 
 
 def gemv_time(torch, dev, m, k, n, bits=4, radix=1, dt=None):
     from repro_torch.core import unpack_weights
+    from repro_torch.kernels._gemv import route
     from repro_torch.kernels.bitplane_gemv.kernel import bitplane_gemv_cuda
     from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
 
@@ -290,6 +342,7 @@ def gemv_time(torch, dev, m, k, n, bits=4, radix=1, dt=None):
     del lib_copies
     rec = dict(kernel="bitplane_gemv", linear=GEMV_NAMES.get((k, n), ""),
                m=m, k=k, n=n, bits=bits, radix=radix, dtype=dname,
+               gemv_route=route(m, dt),
                max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
                plain_ms=plain, library_ms=lib, library="torch.matmul on "
                "the dequantized weight", bytes=n_bytes, ops=n_ops,
@@ -515,33 +568,47 @@ def int8_case(torch, dev, gen, k, n, m, dt):
 
 
 def int8_parity(torch, dev):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.int8_matvec.ops import int8_matvec
     from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
 
+    _build.reset_launches()
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     worst, worst_used, n_cases = 0.0, 0.0, 0
-    for (k, n) in GEMV_SHAPES + [INT8_RAGGED]:
-        for m in (1, 3, 8, 256):
-            for dt in (torch.float32, torch.bfloat16):
-                q, scale, x = int8_case(torch, dev, gen, k, n, m, dt)
-                y = int8_matvec(q, scale, x, out_dtype=dt)
-                r = int8_matvec_ref(q, scale, x, out_dtype=dt)
-                rtol, atol = int8_tol(torch, q, scale, x, dt)
-                err, used = check_close("int8_matvec", y, r, rtol, atol,
-                                        m=m, k=k, n=n, dtype=str(dt))
-                worst, worst_used = max(worst, err), max(worst_used, used)
-                n_cases += 1
+    cases = [((k, n), m, dt) for (k, n) in GEMV_SHAPES + [INT8_RAGGED]
+             for m in (1, 3, 8, 256)
+             for dt in (torch.float32, torch.bfloat16)]
+    # ragged prefill M, K and N: the tensor-core route in bf16, the rows
+    # route in float32 (at M = 100)
+    cases += [((k, n), m, dt) for (k, n) in TC_RAGGED for m in TC_ROWS
+              for dt in ((torch.float32, torch.bfloat16) if m < 1000
+                         else (torch.bfloat16,))]
+    for (k, n), m, dt in cases:
+        q, scale, x = int8_case(torch, dev, gen, k, n, m, dt)
+        y = int8_matvec(q, scale, x, out_dtype=dt)
+        r = int8_matvec_ref(q, scale, x, out_dtype=dt)
+        rtol, atol = int8_tol(torch, q, scale, x, dt)
+        err, used = check_close("int8_matvec", y, r, rtol, atol, m=m, k=k,
+                                n=n, dtype=str(dt))
+        worst, worst_used = max(worst, err), max(worst_used, used)
+        n_cases += 1
     torch.cuda.synchronize()
+    routes = route_counts("int8_matvec")
+    if not all(routes.values()):
+        raise AssertionError(f"int8_matvec parity missed a route: {routes}")
     emit("parity", kernel="int8_matvec", cases=n_cases,
          sweep="M{1,3,8,256} x 4 qwen2.5-3b shapes + ragged K=2001, N=1003 "
-               "x {float32,bfloat16} x and output",
+               "x {float32,bfloat16} x and output; M{100,8192} x (K,N)"
+               "{(520,300),(200,1983),(768,3352)} x bfloat16, float32 at "
+               "M=100",
          tolerance="|y - ref| <= rtol*|ref| + 16*sqrt(K)*2^-24 * "
                    "(|x| @ |q|)*scale per element; rtol 0 for float32, "
                    "2^-7 (one ulp) for bfloat16 output",
-         max_abs_err=worst, max_share_of_tol=worst_used)
+         max_abs_err=worst, max_share_of_tol=worst_used, routes=routes)
 
 
 def int8_time(torch, dev, m, k, n, dt=None):
+    from repro_torch.kernels._gemv import route
     from repro_torch.kernels.int8_matvec.kernel import int8_matvec_cuda
     from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
 
@@ -570,7 +637,8 @@ def int8_time(torch, dev, m, k, n, dt=None):
                    torch)
     del lib_copies
     rec = dict(kernel="int8_matvec", linear=GEMV_NAMES.get((k, n), ""), m=m,
-               k=k, n=n, dtype=dname, max_abs_err=err,
+               k=k, n=n, dtype=dname, gemv_route=route(m, dt),
+               max_abs_err=err,
                tol=dict(rtol=rtol, atol_max=float(atol.max())), ms=ms,
                plain_ms=plain, library_ms=lib,
                library="torch.matmul on the dequantized bf16 weight",
@@ -635,6 +703,7 @@ def engine_path(torch, dev):
                           model_s=model_s))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    int8_routes = route_counts("int8_matvec")
     want_launches = {"int8_matvec": 1 + len(dims),
                      "bitplane_gemv": 1 + 2 * len(dims)}
     for kernel, n in want_launches.items():
@@ -651,7 +720,7 @@ def engine_path(torch, dev):
                          fpga_us_at_737mhz=demo["exec_us"],
                          rel_err_bitplane=demo["rel_err_bitplane"],
                          rel_err_int8=demo["rel_err_int8"]),
-               exact=rows, launches=launches)
+               exact=rows, launches=launches, int8_routes=int8_routes)
     emit("engine", **rec)
     return rec
 
@@ -720,8 +789,26 @@ def serve(torch, name, eng, prompts, max_new):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    # the engine's own loop (``run``), one ``step`` at a time: the GEMV's
+    # tensor-core route must launch in exactly the steps that ran a prefill
+    # chunk, its decode route in exactly those that ran a decode step (each
+    # adds one entry to ``eng.timings``), and its rows route never
+    gemv_launches = {"prefill": 0, "decode": 0}
     t0 = time.perf_counter()
-    done = eng.run()
+    done = []
+    while eng.has_work():
+        ran = {part: len(eng.timings[part]) for part in gemv_launches}
+        before = route_counts("bitplane_gemv")
+        done.extend(eng.step())
+        moved = {k: v - before[k]
+                 for k, v in route_counts("bitplane_gemv").items()}
+        ran = {part: len(eng.timings[part]) > n for part, n in ran.items()}
+        if ((moved["tensor_core"] > 0) != ran["prefill"]
+                or (moved["decode"] > 0) != ran["decode"] or moved["rows"]):
+            raise AssertionError(f"{name}: GEMV routes {moved} in a step "
+                                 f"that ran {ran}")
+        gemv_launches["prefill"] += moved["tensor_core"]
+        gemv_launches["decode"] += moved["decode"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -752,11 +839,15 @@ def serve(torch, name, eng, prompts, max_new):
         prefill_chunk_ms=1e3 * sum(pf) / max(len(pf), 1),
         preemptions=eng.preemptions,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        launches=launches)
+        launches=launches,
+        gemv_tensor_core_launches=gemv_launches["prefill"],
+        gemv_decode_launches=gemv_launches["decode"])
     emit(name, **rec)
     missing = [k for k in PAGED_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched: {missing}")
+    if not all(gemv_launches.values()):
+        raise AssertionError(f"{name}: GEMV launches {gemv_launches}")
     return rec
 
 
@@ -1036,6 +1127,7 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     pf_launches = dict(_build.LAUNCHES)
+    pf_routes = route_counts("bitplane_gemv")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name}: non-finite prefill logits")
     _build.reset_launches()
@@ -1049,6 +1141,7 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     dec_launches = dict(_build.LAUNCHES)
+    dec_routes = route_counts("bitplane_gemv")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name}: non-finite decode logits")
     toks = torch.cat(out, 1)
@@ -1060,15 +1153,19 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
                decode_steps=n_decode, decode_step_ms=1e3 * t_decode / n_decode,
                decode_tok_s=b * n_decode / t_decode,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               prefill_launches=pf_launches, decode_launches=dec_launches)
+               prefill_launches=pf_launches, decode_launches=dec_launches,
+               prefill_gemv_routes=pf_routes, decode_gemv_routes=dec_routes)
     emit(name, **rec)
     for kernel, want in expect.items():
         if pf_launches[kernel] != want:
             raise AssertionError(f"{name}: {kernel} launched "
                                  f"{pf_launches[kernel]} times in prefill, "
                                  f"expected {want}")
-    if dec_launches["bitplane_gemv"] == 0:
-        raise AssertionError(f"{name}: decode launched no GEMV")
+    if pf_routes["tensor_core"] != expect["bitplane_gemv"]:
+        raise AssertionError(f"{name}: prefill GEMV routes {pf_routes}")
+    if dec_launches["bitplane_gemv"] == 0 or (
+            dec_routes["decode"] != dec_launches["bitplane_gemv"]):
+        raise AssertionError(f"{name}: decode GEMV routes {dec_routes}")
     return rec
 
 
@@ -1257,8 +1354,8 @@ def main() -> int:
                      for kind in ("int8", "bfloat16")
                      for mode in ("decode", "prefill")}
         # the one-shot prefills' GEMVs: M = 2 x 4096 (long), 4 x 4096 (ssm)
-        for (k, n) in GEMV_SHAPES:
-            gemv_time(torch, dev, 8192, k, n)
+        gemv_rows += [gemv_time(torch, dev, 8192, k, n)
+                      for (k, n) in GEMV_SHAPES]
         for (k, n) in SSM_GEMV_SHAPES:
             gemv_time(torch, dev, 16384, k, n)
         flash_rec = flash_time(torch, dev)
@@ -1269,7 +1366,7 @@ def main() -> int:
             for (k, n) in GEMV_SHAPES:
                 gemv_time(torch, dev, 8, k, n, bits=bits, radix=radix)
         int8_rows = [int8_time(torch, dev, m, k, n)
-                     for m in (1, 8, 256) for (k, n) in GEMV_SHAPES]
+                     for m in (1, 8, 256, 8192) for (k, n) in GEMV_SHAPES]
 
     with Phase("main"):
         cfg = full_config()
@@ -1304,6 +1401,35 @@ def main() -> int:
     with Phase("engine"):
         engine_rec = engine_path(torch, dev)
 
+    def row(rows, m):      # w_gate/w_up at M = m
+        return next(r for r in rows
+                    if r["m"] == m and (r["k"], r["n"]) == GEMV_SHAPES[2])
+
+    # the tensor-core route of both GEMVs at the long prefill's and the
+    # paged prefill chunk's M, with its launches on each kernel's own path:
+    # the long prefill and main's prefill chunks for the bit-plane GEMV, the
+    # engine path (M = 1, so none) for the int8 baseline
+    tc_launches = {
+        ("bitplane_gemv", 8192): (
+            long_rec["prefill_gemv_routes"]["tensor_core"], "long prefill"),
+        ("bitplane_gemv", 256): (main_rec["gemv_tensor_core_launches"],
+                                 "main prefill chunks"),
+        ("int8_matvec", 8192): (engine_rec["int8_routes"]["tensor_core"],
+                                "engine"),
+        ("int8_matvec", 256): (engine_rec["int8_routes"]["tensor_core"],
+                               "engine")}
+    prefill = {
+        name: [dict(m=m, k=r["k"], n=r["n"], linear=r["linear"],
+                    gemv_route=r["gemv_route"],
+                    source="src/repro_torch/csrc/tc_gemm.cuh",
+                    launches=tc_launches[name, m][0],
+                    launches_in=tc_launches[name, m][1],
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+               for m in (8192, 256) for r in (row(rows, m),)]
+        for name, rows in (("bitplane_gemv", gemv_rows),
+                           ("int8_matvec", int8_rows))}
     reps = {"bitplane_gemv": next(r for r in gemv_rows if r["m"] == 8
                                   and (r["k"], r["n"]) == GEMV_SHAPES[2]),
             "paged_decode_attention": attn_rows[("int8", "decode")],
@@ -1338,7 +1464,8 @@ def main() -> int:
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
-            shape=shapes[name]))
+            shape=shapes[name],
+            **({"prefill": prefill[name]} if name in prefill else {})))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,12 +9,16 @@
 // float32, x is (M, K) float32 or bfloat16, and y is (M, N) float32 or
 // bfloat16.  Accumulation is float32.
 //
-// What bounds it on an H100: at decode M <= n_slots, so each weight byte
-// is used by a handful of rows and the kernel is bound by device-memory
-// bytes, b/8 per weight.  At chunked prefill (M = lanes * chunk) it does
-// 2*M*K*N float32 operations on the CUDA cores.
+// Three routes, each its own C entry point; the caller picks one by M and
+// the type of x (kernels/bitplane_gemv/kernel.py, `route`):
+//   * decode (M <= 8): each weight byte is used by a handful of rows, so
+//     the kernel is bound by device-memory bytes, b/8 per weight;
+//   * tensor_core (bfloat16 x, M > 8: chunked and one-shot prefill): the
+//     tile of csrc/tc_gemm.cuh, bound by 2*M*K*N bf16 tensor-core operations;
+//   * rows (float32 x, M > 8): the CUDA-core design below with 32-row
+//     blocks, as a bf16 x would round float32 activations.
 //
-// What this simple design does about that:
+// What the CUDA-core design (decode and rows) does:
 //   * neighbouring threads own neighbouring output columns n, so every
 //     packed byte is read once per row block, by one thread, and a warp's
 //     reads of one packed row are coalesced;
@@ -24,8 +28,8 @@
 //   * each thread issues UNROLL independent packed-word loads before it
 //     uses any, so a memory-bound call keeps many bytes in flight instead
 //     of waiting out one load's latency at a time;
-//   * two shapes of block: up to 8 rows (decode) with 32 warps, more rows
-//     (prefill) with 32 rows and 8 warps, where each weight meets 32 rows;
+//   * two shapes of block: up to 8 rows (decode) with 32 warps, and 32
+//     rows with 8 warps (rows), where each weight meets 32 rows;
 //   * the x tile is staged in shared memory as float32, transposed so the
 //     TM rows that meet one weight are one vectorised broadcast read;
 //   * each code's radix-bit digits are retired into the signed weight in
@@ -42,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -182,37 +188,70 @@ int launch(const void* packed, const void* scale, const void* x, void* out,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename XT>
-int launch_rows(const void* packed, const void* scale, const void* x,
-                void* out, int M, int K, int N, int bits, int radix,
-                int out_bf16, cudaStream_t stream) {
-  if (M <= 8) {  // decode: bytes-bound, as many loads in flight as fit
-    return launch<32, 8, 1024, 16, XT>(packed, scale, x, out, M, K, N, bits,
-                                       radix, out_bf16, stream);
-  }
-  return launch<8, 32, 256, 4, XT>(packed, scale, x, out, M, K, N, bits,
-                                   radix, out_bf16, stream);
-}
-
-}  // namespace
-
-// y (M, N) = (x (M, K) @ unpack(packed (K*bits/8, N))) * scale (1, N).
-// x_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
-extern "C" int imagine_bitplane_gemv(const void* packed, const void* scale,
-                                     const void* x, void* out, int M, int K,
-                                     int N, int bits, int radix, int x_bf16,
-                                     int out_bf16, void* stream) {
+int check(int M, int K, int N, int bits, int radix) {
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   if (bits != 2 && bits != 4 && bits != 8) return (int)cudaErrorInvalidValue;
   if (radix < 1 || radix > bits || bits % radix != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (K % (8 / bits) != 0) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+}  // namespace
+
+// y (M, N) = (x (M, K) @ unpack(packed (K*bits/8, N))) * scale (1, N).
+// x_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t.
+
+// M <= 8: bytes-bound, as many loads in flight as fit.
+extern "C" int imagine_bitplane_gemv_decode(const void* packed,
+                                            const void* scale, const void* x,
+                                            void* out, int M, int K, int N,
+                                            int bits, int radix, int x_bf16,
+                                            int out_bf16, void* stream) {
+  if (int err = check(M, K, N, bits, radix)) return err;
+  if (M > 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
-    return launch_rows<__nv_bfloat16>(packed, scale, x, out, M, K, N, bits,
-                                      radix, out_bf16, s);
+    return launch<32, 8, 1024, 16, __nv_bfloat16>(
+        packed, scale, x, out, M, K, N, bits, radix, out_bf16, s);
   }
-  return launch_rows<float>(packed, scale, x, out, M, K, N, bits, radix,
-                            out_bf16, s);
+  return launch<32, 8, 1024, 16, float>(packed, scale, x, out, M, K, N, bits,
+                                        radix, out_bf16, s);
+}
+
+// float32 x at M > 8 on the CUDA cores, 32 rows a block (bfloat16 x at
+// M > 8 takes the tensor-core entry below).
+extern "C" int imagine_bitplane_gemv_rows(const void* packed,
+                                          const void* scale, const void* x,
+                                          void* out, int M, int K, int N,
+                                          int bits, int radix, int x_bf16,
+                                          int out_bf16, void* stream) {
+  if (int err = check(M, K, N, bits, radix)) return err;
+  if (x_bf16) return (int)cudaErrorInvalidValue;
+  return launch<8, 32, 256, 4, float>(packed, scale, x, out, M, K, N, bits,
+                                      radix, out_bf16,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 x through the tensor-core tile; the result does not depend on
+// radix.  `partial`: float32 (splits, M, N) when splits > 1, else null.
+extern "C" int imagine_bitplane_gemv_tc(const void* packed, const void* scale,
+                                        const void* x, void* out,
+                                        void* partial, int M, int K, int N,
+                                        int bits, int splits, int out_bf16,
+                                        void* stream) {
+  if (int err = check(M, K, N, bits, 1)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2:
+      return tc::launch<2>(packed, scale, x, out, partial, M, K, N, splits,
+                           out_bf16, s);
+    case 4:
+      return tc::launch<4>(packed, scale, x, out, partial, M, K, N, splits,
+                           out_bf16, s);
+    default:
+      return tc::launch<8>(packed, scale, x, out, partial, M, K, N, splits,
+                           out_bf16, s);
+  }
 }

@@ -12,11 +12,17 @@
 // one pass instead of eight.  x stays float: quantizing it for dp4a / IMMA
 // would compute another function.
 //
-// What bounds it on an H100: at M <= 8 each weight byte meets a handful of
-// rows, so it is bound by device-memory bytes (one per weight).  At larger
-// M it does 2*M*K*N float32 operations on the CUDA cores.
+// Three routes, each its own C entry point, picked by M and the type of x
+// (kernels/int8_matvec/kernel.py):
+//   * decode (M <= 8): each weight byte meets a handful of rows, so it is
+//     bound by device-memory bytes (one per weight);
+//   * tensor_core (bfloat16 x, M > 8): the tile of csrc/tc_gemm.cuh at 8
+//     bits, shared with the bit-plane GEMV (its packed rows at b = 8 are
+//     these (K, N) codes), bound by 2*M*K*N bf16 tensor-core operations;
+//   * rows (float32 x, M > 8): 2*M*K*N float32 operations on the CUDA cores
+//     in the design below, as a bf16 x would round float32 activations.
 //
-// What this simple design does about that:
+// What the CUDA-core design (decode and rows) does:
 //   * the coalesced direction is N: each thread owns 4 adjacent columns and
 //     reads their codes with one 32-bit load, so a group of 8 lanes reads
 //     one 32-byte sector of a row of q;
@@ -29,8 +35,8 @@
 //     float32, transposed so the TM rows that meet one weight are one
 //     vectorised broadcast read;
 //   * two block shapes: up to 8 rows (decode) with 32 K groups, and 16 rows
-//     with 16 K groups for larger M; row tiles beyond the first are more
-//     blocks of the grid, which read the same weights again from L2;
+//     with 16 K groups (rows); row tiles beyond the first are more blocks
+//     of the grid, which read the same weights again from L2;
 //   * the per-channel scale is applied once, after the whole K sum, as
 //     kernel.py:32-33 does;
 //   * ragged M, K and N are masked by index; nothing is padded.  A 32-bit
@@ -40,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -187,30 +195,45 @@ int launch(const void* q, const void* scale, const void* x, void* out, int M,
   return (int)cudaGetLastError();
 }
 
-template <typename XT>
-int launch_rows(const void* q, const void* scale, const void* x, void* out,
-                int M, int K, int N, int out_bf16, cudaStream_t stream) {
-  if (M <= 8) {  // decode: bytes-bound, as many loads in flight as fit
-    return launch<8, 8, 1024, 16, XT>(q, scale, x, out, M, K, N, out_bf16,
-                                      stream);
-  }
-  return launch<16, 4, 512, 4, XT>(q, scale, x, out, M, K, N, out_bf16,
-                                   stream);
-}
-
 }  // namespace
 
 // y (M, N) = (x (M, K) @ q (K, N)) * scale (1, N).
-// x_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
-extern "C" int imagine_int8_matvec(const void* q, const void* scale,
-                                   const void* x, void* out, int M, int K,
-                                   int N, int x_bf16, int out_bf16,
-                                   void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+// x_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t.
+
+// M <= 8: bytes-bound, as many loads in flight as fit.
+extern "C" int imagine_int8_matvec_decode(const void* q, const void* scale,
+                                          const void* x, void* out, int M,
+                                          int K, int N, int x_bf16,
+                                          int out_bf16, void* stream) {
+  if (M <= 0 || M > 8 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
-    return launch_rows<__nv_bfloat16>(q, scale, x, out, M, K, N, out_bf16,
-                                      s);
+    return launch<8, 8, 1024, 16, __nv_bfloat16>(q, scale, x, out, M, K, N,
+                                                 out_bf16, s);
   }
-  return launch_rows<float>(q, scale, x, out, M, K, N, out_bf16, s);
+  return launch<8, 8, 1024, 16, float>(q, scale, x, out, M, K, N, out_bf16,
+                                       s);
+}
+
+// float32 x at M > 8 on the CUDA cores, 16 rows a block (bfloat16 x at
+// M > 8 takes the tensor-core entry below).
+extern "C" int imagine_int8_matvec_rows(const void* q, const void* scale,
+                                        const void* x, void* out, int M,
+                                        int K, int N, int x_bf16,
+                                        int out_bf16, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || x_bf16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch<16, 4, 512, 4, float>(q, scale, x, out, M, K, N, out_bf16,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 x through the tensor-core tile at 8 bits.  `partial`: float32
+// (splits, M, N) when splits > 1, else null.
+extern "C" int imagine_int8_matvec_tc(const void* q, const void* scale,
+                                      const void* x, void* out, void* partial,
+                                      int M, int K, int N, int splits,
+                                      int out_bf16, void* stream) {
+  return tc::launch<8>(q, scale, x, out, partial, M, K, N, splits, out_bf16,
+                       static_cast<cudaStream_t>(stream));
 }

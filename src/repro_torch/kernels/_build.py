@@ -4,15 +4,17 @@ The sources in ``repro_torch/csrc/*.cu`` are compiled by ``nvcc`` for
 ``sm_90a`` at first use: one ``nvcc -c`` per source, all started together,
 then one link into ``build/kernels/libimagine_kernels.so`` at the root of
 the checkout (``.gitignore`` lists ``build/``).  The library is rebuilt
-when the hash of the sources or flags changes.  It has a plain C
-interface, bound with ``ctypes`` by each kernel's ``kernel.py``.
+when the hash of the flags or of any file under ``csrc/`` (sources and
+the headers they share) changes.  It has a plain C interface, bound with
+``ctypes`` by each kernel's ``kernel.py``.
 
 Nothing here runs at import time: a host without ``nvcc`` imports the
 package, and only a launch on a CUDA tensor builds.
 
-``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one where
-it launches its kernel and nowhere else, so a run can show that its path
-went through the kernels.
+``LAUNCHES`` counts kernel launches by name, and ``ROUTE_LAUNCHES`` by
+``"<kernel>/<route>"`` for the kernels with more than one design (see
+``count``).  Each wrapper adds one where it launches its kernel and
+nowhere else, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -42,13 +44,27 @@ LAUNCHES: Dict[str, int] = {
     "int8_matvec": 0,
 }
 
+# the GEMVs' designs, picked by M and the type of x (_gemv.route)
+ROUTES = ("decode", "rows", "tensor_core")
+ROUTE_LAUNCHES: Dict[str, int] = {
+    f"{kernel}/{route}": 0
+    for kernel in ("bitplane_gemv", "int8_matvec") for route in ROUTES}
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def count(kernel: str, route: Optional[str] = None) -> None:
+    """One launch of ``kernel`` (through ``route``, for the GEMVs)."""
+    LAUNCHES[kernel] += 1
+    if route is not None:
+        ROUTE_LAUNCHES[f"{kernel}/{route}"] += 1
 
 
 def _sources():
@@ -57,9 +73,10 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in sorted(p for p in CSRC.iterdir()
+                       if p.suffix in (".cu", ".cuh", ".h")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()
 
 

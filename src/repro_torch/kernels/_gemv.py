@@ -1,0 +1,56 @@
+"""What the two GEMV launchers share (``bitplane_gemv`` and ``int8_matvec``).
+
+``route`` picks one of three CUDA designs by M and the type of x; at 8 bits
+the tensor-core tile of ``csrc/tc_gemm.cuh`` is both kernels' own.
+``tc_splits`` is the K split of that tile for outputs too small to fill the
+card; ``tc::launch`` in ``tc_gemm.cuh`` refuses a split that holds no K.
+``TC_TILE`` is that header's ``BM``, ``BN`` and ``BK``.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+DECODE_ROWS = 8              # M at or below which the decode design runs
+TC_TILE = (128, 256, 64)     # rows, columns and K step of the tensor-core tile
+
+
+def route(m: int, x_dtype: torch.dtype) -> str:
+    """The design that takes an ``(m, K)`` x: ``decode`` (bytes-bound, M <=
+    8), ``tensor_core`` (bfloat16 x at larger M) or ``rows`` (float32 x at
+    larger M, on the CUDA cores: bf16 would round x)."""
+    if m <= DECODE_ROWS:
+        return "decode"
+    return "tensor_core" if x_dtype == torch.bfloat16 else "rows"
+
+
+def tc_splits(m: int, n: int, k: int, sms: int) -> int:
+    """K splits of the tensor-core route (one block per multiprocessor):
+    one while the output tiles fill the ``sms`` multiprocessors, else as
+    many as fit in one wave, rounded so that every split holds some K."""
+    bm, bn, bk = TC_TILE
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    k_steps = math.ceil(k / bk)
+    if tiles >= sms:
+        return 1
+    want = max(1, min(sms // tiles, k_steps))
+    per = math.ceil(k_steps / want)
+    return math.ceil(k_steps / per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tc_partial(m: int, n: int, k: int, device: torch.device):
+    """``(splits, partial)`` for a tensor-core launch: the float32
+    ``(splits, M, N)`` partial sums when K is split, else None."""
+    splits = tc_splits(m, n, k, _sm_count(device.index or 0))
+    if splits == 1:
+        return 1, None
+    return splits, torch.empty((splits, m, n), dtype=torch.float32,
+                               device=device)

@@ -1,9 +1,11 @@
 """Launcher of the CUDA bit-plane GEMV (``csrc/bitplane_gemv.cu``).
 
 Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
-allocates the output with ``torch.empty``, launches on the current stream
-and raises if the launch reports an error.  It never falls back to the
-plain version.
+allocates the output (and the split-K partial sums) with ``torch.empty``,
+launches on the current stream and raises if the launch reports an error.
+``_gemv.route`` picks one of three designs by M and the type of x, each its
+own C entry point; no route ever gives way to another or to the plain
+version.
 """
 
 from __future__ import annotations
@@ -14,15 +16,17 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._gemv import route, tc_partial
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.library().imagine_bitplane_gemv
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+def _entry(name: str):
+    fn = getattr(_build.library(), f"imagine_bitplane_gemv_{name}")
+    n_ptr, n_int = (5, 6) if name == "tc" else (4, 7)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,13 +72,21 @@ def bitplane_gemv_cuda(packed: torch.Tensor, scale: torch.Tensor,
     m, k = x.shape
     n = packed.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    err = _entry()(packed.data_ptr(), scale.data_ptr(), x.data_ptr(),
-                   out.data_ptr(), m, k, n, bits, radix,
-                   _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
-                   _stream(x))
+    path = route(m, x.dtype)
+    ptrs = (packed.data_ptr(), scale.data_ptr(), x.data_ptr(),
+            out.data_ptr())
+    if path == "tensor_core":
+        splits, partial = tc_partial(m, n, k, x.device)
+        err = _entry("tc")(*ptrs, None if partial is None
+                           else partial.data_ptr(), m, k, n, bits, splits,
+                           _DTYPE_CODES[out_dtype], _stream(x))
+    else:
+        err = _entry(path)(*ptrs, m, k, n, bits, radix,
+                           _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+                           _stream(x))
     if err:
-        raise RuntimeError(f"bitplane_gemv launch failed: cudaError {err} "
-                           f"(M={m}, K={k}, N={n}, bits={bits}, "
+        raise RuntimeError(f"bitplane_gemv launch failed ({path}): cudaError "
+                           f"{err} (M={m}, K={k}, N={n}, bits={bits}, "
                            f"radix={radix})")
-    _build.LAUNCHES["bitplane_gemv"] += 1
+    _build.count("bitplane_gemv", path)
     return out

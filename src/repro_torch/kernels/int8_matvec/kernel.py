@@ -1,9 +1,11 @@
 """Launcher of the CUDA int8 bit-parallel GEMV (``csrc/int8_matvec.cu``).
 
 Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
-allocates the output with ``torch.empty``, launches on the current stream
-and raises if the launch reports an error.  It never falls back to the
-plain version.
+allocates the output (and the split-K partial sums) with ``torch.empty``,
+launches on the current stream and raises if the launch reports an error.
+``_gemv.route`` picks the design, as for the bit-plane GEMV (at 8 bits its
+tensor-core tile is this kernel's too), each its own C entry point; no
+route ever gives way to another or to the plain version.
 """
 
 from __future__ import annotations
@@ -14,15 +16,17 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._gemv import route, tc_partial
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.library().imagine_int8_matvec
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+def _entry(name: str):
+    fn = getattr(_build.library(), f"imagine_int8_matvec_{name}")
+    n_ptr, n_int = (5, 5) if name == "tc" else (4, 5)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -60,12 +64,19 @@ def int8_matvec_cuda(q: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
     m, k = x.shape
     n = q.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    err = _entry()(q.data_ptr(), scale.data_ptr(), x.data_ptr(),
-                   out.data_ptr(), m, k, n, _DTYPE_CODES[x.dtype],
-                   _DTYPE_CODES[out_dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream)
+    path = route(m, x.dtype)
+    ptrs = (q.data_ptr(), scale.data_ptr(), x.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if path == "tensor_core":
+        splits, partial = tc_partial(m, n, k, x.device)
+        err = _entry("tc")(*ptrs, None if partial is None
+                           else partial.data_ptr(), m, k, n, splits,
+                           _DTYPE_CODES[out_dtype], stream)
+    else:
+        err = _entry(path)(*ptrs, m, k, n, _DTYPE_CODES[x.dtype],
+                           _DTYPE_CODES[out_dtype], stream)
     if err:
-        raise RuntimeError(f"int8_matvec launch failed: cudaError {err} "
-                           f"(M={m}, K={k}, N={n})")
-    _build.LAUNCHES["int8_matvec"] += 1
+        raise RuntimeError(f"int8_matvec launch failed ({path}): cudaError "
+                           f"{err} (M={m}, K={k}, N={n})")
+    _build.count("int8_matvec", path)
     return out

@@ -13,7 +13,14 @@ and a weight digit is exact in float32; the two packages add the products
 in another order, which moves the last bits of sums of magnitude ~10.
 
 The CUDA kernel itself has no CPU mode: its cases against the plain
-version are in ``tests/test_torch_cuda_kernels.py``.
+version are in ``tests/test_torch_cuda_kernels.py``.  What the launcher
+decides on the host is held here: which design (``route``) an M and an x
+type take, and how the tensor-core route splits K.  A prefill-sized ragged
+case (M = 130, K = 136, N = 200, bfloat16 x) goes through the ``ops``
+wrapper against the Pallas kernel in interpret mode: float32 output within
+the float32 tolerance above (bf16 x converts exactly), bfloat16 output
+within one bf16 ulp (rtol 2^-7: one rounding of float32 sums that may
+differ in their last bits).
 """
 
 import jax.numpy as jnp
@@ -30,7 +37,7 @@ from repro.kernels.bitplane_gemv.ref import bitplane_gemv_ref as jax_gemv_ref
 
 from repro_torch.config import EngineConfig
 from repro_torch.engine import EnginePlan, PackedLinear, resolve_plan
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _gemv
 from repro_torch.kernels.bitplane_gemv import kernel as gemv_kernel
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
@@ -150,3 +157,64 @@ def test_cuda_wrapper_refuses_cpu_tensors():
                                        torch.from_numpy(x.reshape(3, K)),
                                        bits=4, radix=1)
     assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize("m,xdt,want", [
+    (1, torch.bfloat16, "decode"), (8, torch.bfloat16, "decode"),
+    (1, torch.float32, "decode"), (8, torch.float32, "decode"),
+    (9, torch.bfloat16, "tensor_core"), (256, torch.bfloat16, "tensor_core"),
+    (8192, torch.bfloat16, "tensor_core"), (9, torch.float32, "rows"),
+    (256, torch.float32, "rows")])
+def test_route_picks_the_design_by_rows_and_type(m, xdt, want):
+    assert gemv_kernel.route(m, xdt) == want
+
+
+@pytest.mark.parametrize("m,n,k,want", [
+    (8192, 11008, 2048, 1),     # 64 x 43 tiles fill the card
+    (16384, 3352, 768, 1),
+    (256, 11008, 2048, 1),      # 2 x 43 = 86 tiles: one split each
+    (256, 2048, 2048, 8),       # 16 tiles, 8 splits of 4 K steps
+    (256, 2048, 11008, 8),      # 8 splits of 22 K steps
+    (256, 256, 2048, 32),       # 2 tiles: one K step a split
+    (130, 200, 136, 3),         # 2 tiles, 3 K steps
+    (9, 300, 520, 9),           # 1 tile, 9 K steps
+])
+def test_tensor_core_splits(m, n, k, want):
+    assert _gemv.tc_splits(m, n, k, sms=132) == want
+
+
+@pytest.mark.parametrize("m", [9, 130, 256, 4096])
+@pytest.mark.parametrize("n", [200, 256, 3352])
+@pytest.mark.parametrize("k", [64, 136, 2048, 11008])
+def test_tensor_core_splits_leave_no_split_empty(m, n, k):
+    """The C launcher refuses a split count that leaves a split without K,
+    and the grid is at most one block per multiprocessor when K is split."""
+    bm, bn, bk = _gemv.TC_TILE
+    splits = _gemv.tc_splits(m, n, k, sms=132)
+    k_steps = -(-k // bk)
+    per = -(-k_steps // splits)
+    assert 1 <= splits <= k_steps and -(-k_steps // per) == splits
+    tiles = -(-m // bm) * -(-n // bn)
+    assert splits == 1 or tiles * splits <= 132
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits,radix", CASES + [(8, 8)])
+def test_prefill_ragged_matches_jax_pallas_interpret(bits, radix, out):
+    """M, K and N of no tile's multiple, bfloat16 x: the shape of a ragged
+    prefill chunk, which the tensor-core route takes on the card."""
+    m, k, n = 130, 136, 200
+    jlin, x = _case(bits, (m,), seed=300 + bits * 10 + radix, k=k, n=n)
+    lin = _port_lin(jlin)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    jdt, tdt = getattr(jnp, out), getattr(torch, out)
+    want = np.asarray(jax_gemv(jlin.packed, jlin.scale, xb, bits=bits,
+                               radix=radix, interpret=True, out_dtype=jdt)
+                      ).astype(np.float32)
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16()
+    assert gemv_kernel.route(m, xt.dtype) == "tensor_core"
+    got = bitplane_gemv(lin.packed, lin.scale, xt, bits=bits, radix=radix,
+                        out_dtype=tdt)
+    assert got.shape == (m, n) and got.dtype == tdt
+    tol = TOL if out == "float32" else dict(rtol=2 ** -7, atol=1e-5)
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)

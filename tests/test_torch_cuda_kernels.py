@@ -24,7 +24,11 @@ float64 recurrence: within 1e-4 of the largest output (cumulative decays
 summed in float32 over a chunk, exponentials of float32 arguments).
 The int8 bit-parallel GEMV adds K products in float32 in another order than
 the plain version: within 16·√K·2^-24 of Σ|x|·|q|·scale per element (one
-bf16 ulp more for bfloat16 outputs).  The engine's exact case feeds integer
+bf16 ulp more for bfloat16 outputs).  Both GEMVs pick a design by M and the
+type of x (``route``): every GEMV case also checks that its route's counter
+moved, and the bfloat16 cases at M > 8 (9, 130, 8192; K = 200 and 520,
+neither a multiple of the tile's K step; N = 300 and 1983, neither 16- nor
+8-byte aligned, and 3352, only 8-byte aligned) take the tensor-core tile.  The engine's exact case feeds integer
 weights and activations whose partial sums stay below 2^24, so the tile
 model and every kernel must equal ``w @ x`` exactly.
 """
@@ -45,6 +49,7 @@ from repro_torch.core import (
 from repro_torch.core.controller import run_gemv
 from repro_torch.core.isa import MAX_ELEMS
 from repro_torch.kernels import _build
+from repro_torch.kernels._gemv import route
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -62,7 +67,7 @@ from repro_torch.kernels.paged_attention.ref import (
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-CASES = [(bits, radix) for bits in (2, 4, 8) for radix in (1, 2, 4)
+CASES = [(bits, radix) for bits in (2, 4, 8) for radix in (1, 2, 4, 8)
          if bits % radix == 0]
 
 
@@ -78,21 +83,26 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 72, 33), (7, 520, 300),
-                                   (40, 2048, 256), (3, 11008, 96)])
+                                   (40, 2048, 256), (3, 11008, 96),
+                                   (9, 200, 300), (130, 520, 1983),
+                                   (8192, 200, 3352)])
 @pytest.mark.parametrize("bits,radix", CASES)
 @pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
 def test_gemv_matches_plain(cuda_device, bits, radix, m, k, n, xdt):
-    """Any M, and K and N that are not tile multiples."""
+    """Any M, and K and N that are not tile multiples, through each route."""
     dt = getattr(torch, xdt)
     gen = torch.Generator(device=cuda_device).manual_seed(m + k + n + bits)
     w = torch.randn((k, n), generator=gen, device=cuda_device)
     q, scale = quantize_symmetric(w, bits)
     packed = pack_weights(q, bits)
     x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+    path = f"bitplane_gemv/{route(m, dt)}"
     before = _build.LAUNCHES["bitplane_gemv"]
+    before_route = _build.ROUTE_LAUNCHES[path]
     y = bitplane_gemv(packed, scale, x, bits=bits, radix=radix, out_dtype=dt)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["bitplane_gemv"] == before + 1
+    assert _build.ROUTE_LAUNCHES[path] == before_route + 1
     r = bitplane_gemv_ref(packed, scale, x, bits=bits, radix=radix,
                           out_dtype=dt)
     assert y.shape == (m, n) and y.dtype == dt
@@ -233,20 +243,25 @@ def test_ssd_scan_matches_plain(cuda_device, bsz, s, nh, n, chunk, xdt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 72, 33), (3, 200, 100), (8, 2048, 256),
                                    (9, 520, 300), (40, 2001, 1003),
-                                   (256, 2048, 2048)])
+                                   (256, 2048, 2048), (130, 200, 1983),
+                                   (8192, 520, 3352)])
 @pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
 def test_int8_matvec_matches_plain(cuda_device, m, k, n, xdt):
-    """Both block shapes (M <= 8 and more rows), several K tiles, and K and
-    N that are multiples of neither 4 nor 128 (byte loads, masked edges)."""
+    """Every route (M <= 8, and more rows with float32 or bfloat16 x),
+    several K tiles, and K and N that are multiples of neither 4 nor 128
+    (byte loads, masked edges), or N only 8-byte aligned."""
     dt = getattr(torch, xdt)
     gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     w = torch.randn((k, n), generator=gen, device=cuda_device)
     q, scale = quantize_symmetric(w, 8)
     x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+    path = f"int8_matvec/{route(m, dt)}"
     before = _build.LAUNCHES["int8_matvec"]
+    before_route = _build.ROUTE_LAUNCHES[path]
     y = int8_matvec(q, scale, x, out_dtype=dt)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["int8_matvec"] == before + 1
+    assert _build.ROUTE_LAUNCHES[path] == before_route + 1
     r = int8_matvec_ref(q, scale, x, out_dtype=dt)
     assert y.shape == (m, n) and y.dtype == dt
     s = (x.float().abs() @ q.float().abs()) * scale

@@ -8,6 +8,8 @@
 * The ``ops`` wrappers run the plain versions (``ref.py``) for CPU tensors
   only; a tensor on any other device goes to the kernel's launcher, which
   launches or raises.
+* The kernel library is rebuilt when any source or shared header under
+  ``csrc/`` changes, and launches are counted by kernel and by route.
 """
 
 import ast
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.kernels import _build
 from repro_torch.kernels.bitplane_gemv import ops as gemv_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.int8_matvec import ops as int8_ops
@@ -170,3 +173,45 @@ def test_full_sequence_entry_points_raise_without_a_gpu(monkeypatch):
     for arch in ("qwen2.5-3b", "mamba2-130m"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_cache(get_reduced(arch), 1, 8)
+
+
+def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch):
+    """A change to a header shared by two sources must rebuild the library,
+    or a card run would time a stale one."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "shared.cuh"\n')
+    (csrc / "b.cu").write_text('#include "shared.cuh"\n#include "util.h"\n')
+    (csrc / "shared.cuh").write_text("constexpr int TILE = 128;\n")
+    (csrc / "util.h").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build._sources()] == ["a.cu", "b.cu"]
+    first = _build._digest()
+    assert _build._digest() == first
+    (csrc / "shared.cuh").write_text("constexpr int TILE = 256;\n")
+    second = _build._digest()
+    assert second != first
+    (csrc / "util.h").write_text("#pragma once\n// changed\n")
+    third = _build._digest()
+    assert third not in (first, second)
+    (csrc / "notes.txt").write_text("not a source")
+    assert _build._digest() == third
+
+
+def test_launch_counts_by_kernel_and_route(monkeypatch):
+    monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(_build, "ROUTE_LAUNCHES", dict(_build.ROUTE_LAUNCHES))
+    _build.reset_launches()
+    _build.count("bitplane_gemv", "tensor_core")
+    _build.count("int8_matvec", "decode")
+    _build.count("flash_attention")
+    assert _build.LAUNCHES["bitplane_gemv"] == 1
+    assert _build.LAUNCHES["int8_matvec"] == 1
+    assert _build.LAUNCHES["flash_attention"] == 1
+    assert _build.ROUTE_LAUNCHES == {
+        f"{k}/{r}": int((k, r) in (("bitplane_gemv", "tensor_core"),
+                                   ("int8_matvec", "decode")))
+        for k in ("bitplane_gemv", "int8_matvec") for r in _build.ROUTES}
+    _build.reset_launches()
+    assert not any(_build.LAUNCHES.values())
+    assert not any(_build.ROUTE_LAUNCHES.values())

@@ -16,7 +16,11 @@ the packages add the products in another order, which moves the last bits
 of sums of magnitude up to ~100.
 
 The CUDA kernel itself has no CPU mode: its cases against the plain
-version are in ``tests/test_torch_cuda_kernels.py``.
+version are in ``tests/test_torch_cuda_kernels.py``.  The launcher picks its
+design with the bit-plane GEMV's ``route`` (at 8 bits the two share the
+tensor-core tile); a prefill-sized ragged case (M = 130, K = 136, N = 200,
+bfloat16 x), which that route takes on the card, goes through the ``ops``
+wrapper against the Pallas kernel in interpret mode at the tolerance above.
 """
 
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from repro.kernels.int8_matvec.ref import int8_matvec_ref as jax_int8_ref
 from repro_torch.core import quantize_linear
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.int8_matvec import int8_matvec
+from repro_torch.kernels.int8_matvec import kernel as int8_kernel
 from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
 
 torch.set_num_threads(1)
@@ -114,3 +119,24 @@ def test_bitparallel_equals_bitserial(b, k, n):
     for radix in (1, 2, 4, 8):
         y_bs = bitplane_gemv(ql.packed, ql.scale, x, bits=8, radix=radix)
         np.testing.assert_allclose(y_bp.numpy(), y_bs.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("m,xdt,want", [
+    (1, torch.bfloat16, "decode"), (8, torch.float32, "decode"),
+    (9, torch.bfloat16, "tensor_core"), (256, torch.bfloat16, "tensor_core"),
+    (9, torch.float32, "rows"), (256, torch.float32, "rows")])
+def test_int8_route_picks_the_design_by_rows_and_type(m, xdt, want):
+    assert int8_kernel.route(m, xdt) == want
+
+
+def test_prefill_ragged_matches_jax_pallas_interpret():
+    """M, K and N of no tile's multiple, bfloat16 x, float32 output."""
+    m, k, n = 130, 136, 200
+    q, scale, x = _case((m,), k, n, seed=41)
+    want_k, want_r = _jax(q, scale, x, jnp.bfloat16)
+    tx = torch.from_numpy(x).bfloat16()
+    assert int8_kernel.route(m, tx.dtype) == "tensor_core"
+    got = int8_matvec(torch.from_numpy(q), torch.from_numpy(scale), tx)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want_k, **TOL)
+    np.testing.assert_allclose(got.numpy(), want_r, **TOL)
