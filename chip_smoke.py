@@ -16,7 +16,9 @@ exits non-zero:
                 GEMVs through each of their routes (``decode`` M <= 8,
                 ``rows`` float32 x, ``tensor_core`` bfloat16 x at larger M),
                 the last at ragged prefill M (100, 8192), K and N (300,
-                1983, 3352);
+                1983, 3352); flash attention and the chunked prefill through
+                both of theirs (``tensor_core`` bfloat16, ``cuda_core``
+                float32);
    ``time``     kernel, plain-version and PyTorch-library times at those
                 shapes, with the bytes and operations each call needs and
                 the least time the card could take for them, and the GEMV
@@ -61,11 +63,17 @@ exits non-zero:
                 ``prefill`` records (M = 8192 and 256, w_gate/w_up) of the
                 tensor-core route, with that route's launches on the same
                 paths (``long`` and ``main`` prefill; ``engine``, which
-                runs the int8 baseline at M = 1 only, for ``int8_matvec``).
+                runs the int8 baseline at M = 1 only, for ``int8_matvec``);
+                for every kernel with routes its path's launches by route
+                (``routes``) and the route its timed record took.
 
 ``main``, ``long`` and ``ssm`` check that the GEMV took its tensor-core
 route in every prefill and its decode route in every decode step
-(``main`` and ``second`` step by step, through ``ServeEngine.step``).
+(``main`` and ``second`` step by step, through ``ServeEngine.step``);
+``main`` and ``second`` that every prefill chunk launched the chunked
+prefill's tensor-core route once a layer, ``long`` that its prefill
+launched flash attention's tensor-core route once a layer and its
+CUDA-core route never.
 
 The card's ``nvidia-smi`` name and power limit line and the ``kernels``
 line come before the last line, which is
@@ -237,11 +245,13 @@ def gemv_tol(dt, r):
     return 2 ** -7, 1e-5 * big
 
 
-def route_counts(kernel):
-    """The launches of ``kernel`` by route since the last reset."""
+def route_counts(kernel, counts=None):
+    """The launches of ``kernel`` by route since the last reset (or in
+    ``counts``, a copy of ``_build.ROUTE_LAUNCHES``)."""
     from repro_torch.kernels import _build
 
-    return {k.split("/")[1]: v for k, v in _build.ROUTE_LAUNCHES.items()
+    counts = _build.ROUTE_LAUNCHES if counts is None else counts
+    return {k.split("/")[1]: v for k, v in counts.items()
             if k.startswith(kernel + "/")}
 
 
@@ -386,10 +396,15 @@ def attn_parity(torch, dev):
         paged_prefill_ref,
     )
 
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    gen_deep = torch.Generator(device=dev).manual_seed(SEED + 12)
     b, hkv, g, dh, page, nblk, c = 8, 2, 8, 128, 16, 24, 32
     worst = {"decode": [0.0, 0.0], "prefill": [0.0, 0.0]}
-    n_cases = 0
+    n_cases = {"decode": 0, "prefill": 0}
+    routes = {}
     for kind in ("float32", "bfloat16", "int8"):
         kp, vp, ks, vs = attn_pools(torch, dev, gen, kind, b * nblk + 1,
                                     page, hkv, dh)
@@ -410,31 +425,55 @@ def attn_parity(torch, dev):
                               kind=kind, window=window)
             worst["decode"] = [max(a, b) for a, b in zip(worst["decode"],
                                                           res)]
+            n_cases["decode"] += 1
             # prefill: mid-page pos0, a ragged last lane, an idle lane
-            pos0 = torch.tensor([0, 7, 16, 45, 100, 201, 300, 120],
-                                dtype=torch.int32, device=dev)
-            seq = pos0 + c
-            seq[6] = pos0[6] + 5
-            seq[7] = pos0[7]
-            qp = torch.randn((b, c, hkv * g, dh), generator=gen,
-                             device=dev).to(qdt)
-            y = paged_prefill_attention(qp, kp, vp, bt, pos0, seq, window,
-                                        ks, vs)
-            r = paged_prefill_ref(qp, kp, vp, bt, pos0, seq, window, ks, vs)
-            # the idle lane's rows attend no key; the engine discards them
-            res = check_close("paged_prefill_attention", y[:7], r[:7], rtol,
-                              atol, kind=kind, window=window)
-            worst["prefill"] = [max(a, b) for a, b in zip(worst["prefill"],
-                                                           res)]
-            n_cases += 2
+            # (lane 7); then every lane past 256 tokens of context (several
+            # steps of the page walk), mid-page, the last lane ragged
+            for pos0, seq_cut, idle in (
+                    ([0, 7, 16, 45, 100, 201, 300, 120], 5, True),
+                    ([257, 270, 300, 333, 290, 262, 345, 280], 9, False)):
+                pos0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+                seq = pos0 + c
+                seq[6] = pos0[6] + seq_cut
+                if idle:
+                    seq[7] = pos0[7]
+                qp = torch.randn((b, c, hkv * g, dh),
+                                 generator=gen if idle else gen_deep,
+                                 device=dev).to(qdt)
+                before = route_counts("paged_prefill_attention")
+                y = paged_prefill_attention(qp, kp, vp, bt, pos0, seq,
+                                            window, ks, vs)
+                took = [name for name, n in
+                        route_counts("paged_prefill_attention").items()
+                        if n > before[name]]
+                routes[kind] = took
+                r = paged_prefill_ref(qp, kp, vp, bt, pos0, seq, window, ks,
+                                      vs)
+                # the idle lane's rows attend no key; the engine discards
+                # them
+                keep = 7 if idle else b
+                res = check_close("paged_prefill_attention", y[:keep],
+                                  r[:keep], rtol, atol, kind=kind,
+                                  window=window, pos0=pos0.tolist())
+                worst["prefill"] = [max(a, b) for a, b in
+                                    zip(worst["prefill"], res)]
+                n_cases["prefill"] += 1
     torch.cuda.synchronize()
+    want = {"float32": ["cuda_core"], "bfloat16": ["tensor_core"],
+            "int8": ["tensor_core"]}
+    if routes != want:
+        raise AssertionError(f"paged_prefill_attention routes {routes}")
     for name, (err, used) in worst.items():
-        emit("parity", kernel=f"paged_{name}_attention", cases=n_cases // 2,
+        emit("parity", kernel=f"paged_{name}_attention",
+             cases=n_cases[name],
              sweep="pools {float32,bfloat16,int8} x window {0,37}; G=8, "
-                   "Dh=128, page 16, ragged last blocks, mid-page pos0",
+                   "Dh=128, page 16, ragged last blocks, mid-page pos0"
+                   + ("; pos0 0-300 and 257-345" if name == "prefill"
+                      else ""),
              tolerance="float32: rtol=atol=1e-5; bf16 / int8 pools: "
                        "rtol=atol=2^-7", max_abs_err=err,
-             max_share_of_tol=used)
+             max_share_of_tol=used,
+             **({"routes": routes} if name == "prefill" else {}))
 
 
 def _gathered(torch, kp, vp, ks, vs, bt):
@@ -459,6 +498,7 @@ def attn_time(torch, dev, kind, mode):
     from repro_torch.kernels.paged_attention.kernel import (
         paged_decode_attention_cuda,
         paged_prefill_attention_cuda,
+        prefill_route,
     )
     from repro_torch.kernels.paged_attention.ref import (
         paged_attention_ref,
@@ -538,6 +578,8 @@ def attn_time(torch, dev, kind, mode):
     del views
     rec = dict(kernel=f"paged_{mode}_attention", pools=kind, lanes=b,
                chunk=c if mode == "prefill" else 1, keys=keys,
+               **({"route": prefill_route(qdt, kp.dtype, dh, g)}
+                  if mode == "prefill" else {}),
                max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
                plain_ms=plain_ms, library_ms=lib,
                library="F.scaled_dot_product_attention over the gathered "
@@ -792,23 +834,34 @@ def serve(torch, name, eng, prompts, max_new):
     # the engine's own loop (``run``), one ``step`` at a time: the GEMV's
     # tensor-core route must launch in exactly the steps that ran a prefill
     # chunk, its decode route in exactly those that ran a decode step (each
-    # adds one entry to ``eng.timings``), and its rows route never
+    # adds one entry to ``eng.timings``), and its rows route never; the
+    # chunked prefill's tensor-core route once a layer in every step that
+    # ran a chunk, its CUDA-core route never
     gemv_launches = {"prefill": 0, "decode": 0}
+    attn_launches = 0
     t0 = time.perf_counter()
     done = []
     while eng.has_work():
         ran = {part: len(eng.timings[part]) for part in gemv_launches}
         before = route_counts("bitplane_gemv")
+        before_attn = route_counts("paged_prefill_attention")
         done.extend(eng.step())
         moved = {k: v - before[k]
                  for k, v in route_counts("bitplane_gemv").items()}
+        moved_attn = {k: v - before_attn[k] for k, v in
+                      route_counts("paged_prefill_attention").items()}
         ran = {part: len(eng.timings[part]) > n for part, n in ran.items()}
         if ((moved["tensor_core"] > 0) != ran["prefill"]
                 or (moved["decode"] > 0) != ran["decode"] or moved["rows"]):
             raise AssertionError(f"{name}: GEMV routes {moved} in a step "
                                  f"that ran {ran}")
+        if moved_attn != {"cuda_core": 0, "tensor_core":
+                          eng.cfg.n_layers * ran["prefill"]}:
+            raise AssertionError(f"{name}: prefill attention routes "
+                                 f"{moved_attn} in a step that ran {ran}")
         gemv_launches["prefill"] += moved["tensor_core"]
         gemv_launches["decode"] += moved["decode"]
+        attn_launches += moved_attn["tensor_core"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -839,9 +892,11 @@ def serve(torch, name, eng, prompts, max_new):
         prefill_chunk_ms=1e3 * sum(pf) / max(len(pf), 1),
         preemptions=eng.preemptions,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        launches=launches,
+        launches=launches, route_launches=dict(_build.ROUTE_LAUNCHES),
         gemv_tensor_core_launches=gemv_launches["prefill"],
-        gemv_decode_launches=gemv_launches["decode"])
+        gemv_decode_launches=gemv_launches["decode"],
+        prefill_attention_tensor_core_launches=attn_launches,
+        prefill_attention_per_chunk=attn_launches / max(len(pf), 1))
     emit(name, **rec)
     missing = [k for k in PAGED_KERNELS if launches[k] == 0]
     if missing:
@@ -922,8 +977,8 @@ def whole_path_check(torch, dev):
 
 
 # ---------------------------------------------- full-sequence kernels
-def flash_inputs(torch, dev, gen, dt, s=None):
-    sh = FLASH_SHAPE
+def flash_inputs(torch, dev, gen, dt, s=None, **shape):
+    sh = {**FLASH_SHAPE, **shape}
     s = s or sh["s"]
     q = torch.randn((sh["b"], s, sh["hq"], sh["d"]), generator=gen,
                     device=dev).to(dt)
@@ -949,31 +1004,48 @@ def flash_tol(torch, dt):
     return (1e-5, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-5)
 
 
+# flash_parity's cases beside FLASH_SHAPE: (dtype name, S, window, shape
+# changes); bfloat16 takes the tensor-core route, float32 the CUDA-core one
+FLASH_CASES = [("bfloat16", 4096, 0, {}), ("bfloat16", 4100, 0, {}),
+               ("bfloat16", 4096, 1024, {}),
+               ("bfloat16", 2048, 0, dict(hq=8, hkv=8, d=64)),
+               ("bfloat16", 1000, 0, dict(hq=16, hkv=2, d=32)),
+               ("bfloat16", 777, 1, dict(hq=4, hkv=4, d=128)),
+               ("float32", 4096, 0, {})]
+
+
 def flash_parity(torch, dev):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
+    _build.reset_launches()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst, worst_used, cases = 0.0, 0.0, []
-    for dt, s, window in ((torch.bfloat16, 4096, 0),
-                          (torch.bfloat16, 4100, 0),
-                          (torch.bfloat16, 4096, 1024),
-                          (torch.float32, 4096, 0)):
-        q, k, v = flash_inputs(torch, dev, gen, dt, s)
+    for dname, s, window, shape in FLASH_CASES:
+        dt = getattr(torch, dname)
+        q, k, v = flash_inputs(torch, dev, gen, dt, s, **shape)
+        before = route_counts("flash_attention")
         y = flash_attention(q, k, v, window=window)
+        took = [r for r, n in route_counts("flash_attention").items()
+                if n > before[r]]
         r = flash_plain(q, k, v, window)
         rtol, atol = flash_tol(torch, dt)
         err, used = check_close("flash_attention", y, r, rtol, atol, s=s,
-                                window=window, dtype=str(dt))
+                                window=window, dtype=dname, **shape)
         worst, worst_used = max(worst, err), max(worst_used, used)
-        cases.append(dict(s=s, window=window, dtype=str(dt).split(".")[-1],
-                          max_abs_err=err))
+        want = "cuda_core" if dt == torch.float32 else "tensor_core"
+        if took != [want]:
+            raise AssertionError(f"flash_attention {dname}: routes {took}")
+        cases.append(dict(s=s, window=window, dtype=dname, route=want,
+                          **{**{k_: FLASH_SHAPE[k_] for k_ in
+                                ("hq", "hkv", "d")}, **shape},
+                          max_abs_err=err, max_share_of_tol=used))
         del q, k, v, y, r
     torch.cuda.synchronize()
-    emit("parity", kernel="flash_attention", cases=cases,
-         shape="B=2, Hq=16, Hkv=2, D=128",
+    emit("parity", kernel="flash_attention", cases=cases, batch=2,
          tolerance="float32: rtol=atol=1e-5; bfloat16: rtol 2^-7 (one "
                    "ulp), atol 1e-5", max_abs_err=worst,
-         max_share_of_tol=worst_used)
+         max_share_of_tol=worst_used, routes=route_counts("flash_attention"))
 
 
 def flash_time(torch, dev):
@@ -983,6 +1055,7 @@ def flash_time(torch, dev):
 
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda,
+        route as flash_route,
     )
 
     sh = FLASH_SHAPE
@@ -1010,6 +1083,7 @@ def flash_time(torch, dev):
         a, b, c, is_causal=True, enable_gqa=True), lib_sets, torch)
     del lib_sets
     rec = dict(kernel="flash_attention", **sh, window=0, dtype="bfloat16",
+               route=flash_route(dt, sh["d"]),
                max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
                plain_ms=plain_ms, library_ms=lib,
                library="F.scaled_dot_product_attention(is_causal=True, "
@@ -1128,6 +1202,7 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
     t_prefill = time.perf_counter() - t0
     pf_launches = dict(_build.LAUNCHES)
     pf_routes = route_counts("bitplane_gemv")
+    pf_flash_routes = route_counts("flash_attention")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name}: non-finite prefill logits")
     _build.reset_launches()
@@ -1154,7 +1229,8 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
                decode_tok_s=b * n_decode / t_decode,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                prefill_launches=pf_launches, decode_launches=dec_launches,
-               prefill_gemv_routes=pf_routes, decode_gemv_routes=dec_routes)
+               prefill_gemv_routes=pf_routes, decode_gemv_routes=dec_routes,
+               prefill_flash_routes=pf_flash_routes)
     emit(name, **rec)
     for kernel, want in expect.items():
         if pf_launches[kernel] != want:
@@ -1163,6 +1239,11 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
                                  f"expected {want}")
     if pf_routes["tensor_core"] != expect["bitplane_gemv"]:
         raise AssertionError(f"{name}: prefill GEMV routes {pf_routes}")
+    # bf16 activations: every flash launch on the tensor-core route
+    if pf_flash_routes != {"cuda_core": 0, "tensor_core":
+                           expect.get("flash_attention", 0)}:
+        raise AssertionError(f"{name}: prefill flash attention routes "
+                             f"{pf_flash_routes}")
     if dec_launches["bitplane_gemv"] == 0 or (
             dec_routes["decode"] != dec_launches["bitplane_gemv"]):
         raise AssertionError(f"{name}: decode GEMV routes {dec_routes}")
@@ -1456,6 +1537,14 @@ def main() -> int:
         "flash_attention"]
     launches["ssd_scan"] = ssm_rec["prefill_launches"]["ssd_scan"]
     launches["int8_matvec"] = engine_rec["launches"]["int8_matvec"]
+    # the same paths' launches by route, for the kernels with routes
+    path_routes = {
+        "bitplane_gemv": route_counts("bitplane_gemv",
+                                      main_rec["route_launches"]),
+        "paged_prefill_attention": route_counts(
+            "paged_prefill_attention", main_rec["route_launches"]),
+        "flash_attention": long_rec["prefill_flash_routes"],
+        "int8_matvec": engine_rec["int8_routes"]}
     kernels = []
     for name, meta in KERNELS.items():
         rep = reps[name]
@@ -1465,6 +1554,8 @@ def main() -> int:
             plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             shape=shapes[name],
+            **({"routes": path_routes[name]} if name in path_routes else {}),
+            **({"timed_route": rep["route"]} if "route" in rep else {}),
             **({"prefill": prefill[name]} if name in prefill else {})))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -15,9 +15,33 @@
 // What bounds it on an H100: decode reads every valid K/V page once per
 // (lane, KV head) and does 4*G*Dh operations per cached token, so it is
 // bound by device-memory bytes.  Prefill reuses each page for block_q*G
-// query rows and at the port's sizes is bound by neither: it is small.
+// query rows; at the serving path's shapes (8 lanes, a 32-token chunk,
+// contexts of a few hundred tokens) its bytes and operations take about a
+// microsecond on the card, so what bounds it is latency: the few steps of
+// each block's walk over the pages, each a gather from device memory and
+// a dependent chain of products and softmax.
 //
-// What this simple design does about that:
+// Prefill has two routes, picked in Python by dtype
+// (`kernels/paged_attention/kernel.py`, `prefill_route`), each its own entry
+// point; decode has one.
+//
+// Prefill, tensor_core (bfloat16 queries; bfloat16 or int8 pools):
+// `paged_prefill_tc_kernel`, on the tile of csrc/tc_attention.cuh:
+//   * one block of 4 warps per (lane, KV head, query block) holds 64 query
+//     rows, block_q chunk offsets x G heads (row r is offset r / G, head
+//     r % G), as mma.sync A fragments: each page is read once per block and
+//     feeds every row;
+//   * the walk covers only the pages some row attends, 64 keys a step; the
+//     step's page rows are gathered through the block table with 16-byte
+//     cp.async into a two-stage ring, so the next step's gather runs under
+//     the current step's products; keys past the walk's end are zeros;
+//   * int8 codes land as bytes and are widened to bf16 tiles in shared
+//     memory (exactly: c + 2^23 + 128 in a float's low byte, less the
+//     same); their per-key scales are read one step ahead into registers;
+//   * S = Q K^T and O += P V on mma.sync m16n8k16 with float32 sums.
+//
+// Decode, and prefill's cuda_core route (float32 queries or pools):
+// `paged_attention_kernel`, the first design:
 //   * one block per (lane, KV head[, query block]) holds all G query heads
 //     of its KV head, so each page is read from device memory once per
 //     block and feeds every query row of the block;
@@ -34,8 +58,8 @@
 //     output accumulator stay in shared memory and never touch device
 //     memory (online softmax, as the TPU kernel keeps them in VMEM).
 //
-// Numerics follow the TPU kernel cast for cast, because an ulp here can
-// flip a greedy token:
+// Numerics follow the TPU kernel cast for cast on every route, because an
+// ulp here can flip a greedy token:
 //   * masked scores are NEG_INF = -1e30, a finite number: a fully masked
 //     step gives exp(0) = 1 and the next real step wipes it through corr;
 //     the end divides by max(l, 1e-30) (kernel.py:54, :124);
@@ -47,14 +71,20 @@
 //     rounded to the pool dtype (kernel.py:280);
 //   * prefill, int8 pools: q goes through bf16 and p is rounded to bf16
 //     after the V-scale fold (kernel.py:243, :277-278);
-//   * l accumulates p before the V-scale fold and the rounding.
-// The online-softmax steps span several pages where the TPU kernel steps
-// one page at a time: the same function, with the running max taken over
-// more keys at once.
+//   * the scores are (q . k) * sm_scale in float32, times the K scale of
+//     int8 pools; l accumulates p before the V-scale fold and the rounding.
+// On the tensor-core route every operand of a product is already a bf16
+// value (bf16 q, bf16 or int8 K and V, p rounded to bf16), so the bf16
+// products are the TPU kernel's own; only the order of the float32 sums
+// differs.  The online-softmax steps span several pages where the TPU
+// kernel steps one page at a time: the same function, with the running max
+// taken over more keys at once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -340,6 +370,268 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
 #undef IMAGINE_PA_LAUNCH
 }
 
+
+// ------------------------------------------- prefill, route tensor_core
+// Shared memory.  bf16 pools: two stages of [K][V] bf16 tiles ([BKV][D],
+// swizzled), the query rows passing through stage 1's K slot.  int8
+// pools: two stages of [K][V] int8 tiles ([BKV][D] bytes), the bf16 K and
+// V tiles they widen into (the query rows pass through the K one), and the
+// step's K and V scales as float32.
+template <int D, bool QUANT>
+struct PfLayout {
+  static constexpr int TILE = tca::Swz<D>::TILE_BYTES;
+  static constexpr int STAGE = 2 * tca::BKV * D * (QUANT ? 1 : 2);
+  static constexpr int WIDE = 2 * STAGE;
+  static constexpr int SCALES = WIDE + 2 * TILE;
+  static constexpr int BYTES = QUANT ? SCALES + 2 * tca::BKV * 4 : WIDE;
+  static constexpr int Q_SLOT = QUANT ? WIDE : STAGE;
+};
+
+// One int8 [BKV][D] tile widened to a swizzled bf16 tile: each code c as
+// the float 2^23 + (c + 128) (its biased byte under the exponent), less
+// 2^23 + 128, which is exact and exact again in bf16.
+template <int D>
+__device__ __forceinline__ void widen(const uint8_t* raw, uint8_t* wide,
+                                      int tid) {
+  using Sw = tca::Swz<D>;
+  constexpr int PER_ROW = D / 16;   // 16 codes a read
+  constexpr int READS = tca::BKV * PER_ROW / tca::THREADS;
+#pragma unroll
+  for (int it = 0; it < READS; ++it) {
+    const int i = it * tca::THREADS + tid;
+    const int t = i / PER_ROW, c = i % PER_ROW;
+    const uint4 codes = *reinterpret_cast<const uint4*>(raw + t * D + 16 * c);
+    const uint32_t words[4] = {codes.x, codes.y, codes.z, codes.w};
+    uint32_t pairs[8];
+#pragma unroll
+    for (int wd = 0; wd < 4; ++wd) {
+      const uint32_t biased = words[wd] ^ 0x80808080u;
+      float f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[j] = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | j)) -
+               8388736.f;
+      }
+      pairs[2 * wd] = tca::pack(f[0], f[1]);
+      pairs[2 * wd + 1] = tca::pack(f[2], f[3]);
+    }
+    *reinterpret_cast<uint4*>(wide + Sw::off(t, 2 * c)) =
+        make_uint4(pairs[0], pairs[1], pairs[2], pairs[3]);
+    *reinterpret_cast<uint4*>(wide + Sw::off(t, 2 * c + 1)) =
+        make_uint4(pairs[4], pairs[5], pairs[6], pairs[7]);
+  }
+}
+
+// Grid (query blocks, Hkv, B); block_q * G <= 64 rows a block.
+template <int D, bool QUANT>
+__global__ void __launch_bounds__(tca::THREADS, 2) paged_prefill_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const uint8_t* __restrict__ k_pages,
+    const uint8_t* __restrict__ v_pages,
+    const __nv_bfloat16* __restrict__ k_scale,
+    const __nv_bfloat16* __restrict__ v_scale,
+    const int* __restrict__ block_tables, const int* __restrict__ pos0,
+    const int* __restrict__ seq_lens, float* __restrict__ out, int C,
+    int Hkv, int G, int page, int n_blocks, int block_q, int window,
+    float sm_scale) {
+  using L = PfLayout<D, QUANT>;
+  using Sw = tca::Swz<D>;
+  constexpr int BKV_ = tca::BKV, THREADS_ = tca::THREADS;
+  constexpr int ES = QUANT ? 1 : 2;        // bytes a pool element
+  constexpr int RCH = D * ES / 16;         // 16-byte chunks a pool row
+  extern __shared__ __align__(128) uint8_t pf_tc_smem[];
+  uint8_t* sm = pf_tc_smem;
+  const uint32_t base = tc::smem_u32(sm);
+  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // logical positions: row r is chunk offset c = iq*block_q + r/G at
+  // position pos0[b] + c; keys valid below limit
+  const int rows = block_q * G;
+  const int c_lo = iq * block_q;
+  const int c_hi = min(c_lo + block_q, C) - 1;
+  const int pbase = pos0[b];
+  const int limit = min(seq_lens[b], pbase + C);
+  // keys some row may attend: [kv_lo, kv_end), from a page boundary
+  const int kv_end = min(min(pbase + c_hi + 1, limit), n_blocks * page);
+  const int kv_lo =
+      window > 0 ? max(0, pbase + c_lo - window + 1) / page * page : 0;
+  const int n_steps = kv_end > kv_lo ? (kv_end - kv_lo + BKV_ - 1) / BKV_
+                                     : 0;
+  const int* bt = block_tables + (size_t)b * n_blocks;
+
+  // the page rows of keys kv0 .. kv0 + BKV - 1 into stage st; keys past
+  // the walk's end are zeros
+  auto gather = [&](int st, int kv0) {
+    const uint32_t kd = base + st * L::STAGE, vd = kd + L::STAGE / 2;
+    constexpr int COPIES = BKV_ * RCH / THREADS_;
+    static_assert(COPIES * THREADS_ == BKV_ * RCH, "whole rows a step");
+#pragma unroll
+    for (int it = 0; it < COPIES; ++it) {
+      const int i = it * THREADS_ + tid;
+      const int t = i / RCH, c = i % RCH;
+      const int kv = kv0 + t;
+      const bool ok = kv < kv_end;
+      size_t src = 0;
+      if (ok) {
+        src = (((size_t)bt[kv / page] * page + kv % page) * Hkv + h) *
+                  (D * ES) + 16 * c;
+      }
+      const int dst = QUANT ? t * D + 16 * c : Sw::off(t, c);
+      tc::cp_async<16>(kd + dst, k_pages + src, ok);
+      tc::cp_async<16>(vd + dst, v_pages + src, ok);
+    }
+  };
+  // int8 pools: thread tid holds the K (tid < 64) or V scale of key
+  // kv0 + tid % 64, read a step ahead of its use
+  auto scale_of = [&](int kv0) {
+    const int kv = kv0 + tid % BKV_;
+    if (kv >= kv_end) return 0.f;
+    const __nv_bfloat16* sc = tid < BKV_ ? k_scale : v_scale;
+    return __bfloat162float(
+        sc[((size_t)bt[kv / page] * page + kv % page) * Hkv + h]);
+  };
+
+  {
+    constexpr int COPIES = tca::BQ * Sw::CH / THREADS_;
+#pragma unroll
+    for (int it = 0; it < COPIES; ++it) {
+      const int i = it * THREADS_ + tid;
+      const int r = i / Sw::CH, c = i % Sw::CH;
+      const int cq = c_lo + r / G;
+      const bool ok = r < rows && cq < C;
+      const __nv_bfloat16* src =
+          q + (ok ? ((((size_t)b * C + cq) * Hkv + h) * G + r % G) * D +
+                        8 * c
+                  : 0);
+      tc::cp_async<16>(base + L::Q_SLOT + Sw::off(r, c), src, ok);
+    }
+  }
+  tc::cp_async_commit();
+  float scale_cur = 0.f;
+  if (n_steps > 0) {
+    gather(0, kv_lo);
+    if constexpr (QUANT) scale_cur = scale_of(kv_lo);
+  }
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();
+  __syncthreads();
+  tca::Warp<D> w;
+  tca::load_q(w, base + L::Q_SLOT, 16 * warp, lane);
+  __syncthreads();  // every warp holds its rows: the slot may be refilled
+
+  const int r0 = 16 * warp + lane / 4;   // rows r0 and r0 + 8
+  const int qpos[2] = {pbase + c_lo + r0 / G, pbase + c_lo + (r0 + 8) / G};
+  const int t2 = 2 * (lane % 4);
+  float* scales = reinterpret_cast<float*>(sm + L::SCALES);
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    const int kv0 = kv_lo + i * BKV_;
+    float scale_next = 0.f;
+    if (i + 1 < n_steps) {
+      gather(st ^ 1, kv0 + BKV_);
+      if constexpr (QUANT) scale_next = scale_of(kv0 + BKV_);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // step i has landed for this thread ...
+    __syncthreads();         // ... and for all
+    uint32_t kt = base + st * L::STAGE, vt = kt + L::STAGE / 2;
+    if constexpr (QUANT) {
+      widen<D>(sm + st * L::STAGE, sm + L::WIDE, tid);
+      widen<D>(sm + st * L::STAGE + L::STAGE / 2, sm + L::WIDE + L::TILE,
+               tid);
+      scales[tid] = scale_cur;   // [0, 64): K scales, [64, 128): V scales
+      __syncthreads();
+      kt = base + L::WIDE;
+      vt = kt + L::TILE;
+    }
+
+    float s[BKV_ / 8][4];
+    tca::scores(w, kt, lane, s);
+#pragma unroll
+    for (int j = 0; j < BKV_ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + t2 + (e & 1);
+        const int kv = kv0 + col;
+        const int qp = qpos[e >> 1];
+        float sc = s[j][e] * sm_scale;
+        if constexpr (QUANT) sc *= scales[col];
+        bool valid = kv <= qp && kv < limit;
+        if (window > 0) valid = valid && kv > qp - window;
+        s[j][e] = valid ? sc : tca::NEG_INF;
+      }
+    }
+    tca::update<D, QUANT>(w, s, vt, scales + BKV_, lane);
+    __syncthreads();  // every warp is done with this step's tiles
+    scale_cur = scale_next;
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    const int cq = c_lo + r / G;
+    if (r >= rows || cq >= C) continue;
+    float* dst = out + ((((size_t)b * C + cq) * Hkv + h) * G + r % G) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dst + 8 * j + t2) =
+          make_float2(tca::out_value(w, j, 2 * hh),
+                      tca::out_value(w, j, 2 * hh + 1));
+    }
+  }
+}
+
+template <int D, bool QUANT>
+int launch_prefill_tc(const void* q, const void* k_pages, const void* v_pages,
+                      const void* k_scale, const void* v_scale,
+                      const void* block_tables, const void* pos0,
+                      const void* seq_lens, void* out, int B, int C, int Hkv,
+                      int G, int page, int n_blocks, int block_q, int window,
+                      float sm_scale, cudaStream_t stream) {
+  auto kernel = paged_prefill_tc_kernel<D, QUANT>;
+  constexpr int smem = PfLayout<D, QUANT>::BYTES;
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid((C + block_q - 1) / block_q, Hkv, B);
+  kernel<<<grid, tca::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const uint8_t*>(k_pages),
+      static_cast<const uint8_t*>(v_pages),
+      static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale),
+      static_cast<const int*>(block_tables), static_cast<const int*>(pos0),
+      static_cast<const int*>(seq_lens), static_cast<float*>(out), C, Hkv, G,
+      page, n_blocks, block_q, window, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool QUANT>
+int dispatch_prefill_tc(const void* q, const void* k_pages,
+                        const void* v_pages, const void* k_scale,
+                        const void* v_scale, const void* block_tables,
+                        const void* pos0, const void* seq_lens, void* out,
+                        int B, int C, int Hkv, int G, int Dh, int page,
+                        int n_blocks, int block_q, int window,
+                        float sm_scale, cudaStream_t stream) {
+#define IMAGINE_PF_TC(D)                                                    \
+  return launch_prefill_tc<D, QUANT>(q, k_pages, v_pages, k_scale, v_scale, \
+                                     block_tables, pos0, seq_lens, out, B,  \
+                                     C, Hkv, G, page, n_blocks, block_q,    \
+                                     window, sm_scale, stream)
+  switch (Dh) {
+    case 32: IMAGINE_PF_TC(32);
+    case 64: IMAGINE_PF_TC(64);
+    case 128: IMAGINE_PF_TC(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef IMAGINE_PF_TC
+}
+
 }  // namespace
 
 // Decode: q (B, Hkv, G, Dh) at positions cur_pos (B,) -> out (B, Hkv, G, Dh)
@@ -356,10 +648,10 @@ extern "C" int imagine_paged_decode_attention(
                         stream);
 }
 
-// Chunked prefill: q (B, C, Hkv, G, Dh) at positions pos0[b] + [0, C), keys
-// valid below min(seq_lens[b], pos0[b] + C) -> out (B, C, Hkv, G, Dh)
-// float32, block_q chunk offsets per block (block_q * G must not exceed
-// 256).  Returns a cudaError_t.
+// Chunked prefill, route cuda_core: q (B, C, Hkv, G, Dh) at positions
+// pos0[b] + [0, C), keys valid below min(seq_lens[b], pos0[b] + C) -> out
+// (B, C, Hkv, G, Dh) float32, block_q chunk offsets per block (block_q * G
+// must not exceed 256).  Returns a cudaError_t.
 extern "C" int imagine_paged_prefill_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
@@ -371,4 +663,39 @@ extern "C" int imagine_paged_prefill_attention(
                          pos0, seq_lens, out, B, C, Hkv, G, Dh, page, n_blocks,
                          block_q, window, sm_scale, q_dtype, pool_dtype,
                          stream);
+}
+
+// Chunked prefill, route tensor_core: as above with q bfloat16, pools
+// bfloat16 (pool_dtype 1) or int8 with bf16 scales (pool_dtype 2), Dh in
+// {32, 64, 128}, block_q * G at most 64, q and the pools 16-byte aligned.
+// Returns a cudaError_t.
+extern "C" int imagine_paged_prefill_attention_tc(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* pos0, const void* seq_lens, void* out, int B, int C, int Hkv,
+    int G, int Dh, int page, int n_blocks, int block_q, int window,
+    float sm_scale, int pool_dtype, void* stream) {
+  if (B <= 0 || C <= 0 || Hkv <= 0 || G <= 0 || page <= 0 || n_blocks <= 0 ||
+      block_q <= 0 || block_q * G > tca::BQ || seq_lens == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const uintptr_t addrs = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k_pages) |
+                          reinterpret_cast<uintptr_t>(v_pages) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (addrs % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pool_dtype == 1) {
+    return dispatch_prefill_tc<false>(q, k_pages, v_pages, nullptr, nullptr,
+                                      block_tables, pos0, seq_lens, out, B, C,
+                                      Hkv, G, Dh, page, n_blocks, block_q,
+                                      window, sm_scale, s);
+  }
+  if (pool_dtype == 2 && k_scale != nullptr && v_scale != nullptr) {
+    return dispatch_prefill_tc<true>(q, k_pages, v_pages, k_scale, v_scale,
+                                     block_tables, pos0, seq_lens, out, B, C,
+                                     Hkv, G, Dh, page, n_blocks, block_q,
+                                     window, sm_scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

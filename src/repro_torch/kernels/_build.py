@@ -12,9 +12,10 @@ Nothing here runs at import time: a host without ``nvcc`` imports the
 package, and only a launch on a CUDA tensor builds.
 
 ``LAUNCHES`` counts kernel launches by name, and ``ROUTE_LAUNCHES`` by
-``"<kernel>/<route>"`` for the kernels with more than one design (see
-``count``).  Each wrapper adds one where it launches its kernel and
-nowhere else, so a run can show that its path went through the kernels.
+``"<kernel>/<route>"`` for the kernels with more than one design
+(``ROUTES``; see ``count``).  Each wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -44,11 +45,21 @@ LAUNCHES: Dict[str, int] = {
     "int8_matvec": 0,
 }
 
-# the GEMVs' designs, picked by M and the type of x (_gemv.route)
-ROUTES = ("decode", "rows", "tensor_core")
+# the designs of the kernels that have more than one: the GEMVs' picked by
+# M and the type of x (_gemv.route), flash and chunked-prefill attention's
+# by dtype (flash_attention.kernel.route, paged_attention.kernel.
+# prefill_route)
+GEMV_ROUTES = ("decode", "rows", "tensor_core")
+ATTENTION_ROUTES = ("cuda_core", "tensor_core")
+ROUTES: Dict[str, Tuple[str, ...]] = {
+    "bitplane_gemv": GEMV_ROUTES,
+    "int8_matvec": GEMV_ROUTES,
+    "flash_attention": ATTENTION_ROUTES,
+    "paged_prefill_attention": ATTENTION_ROUTES,
+}
 ROUTE_LAUNCHES: Dict[str, int] = {
     f"{kernel}/{route}": 0
-    for kernel in ("bitplane_gemv", "int8_matvec") for route in ROUTES}
+    for kernel, routes in ROUTES.items() for route in routes}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -61,7 +72,8 @@ def reset_launches() -> None:
 
 
 def count(kernel: str, route: Optional[str] = None) -> None:
-    """One launch of ``kernel`` (through ``route``, for the GEMVs)."""
+    """One launch of ``kernel`` (through ``route``, for the kernels of
+    ``ROUTES``)."""
     LAUNCHES[kernel] += 1
     if route is not None:
         ROUTE_LAUNCHES[f"{kernel}/{route}"] += 1

@@ -3,8 +3,12 @@
 
 They take CUDA tensors only: each checks device, dtype, shape and
 contiguity, allocates the float32 output with ``torch.empty``, launches on
-the current stream and raises if the launch reports an error.  Neither
-falls back to the plain version.
+the current stream and raises if the launch reports an error.  Chunked
+prefill has two designs, each its own C entry point, picked by dtype
+(``prefill_route``): ``tensor_core`` (mma.sync tiles) for bfloat16 queries
+over bfloat16 or int8 pools, ``cuda_core`` when the queries or the pools
+are float32.  No route ever gives way to the other or to the plain
+version.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # query rows (block_q chunk offsets x G heads) a prefill block holds
 PREFILL_ROWS = 64
+# head dims of the prefill's tensor-core route
+TC_HEAD_DIMS = (32, 64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -34,11 +40,38 @@ def _decode_entry():
 
 
 @functools.lru_cache(maxsize=None)
-def _prefill_entry():
-    fn = _build.library().imagine_paged_prefill_attention
-    fn.argtypes = [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P]
+def _prefill_entry(path: str):
+    if path == "tensor_core":
+        fn = _build.library().imagine_paged_prefill_attention_tc
+        fn.argtypes = [_P] * 9 + [_I] * 9 + [_F, _I, _P]
+    else:
+        fn = _build.library().imagine_paged_prefill_attention
+        fn.argtypes = [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
+
+
+def prefill_route(q_dtype: torch.dtype, pool_dtype: torch.dtype, dh: int,
+                  group: int) -> str:
+    """The chunked-prefill design for bf16 / float32 queries over pools of
+    ``pool_dtype``: ``cuda_core`` when either is float32; ``tensor_core``
+    for bfloat16 queries over bfloat16 or int8 pools, whose products the
+    TPU kernel already takes on bf16 values.  Raises for what neither
+    takes: other dtypes, and a tensor-core case whose head dim is not in
+    ``TC_HEAD_DIMS`` or whose ``group`` query heads exceed a block's
+    ``PREFILL_ROWS`` rows."""
+    if q_dtype not in _Q_CODES or pool_dtype not in _POOL_CODES:
+        raise ValueError(f"paged_prefill_attention_cuda: q {q_dtype}, "
+                         f"pools {pool_dtype}")
+    if torch.float32 in (q_dtype, pool_dtype):
+        return "cuda_core"
+    if dh not in TC_HEAD_DIMS:
+        raise ValueError(f"paged_prefill_attention_cuda: head dim {dh} not "
+                         f"in {TC_HEAD_DIMS}")
+    if group > PREFILL_ROWS:
+        raise ValueError(f"paged_prefill_attention_cuda: {group} query "
+                         f"heads a KV head exceed {PREFILL_ROWS} rows")
+    return "tensor_core"
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -143,17 +176,26 @@ def paged_prefill_attention_cuda(
         raise ValueError("paged_prefill_attention_cuda: q (B, C, Hkv, G, Dh) "
                          f"{tuple(q.shape)} does not match the pool "
                          f"{tuple(k_pages.shape)}")
+    path = prefill_route(q.dtype, k_pages.dtype, d, g)
+    if path == "tensor_core":
+        for tname, t in (("q", q), ("k_pages", k_pages),
+                         ("v_pages", v_pages)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"paged_prefill_attention_cuda: {tname} "
+                                 "is not 16-byte aligned")
     block_q = max(1, min(c, PREFILL_ROWS // g))
     out = torch.empty((b, c, hkv, g, d), dtype=torch.float32,
                       device=q.device)
-    err = _prefill_entry()(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
-        _ptr(v_scale), block_tables.data_ptr(), pos0.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), b, c, hkv, g, d, page,
-        block_tables.shape[1], block_q, int(window), d ** -0.5,
-        _Q_CODES[q.dtype], _POOL_CODES[k_pages.dtype], _stream(q))
+    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            pos0.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, c, hkv,
+            g, d, page, block_tables.shape[1], block_q, int(window),
+            d ** -0.5]
+    if path == "cuda_core":
+        args.append(_Q_CODES[q.dtype])
+    err = _prefill_entry(path)(*args, _POOL_CODES[k_pages.dtype], _stream(q))
     if err:
-        raise RuntimeError(
-            f"paged_prefill_attention launch failed: cudaError {err}")
-    _build.LAUNCHES["paged_prefill_attention"] += 1
+        raise RuntimeError(f"paged_prefill_attention launch failed ({path}):"
+                           f" cudaError {err}")
+    _build.count("paged_prefill_attention", path)
     return out

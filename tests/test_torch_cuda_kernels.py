@@ -15,11 +15,14 @@ order of float32 sums (rtol 1e-5, atol 1e-5 of the largest output);
 bfloat16 outputs by one bf16 ulp (at most 2^-7 of the value); attention
 over bf16 / int8 pools also rounds p to bf16 after a softmax whose ``exp``
 may differ in its last bit, so two bf16 ulps of values near 1 (2^-6).
-Flash attention keeps p in float32 and takes its online softmax in 64-key
-steps where the plain version takes one softmax over the row: float32
-outputs within 1e-5, bfloat16 outputs within one bf16 ulp of the value
-plus 1e-5 (the sums differ in their last float32 bits before the one
-rounding).  The SSD scan is chunked float32 arithmetic against the plain
+Flash attention keeps p in float32 (on the tensor cores, for bfloat16
+inputs, as bf16 hi + lo) and takes its online softmax in 64-key steps
+where the plain version takes one softmax over the row: float32 outputs
+within 1e-5, bfloat16 outputs within one bf16 ulp of the value plus 1e-5
+(the sums differ in their last float32 bits before the one rounding).
+Flash attention and the chunked prefill pick a design by dtype
+(``tensor_core`` for bfloat16, ``cuda_core`` for float32): their cases
+check that the route's counter moved.  The SSD scan is chunked float32 arithmetic against the plain
 float64 recurrence: within 1e-4 of the largest output (cumulative decays
 summed in float32 over a chunk, exponentials of float32 arguments).
 The int8 bit-parallel GEMV adds K products in float32 in another order than
@@ -52,10 +55,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._gemv import route
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
+from repro_torch.kernels.flash_attention.kernel import (
+    route as flash_route,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.int8_matvec.ops import int8_matvec
 from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.paged_attention.kernel import prefill_route
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention,
     paged_prefill_attention,
@@ -161,11 +168,17 @@ def test_decode_attention_matches_plain(cuda_device, kind, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("window", [0, 37])
-def test_prefill_attention_matches_plain(cuda_device, kind, window):
+@pytest.mark.parametrize("g,start", [(8, 0), (1, 0), (4, 0), (8, 260)])
+def test_prefill_attention_matches_plain(cuda_device, kind, window, g,
+                                         start):
     """Mid-page ``pos0``, a ragged last lane and an idle lane
-    (``seq_lens == pos0``, whose rows attend no key and are discarded)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    b, hkv, g, dh, page, nblk, c = 4, 2, 8, 128, 16, 12, 32
+    (``seq_lens == pos0``, whose rows attend no key and are discarded);
+    G of 8, 1 and 4 query heads a KV head; contexts past 256 tokens (several
+    steps of the page walk) when ``start`` moves every ``pos0`` on."""
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        1 + start + 10 * (8 - g))
+    b, hkv, dh, page, c = 4, 2, 128, 16, 32
+    nblk = 12 + -(-start // page)
     kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, dh,
                             cuda_device)
     bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
@@ -173,15 +186,20 @@ def test_prefill_attention_matches_plain(cuda_device, kind, window):
     qdt = torch.float32 if kind == "float32" else torch.bfloat16
     q = torch.randn((b, c, hkv * g, dh), generator=gen,
                     device=cuda_device).to(qdt)
-    pos0 = torch.tensor([0, 19, 100, 40], dtype=torch.int32,
-                        device=cuda_device)
+    pos0 = start + torch.tensor([0, 19, 100, 40], dtype=torch.int32,
+                                device=cuda_device)
     seq = pos0 + c
     seq[2] -= 7
     seq[3] = pos0[3]
+    path = ("paged_prefill_attention/"
+            f"{prefill_route(qdt, kp.dtype, dh, g)}")
     before = _build.LAUNCHES["paged_prefill_attention"]
+    before_route = _build.ROUTE_LAUNCHES[path]
     y = paged_prefill_attention(q, kp, vp, bt, pos0, seq, window, ks, vs)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["paged_prefill_attention"] == before + 1
+    assert _build.ROUTE_LAUNCHES[path] == before_route + 1
+    assert path.endswith("cuda_core" if kind == "float32" else "tensor_core")
     r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, window, ks, vs)
     torch.testing.assert_close(y[:3].float(), r[:3].float(),
                                **_attn_tol(kind))
@@ -202,10 +220,14 @@ def test_flash_attention_matches_plain(cuda_device, s, hq, hkv, d, window,
     q = torch.randn((2, s, hq, d), generator=gen, device=cuda_device).to(dt)
     k = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
     v = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
+    path = f"flash_attention/{flash_route(dt, d)}"
     before = _build.LAUNCHES["flash_attention"]
+    before_route = _build.ROUTE_LAUNCHES[path]
     y = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert _build.ROUTE_LAUNCHES[path] == before_route + 1
+    assert path.endswith("cuda_core" if xdt == "float32" else "tensor_core")
     r = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), window=window).transpose(1, 2)
     assert y.shape == q.shape and y.dtype == dt

@@ -15,6 +15,16 @@ The same numpy-seeded float32 inputs go through
 Tolerance: rtol = atol = 1e-5, the one ``tests/test_flash_kernel.py``
 holds the Pallas kernel to against dense attention (float32 sums in
 another order; online vs one-shot softmax).
+
+The CUDA kernel's two routes (``kernel.route``: ``tensor_core`` for
+bfloat16, ``cuda_core`` for float32) run only on the card
+(``tests/test_torch_cuda_kernels.py``).  Here the tensor-core route's
+arithmetic is modelled in plain torch (``_tc_model``: 64-row query tiles,
+64-key online-softmax steps, bf16 products summed in float32, p split into
+bf16 hi + lo) and held against JAX ``flash_attention_ref`` on bf16 inputs
+at ``chip_smoke.py``'s bf16 tolerance (``flash_tol``: rtol 2^-7, one bf16
+ulp of the value, atol 1e-5); a model that rounds p to bf16 once misses
+that tolerance, which is why the kernel splits p.
 """
 
 import jax.numpy as jnp
@@ -26,11 +36,14 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro.models.attention import attend_flash as jax_attend_flash
 
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.attention import attend_flash
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)   # chip_smoke.py's flash_tol
+TILE = 64   # query rows a block and keys a step of the CUDA kernel
 
 
 def _qkv(b, s, hq, hkv, d, seed=0):
@@ -107,3 +120,102 @@ def test_attend_flash_kernel_route_refuses_given_positions():
     pos = torch.arange(16, dtype=torch.int32)[None] + 3
     with pytest.raises(NotImplementedError, match="positions"):
         attend_flash(q, k, v, pos, 0, attn_backend="cuda")
+
+
+# ------------------------------------------------ the tensor-core route
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
+                                        (torch.float32, "cuda_core")])
+def test_route_by_dtype(dtype, want, d):
+    assert route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96),
+                                     (torch.float32, 256),
+                                     (torch.float16, 128)])
+def test_route_refuses_what_no_design_takes(dtype, d):
+    with pytest.raises(ValueError):
+        route(dtype, d)
+
+
+def _tc_model(q, k, v, window, split):
+    """The tensor-core route's arithmetic in plain torch; q ``(B, Hq, S,
+    D)``, k/v ``(B, Hkv, S, D)``, bf16 in and out.  Per 64-row query tile,
+    an online softmax over the 64-key tiles some row attends: bf16 products
+    summed in float32, scores times D^-0.5, masked scores -1e30, l summing
+    the float32 p, and p into p . v as bf16 hi + lo (``split``) or rounded
+    to bf16 once."""
+    b, hq, s, d = q.shape
+    g = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    pos = torch.arange(s)
+    neg = torch.tensor(-1e30)
+    out = torch.empty_like(qf)
+    for q0 in range(0, s, TILE):
+        rows = pos[q0:q0 + TILE]
+        m = torch.full((b, hq, len(rows)), -1e30)
+        l = torch.zeros((b, hq, len(rows)))
+        o = torch.zeros((b, hq, len(rows), d))
+        kt_lo = max(0, q0 - window + 1) // TILE if window > 0 else 0
+        for k0 in range(kt_lo * TILE, int(rows[-1]) + 1, TILE):
+            cols = pos[k0:k0 + TILE]
+            sc = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) \
+                * d ** -0.5
+            mask = cols[None, :] <= rows[:, None]
+            if window > 0:
+                mask = mask & (cols[None, :] > rows[:, None] - window)
+            sc = torch.where(mask, sc, neg)
+            m_new = torch.maximum(m, sc.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            m = m_new
+            hi = p.bfloat16().float()
+            o = o * corr[..., None] + hi @ vf[:, :, cols]
+            if split:
+                o = o + (p - hi).bfloat16().float() @ vf[:, :, cols]
+        out[:, :, rows] = o / torch.clamp_min(l, 1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def _bf16_case(b, s, hq, hkv, d, seed):
+    """bf16 q, k, v ``(B, H, S, D)`` for the port and the same values for
+    JAX."""
+    q, k, v = (torch.from_numpy(_bhsd(a)).bfloat16()
+               for a in _qkv(b, s, hq, hkv, d, seed=seed))
+    jx = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)]
+    return (q, k, v), jx
+
+
+def _share_of_tol(got, want):
+    """The largest |got - want| / (atol + rtol |want|) at BF16_TOL."""
+    got, want = got.float().numpy(), np.asarray(want).astype(np.float32)
+    bound = BF16_TOL["atol"] + BF16_TOL["rtol"] * np.abs(want)
+    return float((np.abs(got - want) / bound).max())
+
+
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("hq,hkv", [(4, 2), (2, 2)])
+def test_tensor_core_model_matches_jax_ref(hq, hkv, d, window):
+    """S = 200 (ragged against the 64-row tiles), GQA groups 2 and 1."""
+    (q, k, v), jx = _bf16_case(1, 200, hq, hkv, d, seed=d + window + hq)
+    got = _tc_model(q, k, v, window, split=True)
+    want = jax_ref(*jx, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               **BF16_TOL)
+
+
+def test_bf16_p_misses_the_tolerance_the_split_meets():
+    """Why the kernel splits p: rounded to bf16 once, p . v misses the
+    one-ulp bf16 tolerance many times over on the same inputs that the
+    hi + lo split holds."""
+    (q, k, v), jx = _bf16_case(1, 256, 4, 2, 64, seed=1)
+    want = jax_ref(*jx, window=0)
+    assert _share_of_tol(_tc_model(q, k, v, 0, split=True), want) <= 1.0
+    assert _share_of_tol(_tc_model(q, k, v, 0, split=False), want) > 10.0

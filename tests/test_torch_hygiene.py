@@ -202,16 +202,22 @@ def test_launch_counts_by_kernel_and_route(monkeypatch):
     monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
     monkeypatch.setattr(_build, "ROUTE_LAUNCHES", dict(_build.ROUTE_LAUNCHES))
     _build.reset_launches()
-    _build.count("bitplane_gemv", "tensor_core")
-    _build.count("int8_matvec", "decode")
-    _build.count("flash_attention")
-    assert _build.LAUNCHES["bitplane_gemv"] == 1
-    assert _build.LAUNCHES["int8_matvec"] == 1
-    assert _build.LAUNCHES["flash_attention"] == 1
+    counted = (("bitplane_gemv", "tensor_core"), ("int8_matvec", "decode"),
+               ("flash_attention", "tensor_core"),
+               ("paged_prefill_attention", "cuda_core"))
+    for kernel, route in counted:
+        _build.count(kernel, route)
+    _build.count("ssd_scan")
+    for kernel in ("bitplane_gemv", "int8_matvec", "flash_attention",
+                   "paged_prefill_attention", "ssd_scan"):
+        assert _build.LAUNCHES[kernel] == 1
     assert _build.ROUTE_LAUNCHES == {
-        f"{k}/{r}": int((k, r) in (("bitplane_gemv", "tensor_core"),
-                                   ("int8_matvec", "decode")))
-        for k in ("bitplane_gemv", "int8_matvec") for r in _build.ROUTES}
+        f"{k}/{r}": int((k, r) in counted)
+        for k, routes in _build.ROUTES.items() for r in routes}
+    assert set(_build.ROUTES["flash_attention"]) == {"cuda_core",
+                                                     "tensor_core"}
+    assert (_build.ROUTES["paged_prefill_attention"]
+            == _build.ROUTES["flash_attention"])
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
     assert not any(_build.ROUTE_LAUNCHES.values())

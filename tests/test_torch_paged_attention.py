@@ -18,7 +18,13 @@ Tolerances:
 * bfloat16 pools: one bf16 ulp of the output.
 
 The CUDA kernels have no CPU mode: their cases against the plain versions
-are in ``tests/test_torch_cuda_kernels.py``.
+are in ``tests/test_torch_cuda_kernels.py``.  The chunked prefill's
+tensor-core route (``kernel.prefill_route``: bf16 queries over bf16 or int8
+pools) is modelled here in plain torch (``_tc_prefill_model``: its blocks
+of 64 query rows, 64-key steps of the page walk, the TPU kernel's bf16
+casts on exact bf16 values, float32 sums) and held against JAX's gather
+oracle and its Pallas kernel in interpret mode at ``chip_smoke.py``'s
+tolerance for bf16 / int8 pools (``attn_tol``: rtol = atol = 2^-7).
 """
 
 import itertools
@@ -40,6 +46,7 @@ from repro.models.attention import (
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
+from repro_torch.kernels.paged_attention.ref import gather_pages
 from repro_torch.kernels.paged_attention.ops import (
     paged_attention,
     paged_prefill_attention,
@@ -53,6 +60,7 @@ torch.set_num_threads(1)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 INT8_TOL = dict(rtol=2e-3, atol=2e-3)
+TC_TOL = dict(rtol=2 ** -7, atol=2 ** -7)   # chip_smoke.py's attn_tol
 
 
 def _t(a):
@@ -237,3 +245,128 @@ def test_cuda_launchers_refuse_cpu_tensors():
             _t(q).reshape(b, 1, 2, hq // 2, dh), _t(kp), _t(vp), _t(bt),
             _t(pos), _t(pos + 1))
     assert _build.LAUNCHES == before
+
+
+# ------------------------------------- the prefill's tensor-core route
+@pytest.mark.parametrize("q_dtype,pool_dtype,want", [
+    (torch.bfloat16, torch.bfloat16, "tensor_core"),
+    (torch.bfloat16, torch.int8, "tensor_core"),
+    (torch.float32, torch.bfloat16, "cuda_core"),
+    (torch.float32, torch.int8, "cuda_core"),
+    (torch.bfloat16, torch.float32, "cuda_core"),
+    (torch.float32, torch.float32, "cuda_core")])
+@pytest.mark.parametrize("dh", pa_kernel.TC_HEAD_DIMS)
+def test_prefill_route_by_dtype(q_dtype, pool_dtype, want, dh):
+    assert pa_kernel.prefill_route(q_dtype, pool_dtype, dh, 8) == want
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype,dh,group", [
+    (torch.bfloat16, torch.bfloat16, 96, 8),     # head dim
+    (torch.bfloat16, torch.int8, 128, 65),       # rows a block
+    (torch.float16, torch.bfloat16, 128, 8),     # dtypes
+    (torch.bfloat16, torch.float16, 128, 8)])
+def test_prefill_route_refuses_what_no_design_takes(q_dtype, pool_dtype, dh,
+                                                    group):
+    with pytest.raises(ValueError):
+        pa_kernel.prefill_route(q_dtype, pool_dtype, dh, group)
+
+
+def _tc_prefill_model(q, kp, vp, bt, pos0, seq, window, ks=None, vs=None):
+    """The tensor-core route's arithmetic in plain torch; q ``(B, C, Hq,
+    Dh)`` bf16, pools bf16 or int8 (with bf16 scales) -> ``(B, C, Hq, Dh)``
+    bf16.  Per (lane, KV head, block of min(C, 64 // G) chunk offsets x G
+    heads): 64-key steps over the keys some row of the block attends, from
+    a page boundary; scores of exact bf16 products summed in float32, times
+    D^-0.5, times the K scale; l sums the float32 p; p times the V scale,
+    rounded to bf16, into p . v."""
+    b, c, hq, dh = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    g = hq // hkv
+    block_q = max(1, min(c, 64 // g))
+    qf = q.float().reshape(b, c, hkv, g, dh)
+    kg, vg = gather_pages(kp, bt).float(), gather_pages(vp, bt).float()
+    quant = ks is not None
+    if quant:
+        ksg = gather_pages(ks, bt).float()
+        vsg = gather_pages(vs, bt).float()
+    neg = torch.tensor(-1e30)
+    out = torch.zeros((b, c, hkv, g, dh))
+    for lane in range(b):
+        base, lim = int(pos0[lane]), min(int(seq[lane]), int(pos0[lane]) + c)
+        for h in range(hkv):
+            for c_lo in range(0, c, block_q):
+                c_hi = min(c_lo + block_q, c) - 1
+                rows = qf[lane, c_lo:c_hi + 1, h].reshape(-1, dh)
+                qpos = base + c_lo + torch.arange(rows.shape[0]) // g
+                kv_end = min(base + c_hi + 1, lim, kg.shape[1])
+                kv_lo = (max(0, base + c_lo - window + 1) // page * page
+                         if window > 0 else 0)
+                m = torch.full((rows.shape[0],), -1e30)
+                l = torch.zeros(rows.shape[0])
+                o = torch.zeros((rows.shape[0], dh))
+                for kv0 in range(kv_lo, kv_end, 64):
+                    cols = torch.arange(kv0, min(kv0 + 64, kv_end))
+                    sc = (rows @ kg[lane, cols, h].T) * dh ** -0.5
+                    if quant:
+                        sc = sc * ksg[lane, cols, h]
+                    mask = (cols[None] <= qpos[:, None]) & (cols[None] < lim)
+                    if window > 0:
+                        mask = mask & (cols[None] > qpos[:, None] - window)
+                    sc = torch.where(mask, sc, neg)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    l = l * corr + p.sum(-1)
+                    m = m_new
+                    if quant:
+                        p = p * vsg[lane, cols, h]
+                    p = p.bfloat16().float()
+                    o = o * corr[:, None] + p @ vg[lane, cols, h]
+                out[lane, c_lo:c_hi + 1, h] = (
+                    o / torch.clamp_min(l, 1e-30)[:, None]).reshape(-1, g,
+                                                                    dh)
+    return out.reshape(b, c, hq, dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("window", [0, 21])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("pools", ["bfloat16", "int8"])
+def test_tensor_core_prefill_model_matches_jax(pools, group, window):
+    """Contexts of up to 159 tokens (three 64-key steps), mid-page pos0, a
+    ragged last lane; G = 1 (a block of 16 rows) and 4 (64 rows)."""
+    case = _prefill_case(41 + group + window, batch=3, nblk=10, page=16,
+                         hkv=2, group=group, dh=32, chunk=16,
+                         kv_bits=8 if pools == "int8" else 0)
+    q = torch.from_numpy(np.array(case["q"])).bfloat16()
+    if pools == "int8":
+        kp, vp = _t(case["k_pages"]), _t(case["v_pages"])
+        ks, vs = _t(case["k_scale"]), _t(case["v_scale"])
+    else:
+        kp, vp = (torch.from_numpy(case[n]).bfloat16()
+                  for n in ("k_pages", "v_pages"))
+        ks = vs = None
+    bt, pos0, seq = (_t(case[n]) for n in ("block_tables", "pos0",
+                                           "seq_lens"))
+    assert pa_kernel.prefill_route(q.dtype, kp.dtype, 32,
+                                   group) == "tensor_core"
+    got = _tc_prefill_model(q, kp, vp, bt, pos0, seq, window, ks, vs)
+    assert got.dtype == torch.bfloat16
+
+    def jx(t):
+        if t is None:
+            return None
+        if t.dtype == torch.bfloat16:
+            return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+        return jnp.asarray(t.numpy())
+
+    jargs = [jx(t) for t in (q, kp, vp, bt)]
+    jpos0, jseq = jx(pos0), jx(seq)
+    positions = jpos0[:, None] + jnp.arange(q.shape[1], dtype=jnp.int32)
+    wants = [jax_prefill_ref(*jargs, jpos0, jseq, window, jx(ks), jx(vs)),
+             jax_attend_prefill(*jargs, positions, jpos0, jseq, window,
+                                k_scale=jx(ks), v_scale=jx(vs),
+                                attn_backend="pallas_interpret")]
+    for want in wants:
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want).astype(np.float32),
+                                   **TC_TOL)
