@@ -13,22 +13,29 @@ exits non-zero:
 2. ``build``    nvcc of every kernel source, in parallel; build seconds.
 3. ``parity``   each kernel against its plain PyTorch version on card
                 tensors at its path's shapes, with the tolerance; the two
-                GEMVs through each of their routes (``decode`` M <= 8,
-                ``rows`` float32 x, ``tensor_core`` bfloat16 x at larger M),
-                the last at ragged prefill M (100, 8192), K and N (300,
-                1983, 3352); flash attention and the chunked prefill through
-                both of theirs (``tensor_core`` bfloat16, ``cuda_core``
-                float32);
+                GEMVs through each of their routes (``decode`` M <= 8, at
+                M 1 / 2 / 4 / 8, run twice for the same bits; ``rows``
+                float32 x, ``tensor_core`` bfloat16 x at larger M), the
+                last at ragged prefill M (100, 8192), K and N (300, 1983,
+                3352); paged decode attention's splits over a 4096-key
+                table (G 1-12, Dh 64-128, pages 16 / 32, run twice); flash
+                attention (D up to 128, padded outside 32 / 64 / 128) and
+                the chunked prefill through both of their routes
+                (``tensor_core`` bfloat16, ``cuda_core`` float32);
    ``time``     kernel, plain-version and PyTorch-library times at those
                 shapes, with the bytes and operations each call needs and
                 the least time the card could take for them, and the GEMV
-                route each row took; with the bit-plane GEMV at 8 (radix
-                1, 2), 4 and 2 bits beside the int8 bit-parallel baseline,
-                the card's version of the paper's bit-serial against
-                bit-parallel comparison.
+                route each row took (decode rows at M = 8, 2 and 4: the
+                paged, ``long`` and ``ssm`` decode steps); with the
+                bit-plane GEMV at 8 (radix 1, 2), 4 and 2 bits beside the
+                int8 bit-parallel baseline, the card's version of the
+                paper's bit-serial against bit-parallel comparison.
 4. ``main``     paged serving: ``ServeEngine`` on full-width qwen2.5-3b (36
                 layers, bf16, ``EngineConfig(weight_bits=4, kv_bits=8)``):
-                16 seeded prompts of 33-300 tokens, 32 new tokens each.
+                16 seeded prompts of 33-300 tokens, 32 new tokens each;
+                then ``main_profile``: ``torch.profiler`` over four
+                decode-only steps of 8 more prompts, the device kernel ms
+                per step by kernel and the device busy share.
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
@@ -267,8 +274,12 @@ def gemv_parity(torch, dev):
         for radix in (1, 2, 4, 8):
             if bits % radix:
                 continue
-            for (k, n) in GEMV_SHAPES:
-                for m in (1, 8, 256):
+            # the decode steps' M (8 paged, 2 and 4 full-sequence, 1 the
+            # engine) at the main shapes and K, N ragged; and M = 256
+            ragged = (INT8_RAGGED[0] + -INT8_RAGGED[0] % (8 // bits),
+                      INT8_RAGGED[1])
+            for (k, n) in GEMV_SHAPES + [ragged]:
+                for m in (1, 2, 4, 8, 256):
                     for dt in (torch.float32, torch.bfloat16):
                         packed, scale, x = gemv_case(torch, dev, gen, bits,
                                                      k, n, m, dt)
@@ -280,6 +291,12 @@ def gemv_parity(torch, dev):
                         err, used = check_close(
                             "bitplane_gemv", y, r, rtol, atol, bits=bits,
                             radix=radix, m=m, k=k, n=n, dtype=str(dt))
+                        if m <= 8 and not torch.equal(y, bitplane_gemv(
+                                packed, scale, x, bits=bits, radix=radix,
+                                out_dtype=dt)):
+                            raise AssertionError(
+                                f"bitplane_gemv decode M={m} K={k} N={n}: "
+                                "two runs differ")
                         worst = max(worst, err)
                         worst_used = max(worst_used, used)
                         n_cases += 1
@@ -307,9 +324,11 @@ def gemv_parity(torch, dev):
     if not all(routes.values()):
         raise AssertionError(f"bitplane_gemv parity missed a route: {routes}")
     emit("parity", kernel="bitplane_gemv", cases=n_cases,
-         sweep="bits{2,4,8} x radix{1,2,4,8} x (M{1,8,256} x 4 shapes x "
-               "{float32,bfloat16} + M{100,8192} x (K,N){(520,300),"
-               "(200,1983),(768,3352)} x bfloat16, float32 at M=100)",
+         sweep="bits{2,4,8} x radix{1,2,4,8} x (M{1,2,4,8,256} x (4 "
+               "shapes + K 2001-2004 x N 1003) x {float32,bfloat16} + "
+               "M{100,8192} x (K,N){(520,300),(200,1983),(768,3352)} x "
+               "bfloat16, float32 at M=100); decode M run twice, the same "
+               "bits",
          tolerance="float32: rtol 1e-5, atol 1e-5*max|ref|; bfloat16 "
                    "output: rtol 2^-7 (one ulp), atol 1e-5*max|ref|",
          max_abs_err=worst, max_share_of_tol=worst_used, routes=routes)
@@ -474,6 +493,62 @@ def attn_parity(torch, dev):
                        "rtol=atol=2^-7", max_abs_err=err,
              max_share_of_tol=used,
              **({"routes": routes} if name == "prefill" else {}))
+
+
+def decode_split_parity(torch, dev):
+    """Paged decode attention's splits: a 4096-key table (64 splits of 64),
+    lanes at position 0 (one split attended), mid-context and the last
+    slot, windows 0 and 37; G 1 / 5 / 8 / 12 (one and two passes of 8
+    heads), Dh 64 / 112 / 128, page 16 and 32, three pool types; every call
+    twice, the same bits."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    _build.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, hkv, keys = 4, 2, 4096
+    worst, worst_used, n_cases = 0.0, 0.0, 0
+    for kind in ("float32", "bfloat16", "int8"):
+        qdt = torch.float32 if kind == "float32" else torch.bfloat16
+        rtol, atol = attn_tol(kind)
+        for page in (16, 32):
+            nblk = keys // page
+            for dh in (64, 112, 128):
+                kp, vp, ks, vs = attn_pools(torch, dev, gen, kind,
+                                            b * nblk + 1, page, hkv, dh)
+                bt = (1 + torch.randperm(b * nblk, generator=gen,
+                                         device=dev)).reshape(b, nblk).int()
+                cur = torch.tensor([0, 1000, 2222, keys - 1],
+                                   dtype=torch.int32, device=dev)
+                for g in (1, 5, 8, 12):
+                    q = torch.randn((b, 1, hkv * g, dh), generator=gen,
+                                    device=dev).to(qdt)
+                    for window in (0, 37):
+                        y = paged_attention(q, kp, vp, bt, cur, window, ks,
+                                            vs)
+                        if not torch.equal(y, paged_attention(
+                                q, kp, vp, bt, cur, window, ks, vs)):
+                            raise AssertionError(
+                                f"paged_decode_attention {kind} G={g} "
+                                f"Dh={dh}: two runs differ")
+                        r = paged_attention_ref(q, kp, vp, bt, cur, window,
+                                                ks, vs)
+                        err, used = check_close(
+                            "paged_decode_attention", y, r, rtol, atol,
+                            kind=kind, page=page, dh=dh, g=g, window=window)
+                        worst, worst_used = (max(worst, err),
+                                             max(worst_used, used))
+                        n_cases += 1
+    torch.cuda.synchronize()
+    emit("parity", kernel="paged_decode_attention", cases=n_cases,
+         sweep="pools {float32,bfloat16,int8} x page {16,32} x Dh "
+               "{64,112,128} x G {1,5,8,12} x window {0,37}; 4096-key "
+               "table, lanes at 0, 1000, 2222, 4095; every call twice",
+         tolerance="float32: rtol=atol=1e-5; bf16 / int8 pools: "
+                   "rtol=atol=2^-7", max_abs_err=worst,
+         max_share_of_tol=worst_used,
+         launches=_build.LAUNCHES["paged_decode_attention"])
 
 
 def _gathered(torch, kp, vp, ks, vs, bt):
@@ -906,6 +981,104 @@ def serve(torch, name, eng, prompts, max_new):
     return rec
 
 
+def kernel_label(name: str) -> str:
+    """A profiler kernel name without its namespace, return type and
+    arguments: ``dec::decode_mma_kernel<4, 16>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("(")[0]
+
+
+# the decode step's kernels of this port, by the labels' prefixes
+DECODE_KERNELS = {"bitplane_gemv": ("dec::decode_",),
+                  "paged_decode_attention": ("paged_decode_",)}
+
+
+def profile_decode_steps(torch, eng, prompts, n_steps=4):
+    """Device kernel time of ``n_steps`` paged decode steps, by kernel.
+
+    Submits ``prompts`` to the engine and drives ``ServeEngine.step``, each
+    step under its own ``torch.profiler`` window; keeps the first
+    ``n_steps`` steps that ran a decode step and no prefill chunk, then
+    runs the engine dry.  Reports per kept step the device milliseconds of
+    every kernel (and copy) by name, their sum, and the device busy share:
+    the union of their intervals over the step's host wall time (from its
+    start to a synchronize after it).  If the profiler records no device
+    activity, the step's device time comes from CUDA events around it
+    instead (``source``), and no kernel breakdown is given.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p)
+    kept, by_name, launches, events_ms = [], {}, {}, []
+    while eng.has_work():
+        if len(kept) >= n_steps:
+            eng.step()
+            continue
+        ran = {part: len(eng.timings[part]) for part in ("prefill", "decode")}
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            eng.step()
+            end.record()
+            torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        if (len(eng.timings["prefill"]) > ran["prefill"]
+                or len(eng.timings["decode"]) == ran["decode"]):
+            continue
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+        busy, edge = 0.0, -math.inf
+        for lo, hi in spans:
+            if hi > edge:
+                busy += hi - max(lo, edge)
+                edge = hi
+        for e in kernels:
+            label = kernel_label(e.name)
+            by_name[label] = by_name.get(label, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+            launches[label] = launches.get(label, 0) + 1
+        kept.append(dict(wall_ms=wall_ms, kernels=len(kernels),
+                         device_kernel_ms=sum(hi - lo for lo, hi in spans)
+                         / 1e3, busy_ms=busy / 1e3))
+        events_ms.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    n = len(kept)
+    if n == 0:
+        raise AssertionError("main profile: no decode-only step ran")
+    have_trace = all(k["kernels"] > 0 for k in kept)
+    rec = dict(steps=n, source="torch.profiler" if have_trace
+               else "cuda_events", step_wall_ms=[k["wall_ms"] for k in kept],
+               device_ms_by_cuda_events=events_ms)
+    if have_trace:
+        per = {name: ms / n for name, ms in by_name.items()}
+        ours = {kernel: sum(ms for name, ms in per.items()
+                            if name.startswith(prefixes))
+                for kernel, prefixes in DECODE_KERNELS.items()}
+        rec.update(
+            device_kernel_ms_per_step=sum(k["device_kernel_ms"]
+                                          for k in kept) / n,
+            kernels_per_step=sum(k["kernels"] for k in kept) / n,
+            device_busy_share=sum(k["busy_ms"] for k in kept)
+            / sum(k["wall_ms"] for k in kept),
+            port_kernels_ms_per_step=ours,
+            by_kernel=[dict(name=name, ms_per_step=ms,
+                            launches_per_step=launches[name] / n)
+                       for name, ms in sorted(per.items(),
+                                              key=lambda kv: -kv[1])[:20]])
+    emit("main_profile", **rec)
+    return rec
+
+
 def whole_path_check(torch, dev):
     """Kernel engine vs plain-backend engine at 2 layers, full width.
 
@@ -1011,7 +1184,13 @@ FLASH_CASES = [("bfloat16", 4096, 0, {}), ("bfloat16", 4100, 0, {}),
                ("bfloat16", 2048, 0, dict(hq=8, hkv=8, d=64)),
                ("bfloat16", 1000, 0, dict(hq=16, hkv=2, d=32)),
                ("bfloat16", 777, 1, dict(hq=4, hkv=4, d=128)),
-               ("float32", 4096, 0, {})]
+               ("float32", 4096, 0, {}),
+               # head dims the tiles take zero-padded: zamba2-7b's 112 and
+               # the reduced configs' 16
+               ("bfloat16", 4096, 0, dict(d=112)),
+               ("bfloat16", 1000, 64, dict(hq=8, hkv=2, d=16)),
+               ("float32", 2048, 0, dict(d=112)),
+               ("float32", 1000, 0, dict(hq=8, hkv=2, d=16))]
 
 
 def flash_parity(torch, dev):
@@ -1424,6 +1603,7 @@ def main() -> int:
     with Phase("parity"):
         gemv_parity(torch, dev)
         attn_parity(torch, dev)
+        decode_split_parity(torch, dev)
         flash_parity(torch, dev)
         ssd_parity(torch, dev)
         int8_parity(torch, dev)
@@ -1434,6 +1614,11 @@ def main() -> int:
         attn_rows = {(kind, mode): attn_time(torch, dev, kind, mode)
                      for kind in ("int8", "bfloat16")
                      for mode in ("decode", "prefill")}
+        # the full-sequence decode steps' GEMVs: M = 2 (long), 4 (ssm)
+        gemv_rows += [gemv_time(torch, dev, 2, k, n) for (k, n) in
+                      GEMV_SHAPES]
+        gemv_rows += [gemv_time(torch, dev, 4, k, n) for (k, n) in
+                      SSM_GEMV_SHAPES]
         # the one-shot prefills' GEMVs: M = 2 x 4096 (long), 4 x 4096 (ssm)
         gemv_rows += [gemv_time(torch, dev, 8192, k, n)
                       for (k, n) in GEMV_SHAPES]
@@ -1454,6 +1639,8 @@ def main() -> int:
         eng, _ = build_engine(torch, dev, cfg, 4, 8)
         main_rec = serve(torch, "main", eng,
                          prompts_for(cfg, 16, 33, 300, SEED), 32)
+        profile_rec = profile_decode_steps(
+            torch, eng, prompts_for(cfg, 8, 33, 300, SEED + 20))
         del eng
         torch.cuda.empty_cache()
 
@@ -1555,7 +1742,12 @@ def main() -> int:
             bound_by=rep["bound_by"], library_ms=rep["library_ms"],
             shape=shapes[name],
             **({"routes": path_routes[name]} if name in path_routes else {}),
-            **({"timed_route": rep["route"]} if "route" in rep else {}),
+            **({"timed_route": rep.get("route", rep.get("gemv_route"))}
+               if "route" in rep or "gemv_route" in rep else {}),
+            **({"ms_per_main_decode_step":
+                profile_rec["port_kernels_ms_per_step"][name]}
+               if name in profile_rec.get("port_kernels_ms_per_step", {})
+               else {}),
             **({"prefill": prefill[name]} if name in prefill else {})))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -14,16 +14,54 @@
 //
 // What bounds it on an H100: decode reads every valid K/V page once per
 // (lane, KV head) and does 4*G*Dh operations per cached token, so it is
-// bound by device-memory bytes.  Prefill reuses each page for block_q*G
-// query rows; at the serving path's shapes (8 lanes, a 32-token chunk,
-// contexts of a few hundred tokens) its bytes and operations take about a
-// microsecond on the card, so what bounds it is latency: the few steps of
-// each block's walk over the pages, each a gather from device memory and
-// a dependent chain of products and softmax.
+// bound by device-memory bytes; at the serving path's shapes (8 lanes, 2
+// KV heads, contexts of a few hundred tokens) those bytes take well under a
+// microsecond, so what a design has to beat is latency: the length of the
+// longest chain of dependent loads and products.  Prefill reuses each page
+// for block_q*G query rows; at the serving path's shapes (a 32-token chunk)
+// its bytes and operations take about a microsecond too, so what bounds it
+// is also latency: the few steps of each block's walk over the pages, each
+// a gather from device memory and a dependent chain of products and
+// softmax.
 //
 // Prefill has two routes, picked in Python by dtype
 // (`kernels/paged_attention/kernel.py`, `prefill_route`), each its own entry
 // point; decode has one.
+//
+// Decode (every pool and query dtype): `paged_decode_split_kernel` and
+// `paged_decode_combine_kernel`, split-KV (flash-decoding):
+//   * the lane's keys are cut into splits of split_tokens (64 for Dh <=
+//     128) and one block of 8 warps takes one (split, KV head, lane), so
+//     the card sees B * Hkv * splits blocks instead of B * Hkv walks (a
+//     first design, one block per (lane, KV head) walking the whole
+//     context 128 tokens a step, ran 16 blocks at the serving path's shape
+//     and took 90 us, PERF.md).  The split count comes from the block
+//     table's width, not from the positions, so the grid is fixed by the
+//     shapes, nothing is read back to the host and the launch can be
+//     captured in a CUDA graph; a split that holds no attended key (past
+//     cur_pos, or before the window) returns at once;
+//   * what a block does is one chain of latencies, so the design keeps it
+//     short: the split's attended page rows go to shared memory as they
+//     are (int8, bf16 or float32) by 16-byte cp.async through the block
+//     table, all in flight at once, while the int8 scales and the queries
+//     load under them; split_tokens is a compile-time constant, so every
+//     loop over the split's keys unrolls.  (A version that staged float32
+//     rows with four ld.global.nc a thread and ran 4 warps with rolled
+//     loops took 17 us a call, PERF.md);
+//   * scores: a warp per key row, lanes across Dh (elements lane + 32 j),
+//     the 8 query heads of a pass in registers, and one recursive-halving
+//     shuffle reduction (9 shuffles) for all 8 dot products, instead of a
+//     serial Dh-long chain per score; G query heads go 8 a pass;
+//   * a warp per head then takes the split's softmax and p . v, lanes
+//     across Dh, one float32 FMA chain per attended row, on the CUDA cores
+//     (a tensor-core P V would have to split the int8 path's float32 p
+//     into bf16 hi + lo, and these products take a fraction of a
+//     microsecond);
+//   * each split leaves (m, l, acc) in float32 scratch that the caller
+//     allocates; the second kernel, launched from the same entry point,
+//     combines the splits that hold an attended key in split order: m* =
+//     max m_s, w_s = exp(m_s - m*), out = sum w_s acc_s / max(sum w_s l_s,
+//     1e-30).  No atomics: two runs give the same bits.
 //
 // Prefill, tensor_core (bfloat16 queries; bfloat16 or int8 pools):
 // `paged_prefill_tc_kernel`, on the tile of csrc/tc_attention.cuh:
@@ -40,19 +78,17 @@
 //     same); their per-key scales are read one step ahead into registers;
 //   * S = Q K^T and O += P V on mma.sync m16n8k16 with float32 sums.
 //
-// Decode, and prefill's cuda_core route (float32 queries or pools):
-// `paged_attention_kernel`, the first design:
-//   * one block per (lane, KV head[, query block]) holds all G query heads
+// Prefill, cuda_core (float32 queries or pools): `paged_attention_kernel`:
+//   * one block per (lane, KV head, query block) holds all G query heads
 //     of its KV head, so each page is read from device memory once per
 //     block and feeds every query row of the block;
 //   * the block walks the lane's block table in a loop, which replaces the
 //     TPU's sequential grid axis, several pages per step (step_pages, as
-//     many as shared memory holds up to 128 tokens at decode, 64 at
-//     prefill), so each step's loads, scores and softmax run wide and the
-//     walk has few steps; the walk covers only the pages that hold a key
-//     some row attends (causal bound, valid length, window): the others
-//     contribute nothing to any row that attends at least one key, so the
-//     result is the same;
+//     many as shared memory holds up to 64 tokens), so each step's loads,
+//     scores and softmax run wide and the walk has few steps; the walk
+//     covers only the pages that hold a key some row attends (causal
+//     bound, valid length, window): the others contribute nothing to any
+//     row that attends at least one key, so the result is the same;
 //   * K and V are staged in shared memory as float32 (K rows padded by one
 //     word against bank conflicts); scores, the running (m, l) and the
 //     output accumulator stay in shared memory and never touch device
@@ -66,7 +102,8 @@
 //   * decode, full-precision pools: q is rounded to the pool dtype before
 //     QK^T and p to the pool dtype before PV (kernel.py:85, :115);
 //   * decode, int8 pools: q goes through bf16, the K scale multiplies the
-//     scores and the V scale the probabilities (kernel.py:78-80, :92, :111);
+//     scores and the V scale the float32 probabilities, which are not
+//     rounded (kernel.py:78-80, :92, :111);
 //   * prefill, full-precision pools: q is not rounded (kernel.py:249), p is
 //     rounded to the pool dtype (kernel.py:280);
 //   * prefill, int8 pools: q goes through bf16 and p is rounded to bf16
@@ -77,8 +114,10 @@
 // value (bf16 q, bf16 or int8 K and V, p rounded to bf16), so the bf16
 // products are the TPU kernel's own; only the order of the float32 sums
 // differs.  The online-softmax steps span several pages where the TPU
-// kernel steps one page at a time: the same function, with the running max
-// taken over more keys at once.
+// kernel steps one page at a time, and decode takes its maxima per split
+// and combines the splits at the end: the same function, with the running
+// max taken over other groups of keys and the float32 sums in another
+// order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -90,7 +129,6 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 256;
-constexpr int DECODE_STEP_TOKENS = 128;
 constexpr int PREFILL_STEP_TOKENS = 64;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -131,7 +169,7 @@ __host__ __device__ inline size_t carve(float* base, int R, int Dh, int T,
   return o;
 }
 
-template <typename QT, typename KT, bool DECODE>
+template <typename QT, typename KT>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k_pages,
     const KT* __restrict__ v_pages, const __nv_bfloat16* __restrict__ k_scale,
@@ -154,13 +192,13 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   carve(reinterpret_cast<float*>(imagine_smem), R, Dh, T, TPR, &s);
 
   // logical positions: row r is chunk offset c = iq*block_q + r/G at
-  // position pos0[b] + c; decode has one offset at cur_pos = pos0[b]
+  // position pos0[b] + c
   const int c_lo = iq * block_q;
   const int c_hi = min(c_lo + block_q, C) - 1;
   const int base = pos0[b];
   const int qpos_min = base + c_lo;
   const int qpos_max = base + c_hi;
-  const int limit = DECODE ? qpos_max + 1 : min(seq_lens[b], base + C);
+  const int limit = min(seq_lens[b], base + C);
   // pages holding a key some row may attend: [blk_lo, blk_hi)
   const int kv_end = min(qpos_max + 1, limit);
   const int blk_hi = kv_end > 0 ? min(n_blocks, (kv_end + page - 1) / page)
@@ -174,13 +212,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
     if (c < C) {
       const float qv =
           to_f32(q[((((size_t)b * C + c) * Hkv + h) * G + g) * Dh + d]);
-      if (QUANT) {
-        v = round_to<__nv_bfloat16>(qv);
-      } else if (DECODE) {
-        v = round_to<KT>(qv);
-      } else {
-        v = qv;
-      }
+      v = QUANT ? round_to<__nv_bfloat16>(qv) : qv;
     }
     s.q[i] = v;
     s.acc[i] = 0.f;
@@ -253,8 +285,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
         float p = expf(pr[t] - m_new);
         sum += p;
         if (QUANT) {
-          p *= s.vs[t];
-          if (!DECODE) p = round_to<__nv_bfloat16>(p);
+          p = round_to<__nv_bfloat16>(p * s.vs[t]);
         } else {
           p = round_to<KT>(p);
         }
@@ -291,13 +322,13 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   }
 }
 
-template <typename QT, typename KT, bool DECODE>
+template <typename QT, typename KT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scale, const void* v_scale, const void* block_tables,
            const void* pos0, const void* seq_lens, void* out, int B, int C,
            int Hkv, int G, int Dh, int page, int n_blocks, int block_q,
            int window, float sm_scale, cudaStream_t stream) {
-  auto kernel = paged_attention_kernel<QT, KT, DECODE>;
+  auto kernel = paged_attention_kernel<QT, KT>;
   const int R = block_q * G;
   if (R > THREADS) return (int)cudaErrorInvalidValue;
   // the device's opt-in limit, and the kernel allowed to use all of it,
@@ -314,8 +345,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
     max_smem = limit;
   }
   // as many pages per step as fit, up to the step's token target
-  const int target = DECODE ? DECODE_STEP_TOKENS : PREFILL_STEP_TOKENS;
-  int step_pages = target > page ? target / page : 1;
+  int step_pages = PREFILL_STEP_TOKENS > page ? PREFILL_STEP_TOKENS / page
+                                              : 1;
   size_t smem = 0;
   for (;; --step_pages) {
     if (step_pages < 1) return (int)cudaErrorInvalidValue;
@@ -337,7 +368,6 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only).
-template <bool DECODE>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const void* k_scale, const void* v_scale,
              const void* block_tables, const void* pos0, const void* seq_lens,
@@ -355,10 +385,9 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define IMAGINE_PA_LAUNCH(QT, KT)                                            \
-  return launch<QT, KT, DECODE>(q, k_pages, v_pages, k_scale, v_scale,       \
-                                block_tables, pos0, seq_lens, out, B, C, Hkv, \
-                                G, Dh, page, n_blocks, block_q, window,       \
-                                sm_scale, s)
+  return launch<QT, KT>(q, k_pages, v_pages, k_scale, v_scale,             \
+                        block_tables, pos0, seq_lens, out, B, C, Hkv, G, Dh, \
+                        page, n_blocks, block_q, window, sm_scale, s)
   if (q_dtype == 0) {
     if (pool_dtype == 0) IMAGINE_PA_LAUNCH(float, float);
     if (pool_dtype == 1) IMAGINE_PA_LAUNCH(float, __nv_bfloat16);
@@ -632,20 +661,376 @@ int dispatch_prefill_tc(const void* q, const void* k_pages,
 #undef IMAGINE_PF_TC
 }
 
+
+// ------------------------------------------------------------------ decode
+// Split-KV (flash-decoding) design; the note at the top of the file says
+// why.  Kernel 1 writes each split's (m, l, acc), kernel 2 combines them.
+constexpr int DEC_WARPS = 8;
+constexpr int DEC_THREADS = 32 * DEC_WARPS;
+constexpr int DEC_HEADS = DEC_WARPS;         // query heads a pass: 1 a warp
+constexpr int DEC_MAX_DPL = 16;              // Dh <= 32 * 16
+constexpr int DEC_MAX_TOKENS = 64;           // keys a split, at most
+constexpr int DEC_TILE_ELEMS = 64 * 128;     // split_tokens * Dh, at most
+constexpr int DEC_SMEM_MAX =                 // float32 pools' tiles + p
+    (int)sizeof(float) * (2 * DEC_TILE_ELEMS + DEC_HEADS * DEC_MAX_TOKENS);
+constexpr int COMBINE_THREADS = 128;
+
+// Keys a split holds for DPL head-dim elements a lane (Dh <= 32 * DPL):
+// the K and V tiles stay at DEC_TILE_ELEMS elements each
+// (kernels/paged_attention/kernel.py, `decode_split_tokens`).
+template <int DPL>
+__host__ __device__ constexpr int dec_tokens() {
+  return DPL <= 4 ? DEC_MAX_TOKENS : DEC_TILE_ELEMS / (32 * DPL);
+}
+
+struct DecodeArgs {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const __nv_bfloat16* k_scale;
+  const __nv_bfloat16* v_scale;
+  const int* block_tables;
+  const int* cur_pos;
+  float* out;
+  float* acc;   // (B, Hkv, splits, G, Dh)
+  float* ml;    // (B, Hkv, splits, G, 2): m, l
+  int B, Hkv, G, Dh, page, n_blocks, splits, split_tokens, window;
+  float sm_scale;
+};
+
+// The keys lane b attends: [*lo, *hi), at most the block table's capacity.
+__device__ __forceinline__ void decode_range(const DecodeArgs& a, int b,
+                                             int* lo, int* hi) {
+  const int cur = a.cur_pos[b];
+  *hi = min(cur + 1, a.n_blocks * a.page);
+  *lo = a.window > 0 ? max(0, cur - a.window + 1) : 0;
+}
+
+// Sum of v[i] over the warp's 32 lanes for the 8 heads at once, by
+// recursive halving: 9 shuffles.  Lane l returns head (l >> 2) & 7's sum.
+__device__ __forceinline__ float reduce_heads(float (&v)[DEC_HEADS],
+                                              int lane) {
+  static_assert(DEC_HEADS == 8, "three halving steps");
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool up = lane & 16;
+    const float send = up ? v[i] : v[i + 4];
+    v[i] = (up ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool up = lane & 8;
+    const float send = up ? v[i] : v[i + 2];
+    v[i] = (up ? v[i + 2] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  {
+    const bool up = lane & 4;
+    const float send = up ? v[0] : v[1];
+    v[0] = (up ? v[1] : v[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  return v[0];
+}
+
+// One pass's queries, cast as the TPU kernel casts them: lane holds
+// elements lane + 32 j of heads g0 .. g0 + 7 (zeros past G and Dh).
+template <typename QT, typename KT, int DPL>
+__device__ __forceinline__ void load_queries(const QT* __restrict__ qg,
+                                             int g0, int G, int Dh, int lane,
+                                             float (&qr)[DEC_HEADS][DPL]) {
+  constexpr bool QUANT = sizeof(KT) == 1;
+#pragma unroll
+  for (int i = 0; i < DEC_HEADS; ++i) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int d = lane + 32 * j;
+      float v = 0.f;
+      if (g0 + i < G && d < Dh) {
+        const float qv = to_f32(qg[(size_t)(g0 + i) * Dh + d]);
+        v = QUANT ? round_to<__nv_bfloat16>(qv) : round_to<KT>(qv);
+      }
+      qr[i][j] = v;
+    }
+  }
+}
+
+// Grid (splits, Hkv, B): split sp of lane b's keys for KV head h, all G of
+// its query heads, DEC_HEADS a pass.  DPL = head-dim elements a lane.
+template <typename QT, typename KT, int DPL>
+__global__ void __launch_bounds__(DEC_THREADS)
+paged_decode_split_kernel(const DecodeArgs a, int vec16) {
+  constexpr bool QUANT = sizeof(KT) == 1;
+  constexpr int T = dec_tokens<DPL>();
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int Dh = a.Dh, G = a.G;
+  int kv_lo, kv_hi;
+  decode_range(a, b, &kv_lo, &kv_hi);
+  const int k0 = sp * T;
+  // the split's rows that hold an attended key: [lo, hi)
+  const int lo = max(k0, kv_lo) - k0, hi = min(k0 + T, kv_hi) - k0;
+  if (lo >= hi) return;   // the combine never reads this split
+
+  extern __shared__ __align__(16) unsigned char dec_raw[];
+  KT* kt = reinterpret_cast<KT*>(dec_raw);   // [T][Dh] K rows, pool dtype
+  KT* vt = kt + T * Dh;                      // [T][Dh] V rows
+  float* pt = reinterpret_cast<float*>(      // [DEC_HEADS][T] scores, then
+      dec_raw + 2 * T * Dh * sizeof(KT));    // weights (16-byte aligned)
+  __shared__ float kscl[T], vscl[T];         // int8 pools' scales
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const KT* kp = static_cast<const KT*>(a.k_pages);
+  const KT* vp = static_cast<const KT*>(a.v_pages);
+  const int* bt = a.block_tables + (size_t)b * a.n_blocks;
+  // pool element of row t's (page row, head) start, through the table
+  auto row = [&](int t) {
+    const int key = k0 + t;
+    return (((size_t)bt[key / a.page] * a.page + key % a.page) * a.Hkv +
+            h) * Dh;
+  };
+
+  // the attended rows' K and V into shared memory as they are: 16-byte
+  // cp.async, all in flight at once, where rows and pools allow
+  if (vec16) {
+    constexpr int E = 16 / (int)sizeof(KT);
+    const int per_row = Dh / E, half = T * per_row;
+    const uint32_t base = tc::smem_u32(dec_raw);
+    for (int i = tid; i < 2 * half; i += DEC_THREADS) {
+      const int j = i % half, t = j / per_row;
+      if (t < lo || t >= hi) continue;
+      const size_t off = row(t) + (j % per_row) * E;
+      tc::cp_async<16>(base + (i < half ? 0 : T * Dh * sizeof(KT)) +
+                           j * 16,
+                       (i < half ? kp : vp) + off, true);
+    }
+    tc::cp_async_commit();
+  } else {
+    for (int i = tid; i < 2 * T * Dh; i += DEC_THREADS) {
+      const int j = i % (T * Dh), t = j / Dh;
+      if (t >= lo && t < hi) {
+        (i < T * Dh ? kt : vt)[j] = (i < T * Dh ? kp : vp)[row(t) + j % Dh];
+      }
+    }
+  }
+  // under the copies: the int8 pools' scales and the first pass's queries
+  if (QUANT && tid < T) {
+    float ksv = 0.f, vsv = 0.f;
+    if (tid >= lo && tid < hi) {
+      const size_t o = row(tid) / Dh;
+      ksv = __bfloat162float(a.k_scale[o]);
+      vsv = __bfloat162float(a.v_scale[o]);
+    }
+    kscl[tid] = ksv;
+    vscl[tid] = vsv;
+  }
+  const QT* qg =
+      static_cast<const QT*>(a.q) + ((size_t)b * a.Hkv + h) * G * Dh;
+  float qr[DEC_HEADS][DPL];
+  load_queries<QT, KT, DPL>(qg, 0, G, Dh, lane, qr);
+  if (vec16) tc::cp_async_wait<0>();
+  __syncthreads();
+
+  const size_t split_row = ((size_t)b * a.Hkv + h) * a.splits + sp;
+  for (int g0 = 0; g0 < G; g0 += DEC_HEADS) {
+    if (g0 > 0) load_queries<QT, KT, DPL>(qg, g0, G, Dh, lane, qr);
+    // scores: a warp per row, lanes across Dh, one reduction for 8 heads
+#pragma unroll
+    for (int u = 0; u < T / DEC_WARPS; ++u) {
+      const int t = warp + DEC_WARPS * u;
+      if (t < lo || t >= hi) {
+        if (lane < DEC_HEADS) pt[lane * T + t] = NEG_INF;
+        continue;
+      }
+      float kd[DPL];
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        const int d = lane + 32 * j;
+        kd[j] = d < Dh ? to_f32(kt[t * Dh + d]) : 0.f;
+      }
+      float v[DEC_HEADS];
+#pragma unroll
+      for (int i = 0; i < DEC_HEADS; ++i) {
+        float dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) dot = fmaf(qr[i][j], kd[j], dot);
+        v[i] = dot;
+      }
+      const float dot = reduce_heads(v, lane);
+      if ((lane & 3) == 0) {
+        float sc = dot * a.sm_scale;
+        if (QUANT) sc *= kscl[t];
+        pt[((lane >> 2) & 7) * T + t] = sc;
+      }
+    }
+    __syncthreads();
+
+    // the split's softmax, a warp per head: m, l to scratch; p becomes the
+    // PV weight (times the V scale, or rounded to the pool dtype); then
+    // p . v, the same warp, lanes across Dh
+    {
+      const int g = g0 + warp;
+      float* pr = pt + warp * T;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int t = lane; t < T; t += 32) mx = fmaxf(mx, pr[t]);
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int t = lane; t < T; t += 32) {
+        const float e = expf(pr[t] - mx);
+        sum += e;
+        pr[t] = QUANT ? e * vscl[t] : round_to<KT>(e);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      }
+      __syncwarp();
+      if (g < G) {
+        if (lane == 0) {
+          a.ml[(split_row * G + g) * 2] = mx;
+          a.ml[(split_row * G + g) * 2 + 1] = sum;
+        }
+        float o[DPL];
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) o[j] = 0.f;
+#pragma unroll 8
+        for (int t = lo; t < hi; ++t) {
+          const float w = pr[t];
+#pragma unroll
+          for (int j = 0; j < DPL; ++j) {
+            const int d = lane + 32 * j;
+            if (d < Dh) o[j] = fmaf(w, to_f32(vt[t * Dh + d]), o[j]);
+          }
+        }
+        float* dst = a.acc + (split_row * G + g) * Dh;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          const int d = lane + 32 * j;
+          if (d < Dh) dst[d] = o[j];
+        }
+      }
+    }
+    __syncthreads();   // the next pass rewrites pt
+  }
+}
+
+// Grid (ceil(G * Dh / COMBINE_THREADS), Hkv, B): out = sum_s w_s acc_s /
+// max(sum_s w_s l_s, 1e-30), w_s = exp(m_s - max m), over the splits that
+// hold an attended key, in split order.
+__global__ void __launch_bounds__(COMBINE_THREADS)
+paged_decode_combine_kernel(const DecodeArgs a) {
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int i = blockIdx.x * COMBINE_THREADS + threadIdx.x;
+  if (i >= a.G * a.Dh) return;
+  const int g = i / a.Dh, d = i % a.Dh;
+  int kv_lo, kv_hi;
+  decode_range(a, b, &kv_lo, &kv_hi);
+  const size_t bh = (size_t)b * a.Hkv + h;
+  float o = 0.f, l = 0.f;
+  if (kv_hi > kv_lo) {
+    const int s_lo = kv_lo / a.split_tokens;
+    const int s_hi = (kv_hi - 1) / a.split_tokens;
+    float m = NEG_INF;
+    for (int s = s_lo; s <= s_hi; ++s) {
+      m = fmaxf(m, a.ml[((bh * a.splits + s) * a.G + g) * 2]);
+    }
+    for (int s = s_lo; s <= s_hi; ++s) {
+      const size_t r = (bh * a.splits + s) * a.G + g;
+      const float w = expf(a.ml[2 * r] - m);
+      l += w * a.ml[2 * r + 1];
+      o += w * a.acc[r * a.Dh + d];
+    }
+  }
+  a.out[(bh * a.G + g) * a.Dh + d] = o / fmaxf(l, 1e-30f);
+}
+
+template <typename QT, typename KT, int DPL>
+int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
+  constexpr int T = dec_tokens<DPL>();
+  if (a.split_tokens != T) return (int)cudaErrorInvalidValue;
+  auto kernel = paged_decode_split_kernel<QT, KT, DPL>;
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DEC_SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const size_t smem =
+      2 * (size_t)T * a.Dh * sizeof(KT) + sizeof(float) * DEC_HEADS * T;
+  const int vec16 =
+      (a.Dh * (int)sizeof(KT)) % 16 == 0 &&
+      (reinterpret_cast<uintptr_t>(a.k_pages) |
+       reinterpret_cast<uintptr_t>(a.v_pages)) % 16 == 0;
+  kernel<<<dim3(a.splits, a.Hkv, a.B), DEC_THREADS, smem, stream>>>(a,
+                                                                     vec16);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_combine_kernel<<<
+      dim3((a.G * a.Dh + COMBINE_THREADS - 1) / COMBINE_THREADS, a.Hkv,
+           a.B),
+      COMBINE_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename QT, typename KT>
+int decode_dpl(const DecodeArgs& a, cudaStream_t stream) {
+  if (a.Dh <= 32) return launch_decode<QT, KT, 1>(a, stream);
+  if (a.Dh <= 64) return launch_decode<QT, KT, 2>(a, stream);
+  if (a.Dh <= 128) return launch_decode<QT, KT, 4>(a, stream);
+  if (a.Dh <= 256) return launch_decode<QT, KT, 8>(a, stream);
+  return launch_decode<QT, KT, 16>(a, stream);
+}
+
 }  // namespace
 
 // Decode: q (B, Hkv, G, Dh) at positions cur_pos (B,) -> out (B, Hkv, G, Dh)
-// float32.  G must not exceed 256.  Returns a cudaError_t.
+// float32, through `splits` splits of `split_tokens` keys (splits *
+// split_tokens >= n_blocks * page > (splits - 1) * split_tokens; at most
+// 16 * 512 / Dh keys, Dh <= 512).  acc (B, Hkv, splits, G, Dh) and ml (B,
+// Hkv, splits, G, 2) are float32 scratch.  Two kernels on `stream`, no
+// host synchronisation.  Returns a cudaError_t.
 extern "C" int imagine_paged_decode_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* cur_pos, void* out, int B, int Hkv, int G, int Dh, int page,
-    int n_blocks, int window, float sm_scale, int q_dtype, int pool_dtype,
-    void* stream) {
-  return dispatch<true>(q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                        cur_pos, nullptr, out, B, 1, Hkv, G, Dh, page,
-                        n_blocks, 1, window, sm_scale, q_dtype, pool_dtype,
-                        stream);
+    const void* cur_pos, void* out, void* acc, void* ml, int B, int Hkv,
+    int G, int Dh, int page, int n_blocks, int splits, int split_tokens,
+    int window, float sm_scale, int q_dtype, int pool_dtype, void* stream) {
+  if (B <= 0 || Hkv <= 0 || G <= 0 || Dh <= 0 || Dh > 32 * DEC_MAX_DPL ||
+      page <= 0 || n_blocks <= 0 || split_tokens <= 0 ||
+      split_tokens * Dh > DEC_TILE_ELEMS ||
+      split_tokens > DEC_MAX_TOKENS || acc == nullptr || ml == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long cap = (long long)n_blocks * page;
+  if (splits != (cap + split_tokens - 1) / split_tokens) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (q_dtype != 0 && q_dtype != 1) return (int)cudaErrorInvalidValue;
+  if (pool_dtype < 0 || pool_dtype > 2) return (int)cudaErrorInvalidValue;
+  if (pool_dtype == 2 && (k_scale == nullptr || v_scale == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const DecodeArgs a{q, k_pages, v_pages,
+                     static_cast<const __nv_bfloat16*>(k_scale),
+                     static_cast<const __nv_bfloat16*>(v_scale),
+                     static_cast<const int*>(block_tables),
+                     static_cast<const int*>(cur_pos),
+                     static_cast<float*>(out), static_cast<float*>(acc),
+                     static_cast<float*>(ml), B, Hkv, G, Dh, page, n_blocks,
+                     splits, split_tokens, window, sm_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0) {
+    if (pool_dtype == 0) return decode_dpl<float, float>(a, s);
+    if (pool_dtype == 1) return decode_dpl<float, __nv_bfloat16>(a, s);
+    return decode_dpl<float, int8_t>(a, s);
+  }
+  if (pool_dtype == 0) return decode_dpl<__nv_bfloat16, float>(a, s);
+  if (pool_dtype == 1) return decode_dpl<__nv_bfloat16, __nv_bfloat16>(a, s);
+  return decode_dpl<__nv_bfloat16, int8_t>(a, s);
 }
 
 // Chunked prefill, route cuda_core: q (B, C, Hkv, G, Dh) at positions
@@ -659,10 +1044,9 @@ extern "C" int imagine_paged_prefill_attention(
     int G, int Dh, int page, int n_blocks, int block_q, int window,
     float sm_scale, int q_dtype, int pool_dtype, void* stream) {
   if (seq_lens == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch<false>(q, k_pages, v_pages, k_scale, v_scale, block_tables,
-                         pos0, seq_lens, out, B, C, Hkv, G, Dh, page, n_blocks,
-                         block_q, window, sm_scale, q_dtype, pool_dtype,
-                         stream);
+  return dispatch(q, k_pages, v_pages, k_scale, v_scale, block_tables, pos0,
+                  seq_lens, out, B, C, Hkv, G, Dh, page, n_blocks, block_q,
+                  window, sm_scale, q_dtype, pool_dtype, stream);
 }
 
 // Chunked prefill, route tensor_core: as above with q bfloat16, pools

@@ -1,9 +1,10 @@
 // PTX helpers shared by the port's tensor-core kernels (sm_90a):
-// cp.async copies, the 128-byte swizzle, named barriers, and wgmma with
-// its shared-memory descriptors and fences.
+// cp.async copies, the 128-byte swizzle, named barriers, mma.sync, and
+// wgmma with its shared-memory descriptors and fences.
 //
-// Included by csrc/tc_gemm.cuh (the GEMVs' wgmma tile) and
-// csrc/tc_attention.cuh (the attention tile).
+// Included by csrc/tc_gemm.cuh (the GEMVs' wgmma tile, and through it the
+// bit-plane GEMV's decode route) and csrc/tc_attention.cuh (the attention
+// tile).
 
 #pragma once
 
@@ -74,6 +75,19 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// d (16 x 8 float32) += a (16 x 16 bf16) @ b (16 x 8 bf16), mma.sync's
+// fragments: lane (g, t) = (lane / 4, lane % 4) holds a rows g, g + 8 at K
+// 2t, 2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); b columns g at
+// K 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1); d rows g (d[0], d[1]) and
+// g + 8 (d[2], d[3]) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Keeps the compiler from moving the accumulators between the start of an

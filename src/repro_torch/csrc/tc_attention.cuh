@@ -103,14 +103,7 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
       : "memory");
 }
 
-// d (16 x 8 float32) += a (16 x 16 bf16) @ b (16 x 8 bf16).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using tc::mma;   // m16n8k16, bf16 in, float32 sums (ptx.cuh)
 
 // Two floats as a bf16 pair (x in the low half), rounded to nearest even.
 __device__ __forceinline__ uint32_t pack(float x, float y) {

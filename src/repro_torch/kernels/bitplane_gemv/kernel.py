@@ -4,8 +4,8 @@ Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
 allocates the output (and the split-K partial sums) with ``torch.empty``,
 launches on the current stream and raises if the launch reports an error.
 ``_gemv.route`` picks one of three designs by M and the type of x, each its
-own C entry point; no route ever gives way to another or to the plain
-version.
+own C entry point; the decode route's K split is ``_gemv.decode_splits``.
+No route ever gives way to another or to the plain version.
 """
 
 from __future__ import annotations
@@ -16,7 +16,12 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._gemv import route, tc_partial
+from repro_torch.kernels._gemv import (
+    decode_splits,
+    route,
+    sm_count,
+    tc_partial,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -24,7 +29,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     fn = getattr(_build.library(), f"imagine_bitplane_gemv_{name}")
-    n_ptr, n_int = (5, 6) if name == "tc" else (4, 7)
+    n_ptr, n_int = {"tc": (5, 6), "decode": (4, 8), "rows": (4, 7)}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -80,6 +85,11 @@ def bitplane_gemv_cuda(packed: torch.Tensor, scale: torch.Tensor,
         err = _entry("tc")(*ptrs, None if partial is None
                            else partial.data_ptr(), m, k, n, bits, splits,
                            _DTYPE_CODES[out_dtype], _stream(x))
+    elif path == "decode":
+        err = _entry(path)(*ptrs, m, k, n, bits, radix,
+                           decode_splits(k, n, sm_count(x.device)),
+                           _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+                           _stream(x))
     else:
         err = _entry(path)(*ptrs, m, k, n, bits, radix,
                            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],

@@ -5,8 +5,10 @@ Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
 allocates the output with ``torch.empty``, launches on the current stream
 and raises if the launch reports an error.  ``route`` picks one of two
 designs by dtype, each its own C entry point: ``tensor_core`` for
-bfloat16 (mma.sync tiles, P split into bf16 hi + lo) and ``cuda_core`` for
+bfloat16 (wgmma tiles, P split into bf16 hi + lo) and ``cuda_core`` for
 float32.  No route ever gives way to the other or to the plain version.
+Both are compiled for the head dims of ``HEAD_DIMS``; any other D up to
+128 is zero-padded to the next of them (``_heads``).
 """
 
 from __future__ import annotations
@@ -17,18 +19,20 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._heads import (
+    TILE_HEAD_DIMS as HEAD_DIMS,
+    pad_head_dim,
+    padded_head_dim,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
 
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The design that takes q, k, v of ``dtype`` and head dim ``d``:
     ``tensor_core`` for bfloat16, ``cuda_core`` for float32 (bf16 operands
-    would round it).  Raises for any other dtype or head dim."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    would round it).  Raises for any other dtype and for ``d`` above 128."""
+    padded_head_dim(d, "flash_attention_cuda")
     if dtype == torch.bfloat16:
         return "tensor_core"
     if dtype == torch.float32:
@@ -91,9 +95,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = int(window)
     path = _check(q, k, v, window)
     b, s, hq, d = q.shape
+    dp = padded_head_dim(d, "flash_attention_cuda")
+    q, k, v = (pad_head_dim(t, dp) for t in (q, k, v))
     out = torch.empty_like(q)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            hq, k.shape[2], d, window, d ** -0.5]
+            hq, k.shape[2], dp, window, d ** -0.5]
     if path == "cuda_core":
         args.append(_DTYPE_CODES[q.dtype])
     err = _entry(path)(*args,
@@ -103,4 +109,4 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError {err} (B={b}, S={s}, Hq={hq}, "
                            f"Hkv={k.shape[2]}, D={d})")
     _build.count("flash_attention", path)
-    return out
+    return out if dp == d else out[..., :d].contiguous()

@@ -3,8 +3,9 @@
 Takes the model's ``(B, S, H, D)`` layout, as the JAX package's
 ``kernels/flash_attention/ops.py`` does, and dispatches by the query's
 device: the CUDA kernel for CUDA tensors (it reads that layout directly
-and masks the ragged end of S itself, so nothing is transposed or
-padded), the plain version (``ref.py``, ``(B, H, S, D)``) for CPU tensors,
+and masks the ragged end of S itself, so nothing is transposed and S is
+not padded; a head dim outside 32 / 64 / 128 is zero-padded to the next
+of them), the plain version (``ref.py``, ``(B, H, S, D)``) for CPU tensors,
 and an error for anything else.  There is no fallback from the kernel to
 the plain version.  The kernel picks its own tiles: the JAX wrapper's
 ``block_q`` / ``block_kv`` have no counterpart.

@@ -20,7 +20,16 @@ case (M = 130, K = 136, N = 200, bfloat16 x) goes through the ``ops``
 wrapper against the Pallas kernel in interpret mode: float32 output within
 the float32 tolerance above (bf16 x converts exactly), bfloat16 output
 within one bf16 ulp (rtol 2^-7: one rounding of float32 sums that may
-differ in their last bits).
+differ in their last bits).  The decode route (M <= 8) splits K over a
+cluster of blocks (``_gemv.decode_splits``) and adds the splits' float32
+sums in split order: a plain model of that reduction (``_decode_model``)
+is held against the Pallas kernel in interpret mode for bits 2 / 4 / 8,
+M 1-8, ragged K and N, float32 and bfloat16 x (bf16 x converts exactly,
+and every product is exact).  Its K runs to 1000, where the sums grow
+past the magnitudes of the cases above, so it takes the bound the repo
+holds every K-term float32 sum in two orders to (the int8 baseline's in
+``chip_smoke.py`` and ``test_torch_cuda_kernels.py``): 16·√K·2^-24 of
+Σ|x|·|w|·scale per element.
 """
 
 import jax.numpy as jnp
@@ -41,6 +50,7 @@ from repro_torch.kernels import _build, _gemv
 from repro_torch.kernels.bitplane_gemv import kernel as gemv_kernel
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
+from repro_torch.core.bitplane import unpack_weights
 
 torch.set_num_threads(1)
 
@@ -218,3 +228,78 @@ def test_prefill_ragged_matches_jax_pallas_interpret(bits, radix, out):
     assert got.shape == (m, n) and got.dtype == tdt
     tol = TOL if out == "float32" else dict(rtol=2 ** -7, atol=1e-5)
     np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+# ------------------------------------------------------ the decode route
+def _decode_model(packed, scale, x, bits, splits):
+    """The decode route's sums in plain torch: split z of ``splits`` takes
+    the K steps [z * per, (z + 1) * per) of 16 (``_gemv.DECODE_K_STEP``),
+    its float32 sum of exact products; the splits are added in split order
+    and the sum scaled once."""
+    w = unpack_weights(packed, bits).float()             # (K, N) codes
+    k = w.shape[0]
+    step = _gemv.DECODE_K_STEP
+    k_steps = -(-k // step)
+    per = -(-k_steps // splits)
+    xf = x.float()
+    total = torch.zeros((x.shape[0], w.shape[1]))
+    for z in range(splits):
+        lo, hi = z * per * step, min((z + 1) * per * step, k)
+        total = total + xf[:, lo:hi] @ w[lo:hi]
+    return total * scale
+
+
+@pytest.mark.parametrize("k,n", [(200, 300), (1000, 1003)])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_decode_split_model_matches_jax_pallas_interpret(bits, m, xdt, k,
+                                                         n):
+    jlin, x = _case(bits, (m,), seed=400 + bits * 10 + m + k, k=k, n=n)
+    lin = _port_lin(jlin)
+    jx = jnp.asarray(x).astype(getattr(jnp, xdt))
+    xt = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(
+        getattr(torch, xdt))
+    assert gemv_kernel.route(m, xt.dtype) == "decode"
+    splits = _gemv.decode_splits(k, n, sms=132)
+    assert splits > 1
+    want = np.asarray(jax_gemv(jlin.packed, jlin.scale, jx, bits=bits,
+                               radix=1, interpret=True))
+    got = _decode_model(lin.packed, lin.scale, xt, bits, splits)
+    w = unpack_weights(lin.packed, bits).float()
+    bound = (2.0 ** -20 * np.sqrt(k)
+             * ((xt.float().abs() @ w.abs()) * lin.scale).numpy())
+    err = np.abs(got.numpy() - want)
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+@pytest.mark.parametrize("k,n,want", [
+    (2048, 2048, 8),      # wq/wo: 16 column tiles, 8 splits
+    (2048, 256, 8),       # wk/wv: 2 column tiles
+    (2048, 11008, 2),     # w_gate/w_up: 86 column tiles, 172 blocks
+    (11008, 2048, 8),     # w_down
+    (768, 3352, 5),       # mamba2-130m's in_proj: 27 column tiles
+    (1536, 768, 8),       # and its out_proj
+    (2048, 151936, 1),    # an untied lm_head fills the card unsplit
+    (40, 33, 3),          # three K steps: one each
+])
+def test_decode_splits(k, n, want):
+    assert _gemv.decode_splits(k, n, sms=132) == want
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+@pytest.mark.parametrize("n", [1, 33, 256, 2048, 11008])
+@pytest.mark.parametrize("k", [4, 16, 17, 200, 2048, 11008])
+def test_decode_splits_leave_no_split_empty(k, n, sms):
+    """At most one cluster of 8, every split holds a K step, and the count
+    depends on the shapes and the card only; fewer than 8 splits only when
+    the column tiles fill the card or K runs out of steps."""
+    splits = _gemv.decode_splits(k, n, sms)
+    k_steps = -(-k // _gemv.DECODE_K_STEP)
+    per = -(-k_steps // splits)
+    assert 1 <= splits <= _gemv.DECODE_MAX_SPLITS
+    assert splits <= k_steps and -(-k_steps // per) == splits
+    tiles = -(-n // _gemv.DECODE_COLS)
+    assert (splits == _gemv.DECODE_MAX_SPLITS or tiles * splits >= sms
+            or splits * per >= k_steps > (splits - 1) * per)
+    assert _gemv.decode_splits(k, n, sms) == splits

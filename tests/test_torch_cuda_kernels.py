@@ -33,7 +33,12 @@ moved, and the bfloat16 cases at M > 8 (9, 130, 8192; K = 200 and 520,
 neither a multiple of the tile's K step; N = 300 and 1983, neither 16- nor
 8-byte aligned, and 3352, only 8-byte aligned) take the tensor-core tile.  The engine's exact case feeds integer
 weights and activations whose partial sums stay below 2^24, so the tile
-model and every kernel must equal ``w @ x`` exactly.
+model and every kernel must equal ``w @ x`` exactly.  The decode-step
+kernels (paged decode attention split over the keys, the GEMV's decode
+route split over K) reduce their splits in a fixed order: their cases also
+run each call twice and require the same bits.  Flash attention and the
+paged prefill take head dims outside 32 / 64 / 128 through the launcher's
+zero padding (D = 16 and 112 here).
 """
 
 import math
@@ -165,6 +170,77 @@ def test_decode_attention_matches_plain(cuda_device, kind, window):
     torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
 
 
+# (K, N) of the decode GEMV cases: qwen2.5-3b's four linears, and K and N
+# ragged (K a multiple of the codes a byte holds, of no 16-deep K step)
+DECODE_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048),
+                 "ragged"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+@pytest.mark.parametrize("bits,radix", [(2, 1), (2, 2), (4, 1), (4, 2),
+                                        (8, 1), (8, 2)])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_gemv_decode_route(cuda_device, xdt, bits, radix, m, shape):
+    """The decode route at the decode steps' M (8 paged, 2 and 4 on the
+    full-sequence paths, 1 on the engine path): one launch of that route,
+    within the tolerance of the plain version, the same bits twice."""
+    dt = getattr(torch, xdt)
+    k, n = shape if shape != "ragged" else (2001 + (-2001) % (8 // bits),
+                                            1003)
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n + bits)
+    w = torch.randn((k, n), generator=gen, device=cuda_device)
+    q, scale = quantize_symmetric(w, bits)
+    packed = pack_weights(q, bits)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+    assert route(m, dt) == "decode"
+    before = _build.ROUTE_LAUNCHES["bitplane_gemv/decode"]
+    y = bitplane_gemv(packed, scale, x, bits=bits, radix=radix, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES["bitplane_gemv/decode"] == before + 1
+    again = bitplane_gemv(packed, scale, x, bits=bits, radix=radix,
+                          out_dtype=dt)
+    assert torch.equal(y, again)
+    r = bitplane_gemv_ref(packed, scale, x, bits=bits, radix=radix,
+                          out_dtype=dt)
+    assert y.shape == (m, n) and y.dtype == dt
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol,
+                               atol=1e-5 * r.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("dh", [64, 112, 128])
+@pytest.mark.parametrize("g", [1, 5, 8, 12])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_decode_attention_splits(cuda_device, kind, g, dh, page):
+    """A table of 4096 keys (64 splits), lanes at position 0 (one split
+    attended), mid-context and at the last slot; G of 1-12 query heads a KV
+    head (one and two passes of 8); one launch, the same bits twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(g + dh + page)
+    b, hkv = 4, 2
+    nblk = 4096 // page
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, dh,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    qdt = torch.float32 if kind == "float32" else torch.bfloat16
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen,
+                    device=cuda_device).to(qdt)
+    pos = torch.tensor([0, 1000, 2222, 4095], dtype=torch.int32,
+                       device=cuda_device)
+    before = _build.LAUNCHES["paged_decode_attention"]
+    y = paged_attention(q, kp, vp, bt, pos, 0, ks, vs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_decode_attention"] == before + 1
+    assert torch.equal(y, paged_attention(q, kp, vp, bt, pos, 0, ks, vs))
+    r = paged_attention_ref(q, kp, vp, bt, pos, 0, ks, vs)
+    assert y.shape == r.shape and y.dtype == qdt
+    torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("window", [0, 37])
@@ -207,14 +283,42 @@ def test_prefill_attention_matches_plain(cuda_device, kind, window, g,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("dh", [16, 112])
+def test_prefill_attention_pads_head_dim(cuda_device, kind, dh):
+    """Head dims outside the tensor-core tiles' widths: q and the pools
+    zero-padded by the launcher, the same route, one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(dh)
+    b, hkv, g, page, c, nblk = 3, 2, 8, 16, 32, 12
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, dh,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    q = torch.randn((b, c, hkv * g, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    pos0 = torch.tensor([0, 45, 150], dtype=torch.int32, device=cuda_device)
+    seq = pos0 + c
+    before = _build.ROUTE_LAUNCHES["paged_prefill_attention/tensor_core"]
+    y = paged_prefill_attention(q, kp, vp, bt, pos0, seq, 0, ks, vs)
+    torch.cuda.synchronize()
+    assert (_build.ROUTE_LAUNCHES["paged_prefill_attention/tensor_core"]
+            == before + 1)
+    r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, 0, ks, vs)
+    assert y.shape == r.shape
+    torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("s,hq,hkv,d,window", [
     (256, 8, 1, 128, 0), (200, 4, 4, 64, 0), (333, 8, 2, 32, 64),
-    (4100, 16, 2, 128, 0), (1030, 16, 2, 128, 1024), (64, 2, 1, 128, 1)])
+    (4100, 16, 2, 128, 0), (1030, 16, 2, 128, 1024), (64, 2, 1, 128, 1),
+    (300, 4, 2, 16, 0), (1100, 8, 2, 112, 0), (777, 4, 4, 112, 64)])
 @pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
 def test_flash_attention_matches_plain(cuda_device, s, hq, hkv, d, window,
                                        xdt):
-    """Ragged S (no padded copy), GQA groups 1-8, head dims 32-128, windows
-    of 1 key up to 1024, and the sequence longer than the window."""
+    """Ragged S (no padded copy), GQA groups 1-8, head dims 32-128 and
+    the zero-padded 16 and 112, windows of 1 key up to 1024, and the
+    sequence longer than the window."""
     dt = getattr(torch, xdt)
     gen = torch.Generator(device=cuda_device).manual_seed(s + hq + d)
     q = torch.randn((2, s, hq, d), generator=gen, device=cuda_device).to(dt)

@@ -24,7 +24,12 @@ arithmetic is modelled in plain torch (``_tc_model``: 64-row query tiles,
 bf16 hi + lo) and held against JAX ``flash_attention_ref`` on bf16 inputs
 at ``chip_smoke.py``'s bf16 tolerance (``flash_tol``: rtol 2^-7, one bf16
 ulp of the value, atol 1e-5); a model that rounds p to bf16 once misses
-that tolerance, which is why the kernel splits p.
+that tolerance, which is why the kernel splits p.  Both routes take the
+head dims 32 / 64 / 128; the launcher zero-pads any other D up to 128 to
+the next of them and passes the scale of the true D (``kernels/_heads.py``):
+D = 16 and 112 go through that padding into the tensor-core model (bf16)
+and into plain float32 attention (the CUDA-core route's function), against
+JAX at the tolerances above.
 """
 
 import jax.numpy as jnp
@@ -36,6 +41,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
 from repro.models.attention import attend_flash as jax_attend_flash
 
+from repro_torch.kernels._heads import pad_head_dim, padded_head_dim
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, route
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -130,7 +136,7 @@ def test_route_by_dtype(dtype, want, d):
     assert route(dtype, d) == want
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 96),
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 160),
                                      (torch.float32, 256),
                                      (torch.float16, 128)])
 def test_route_refuses_what_no_design_takes(dtype, d):
@@ -138,11 +144,21 @@ def test_route_refuses_what_no_design_takes(dtype, d):
         route(dtype, d)
 
 
-def _tc_model(q, k, v, window, split):
+@pytest.mark.parametrize("d,width", [(1, 32), (16, 32), (33, 64),
+                                     (96, 128), (112, 128), (128, 128)])
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
+                                        (torch.float32, "cuda_core")])
+def test_route_takes_every_head_dim_up_to_128(dtype, want, d, width):
+    assert route(dtype, d) == want
+    assert padded_head_dim(d, "flash_attention_cuda") == width
+
+
+def _tc_model(q, k, v, window, split, sm_scale=None):
     """The tensor-core route's arithmetic in plain torch; q ``(B, Hq, S,
     D)``, k/v ``(B, Hkv, S, D)``, bf16 in and out.  Per 64-row query tile,
     an online softmax over the 64-key tiles some row attends: bf16 products
-    summed in float32, scores times D^-0.5, masked scores -1e30, l summing
+    summed in float32, scores times ``sm_scale`` (D^-0.5 by default),
+    masked scores -1e30, l summing
     the float32 p, and p into p . v as bf16 hi + lo (``split``) or rounded
     to bf16 once."""
     b, hq, s, d = q.shape
@@ -162,7 +178,7 @@ def _tc_model(q, k, v, window, split):
         for k0 in range(kt_lo * TILE, int(rows[-1]) + 1, TILE):
             cols = pos[k0:k0 + TILE]
             sc = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) \
-                * d ** -0.5
+                * (d ** -0.5 if sm_scale is None else sm_scale)
             mask = cols[None, :] <= rows[:, None]
             if window > 0:
                 mask = mask & (cols[None, :] > rows[:, None] - window)
@@ -219,3 +235,43 @@ def test_bf16_p_misses_the_tolerance_the_split_meets():
     want = jax_ref(*jx, window=0)
     assert _share_of_tol(_tc_model(q, k, v, 0, split=True), want) <= 1.0
     assert _share_of_tol(_tc_model(q, k, v, 0, split=False), want) > 10.0
+
+
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("d", [16, 112])
+def test_tensor_core_model_pads_head_dim(d, window):
+    """The launcher's padding into the tensor-core route's arithmetic:
+    q, k, v zero-padded to the tiles' width, the scale of the true D, the
+    output sliced back, against JAX's ref at the bf16 tolerance."""
+    (q, k, v), jx = _bf16_case(1, 200, 4, 2, d, seed=d + window)
+    dp = padded_head_dim(d, "flash_attention_cuda")
+    got = _tc_model(*(pad_head_dim(t, dp) for t in (q, k, v)), window,
+                    split=True, sm_scale=d ** -0.5)[..., :d]
+    assert got.shape == q.shape
+    want = jax_ref(*jx, window=window)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("d", [16, 112])
+def test_float32_padding_matches_jax_interpret(d, window):
+    """The CUDA-core route's function on padded float32 inputs (masked
+    softmax attention with the scale of the true D, in float32), sliced
+    back, against JAX's Pallas kernel in interpret mode."""
+    q, k, v = _qkv(1, 200, 4, 2, d, seed=5 * d + window)
+    dp = padded_head_dim(d, "flash_attention_cuda")
+    qp, kp, vp = (pad_head_dim(torch.from_numpy(_bhsd(a)), dp)
+                  for a in (q, k, v))
+    kp, vp = (t.repeat_interleave(2, 1) for t in (kp, vp))
+    sc = (qp @ kp.transpose(-1, -2)) * d ** -0.5
+    pos = torch.arange(200)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask = mask & (pos[None, :] > pos[:, None] - window)
+    sc = torch.where(mask, sc, torch.tensor(-1e30))
+    got = (torch.softmax(sc, -1) @ vp)[..., :d].transpose(1, 2)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     window=window, block_q=64, block_kv=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -10,6 +10,10 @@
   launches or raises.
 * The kernel library is rebuilt when any source or shared header under
   ``csrc/`` changes, and launches are counted by kernel and by route.
+* No launcher reads device data back to the host (``.item()``,
+  ``.tolist()``, ``.cpu()``, ``.numpy()``): grids and splits follow from
+  shapes, so a launch never waits on the card and can be captured in a
+  CUDA graph.
 """
 
 import ast
@@ -175,6 +179,21 @@ def test_full_sequence_entry_points_raise_without_a_gpu(monkeypatch):
             init_cache(get_reduced(arch), 1, 8)
 
 
+HOST_READS = ("item", "tolist", "cpu", "numpy")
+
+
+@pytest.mark.parametrize(
+    "path", sorted((PORT / "kernels").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(PORT)))
+def test_launchers_read_nothing_back_from_the_device(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(node.func.attr, node.lineno) for node in ast.walk(tree)
+           if isinstance(node, ast.Call)
+           and isinstance(node.func, ast.Attribute)
+           and node.func.attr in HOST_READS]
+    assert not bad, f"{path.relative_to(PORT)} reads back {bad}"
+
+
 def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch):
     """A change to a header shared by two sources must rebuild the library,
     or a card run would time a stale one."""
@@ -208,8 +227,10 @@ def test_launch_counts_by_kernel_and_route(monkeypatch):
     for kernel, route in counted:
         _build.count(kernel, route)
     _build.count("ssd_scan")
+    _build.count("paged_decode_attention")
     for kernel in ("bitplane_gemv", "int8_matvec", "flash_attention",
-                   "paged_prefill_attention", "ssd_scan"):
+                   "paged_prefill_attention", "ssd_scan",
+                   "paged_decode_attention"):
         assert _build.LAUNCHES[kernel] == 1
     assert _build.ROUTE_LAUNCHES == {
         f"{k}/{r}": int((k, r) in counted)
