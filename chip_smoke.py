@@ -21,7 +21,11 @@ exits non-zero:
                 table (G 1-12, Dh 64-128, pages 16 / 32, run twice); flash
                 attention (D up to 128, padded outside 32 / 64 / 128) and
                 the chunked prefill through both of their routes
-                (``tensor_core`` bfloat16, ``cuda_core`` float32);
+                (``tensor_core`` bfloat16, ``cuda_core`` float32); the SSD
+                scan at 1, 16 and 32 chunks, N 64 and 128, bfloat16 and
+                float32 inputs, and chunks over 256 steps that the kernels
+                cut, with a shorter last chunk (``SSD_CASES``, every call
+                twice: the same bits);
    ``time``     kernel, plain-version and PyTorch-library times at those
                 shapes, with the bytes and operations each call needs and
                 the least time the card could take for them, and the GEMV
@@ -29,7 +33,9 @@ exits non-zero:
                 paged, ``long`` and ``ssm`` decode steps); with the
                 bit-plane GEMV at 8 (radix 1, 2), 4 and 2 bits beside the
                 int8 bit-parallel baseline, the card's version of the
-                paper's bit-serial against bit-parallel comparison.
+                paper's bit-serial against bit-parallel comparison.  The
+                rows of the kernels that replaced an earlier design carry
+                its time (``earlier_ms``, ``EARLIER_MS``).
 4. ``main``     paged serving: ``ServeEngine`` on full-width qwen2.5-3b (36
                 layers, bf16, ``EngineConfig(weight_bits=4, kv_bits=8)``):
                 16 seeded prompts of 33-300 tokens, 32 new tokens each;
@@ -153,6 +159,36 @@ TC_ROWS = (100, 8192)
 # the engine phase's exact GEMVs: qwen2.5-3b's wq (K = N = 2048); the U55's
 # largest resident 8-bit square GEMV is added at run time
 ENGINE_DIMS = (2048,)
+# the SSD scan's parity cases (B, S, H, N, chunk, dtype): the ssm shape at
+# 16 and 32 chunks, one chunk, zamba2's state (N 64), float32 inputs, and
+# chunks over the kernels' 256 steps (cut to 256: 600 steps end in a chunk
+# of 88, 768 in three whole chunks)
+SSD_CASES = [(4, 4096, 24, 128, 256, "bfloat16"),
+             (4, 4096, 24, 128, 128, "bfloat16"),
+             (2, 256, 24, 128, 256, "bfloat16"),
+             (2, 4096, 24, 64, 256, "bfloat16"),
+             (2, 4096, 24, 128, 256, "float32"),
+             (2, 4096, 24, 64, 128, "float32"),
+             (1, 256, 8, 128, 256, "float32"),
+             (1, 600, 2, 64, 300, "bfloat16"),
+             (1, 600, 2, 64, 300, "float32"),
+             (2, 768, 3, 128, 384, "bfloat16"),
+             (2, 768, 3, 128, 384, "float32")]
+# the times of the designs this script's kernels replaced, as it timed
+# them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): the SSD scan's
+# one block a (lane, head) at the ssm shape, and the int8 baseline's
+# CUDA-core decode route (M, K, N) with bf16 x
+EARLIER_MS = {
+    "ssd_scan": 3.141,
+    ("int8_matvec", 1, 2048, 2048): 0.0160,
+    ("int8_matvec", 1, 2048, 256): 0.0150,
+    ("int8_matvec", 1, 2048, 11008): 0.0343,
+    ("int8_matvec", 1, 11008, 2048): 0.0725,
+    ("int8_matvec", 8, 2048, 2048): 0.0176,
+    ("int8_matvec", 8, 2048, 256): 0.0167,
+    ("int8_matvec", 8, 2048, 11008): 0.0393,
+    ("int8_matvec", 8, 11008, 2048): 0.0820,
+}
 
 
 def emit(phase: str, **rec) -> None:
@@ -725,7 +761,7 @@ def int8_parity(torch, dev):
 
 
 def int8_time(torch, dev, m, k, n, dt=None):
-    from repro_torch.kernels._gemv import route
+    from repro_torch.kernels._gemv import decode_splits, route, sm_count
     from repro_torch.kernels.int8_matvec.kernel import int8_matvec_cuda
     from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
 
@@ -753,8 +789,12 @@ def int8_time(torch, dev, m, k, n, dt=None):
     lib = timed_ms(lambda w: torch.matmul(x, w), [(w,) for w in lib_copies],
                    torch)
     del lib_copies
+    path = route(m, dt)
     rec = dict(kernel="int8_matvec", linear=GEMV_NAMES.get((k, n), ""), m=m,
-               k=k, n=n, dtype=dname, gemv_route=route(m, dt),
+               k=k, n=n, dtype=dname, gemv_route=path,
+               **({"decode_splits": decode_splits(k, n, sm_count(dev))}
+                  if path == "decode" else {}),
+               earlier_ms=EARLIER_MS.get(("int8_matvec", m, k, n)),
                max_abs_err=err,
                tol=dict(rtol=rtol, atol_max=float(atol.max())), ms=ms,
                plain_ms=plain, library_ms=lib,
@@ -1272,16 +1312,19 @@ def flash_time(torch, dev):
     return rec
 
 
-def ssd_inputs(torch, dev, gen):
+def ssd_inputs(torch, dev, gen, b=None, s=None, h=None, n=None,
+               dtype="bfloat16"):
+    """Seeded SSD-scan inputs at the ssm shape (``SSD_SHAPE``) unless given:
+    xdt, B and C in ``dtype``, la float32 <= 0."""
     sh = SSD_SHAPE
-    xdt = (0.1 * torch.randn((sh["b"], sh["s"], sh["h"], sh["p"]),
-                             generator=gen, device=dev)).to(torch.bfloat16)
-    la = -0.2 * torch.rand((sh["b"], sh["s"], sh["h"]), generator=gen,
-                           device=dev)
-    b_in = torch.randn((sh["b"], sh["s"], sh["n"]), generator=gen,
-                       device=dev).to(torch.bfloat16)
-    c_in = torch.randn((sh["b"], sh["s"], sh["n"]), generator=gen,
-                       device=dev).to(torch.bfloat16)
+    b, s, h, n = (b or sh["b"], s or sh["s"], h or sh["h"],
+                  n or sh["n"])
+    dt = getattr(torch, dtype)
+    xdt = (0.1 * torch.randn((b, s, h, sh["p"]), generator=gen,
+                             device=dev)).to(dt)
+    la = -0.2 * torch.rand((b, s, h), generator=gen, device=dev)
+    b_in = torch.randn((b, s, n), generator=gen, device=dev).to(dt)
+    c_in = torch.randn((b, s, n), generator=gen, device=dev).to(dt)
     return xdt, la, b_in, c_in
 
 
@@ -1292,33 +1335,52 @@ def ssd_tol(r):
 
 
 def ssd_parity(torch, dev):
+    """``SSD_CASES`` through ``ops.ssd_scan`` against the float64
+    recurrence, each call twice (the same bits)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan.kernel import kernel_chunk
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    inputs = ssd_inputs(torch, dev, gen)
-    ry, rh = ssd_scan_ref(*inputs)
     worst, worst_used, cases = 0.0, 0.0, []
-    for chunk in (256, 128):
-        y, h = ssd_scan(*inputs, chunk=chunk)
-        for name, out, ref in (("y", y, ry), ("h", h, rh)):
+    for b, s, h, n, chunk, dtype in SSD_CASES:
+        inputs = ssd_inputs(torch, dev, gen, b, s, h, n, dtype)
+        ry, rh = ssd_scan_ref(*inputs)
+        before = _build.LAUNCHES["ssd_scan"]
+        y, hf = ssd_scan(*inputs, chunk=chunk)
+        torch.cuda.synchronize()
+        if _build.LAUNCHES["ssd_scan"] != before + 1:
+            raise AssertionError("ssd_scan: the wrapper did not launch")
+        again = ssd_scan(*inputs, chunk=chunk)
+        torch.cuda.synchronize()
+        if not (torch.equal(y, again[0]) and torch.equal(hf, again[1])):
+            raise AssertionError(f"ssd_scan: two calls differ in their bits "
+                                 f"(B={b}, S={s}, H={h}, N={n}, "
+                                 f"chunk={chunk}, {dtype})")
+        kc = kernel_chunk(chunk, s)
+        case = dict(b=b, s=s, h=h, n=n, chunk=chunk, kernel_chunk=kc,
+                    chunks=-(-s // kc), last_chunk=s - (-(-s // kc) - 1) * kc,
+                    dtype=dtype)
+        for name, out, ref in (("y", y, ry), ("h", hf, rh)):
             rtol, atol = ssd_tol(ref)
             err, used = check_close("ssd_scan", out, ref, rtol, atol,
-                                    chunk=chunk, output=name)
+                                    output=name, **case)
             worst, worst_used = max(worst, err), max(worst_used, used)
-            cases.append(dict(chunk=chunk, output=name, max_abs_err=err))
-    torch.cuda.synchronize()
+            case[f"max_abs_err_{name}"] = err
+            case[f"share_of_tol_{name}"] = used
+        cases.append(case)
     emit("parity", kernel="ssd_scan", cases=cases,
-         shape="B=4, S=4096, H=24, P=64, N=128, bf16 inputs",
          tolerance="rtol 1e-4, atol 1e-4*max|ref| against the float64 "
-                   "recurrence", max_abs_err=worst,
-         max_share_of_tol=worst_used)
+                   "recurrence; every call twice, the same bits",
+         max_abs_err=worst, max_share_of_tol=worst_used)
 
 
 def ssd_time(torch, dev):
     """Kernel / plain times of one prefill SSD call (mamba2-130m heads,
-    four 4096-token prompts, chunk 256).  No single PyTorch call computes
-    the scan: library_ms is null."""
+    four 4096-token prompts, chunk 256), and its three kernels' device
+    times.  No single PyTorch call computes the scan: library_ms is
+    null."""
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -1344,12 +1406,24 @@ def ssd_time(torch, dev):
             for _ in range(n_copies(n_bytes))]
     ms = timed_ms(lambda *a: ssd_scan_cuda(*a, chunk=chunk), sets, torch)
     plain_ms = timed_ms(lambda *a: ssd_scan_ref(*a), sets[:2], torch)
+    # the three kernels of one call, device microseconds (torch.profiler)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for args in sets[:5]:
+            ssd_scan_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+    kernel_us = {e.key.split("<")[0].split("::")[-1]:
+                 e.device_time_total / e.count
+                 for e in prof.key_averages() if e.device_time_total > 0}
     del sets
     rec = dict(kernel="ssd_scan", **sh, chunk=chunk, dtype="bfloat16",
                max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
+               earlier_ms=EARLIER_MS["ssd_scan"], kernel_us=kernel_us,
                plain_ms=plain_ms, library_ms=None,
-               blocks=b * nh, bytes=n_bytes, ops=n_ops, bound_ms=bms,
-               bound_by=by)
+               blocks=dict(chunk_states=nh * nc * b,
+                           state_scan=p * n // 1024 * nh * b,
+                           outputs=2 * nh * nc * b),
+               bytes=n_bytes, ops=n_ops, bound_ms=bms, bound_by=by)
     emit("time", **rec)
     return rec
 

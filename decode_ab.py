@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the paged decode step's kernels of two checkouts on one GPU, in turns.
+"""Time the decode step's kernels, the int8 baseline's decode route and the
+SSD scan of two checkouts on one GPU, in turns.
 
 Run from anywhere, with the roots of two checkouts (for instance this one
 and an earlier commit unpacked with ``git archive`` under ``build/``)::
@@ -9,14 +10,18 @@ and an earlier commit unpacked with ``git archive`` under ``build/``)::
 Each round runs tree A, then tree B, each in its own process from its own
 root: the process imports that tree's ``chip_smoke.py`` (so each tree's
 kernels are built from its own sources into its own ``build/kernels``) and
-times, with that script's ``attn_time`` and ``gemv_time`` (CUDA events over
-launches that rotate inputs beyond L2), the decode step's kernels at the
+times, with that script's ``attn_time``, ``gemv_time``, ``int8_time`` and
+``ssd_time`` (CUDA events over launches that rotate inputs beyond L2), the
+decode step's kernels at the
 main paths' shapes: paged decode attention over int8 and bf16 pools; the
 bit-plane GEMV's decode route at M = 8 for qwen2.5-3b's four linears at 4,
 8 (radix 1 and 2) and 2 bits, at M = 2 (``long``'s decode steps) and M = 4
 (``ssm``'s, mamba2-130m's linears), and at M = 1 in float32 at d = 2048
-and 1983 (the ``engine`` phase's GEMVs).  So A, B, A, B, ... share one card
-and its power limit.  It prints the card's name and power limit, one JSON
+and 1983 (the ``engine`` phase's GEMVs); the int8 bit-parallel baseline
+at M = 1 and 8 (bf16) on the same four linears and at M = 1 in float32 at
+d = 2048 and 1983 (its decode route); and the SSD scan at the ``ssm``
+shape (``ssd_time``).  So A, B, A, B, ... share one card and its power
+limit.  It prints the card's name and power limit, one JSON
 line per timed row (``tree``, ``round`` and the row as ``chip_smoke.py``
 emits it), and a summary line: each row's ``ms`` per tree and round.
 """
@@ -54,6 +59,12 @@ for d in (2048, 1983):
     for radix in (1, 2):
         c.gemv_time(torch, dev, 1, d, d, bits=8, radix=radix,
                     dt=torch.float32)
+for m in (1, 8):
+    for k, n in c.GEMV_SHAPES:
+        c.int8_time(torch, dev, m, k, n)
+for d in (2048, 1983):
+    c.int8_time(torch, dev, 1, d, d, dt=torch.float32)
+c.ssd_time(torch, dev)
 """
 
 
@@ -61,6 +72,12 @@ def row_key(rec: dict) -> str:
     if rec["kernel"] == "bitplane_gemv":
         return (f"bitplane_gemv m={rec['m']} k={rec['k']} n={rec['n']} "
                 f"bits={rec['bits']} radix={rec['radix']} {rec['dtype']}")
+    if rec["kernel"] == "int8_matvec":
+        return (f"int8_matvec m={rec['m']} k={rec['k']} n={rec['n']} "
+                f"{rec['dtype']}")
+    if rec["kernel"] == "ssd_scan":
+        return (f"ssd_scan b={rec['b']} s={rec['s']} h={rec['h']} "
+                f"n={rec['n']} chunk={rec['chunk']}")
     return f"{rec['kernel']} pools={rec['pools']}"
 
 

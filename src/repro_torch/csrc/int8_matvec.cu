@@ -15,28 +15,33 @@
 // Three routes, each its own C entry point, picked by M and the type of x
 // (kernels/int8_matvec/kernel.py):
 //   * decode (M <= 8): each weight byte meets a handful of rows, so it is
-//     bound by device-memory bytes (one per weight);
+//     bound by device-memory bytes (one per weight).  The codes are byte
+//     for byte the bit-plane GEMV's 8-bit packed rows, so this route is
+//     that GEMV's decode design, `dec::launch<8>` of csrc/gemv_decode.cuh
+//     (split-K over a thread-block cluster, bf16 x on mma.sync, float32 x
+//     on the CUDA cores), with the same split count (kernels/_gemv.py
+//     `decode_splits`); this file defines no decode kernel of its own;
 //   * tensor_core (bfloat16 x, M > 8): the tile of csrc/tc_gemm.cuh at 8
 //     bits, shared with the bit-plane GEMV (its packed rows at b = 8 are
 //     these (K, N) codes), bound by 2*M*K*N bf16 tensor-core operations;
 //   * rows (float32 x, M > 8): 2*M*K*N float32 operations on the CUDA cores
 //     in the design below, as a bf16 x would round float32 activations.
 //
-// What the CUDA-core design (decode and rows) does:
+// What the CUDA-core design (rows) does:
 //   * the coalesced direction is N: each thread owns 4 adjacent columns and
 //     reads their codes with one 32-bit load, so a group of 8 lanes reads
 //     one 32-byte sector of a row of q;
-//   * a block covers 32 columns; its groups of 8 lanes split each K tile
-//     row by row and add their partial sums in shared memory at the end
-//     (a fixed order, so the result does not change from run to run);
+//   * a block covers 32 columns and 16 rows; its groups of 8 lanes split
+//     each K tile row by row and add their partial sums in shared memory at
+//     the end (a fixed order, so the result does not change from run to
+//     run);
 //   * each thread issues UNROLL independent loads before it uses any, so a
 //     memory-bound call keeps many bytes in flight;
 //   * the x rows of the block's K tile are staged in shared memory as
 //     float32, transposed so the TM rows that meet one weight are one
 //     vectorised broadcast read;
-//   * two block shapes: up to 8 rows (decode) with 32 K groups, and 16 rows
-//     with 16 K groups (rows); row tiles beyond the first are more blocks
-//     of the grid, which read the same weights again from L2;
+//   * row tiles beyond the first are more blocks of the grid, which read
+//     the same weights again from L2;
 //   * the per-channel scale is applied once, after the whole K sum, as
 //     kernel.py:32-33 does;
 //   * ragged M, K and N are masked by index; nothing is padded.  A 32-bit
@@ -47,6 +52,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gemv_decode.cuh"
 #include "tc_gemm.cuh"
 
 namespace {
@@ -73,8 +79,9 @@ __device__ __forceinline__ uint32_t load4(const int8_t* __restrict__ row,
   return w;
 }
 
-// One block: 32 output columns x TM rows.  Its threads form KG groups of 8
-// lanes; group kg takes rows kg, kg + KG, ... of each TK-row K tile.
+// One block (the rows route): 32 output columns x TM rows.  Its threads
+// form KG groups of 8 lanes; group kg takes rows kg, kg + KG, ... of each
+// TK-row K tile.
 template <int TM, int WARPS, int TK, int UNROLL, bool VEC, typename XT>
 __global__ void __launch_bounds__(32 * WARPS)
 int8_matvec_kernel(const int8_t* __restrict__ q,
@@ -200,19 +207,17 @@ int launch(const void* q, const void* scale, const void* x, void* out, int M,
 // y (M, N) = (x (M, K) @ q (K, N)) * scale (1, N).
 // x_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t.
 
-// M <= 8: bytes-bound, as many loads in flight as fit.
+// M <= 8 (the decode route): the bit-plane GEMV's decode design at 8 bits,
+// `splits` K splits, 1 .. 8, each holding some K (kernels/_gemv.py,
+// `decode_splits`).
 extern "C" int imagine_int8_matvec_decode(const void* q, const void* scale,
                                           const void* x, void* out, int M,
-                                          int K, int N, int x_bf16,
-                                          int out_bf16, void* stream) {
-  if (M <= 0 || M > 8 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return launch<8, 8, 1024, 16, __nv_bfloat16>(q, scale, x, out, M, K, N,
-                                                 out_bf16, s);
-  }
-  return launch<8, 8, 1024, 16, float>(q, scale, x, out, M, K, N, out_bf16,
-                                       s);
+                                          int K, int N, int splits,
+                                          int x_bf16, int out_bf16,
+                                          void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  return dec::launch<8>(q, scale, x, out, M, K, N, splits, x_bf16, out_bf16,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // float32 x at M > 8 on the CUDA cores, 16 rows a block (bfloat16 x at

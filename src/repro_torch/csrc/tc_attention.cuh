@@ -4,7 +4,10 @@
 //
 // Included by csrc/flash_attention.cu (route tensor_core: causal GQA
 // attention over a whole sequence, on wgmma) and csrc/paged_attention.cu
-// (route tensor_core of the chunked prefill, on mma.sync m16n8k16).  Both
+// (route tensor_core of the chunked prefill, on mma.sync m16n8k16), and by
+// csrc/ssd_scan.cu, whose bf16 output pass takes the `Swz` tiles, the
+// descriptors, the wgmma wrappers and `p_frags` with C, B and xdt in the
+// places of Q, K and V.  Both
 // stage K and V in shared memory as bf16 tiles of [key][D] in wgmma's
 // swizzled layout (`Swz`), take S = Q K^T on the tensor cores, mask and
 // scale S themselves, call `softmax` (the online-softmax step on the

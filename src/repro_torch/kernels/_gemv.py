@@ -5,9 +5,10 @@ the tensor-core tile of ``csrc/tc_gemm.cuh`` is both kernels' own.
 ``tc_splits`` is the K split of that tile for outputs too small to fill the
 card; ``tc::launch`` in ``tc_gemm.cuh`` refuses a split that holds no K.
 ``TC_TILE`` is that header's ``BM``, ``BN`` and ``BK``.  ``decode_splits``
-is the K split of the bit-plane GEMV's decode route (``dec::`` in
-``csrc/bitplane_gemv.cu``: a cluster of ``splits`` blocks per column tile
-of ``DECODE_COLS``, K in steps of ``DECODE_K_STEP``).
+is the K split of both GEMVs' decode route (``dec::`` in
+``csrc/gemv_decode.cuh``, the int8 codes taken as 8-bit packed rows: a
+cluster of ``splits`` blocks per column tile of ``DECODE_COLS``, K in steps
+of ``DECODE_K_STEP``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def tc_splits(m: int, n: int, k: int, sms: int) -> int:
 
 
 def decode_splits(k: int, n: int, sms: int) -> int:
-    """K splits of the bit-plane decode route: enough that the column tiles
+    """K splits of the GEMVs' decode route: enough that the column tiles
     times the splits give a block per multiprocessor, at most
     ``DECODE_MAX_SPLITS`` (one cluster), rounded so that every split holds
     some K.  Depends on the shapes and the card only (not on M, which the

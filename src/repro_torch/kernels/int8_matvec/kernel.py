@@ -3,9 +3,11 @@
 Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
 allocates the output (and the split-K partial sums) with ``torch.empty``,
 launches on the current stream and raises if the launch reports an error.
-``_gemv.route`` picks the design, as for the bit-plane GEMV (at 8 bits its
-tensor-core tile is this kernel's too), each its own C entry point; no
-route ever gives way to another or to the plain version.
+``_gemv.route`` picks the design, as for the bit-plane GEMV, each its own
+C entry point: at 8 bits that GEMV's decode design (``dec::`` of
+``csrc/gemv_decode.cuh``, with the K split of ``_gemv.decode_splits``) and
+its tensor-core tile are this kernel's too.  No route ever gives way to
+another or to the plain version.
 """
 
 from __future__ import annotations
@@ -16,7 +18,12 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._gemv import route, tc_partial
+from repro_torch.kernels._gemv import (
+    decode_splits,
+    route,
+    sm_count,
+    tc_partial,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -24,7 +31,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     fn = getattr(_build.library(), f"imagine_int8_matvec_{name}")
-    n_ptr, n_int = (5, 5) if name == "tc" else (4, 5)
+    n_ptr, n_int = {"tc": (5, 5), "decode": (4, 6), "rows": (4, 5)}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -72,6 +79,11 @@ def int8_matvec_cuda(q: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
         err = _entry("tc")(*ptrs, None if partial is None
                            else partial.data_ptr(), m, k, n, splits,
                            _DTYPE_CODES[out_dtype], stream)
+    elif path == "decode":
+        err = _entry(path)(*ptrs, m, k, n,
+                           decode_splits(k, n, sm_count(x.device)),
+                           _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
+                           stream)
     else:
         err = _entry(path)(*ptrs, m, k, n, _DTYPE_CODES[x.dtype],
                            _DTYPE_CODES[out_dtype], stream)

@@ -27,5 +27,11 @@ def ssd_scan(xdt: torch.Tensor, la: torch.Tensor, b_in: torch.Tensor,
     chunk = min(chunk, xdt.shape[1])
     if xdt.device.type == "cpu":
         return ssd_scan_ref(xdt, la, b_in, c_in, chunk)
-    return ssd_scan_cuda(xdt.contiguous(), la.float().contiguous(),
-                         b_in.contiguous(), c_in.contiguous(), chunk=chunk)
+    return ssd_scan_cuda(_aligned(xdt), _aligned(la.float()),
+                         _aligned(b_in), _aligned(c_in), chunk=chunk)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (a copy where a view is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

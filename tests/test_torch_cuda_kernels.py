@@ -24,7 +24,9 @@ Flash attention and the chunked prefill pick a design by dtype
 (``tensor_core`` for bfloat16, ``cuda_core`` for float32): their cases
 check that the route's counter moved.  The SSD scan is chunked float32 arithmetic against the plain
 float64 recurrence: within 1e-4 of the largest output (cumulative decays
-summed in float32 over a chunk, exponentials of float32 arguments).
+summed in float32 over a chunk, exponentials of float32 arguments, float32
+operands of its tensor-core products split into bf16 hi + lo); its three
+passes reduce in a fixed order, so two calls give the same bits.
 The int8 bit-parallel GEMV adds K products in float32 in another order than
 the plain version: within 16·√K·2^-24 of Σ|x|·|q|·scale per element (one
 bf16 ulp more for bfloat16 outputs).  Both GEMVs pick a design by M and the
@@ -34,9 +36,10 @@ neither a multiple of the tile's K step; N = 300 and 1983, neither 16- nor
 8-byte aligned, and 3352, only 8-byte aligned) take the tensor-core tile.  The engine's exact case feeds integer
 weights and activations whose partial sums stay below 2^24, so the tile
 model and every kernel must equal ``w @ x`` exactly.  The decode-step
-kernels (paged decode attention split over the keys, the GEMV's decode
-route split over K) reduce their splits in a fixed order: their cases also
-run each call twice and require the same bits.  Flash attention and the
+kernels (paged decode attention split over the keys, the GEMVs' decode
+route split over K, shared by the int8 baseline at 8 bits) reduce their
+splits in a fixed order: their cases also run each call twice and require
+the same bits.  Flash attention and the
 paged prefill take head dims outside 32 / 64 / 128 through the launcher's
 zero padding (D = 16 and 112 here).
 """
@@ -342,11 +345,17 @@ def test_flash_attention_matches_plain(cuda_device, s, hq, hkv, d, window,
 @pytest.mark.cuda
 @pytest.mark.parametrize("bsz,s,nh,n,chunk", [
     (2, 512, 3, 128, 256), (1, 384, 2, 64, 128), (2, 256, 2, 128, 64),
-    (1, 96, 1, 128, 32), (1, 300, 2, 64, 100)])
+    (1, 96, 1, 128, 32), (1, 300, 2, 64, 100),
+    (1, 256, 24, 128, 256), (2, 256, 24, 64, 256), (1, 4096, 8, 128, 256),
+    (2, 4096, 24, 64, 256), (1, 4096, 4, 128, 128), (2, 2048, 24, 64, 64),
+    (1, 600, 2, 64, 300), (2, 768, 3, 128, 384)])
 @pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
 def test_ssd_scan_matches_plain(cuda_device, bsz, s, nh, n, chunk, xdt):
-    """Chunks of 256 down to 32 steps, a chunk that is not a multiple of the
-    kernel's 64-step tile, both state sizes the kernel takes."""
+    """Chunks of 256 down to 32 steps, a chunk that is not a multiple of
+    16, chunks over 256 steps that the kernels cut to 256 (600 steps end
+    in a shorter chunk of 88), both state sizes the kernel takes (64:
+    zamba2's, 128: mamba2's), 1, 16 and 32 chunks, grids from a few blocks
+    to several waves of the card; the same bits from two calls."""
     dt = getattr(torch, xdt)
     gen = torch.Generator(device=cuda_device).manual_seed(s + nh + n)
     xdt_in = (0.1 * torch.randn((bsz, s, nh, 64), generator=gen,
@@ -364,6 +373,8 @@ def test_ssd_scan_matches_plain(cuda_device, bsz, s, nh, n, chunk, xdt):
     for out, ref in ((y, ry), (h, rh)):
         torch.testing.assert_close(out, ref, rtol=1e-4,
                                    atol=1e-4 * ref.abs().max().item())
+    again = ssd_scan(xdt_in, la, b_in, c_in, chunk=chunk)
+    assert torch.equal(y, again[0]) and torch.equal(h, again[1])
 
 
 @pytest.mark.cuda
@@ -388,6 +399,62 @@ def test_int8_matvec_matches_plain(cuda_device, m, k, n, xdt):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["int8_matvec"] == before + 1
     assert _build.ROUTE_LAUNCHES[path] == before_route + 1
+    r = int8_matvec_ref(q, scale, x, out_dtype=dt)
+    assert y.shape == (m, n) and y.dtype == dt
+    s = (x.float().abs() @ q.float().abs()) * scale
+    atol = 2.0 ** -20 * math.sqrt(k) * s
+    rtol = 0.0 if dt == torch.float32 else 2 ** -7
+    err = (y.float() - r.float()).abs()
+    assert bool((err <= atol + rtol * r.float().abs()).all()), float(
+        err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_int8_matvec_decode_route(cuda_device, monkeypatch, xdt, m, shape):
+    """The int8 baseline's decode route is the bit-plane GEMV's decode
+    design at 8 bits: one launch of that route with ``decode_splits``'
+    split count for the shape and the card, within the int8 tolerance of
+    the plain version, the same bits twice."""
+    from repro_torch.kernels import _gemv
+    from repro_torch.kernels.int8_matvec import kernel as int8_kernel
+
+    splits_seen, entry_args = [], []
+    real_splits, real_entry = int8_kernel.decode_splits, int8_kernel._entry
+
+    def spy_splits(k, n, sms):
+        splits_seen.append(real_splits(k, n, sms))
+        return splits_seen[-1]
+
+    def spy_entry(name):
+        fn = real_entry(name)
+
+        def call(*args):
+            entry_args.append((name, args))
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(int8_kernel, "decode_splits", spy_splits)
+    monkeypatch.setattr(int8_kernel, "_entry", spy_entry)
+    dt = getattr(torch, xdt)
+    k, n = shape if shape != "ragged" else (2001, 1003)
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w = torch.randn((k, n), generator=gen, device=cuda_device)
+    q, scale = quantize_symmetric(w, 8)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+    assert route(m, dt) == "decode"
+    before = _build.ROUTE_LAUNCHES["int8_matvec/decode"]
+    y = int8_matvec(q, scale, x, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES["int8_matvec/decode"] == before + 1
+    want = _gemv.decode_splits(k, n, _gemv.sm_count(cuda_device))
+    assert splits_seen == [want]
+    (name, args), = entry_args
+    assert name == "decode" and args[4:8] == (m, k, n, want)
+    again = int8_matvec(q, scale, x, out_dtype=dt)
+    assert torch.equal(y, again)
     r = int8_matvec_ref(q, scale, x, out_dtype=dt)
     assert y.shape == (m, n) and y.dtype == dt
     s = (x.float().abs() @ q.float().abs()) * scale

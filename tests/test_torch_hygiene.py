@@ -13,7 +13,13 @@
 * No launcher reads device data back to the host (``.item()``,
   ``.tolist()``, ``.cpu()``, ``.numpy()``): grids and splits follow from
   shapes, so a launch never waits on the card and can be captured in a
-  CUDA graph.
+  CUDA graph.  The SSD scan's launcher, which runs three kernels and
+  allocates their scratch, is also run with its C entry point replaced by
+  a recorder and every host read of a tensor made to raise.
+* The two GEMVs share one decode source: ``csrc/gemv_decode.cuh`` holds
+  the decode kernels, both ``bitplane_gemv.cu`` and ``int8_matvec.cu``
+  include it and launch ``dec::launch``, and ``int8_matvec.cu`` defines no
+  decode kernel of its own.
 """
 
 import ast
@@ -242,3 +248,71 @@ def test_launch_counts_by_kernel_and_route(monkeypatch):
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
     assert not any(_build.ROUTE_LAUNCHES.values())
+
+
+def test_ssd_launcher_reads_nothing_back(monkeypatch):
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    calls = []
+
+    def entry():
+        def call(*args):
+            calls.append(args)
+            return 0
+        return call
+
+    class Stream:
+        cuda_stream = 0
+
+    def host_read(*args, **kwargs):
+        raise AssertionError("the SSD launcher read a tensor on the host")
+
+    monkeypatch.setattr(ssd_kernel, "_check", lambda *a: None)
+    monkeypatch.setattr(ssd_kernel, "_entry", entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(torch.cuda, "synchronize", host_read)
+    monkeypatch.setattr(ssd_kernel._build, "LAUNCHES",
+                        dict(ssd_kernel._build.LAUNCHES))
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                 "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+    bsz, s, nh, p, n = 2, 600, 4, 64, 128
+    xdt = torch.zeros((bsz, s, nh, p), dtype=torch.bfloat16)
+    la = torch.zeros((bsz, s, nh))
+    bc = torch.zeros((bsz, s, n), dtype=torch.bfloat16)
+    y, h = ssd_kernel.ssd_scan_cuda(xdt, la, bc, bc, chunk=300)
+    assert y.shape == (bsz, s, nh, p) and h.shape == (bsz, nh, p, n)
+    (args,) = calls
+    # 9 pointers (inputs, outputs, the three scratch tensors), then B, S,
+    # H, P, N, the kernels' chunk (cut to 256), the dtype, the stream
+    assert all(isinstance(a, int) for a in args[:9])
+    assert args[9:] == (bsz, s, nh, p, n, 256, 1, 0)
+    assert ssd_kernel._build.LAUNCHES["ssd_scan"] == 1
+
+
+CSRC = PORT / "csrc"
+
+
+def _kernels_defined(text: str):
+    """Names of the ``__global__`` functions a CUDA source defines."""
+    import re
+
+    bounds = r"(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)\s*)?"
+    return re.findall(r"__global__\s+void\s+" + bounds + r"(\w+)\s*\(",
+                      text)
+
+
+def test_gemvs_share_one_decode_source():
+    header = (CSRC / "gemv_decode.cuh").read_text()
+    assert "namespace dec" in header
+    assert {"decode_mma_kernel", "decode_fma_kernel"} <= set(
+        _kernels_defined(header))
+    for name in ("bitplane_gemv.cu", "int8_matvec.cu"):
+        text = (CSRC / name).read_text()
+        assert '#include "gemv_decode.cuh"' in text, name
+        assert "namespace dec" not in text, name
+        assert "dec::launch<" in text, name
+        assert not [k for k in _kernels_defined(text) if "decode" in k], name
+    int8 = (CSRC / "int8_matvec.cu").read_text()
+    assert _kernels_defined(int8) == ["int8_matvec_kernel"]
+    assert "dec::launch<8>" in int8

@@ -21,6 +21,11 @@ design with the bit-plane GEMV's ``route`` (at 8 bits the two share the
 tensor-core tile); a prefill-sized ragged case (M = 130, K = 136, N = 200,
 bfloat16 x), which that route takes on the card, goes through the ``ops``
 wrapper against the Pallas kernel in interpret mode at the tolerance above.
+At M <= 8 the launcher runs the bit-plane GEMV's decode design at 8 bits
+(``csrc/gemv_decode.cuh``): the int8 codes are byte for byte the 8-bit
+packed rows, and the launcher hands the C entry point the K split of
+``_gemv.decode_splits`` (checked here with the entry point replaced by a
+recorder, since the kernel cannot run on the CPU).
 """
 
 import jax.numpy as jnp
@@ -32,7 +37,8 @@ from repro.core.gemv_engine import quantize_linear as jax_quantize_linear
 from repro.kernels.int8_matvec.ops import int8_matvec as jax_int8_matvec
 from repro.kernels.int8_matvec.ref import int8_matvec_ref as jax_int8_ref
 
-from repro_torch.core import quantize_linear
+from repro_torch.core import pack_weights, quantize_linear
+from repro_torch.kernels import _gemv
 from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
 from repro_torch.kernels.int8_matvec import int8_matvec
 from repro_torch.kernels.int8_matvec import kernel as int8_kernel
@@ -140,3 +146,48 @@ def test_prefill_ragged_matches_jax_pallas_interpret():
     assert got.shape == (m, n) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want_k, **TOL)
     np.testing.assert_allclose(got.numpy(), want_r, **TOL)
+
+
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (2048, 11008),
+                                 (11008, 2048), (2001, 1003)])
+def test_int8_codes_are_the_8bit_packed_rows(k, n):
+    """The premise of the shared decode route: packing int8 codes at 8 bits
+    leaves their bytes as they are."""
+    q = torch.from_numpy(_case((1,), k, n, seed=k + n)[0])
+    assert torch.equal(pack_weights(q, 8), q)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 256), (2048, 11008),
+                                 (11008, 2048), (2001, 1003)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_decode_launch_takes_the_bitplane_decode_split(monkeypatch, m, k, n,
+                                                       xdt):
+    calls = []
+
+    def entry(name):
+        def call(*args):
+            calls.append((name, args))
+            return 0
+        return call
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(int8_kernel, "_check", lambda *a: None)
+    monkeypatch.setattr(int8_kernel, "_entry", entry)
+    monkeypatch.setattr(int8_kernel, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(int8_kernel._build, "LAUNCHES",
+                        dict(int8_kernel._build.LAUNCHES))
+    monkeypatch.setattr(int8_kernel._build, "ROUTE_LAUNCHES",
+                        dict(int8_kernel._build.ROUTE_LAUNCHES))
+    q = torch.zeros((k, n), dtype=torch.int8)
+    scale = torch.ones((1, n))
+    x = torch.zeros((m, k), dtype=xdt)
+    y = int8_kernel.int8_matvec_cuda(q, scale, x, out_dtype=xdt)
+    assert y.shape == (m, n) and y.dtype == xdt
+    (name, args), = calls
+    assert name == "decode"
+    assert args[4:8] == (m, k, n, _gemv.decode_splits(k, n, 132))
+    assert int8_kernel._build.ROUTE_LAUNCHES["int8_matvec/decode"] == 1
