@@ -38,10 +38,17 @@ exits non-zero:
                 its time (``earlier_ms``, ``EARLIER_MS``).
 4. ``main``     paged serving: ``ServeEngine`` on full-width qwen2.5-3b (36
                 layers, bf16, ``EngineConfig(weight_bits=4, kv_bits=8)``):
-                16 seeded prompts of 33-300 tokens, 32 new tokens each;
-                then ``main_profile``: ``torch.profiler`` over four
-                decode-only steps of 8 more prompts, the device kernel ms
-                per step by kernel and the device busy share.
+                16 seeded prompts of 33-300 tokens, 32 new tokens each,
+                every decode step and prefill chunk a replayed CUDA graph
+                (the seconds of their capture reported apart); then
+                ``main_profile``: one ``torch.profiler`` session over four
+                decode-only steps (replays) of 8 more prompts, the device
+                kernel ms per step by kernel and the device busy share,
+                and unprofiled the decode graph's device time over the
+                step's host time (``replay_share``); then the 16
+                prompts once more with ``cuda_graphs=False``
+                (``main_eager``): identical greedy tokens, both runs' tok/s
+                and step ms side by side (``main_graphs_vs_eager``).
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
@@ -52,15 +59,23 @@ exits non-zero:
                 (``weight_bits=4``, full-precision slots cache),
                 ``init_cache`` for 2 x 4160, one-shot ``prefill`` of two
                 seeded 4096-token prompts (flash attention), 32 greedy
-                ``decode_step`` s.
+                ``decode_step`` s, replays of one CUDA graph.
 8. ``ssm``      the same for full-width mamba2-130m (24 layers,
                 ``weight_bits=4``): four 4096-token prompts (SSD scan),
                 32 decode steps.
 9. ``long_whole`` at 2 layers, full width, both models: the kernel path
-                against the plain path (same greedy tokens, first-step
-                logits within tolerance), and ``forward`` over prompt and
-                continuation against ``prefill`` + ``decode_step`` logits
-                (teacher forcing).
+                (decode steps as graph replays) against the same path
+                eager (identical greedy tokens) and against the plain path
+                (same greedy tokens, first-step logits within tolerance),
+                and ``forward`` over prompt and continuation against
+                ``prefill`` + ``decode_step`` logits (teacher forcing).
+   ``slots``    slots-mode serving: full-width mamba2-130m
+                (``weight_bits=4``), 8 slots, max_len 1024, 16 seeded
+                prompts of 33-300 tokens entering by sequential decode, 32
+                new tokens each, every step a replayed graph of the
+                full-sequence ``decode_step``; then graph against eager
+                (identical greedy tokens) at 2 layers, and for qwen2.5-3b
+                (``kv_bits=0``) cut to 4 layers.
 10. ``engine``   the paper's GEMV engine path: ``repro_torch.paper_demo``
                 at dim 96 on the card, then at d = 2048 (qwen2.5-3b's wq)
                 and d = 1983 (the largest 8-bit GEMV the U55 holds) the
@@ -82,7 +97,10 @@ exits non-zero:
 
 ``main``, ``long`` and ``ssm`` check that the GEMV took its tensor-core
 route in every prefill and its decode route in every decode step
-(``main`` and ``second`` step by step, through ``ServeEngine.step``);
+(``main`` and ``second`` step by step, through ``ServeEngine.step``,
+counting each graph replay as its capture's launches; ``slots`` that
+every step launched the decode route once a GEMV for each prompt token
+it admitted and for its decode step, and nothing else);
 ``main`` and ``second`` that every prefill chunk launched the chunked
 prefill's tensor-core route once a layer, ``long`` that its prefill
 launched flash attention's tensor-core route once a layer and its
@@ -917,7 +935,8 @@ def prompts_for(cfg, n, lo, hi, seed):
 
 
 def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
-                 max_len=1024, max_new=32, params=None, **engine_kw):
+                 max_len=1024, max_new=32, params=None, mode="auto",
+                 cuda_graphs=True, **engine_kw):
     from repro_torch.config import EngineConfig, ServeConfig
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
@@ -932,12 +951,14 @@ def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
                                            kv_bits=kv_bits, **engine_kw),
                        page_size=16, prefill_chunk=32)
     eng = ServeEngine(cfg, params, scfg, n_slots=n_slots, max_len=max_len,
-                      seed=SEED, device=dev)
+                      seed=SEED, mode=mode, cuda_graphs=cuda_graphs,
+                      device=dev)
     return eng, params
 
 
 def serve(torch, name, eng, prompts, max_new):
-    """Submit, run to the end, check every request and report."""
+    """Submit, run to the end, check every request and report; returns
+    the record and every request's tokens."""
     import numpy as np
 
     from repro_torch.kernels import _build
@@ -946,18 +967,27 @@ def serve(torch, name, eng, prompts, max_new):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    # the engine's own loop (``run``), one ``step`` at a time: the GEMV's
-    # tensor-core route must launch in exactly the steps that ran a prefill
-    # chunk, its decode route in exactly those that ran a decode step (each
-    # adds one entry to ``eng.timings``), and its rows route never; the
-    # chunked prefill's tensor-core route once a layer in every step that
-    # ran a chunk, its CUDA-core route never
+    # the engine's own loop (``run``), one ``step`` at a time, with graph
+    # replays counted through their capture's launches.  Paged mode: the
+    # GEMV's tensor-core route must launch in exactly the steps that ran a
+    # prefill chunk, its decode route in exactly those that ran a decode
+    # step (each adds one entry to ``eng.timings``), and its rows route
+    # never; the chunked prefill's tensor-core route once a layer in every
+    # step that ran a chunk, its CUDA-core route never.  Slots mode: every
+    # prompt token admitted and every decode step is one full-sequence
+    # decode step, so the decode route launches a full step's GEMVs for
+    # each, and no other route or attention kernel ever launches
+    slots = eng.mode == "slots"
+    per_step = (7 if eng.cfg.family == "dense" else 2) * eng.cfg.n_layers
     gemv_launches = {"prefill": 0, "decode": 0}
     attn_launches = 0
     t0 = time.perf_counter()
     done = []
     while eng.has_work():
         ran = {part: len(eng.timings[part]) for part in gemv_launches}
+        if slots:
+            free = sum(r is None for r in eng.slot_req)
+            admitted = sum(len(r.prompt) for r in list(eng.queue)[:free])
         before = route_counts("bitplane_gemv")
         before_attn = route_counts("paged_prefill_attention")
         done.extend(eng.step())
@@ -966,12 +996,21 @@ def serve(torch, name, eng, prompts, max_new):
         moved_attn = {k: v - before_attn[k] for k, v in
                       route_counts("paged_prefill_attention").items()}
         ran = {part: len(eng.timings[part]) > n for part, n in ran.items()}
-        if ((moved["tensor_core"] > 0) != ran["prefill"]
-                or (moved["decode"] > 0) != ran["decode"] or moved["rows"]):
-            raise AssertionError(f"{name}: GEMV routes {moved} in a step "
-                                 f"that ran {ran}")
-        if moved_attn != {"cuda_core": 0, "tensor_core":
-                          eng.cfg.n_layers * ran["prefill"]}:
+        if slots:
+            want = per_step * (admitted + ran["decode"])
+            if moved != {"decode": want, "rows": 0, "tensor_core": 0}:
+                raise AssertionError(f"{name}: GEMV routes {moved} in a "
+                                     f"step that ran {ran}, {admitted} "
+                                     f"prompt tokens: wanted {want}")
+            want_attn = 0
+        else:
+            if ((moved["tensor_core"] > 0) != ran["prefill"]
+                    or (moved["decode"] > 0) != ran["decode"]
+                    or moved["rows"]):
+                raise AssertionError(f"{name}: GEMV routes {moved} in a "
+                                     f"step that ran {ran}")
+            want_attn = eng.cfg.n_layers * ran["prefill"]
+        if moved_attn != {"cuda_core": 0, "tensor_core": want_attn}:
             raise AssertionError(f"{name}: prefill attention routes "
                                  f"{moved_attn} in a step that ran {ran}")
         gemv_launches["prefill"] += moved["tensor_core"]
@@ -994,17 +1033,24 @@ def serve(torch, name, eng, prompts, max_new):
         if r.last_logits is None or not np.isfinite(r.last_logits).all():
             raise AssertionError(f"{name}: non-finite logits")
     n_tok = sum(len(r.output) for r in reqs)
+    n_prompt = sum(len(p) for p in prompts)
     dec, pf = eng.timings["decode"], eng.timings["prefill"]
     rec = dict(
+        model=eng.cfg.name, mode=eng.mode, cuda_graphs=eng.cuda_graphs,
         layers=eng.cfg.n_layers, d_model=eng.cfg.d_model,
         vocab=eng.cfg.vocab_size, weight_bits=eng.plan.bits,
         kv_bits=eng.plan.kv_bits, gemv_backend=eng.plan.backend,
-        attn_backend=eng.attn_backend, requests=len(reqs),
-        prompt_tokens=sum(len(p) for p in prompts), new_tokens=n_tok,
+        attn_backend=eng.attn_backend, slots=eng.n_slots,
+        requests=len(reqs), prompt_tokens=n_prompt, new_tokens=n_tok,
         seconds=wall, tok_s=n_tok / wall, decode_steps=len(dec),
         decode_step_ms=1e3 * sum(dec) / max(len(dec), 1),
+        # paged: one entry a prefill chunk; slots: one a prompt's
+        # sequential prefill
         prefill_chunks=len(pf),
         prefill_chunk_ms=1e3 * sum(pf) / max(len(pf), 1),
+        prefill_tok_s=n_prompt / max(sum(pf), 1e-12),
+        capture_s=sum(eng.timings["capture"]),
+        graphs_captured=len(eng.timings["capture"]),
         preemptions=eng.preemptions,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=launches, route_launches=dict(_build.ROUTE_LAUNCHES),
@@ -1013,12 +1059,53 @@ def serve(torch, name, eng, prompts, max_new):
         prefill_attention_tensor_core_launches=attn_launches,
         prefill_attention_per_chunk=attn_launches / max(len(pf), 1))
     emit(name, **rec)
-    missing = [k for k in PAGED_KERNELS if launches[k] == 0]
+    kernels = ("bitplane_gemv",) if slots else PAGED_KERNELS
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched: {missing}")
-    if not all(gemv_launches.values()):
+    if not gemv_launches["decode"] or (not slots
+                                       and not gemv_launches["prefill"]):
         raise AssertionError(f"{name}: GEMV launches {gemv_launches}")
-    return rec
+    if eng.cuda_graphs and eng.timings["capture"] == []:
+        raise AssertionError(f"{name}: no step was captured")
+    return rec, [r.output for r in reqs]
+
+
+def graphs_against_eager(torch, dev, name, cfg, weight_bits, kv_bits,
+                         prompts, max_new, mode="auto", params=None,
+                         graph_rec=None, graph_tokens=None, **kw):
+    """The same prompts through an engine with CUDA graphs and one with
+    ``cuda_graphs=False`` (given the graph run's record and tokens, only
+    the eager one runs): greedy tokens must be identical, as the graphs
+    replay the eager step's kernels on the same inputs.  Emits both runs'
+    step times side by side."""
+    runs = {}
+    for graphs in (True, False):
+        if graphs and graph_rec is not None:
+            runs[graphs] = (graph_rec, graph_tokens)
+            continue
+        eng, params = build_engine(torch, dev, cfg, weight_bits, kv_bits,
+                                   params=params, mode=mode,
+                                   cuda_graphs=graphs, max_new=max_new, **kw)
+        run = f"{name}_{'graphs' if graphs else 'eager'}"
+        runs[graphs] = serve(torch, run, eng, prompts, max_new)
+        del eng
+        torch.cuda.empty_cache()
+    (g, g_tok), (e, e_tok) = runs[True], runs[False]
+    same = sum(a == b for a, b in zip(g_tok, e_tok))
+    keys = ("tok_s", "decode_step_ms", "prefill_chunk_ms", "prefill_tok_s",
+            "peak_mem_gib")
+    emit(f"{name}_graphs_vs_eager", model=cfg.name, layers=cfg.n_layers,
+         mode=g["mode"], requests=len(prompts), identical_requests=same,
+         capture_s=g["capture_s"],
+         **{f"{k}_graphs": g[k] for k in keys},
+         **{f"{k}_eager": e[k] for k in keys},
+         tok_s_ratio=g["tok_s"] / e["tok_s"],
+         decode_step_ratio=e["decode_step_ms"] / g["decode_step_ms"])
+    if same != len(prompts):
+        raise AssertionError(f"{name}: graph and eager greedy tokens differ "
+                             f"in {len(prompts) - same} requests")
+    return params
 
 
 def kernel_label(name: str) -> str:
@@ -1035,86 +1122,161 @@ DECODE_KERNELS = {"bitplane_gemv": ("dec::decode_",),
                   "paged_decode_attention": ("paged_decode_",)}
 
 
-def profile_decode_steps(torch, eng, prompts, n_steps=4):
-    """Device kernel time of ``n_steps`` paged decode steps, by kernel.
-
-    Submits ``prompts`` to the engine and drives ``ServeEngine.step``, each
-    step under its own ``torch.profiler`` window; keeps the first
-    ``n_steps`` steps that ran a decode step and no prefill chunk, then
-    runs the engine dry.  Reports per kept step the device milliseconds of
-    every kernel (and copy) by name, their sum, and the device busy share:
-    the union of their intervals over the step's host wall time (from its
-    start to a synchronize after it).  If the profiler records no device
-    activity, the step's device time comes from CUDA events around it
-    instead (``source``), and no kernel breakdown is given.
-    """
+def _trace_windows(events, labels):
+    """The device operations of each ``record_function`` window named in
+    ``labels``: per window its length, operations, the port's decode
+    kernels among them, their summed and their merged (busy) device ms;
+    and over all windows the device ms and count of each operation by
+    name."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts:
-        eng.submit(p)
-    kept, by_name, launches, events_ms = [], {}, {}, []
-    while eng.has_work():
-        if len(kept) >= n_steps:
-            eng.step()
-            continue
-        ran = {part: len(eng.timings[part]) for part in ("prefill", "decode")}
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start.record()
-            eng.step()
-            end.record()
-            torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        if (len(eng.timings["prefill"]) > ran["prefill"]
-                or len(eng.timings["decode"]) == ran["decode"]):
-            continue
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
+    windows = {e.name: (e.time_range.start, e.time_range.end)
+               for e in events if e.device_type == DeviceType.CPU
+               and e.name in labels}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("chip_smoke.step.")]
+    kept, by_name, launches = [], {}, {}
+    for label in labels:
+        lo_w, hi_w = windows[label]
+        inside = [e for e in device if lo_w <= e.time_range.start
+                  and e.time_range.end <= hi_w]
         spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels)
+                       for e in inside)
         busy, edge = 0.0, -math.inf
         for lo, hi in spans:
             if hi > edge:
                 busy += hi - max(lo, edge)
                 edge = hi
-        for e in kernels:
-            label = kernel_label(e.name)
-            by_name[label] = by_name.get(label, 0.0) + (
+        for e in inside:
+            name = kernel_label(e.name)
+            by_name[name] = by_name.get(name, 0.0) + (
                 e.time_range.end - e.time_range.start) / 1e3
-            launches[label] = launches.get(label, 0) + 1
-        kept.append(dict(wall_ms=wall_ms, kernels=len(kernels),
-                         device_kernel_ms=sum(hi - lo for lo, hi in spans)
-                         / 1e3, busy_ms=busy / 1e3))
-        events_ms.append(start.elapsed_time(end))
-    torch.cuda.synchronize()
+            launches[name] = launches.get(name, 0) + 1
+        ours = sum(kernel_label(e.name).startswith(prefixes)
+                   for e in inside for prefixes in DECODE_KERNELS.values())
+        kept.append(dict(window_ms=(hi_w - lo_w) / 1e3, ops=len(inside),
+                         ours=ours, busy_ms=busy / 1e3,
+                         device_ms=sum(hi - lo for lo, hi in spans) / 1e3))
+    return kept, by_name, launches
+
+
+def _trace_summary(kept, by_name, launches, top):
     n = len(kept)
-    if n == 0:
+    per = {name: ms / n for name, ms in by_name.items()}
+    return per, dict(
+        device_kernel_ms_per_step=sum(k["device_ms"] for k in kept) / n,
+        kernels_per_step=sum(k["ops"] for k in kept) / n,
+        device_busy_share=sum(k["busy_ms"] for k in kept)
+        / sum(k["window_ms"] for k in kept),
+        by_kernel=[dict(name=name, ms_per_step=ms,
+                        launches_per_step=launches[name] / n)
+                   for name, ms in sorted(per.items(),
+                                          key=lambda kv: -kv[1])[:top]])
+
+
+def profile_decode_steps(torch, eng, prompts, n_steps=4, n_chunks=2):
+    """Device time of ``n_steps`` paged decode steps (and of ``n_chunks``
+    prefill chunks), by kernel, and the device's busy share of a step.
+
+    Submits ``prompts`` to the engine and drives ``ServeEngine.step``
+    inside one ``torch.profiler`` session, each step in its own
+    ``record_function`` window that ends with a synchronize; keeps the
+    first ``n_steps`` steps that ran a decode step and no prefill chunk,
+    and the first ``n_chunks`` that ran a chunk and no decode step (on an
+    engine whose graphs are captured: replays).  Reports per kept step the
+    device milliseconds of every kernel (and copy) by name, their sum, and
+    the busy share: the union of their intervals over the step's window.
+    The profiler slows a step down, so the engine then runs dry
+    unprofiled, with CUDA events around each call of its decode step:
+    ``replay_ms`` is the device time of the step's graph (its kernels and
+    the gaps between them), ``replay_share`` that time over the step's
+    host wall time (from its start to a synchronize after it).  If the
+    profiler records none of the port's decode kernels in a decode step
+    (as when it cannot see inside a graph's replay), no kernel breakdown
+    is given (``source``).
+    """
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for p in prompts:
+        eng.submit(p)
+
+    def ran_parts(before):
+        return tuple(len(eng.timings[part]) > before[part]
+                     for part in ("prefill", "decode"))
+
+    def counts():
+        return {part: len(eng.timings[part]) for part in ("prefill",
+                                                          "decode")}
+
+    decode_labels, chunk_labels, n_profiled = [], [], 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        while eng.has_work() and len(decode_labels) < n_steps:
+            before = counts()
+            torch.cuda.synchronize()
+            label = f"chip_smoke.step.{n_profiled}"
+            n_profiled += 1
+            with record_function(label):
+                eng.step()
+                torch.cuda.synchronize()
+            ran = ran_parts(before)
+            if ran == (False, True):
+                decode_labels.append(label)
+            elif ran == (True, False) and len(chunk_labels) < n_chunks:
+                chunk_labels.append(label)
+    events = prof.events()
+    kept, by_name, launches = _trace_windows(events, decode_labels)
+
+    # unprofiled: CUDA events around each call of the decode step
+    step_fn, replays = eng._decode_paged, []
+
+    def timed_step():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn()
+        end.record()
+        replays.append((start, end))
+        return out
+
+    eng._decode_paged = timed_step
+    plain = []
+    try:
+        while eng.has_work():
+            before = counts()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if ran_parts(before) == (False, True):
+                plain.append((1e3 * (time.perf_counter() - t0),
+                              replays[-1][0].elapsed_time(replays[-1][1])))
+    finally:
+        eng._decode_paged = step_fn
+    n = len(kept)
+    if n == 0 or not plain:
         raise AssertionError("main profile: no decode-only step ran")
-    have_trace = all(k["kernels"] > 0 for k in kept)
+    have_trace = all(k["ours"] > 0 for k in kept)
     rec = dict(steps=n, source="torch.profiler" if have_trace
-               else "cuda_events", step_wall_ms=[k["wall_ms"] for k in kept],
-               device_ms_by_cuda_events=events_ms)
+               else "cuda_events", cuda_graphs=eng.cuda_graphs,
+               profiled_window_ms=[k["window_ms"] for k in kept],
+               profiled_device_ops_per_step=[k["ops"] for k in kept],
+               unprofiled_steps=len(plain),
+               step_wall_ms=sum(w for w, _ in plain) / len(plain),
+               replay_ms=sum(r for _, r in plain) / len(plain),
+               replay_share=sum(r for _, r in plain)
+               / sum(w for w, _ in plain))
     if have_trace:
-        per = {name: ms / n for name, ms in by_name.items()}
-        ours = {kernel: sum(ms for name, ms in per.items()
-                            if name.startswith(prefixes))
-                for kernel, prefixes in DECODE_KERNELS.items()}
-        rec.update(
-            device_kernel_ms_per_step=sum(k["device_kernel_ms"]
-                                          for k in kept) / n,
-            kernels_per_step=sum(k["kernels"] for k in kept) / n,
-            device_busy_share=sum(k["busy_ms"] for k in kept)
-            / sum(k["wall_ms"] for k in kept),
-            port_kernels_ms_per_step=ours,
-            by_kernel=[dict(name=name, ms_per_step=ms,
-                            launches_per_step=launches[name] / n)
-                       for name, ms in sorted(per.items(),
-                                              key=lambda kv: -kv[1])[:20]])
+        per, summary = _trace_summary(kept, by_name, launches, 20)
+        rec.update(summary, port_kernels_ms_per_step={
+            kernel: sum(ms for name, ms in per.items()
+                        if name.startswith(prefixes))
+            for kernel, prefixes in DECODE_KERNELS.items()})
+        if chunk_labels:
+            chunks = _trace_windows(events, chunk_labels)
+            rec["prefill_chunk"] = dict(
+                chunks=len(chunk_labels),
+                window_ms=[k["window_ms"] for k in chunks[0]],
+                **_trace_summary(*chunks, 12)[1])
     emit("main_profile", **rec)
     return rec
 
@@ -1439,10 +1601,13 @@ def seeded_tokens(torch, dev, cfg, b, s, seed):
 
 def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
                  expect):
-    """``init_cache`` + one-shot ``prefill`` + greedy ``decode_step`` s;
-    checks finite logits and the kernel launches, returns the record."""
+    """``init_cache`` + one-shot ``prefill`` + greedy ``decode_step`` s,
+    the decode steps as replays of one CUDA graph (``serve.StepGraph``;
+    the step time leaves its capture out); checks finite logits and the
+    kernel launches, returns the record."""
     from repro_torch.kernels import _build
     from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.serve import StepGraph
 
     b, s = tokens.shape
     cache = init_cache(cfg, b, s + n_decode + 32, device=dev)
@@ -1460,14 +1625,16 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
         raise AssertionError(f"{name}: non-finite prefill logits")
     _build.reset_launches()
     out = []
+    # the graph's token buffer, refilled on the device after every step
     nxt = torch.argmax(logits[:, -1].float(), -1)[:, None].int()
+    step = StepGraph(lambda: decode_step(params, cache, nxt, cfg, ecfg)[0])
     t0 = time.perf_counter()
     for _ in range(n_decode):
-        out.append(nxt)
-        logits, cache = decode_step(params, cache, nxt, cfg, ecfg)
-        nxt = torch.argmax(logits[:, -1].float(), -1)[:, None].int()
+        out.append(nxt.clone())
+        logits = step()
+        nxt.copy_(torch.argmax(logits[:, -1].float(), -1)[:, None])
     torch.cuda.synchronize()
-    t_decode = time.perf_counter() - t0
+    t_decode = time.perf_counter() - t0 - step.capture_seconds
     dec_launches = dict(_build.LAUNCHES)
     dec_routes = route_counts("bitplane_gemv")
     if not bool(torch.isfinite(logits).all()):
@@ -1480,6 +1647,7 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
                prefill_s=t_prefill, prefill_tok_s=b * s / t_prefill,
                decode_steps=n_decode, decode_step_ms=1e3 * t_decode / n_decode,
                decode_tok_s=b * n_decode / t_decode,
+               decode_capture_s=step.capture_seconds,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                prefill_launches=pf_launches, decode_launches=dec_launches,
                prefill_gemv_routes=pf_routes, decode_gemv_routes=dec_routes,
@@ -1539,20 +1707,53 @@ def ssm_path(torch, dev):
                          "bitplane_gemv": 2 * cfg.n_layers})
 
 
-def greedy_run(torch, cfg, params, tokens, n_decode, ecfg):
-    """Prefill + greedy decode; returns (tokens (B, n), logits per step as
+def slots_path(torch, dev):
+    """Slots-mode serving: full-width mamba2-130m (the ssm family's only
+    serving mode) at ``weight_bits=4``, 8 slots, max_len 1024, 16 prompts
+    of 33-300 tokens entering by sequential decode, 32 new tokens each,
+    every step a replayed graph of the full-sequence ``decode_step``.  Then
+    graph against eager at 2 layers, and qwen2.5-3b (``kv_bits=0``) cut to
+    4 layers: the dense family's frozen-slot K/V rows on the card."""
+    cfg = ssm_config()
+    eng, _ = build_engine(torch, dev, cfg, 4, 0, mode="slots")
+    rec, _ = serve(torch, "slots", eng, prompts_for(cfg, 16, 33, 300, SEED),
+                   32)
+    del eng
+    torch.cuda.empty_cache()
+    cut = ssm_config(n_layers=2)
+    graphs_against_eager(torch, dev, "slots_ssm", cut, 4, 0,
+                         prompts_for(cut, 8, 33, 100, SEED + 30), 32,
+                         mode="slots")
+    dense = full_config(n_layers=4)
+    graphs_against_eager(torch, dev, "slots_dense", dense, 4, 0,
+                         prompts_for(dense, 4, 17, 48, SEED + 31), 16,
+                         mode="slots")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def greedy_run(torch, cfg, params, tokens, n_decode, ecfg, graphs=False):
+    """Prefill + greedy decode, the decode steps eager or (``graphs``) as
+    replays of one CUDA graph; returns (tokens (B, n), logits per step as
     float32 (B, V) each)."""
     from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.serve import StepGraph
 
     b, s = tokens.shape
     cache = init_cache(cfg, b, s + n_decode, device=tokens.device)
     logits, cache = prefill(params, {"tokens": tokens}, cfg, cache, ecfg)
-    steps, out = [logits[:, -1].float()], []
+    nxt = torch.empty((b, 1), dtype=torch.int32, device=tokens.device)
+
+    def fn():
+        return decode_step(params, cache, nxt, cfg, ecfg)[0]
+
+    step = StepGraph(fn) if graphs else fn
+    steps, out = [logits[:, -1].to(torch.float32, copy=True)], []
     for _ in range(n_decode):
-        nxt = torch.argmax(steps[-1], -1)[:, None].int()
-        out.append(nxt)
-        logits, cache = decode_step(params, cache, nxt, cfg, ecfg)
-        steps.append(logits[:, -1].float())
+        nxt.copy_(torch.argmax(steps[-1], -1)[:, None])
+        out.append(nxt.clone())
+        # a copy: the next replay overwrites the graph's logits
+        steps.append(step()[:, -1].to(torch.float32, copy=True))
     torch.cuda.synchronize()
     return torch.cat(out, 1), steps
 
@@ -1608,7 +1809,16 @@ def long_whole_check(torch, dev):
         plain = EngineConfig(weight_bits=4, backend="reference",
                              attn_backend="gather")
         tok_k, steps_k = greedy_run(torch, cfg, params, tokens, n_decode,
+                                    kern, graphs=True)
+        # the kernel path once more with every decode step eager: the
+        # graph replays the same kernels, so the tokens are identical
+        tok_e, steps_e = greedy_run(torch, cfg, params, tokens, n_decode,
                                     kern)
+        if not torch.equal(tok_k, tok_e):
+            raise AssertionError(f"long_whole {cfg.name}: graph and eager "
+                                 "greedy tokens differ")
+        graph_err = max(float((a - b).abs().max())
+                        for a, b in zip(steps_k, steps_e))
         tok_p, steps_p = greedy_run(torch, cfg, params, tokens, n_decode,
                                     plain)
         first_err = float((steps_k[0] - steps_p[0]).abs().max())
@@ -1629,6 +1839,8 @@ def long_whole_check(torch, dev):
         emit("long_whole", model=cfg.name, layers=cfg.n_layers,
              prompt_tokens=s, decode_steps=n_decode,
              identical_lanes=identical, near_tie_divergences=near_ties,
+             graph_vs_eager_tokens_identical=True,
+             graph_vs_eager_logit_max_abs_diff=graph_err,
              first_step_logit_max_abs_err=first_err,
              teacher_forcing_logit_max_abs_err=tf_err,
              logit_tol=logit_tol)
@@ -1710,12 +1922,18 @@ def main() -> int:
 
     with Phase("main"):
         cfg = full_config()
-        eng, _ = build_engine(torch, dev, cfg, 4, 8)
-        main_rec = serve(torch, "main", eng,
-                         prompts_for(cfg, 16, 33, 300, SEED), 32)
+        prompts = prompts_for(cfg, 16, 33, 300, SEED)
+        eng, params = build_engine(torch, dev, cfg, 4, 8)
+        main_rec, main_tokens = serve(torch, "main", eng, prompts, 32)
         profile_rec = profile_decode_steps(
             torch, eng, prompts_for(cfg, 8, 33, 300, SEED + 20))
         del eng
+        torch.cuda.empty_cache()
+        # the same prompts once more with every step eager
+        graphs_against_eager(torch, dev, "main", cfg, 4, 8, prompts, 32,
+                             params=params, graph_rec=main_rec,
+                             graph_tokens=main_tokens)
+        del params
         torch.cuda.empty_cache()
 
     with Phase("second"):
@@ -1739,6 +1957,9 @@ def main() -> int:
 
     with Phase("long_whole"):
         long_whole_check(torch, dev)
+
+    with Phase("slots"):
+        slots_path(torch, dev)
 
     with Phase("engine"):
         engine_rec = engine_path(torch, dev)

@@ -15,11 +15,15 @@ package, and only a launch on a CUDA tensor builds.
 ``"<kernel>/<route>"`` for the kernels with more than one design
 (``ROUTES``; see ``count``).  Each wrapper adds one where it launches its
 kernel and nowhere else, so a run can show that its path went through the
-kernels.
+kernels.  A CUDA graph replays launches without running the wrappers: its
+capture runs them once, inside ``recording``, which takes those counts
+back out and hands them over, and every replay adds them with
+``add_launches``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,7 +32,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -77,6 +81,31 @@ def count(kernel: str, route: Optional[str] = None) -> None:
     LAUNCHES[kernel] += 1
     if route is not None:
         ROUTE_LAUNCHES[f"{kernel}/{route}"] += 1
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Launches counted inside the block are taken back out of the counts
+    and left in the yielded dictionary instead (``LAUNCHES`` names, and
+    ``ROUTE_LAUNCHES`` names with their ``/``): a CUDA graph's capture
+    records launches that run only when the graph is replayed."""
+    before = (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
+    delta: Dict[str, int] = {}
+    try:
+        yield delta
+    finally:
+        for counts, old in zip((LAUNCHES, ROUTE_LAUNCHES), before):
+            for name, n in counts.items():
+                if n != old[name]:
+                    delta[name] = n - old[name]
+                    counts[name] = old[name]
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Count the launches of one replay of a graph (``recording``'s
+    dictionary)."""
+    for name, n in delta.items():
+        (ROUTE_LAUNCHES if "/" in name else LAUNCHES)[name] += n
 
 
 def _sources():

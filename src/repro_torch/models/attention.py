@@ -21,7 +21,9 @@ FLASH_BLOCK_KV = 1024
 
 
 def _neg_inf(device) -> torch.Tensor:
-    return torch.tensor(NEG_INF, dtype=torch.float32, device=device)
+    # a fill on the device, not a copy of host data: safe inside a CUDA
+    # graph capture
+    return torch.full((), NEG_INF, dtype=torch.float32, device=device)
 
 
 def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,

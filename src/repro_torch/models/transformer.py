@@ -371,12 +371,12 @@ def prefill(
     Returns (last-token logits ``(B, 1, V)``, cache).  The cache's tensors
     are written **in place** (K/V rows ``[0, S)`` set and the rest zeroed,
     as the JAX package's padded copy has them; conv and h states
-    replaced); the returned dictionary holds the same tensors with ``pos``
-    set to S.
+    replaced; ``pos`` set to S); the returned dictionary holds the same
+    tensors.
     """
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
                                                  attn_backend)
-    b, s = x.shape[:2]
+    s = x.shape[1]
     if cfg.family == "dense":
         if s > cache["k"].shape[2]:
             raise ValueError(f"prefill: {s} prompt tokens exceed the cache's "
@@ -398,17 +398,17 @@ def prefill(
             x = x + y
             cache["conv"][layer] = conv.to(cache["conv"].dtype)
             cache["h"][layer] = h_state
-    new_cache = dict(cache)
-    new_cache["pos"] = torch.full((b,), s, dtype=torch.int32,
-                                  device=x.device)
-    return _lm_logits(params, x[:, -1:], cfg, plan), new_cache
+    cache["pos"].fill_(s)
+    return _lm_logits(params, x[:, -1:], cfg, plan), dict(cache)
 
 
-def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window):
+def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
+                       active=None):
     """One cached-attention sub-block for a single new token; writes the
     token's K/V into ``cache_k``/``cache_v`` ``(B, T, Hkv, Dh)`` in place
-    at slot ``min(pos, T - 1)`` and attends the cache (the plain
-    :func:`attend_decode`, as the JAX package leaves it to XLA)."""
+    at slot ``min(pos, T - 1)`` (lanes outside ``active`` rewrite the row
+    they had) and attends the cache (the plain :func:`attend_decode`, as
+    the JAX package leaves it to XLA)."""
     b = x.shape[0]
     dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -420,8 +420,11 @@ def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window):
     k = apply_rope(k, pos2, cfg.rope_theta)
     slot = torch.clamp(pos.long(), max=cache_k.shape[1] - 1)
     bidx = torch.arange(b, device=x.device)
-    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+    for cache_t, new in ((cache_k, k), (cache_v, v)):
+        row = new[:, 0].to(cache_t.dtype)
+        if active is not None:
+            row = torch.where(active[:, None, None], row, cache_t[bidx, slot])
+        cache_t[bidx, slot] = row
     o = attend_decode(q, cache_k, cache_v, pos, window)
     return x + dense(p["attn"]["wo"], o.reshape(b, 1, hq * dh), plan)
 
@@ -434,10 +437,20 @@ def decode_step(
     cfg: ModelConfig,
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
+    active: Optional[torch.Tensor] = None,   # (B,) bool
 ):
     """One token of autoregressive decode over the slots cache.  Returns
-    (logits ``(B, 1, V)``, cache): the cache's tensors are updated **in
-    place** and the returned dictionary holds them with ``pos + 1``."""
+    (logits ``(B, 1, V)``, cache): the cache's tensors, ``pos`` included,
+    are updated **in place** (so a captured CUDA graph of this step
+    replays against the same storage) and the returned dictionary holds
+    them.
+
+    ``active``, when given, names the lanes that advance.  Every cache
+    entry of the other lanes (their K/V row, conv and h states, ``pos``)
+    is left bit-identical, as the JAX serving engine's ``_merge_cache``
+    leaves a frozen slot, and their logits are meaningless.  The lanes
+    are selected where the step writes: the K/V rows it overwrites, and
+    the conv and h states, which it writes whole anyway."""
     _check_family(cfg, _FULL_SEQUENCE)
     plan, _ = _resolve(eng, attn_backend, tokens.device)
     pos = cache["pos"]
@@ -446,7 +459,8 @@ def decode_step(
         for layer, (lp, win) in enumerate(zip(params["layers"],
                                               _layer_windows(cfg))):
             x = _attn_decode_apply(lp, x, cache["k"][layer],
-                                   cache["v"][layer], pos, cfg, plan, win)
+                                   cache["v"][layer], pos, cfg, plan, win,
+                                   active)
             x = _mlp_apply(lp, x, cfg, plan)
     else:
         for layer, lp in enumerate(params["layers"]):
@@ -455,11 +469,17 @@ def decode_step(
                 lp["ssm"], h, cfg, cache["conv"][layer], cache["h"][layer],
                 plan)
             x = x + y
-            cache["conv"][layer] = conv.to(cache["conv"].dtype)
+            conv = conv.to(cache["conv"].dtype)
+            if active is not None:
+                conv = torch.where(active[:, None, None], conv,
+                                   cache["conv"][layer])
+                h_state = torch.where(active[:, None, None, None], h_state,
+                                      cache["h"][layer])
+            cache["conv"][layer] = conv
             cache["h"][layer] = h_state
-    new_cache = dict(cache)
-    new_cache["pos"] = pos + 1
-    return _lm_logits(params, x, cfg, plan), new_cache
+    logits = _lm_logits(params, x, cfg, plan)
+    pos.add_(1 if active is None else active.to(pos.dtype))
+    return logits, dict(cache)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,10 @@ allocation.
   (``ensure``) and whole-request reclaim (``free_slot``).  Physical page 0
   is the null page: idle lanes and masked prefill positions write there,
   so the model functions never need a dynamic shape.
+* :class:`LaneTables` — persistent device buffers of the per-lane inputs
+  of the serving steps (block tables, ``pos``, tokens, prefill bounds,
+  the active mask), refilled with ``copy_`` before each step so that a
+  captured CUDA graph reads them at fixed addresses.
 """
 
 from __future__ import annotations
@@ -222,6 +226,43 @@ class PageAllocator:
                  f"{sorted(leaked)[:8]}")
 
     def device_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(block_tables, pos)`` as int32 tensors on ``device``."""
+        """``(block_tables, pos)`` as new int32 tensors on ``device`` (the
+        JAX package's function; the engine refills :class:`LaneTables`
+        instead)."""
         return (torch.from_numpy(self.block_tables).to(device),
                 torch.from_numpy(self.pos).to(device))
+
+
+class LaneTables:
+    """The per-lane inputs of the serving steps, as persistent device
+    buffers: ``tokens`` ``(n_slots, 1)`` and ``active`` ``(n_slots,)``
+    bool for a decode step; with ``max_blocks`` the paged step's
+    ``block_tables`` ``(n_slots, max_blocks)`` and ``pos``; with
+    ``chunk`` the prefill chunk's ``chunk_tokens`` ``(n_slots, chunk)``,
+    ``pos0`` and ``seq_lens``.  All int32 but ``active``.  ``load`` copies
+    host arrays into them in place: their storage never changes, as a
+    captured CUDA graph needs."""
+
+    def __init__(self, n_slots: int, device, *, max_blocks: int = 0,
+                 chunk: int = 0):
+        def buf(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.tokens = buf(n_slots, 1)
+        self.active = buf(n_slots, dtype=torch.bool)
+        if max_blocks:
+            self.block_tables = buf(n_slots, max_blocks)
+            self.pos = buf(n_slots)
+        if chunk:
+            self.chunk_tokens = buf(n_slots, chunk)
+            self.pos0 = buf(n_slots)
+            self.seq_lens = buf(n_slots)
+
+    def load(self, **arrays: np.ndarray) -> None:
+        """``name=array`` for each buffer to refill."""
+        for name, arr in arrays.items():
+            getattr(self, name).copy_(torch.from_numpy(np.asarray(arr)))
+
+    def load_tables(self, alloc: PageAllocator) -> None:
+        """The allocator's block tables and ``pos``."""
+        self.load(block_tables=alloc.block_tables, pos=alloc.pos)

@@ -42,12 +42,6 @@ class PagedScheduler:
         self.preemptions = 0
         self._admit_seq = 0
 
-    def submit(self, req) -> None:
-        self.queue.append(req)
-
-    def has_work(self) -> bool:
-        return bool(self.queue) or any(r is not None for r in self.slot_req)
-
     def admit(self) -> None:
         """FCFS admission while a lane is free and capacity allows; the
         head of the queue blocks it when it does not fit."""
@@ -102,12 +96,6 @@ class PagedScheduler:
                 if r is not None
                 and r.prefill_pos >= len(r.prefill_tokens)
                 and r.last_logits is not None]
-
-    def lane_mask(self, slots) -> np.ndarray:
-        """(n_slots,) bool lane-activity mask for the decode step."""
-        mask = np.zeros((self.n_slots,), bool)
-        mask[list(slots)] = True
-        return mask
 
     def grant_decode_page(self, slot: int) -> bool:
         """Make room for ``slot``'s next decode token, preempting the

@@ -42,8 +42,19 @@ splits in a fixed order: their cases also run each call twice and require
 the same bits.  Flash attention and the
 paged prefill take head dims outside 32 / 64 / 128 through the launcher's
 zero padding (D = 16 and 112 here).
+
+The serving steps as CUDA graphs (``-k graph``): ``decode_step_paged``,
+``prefill_chunk`` and the full-sequence ``decode_step`` (dense and ssm),
+each captured by ``serve.StepGraph`` on reduced configs cut to 2 layers
+(bf16, 4-bit weights), replayed over several steps with new inputs and
+held against eager calls of the same function on a copy of the same
+state: the same kernels on the same inputs, so logits and caches must be
+bit-identical, and each replay must add the launches, by kernel and by
+route, that an eager step counts.  ``ServeEngine`` with graphs gives the
+same greedy tokens as with ``cuda_graphs=False``, in both modes.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -57,7 +68,9 @@ from repro_torch.core import (
     pack_weights,
     quantize_symmetric,
 )
+from repro_torch.config import EngineConfig, ServeConfig, get_reduced
 from repro_torch.core.controller import run_gemv
+from repro_torch.engine import resolve_plan
 from repro_torch.core.isa import MAX_ELEMS
 from repro_torch.kernels import _build
 from repro_torch.kernels._gemv import route
@@ -81,6 +94,14 @@ from repro_torch.kernels.paged_attention.ref import (
 )
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.models import (
+    decode_step,
+    decode_step_paged,
+    init_cache,
+    init_params,
+    prefill_chunk,
+)
+from repro_torch.serve import LaneTables, ServeEngine, StepGraph, init_kv_pages
 
 CASES = [(bits, radix) for bits in (2, 4, 8) for radix in (1, 2, 4, 8)
          if bits % radix == 0]
@@ -490,3 +511,217 @@ def test_engine_exact_integer_gemv(cuda_device, d):
     assert _build.LAUNCHES["int8_matvec"] == before["int8_matvec"] + 1
     for y in outs:
         np.testing.assert_array_equal(y.double().cpu().numpy(), want)
+
+
+# ------------------------------------------------- serving steps as graphs
+GRAPH_STEPS = 5        # the eager first call, the capture's replay, three
+
+
+def _graph_model(arch, dev, kv_bits=0):
+    cfg = dataclasses.replace(get_reduced(arch), n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         engine_bits=4)
+    plan = resolve_plan(EngineConfig(weight_bits=4, kv_bits=kv_bits),
+                        device=dev)
+    return cfg, params, plan
+
+
+def _launch_counts():
+    return {**_build.LAUNCHES, **_build.ROUTE_LAUNCHES}
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in _launch_counts().items()
+            if v != before[k]}
+
+
+def _random_pool(pages, gen):
+    for t in (pages.k, pages.v):
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=t.device, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device))
+    for t in (pages.k_scale, pages.v_scale):
+        if t is not None:
+            t.copy_(torch.rand(t.shape, generator=gen, device=t.device)
+                    / 64 + 1e-3)
+
+
+def _clone_pages(pages):
+    return dataclasses.replace(
+        pages, **{name: None if getattr(pages, name) is None
+                  else getattr(pages, name).clone()
+                  for name in ("k", "v", "k_scale", "v_scale")})
+
+
+def _same_pages(a, b):
+    """Equal pools but for the null page 0, where idle lanes and chunk
+    padding write in no fixed order and nothing reads."""
+    return all((getattr(a, n) is None and getattr(b, n) is None)
+               or torch.equal(getattr(a, n)[:, 1:], getattr(b, n)[:, 1:])
+               for n in ("k", "v", "k_scale", "v_scale"))
+
+
+def _replay_against_eager(graph, eager, load, check_state):
+    """Each step: ``load(step)`` fills the graph's lane buffers and
+    returns the eager call's inputs; the graph's output (a copy: the next
+    replay overwrites it) and launch counts must equal the eager call's."""
+    for step in range(GRAPH_STEPS):
+        inputs = load(step)
+        before = _launch_counts()
+        out_g = graph().clone()
+        torch.cuda.synchronize()
+        moved_g = _moved(before)
+        before = _launch_counts()
+        out_e = eager(*inputs)
+        torch.cuda.synchronize()
+        moved_e = _moved(before)
+        assert moved_g == moved_e and moved_e, (step, moved_g, moved_e)
+        assert torch.equal(out_g, out_e), step
+        assert torch.isfinite(out_e.float()).all()
+        check_state(step)
+    assert graph.graph is not None and graph.calls == GRAPH_STEPS
+
+
+def _paged_inputs(rng, b, nblk, page, span):
+    """Block tables and positions with pages mapped for ``span`` tokens
+    from each lane's position on (lane i owns pages 1 + i * nblk ...)."""
+    bt = np.zeros((b, nblk), np.int32)
+    pos = rng.integers(0, nblk * page - span, b).astype(np.int32)
+    for lane in range(b):
+        used = -(-(int(pos[lane]) + span) // page)
+        bt[lane, :used] = 1 + lane * nblk + np.arange(used)
+    return bt, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_graph_paged_decode_matches_eager(cuda_device, kv_bits):
+    cfg, params, plan = _graph_model("qwen2.5-3b", cuda_device, kv_bits)
+    b, nblk, page = 4, 6, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    pages_g = init_kv_pages(cfg, b * nblk + 1, page, kv_bits=kv_bits,
+                            device=cuda_device)
+    _random_pool(pages_g, gen)
+    pages_e = _clone_pages(pages_g)
+    lanes = LaneTables(b, cuda_device, max_blocks=nblk)
+    graph = StepGraph(lambda: decode_step_paged(
+        params, pages_g, lanes.block_tables, lanes.pos, lanes.active,
+        lanes.tokens, cfg, plan))
+    rng = np.random.default_rng(kv_bits)
+
+    def load(step):
+        bt, pos = _paged_inputs(rng, b, nblk, page, 1)
+        active = rng.integers(0, 2, b).astype(bool)
+        active[step % b] = True
+        tokens = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+        lanes.load(block_tables=bt, pos=pos, active=active, tokens=tokens)
+        return [torch.from_numpy(a).to(cuda_device)
+                for a in (bt, pos, active, tokens)]
+
+    _replay_against_eager(
+        graph, lambda bt, pos, active, tokens: decode_step_paged(
+            params, pages_e, bt, pos, active, tokens, cfg, plan),
+        load, lambda step: _same_pages(pages_g, pages_e) or pytest.fail(
+            f"pools differ after step {step}"))
+    assert graph.launches["bitplane_gemv/decode"] == 7 * cfg.n_layers
+    assert graph.launches["paged_decode_attention"] == cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_graph_prefill_chunk_matches_eager(cuda_device, kv_bits):
+    cfg, params, plan = _graph_model("qwen2.5-3b", cuda_device, kv_bits)
+    b, nblk, page, chunk = 4, 6, 16, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    pages_g = init_kv_pages(cfg, b * nblk + 1, page, kv_bits=kv_bits,
+                            device=cuda_device)
+    _random_pool(pages_g, gen)
+    pages_e = _clone_pages(pages_g)
+    lanes = LaneTables(b, cuda_device, max_blocks=nblk, chunk=chunk)
+    graph = StepGraph(lambda: prefill_chunk(
+        params, pages_g, lanes.block_tables, lanes.chunk_tokens,
+        lanes.pos0, lanes.seq_lens, cfg, plan))
+    rng = np.random.default_rng(10 + kv_bits)
+
+    def load(step):
+        bt, pos0 = _paged_inputs(rng, b, nblk, page, chunk)
+        seq_lens = pos0 + rng.integers(0, chunk + 1, b).astype(np.int32)
+        seq_lens[step % b] = pos0[step % b] + 1
+        tokens = rng.integers(0, cfg.vocab_size, (b, chunk)).astype(np.int32)
+        lanes.load(block_tables=bt, chunk_tokens=tokens, pos0=pos0,
+                   seq_lens=seq_lens)
+        return [torch.from_numpy(a).to(cuda_device)
+                for a in (bt, tokens, pos0, seq_lens)]
+
+    _replay_against_eager(
+        graph, lambda bt, tokens, pos0, seq_lens: prefill_chunk(
+            params, pages_e, bt, tokens, pos0, seq_lens, cfg, plan),
+        load, lambda step: _same_pages(pages_g, pages_e) or pytest.fail(
+            f"pools differ after step {step}"))
+    assert graph.launches["bitplane_gemv/tensor_core"] == 7 * cfg.n_layers
+    assert (graph.launches["paged_prefill_attention/tensor_core"]
+            == cfg.n_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-130m"])
+def test_graph_decode_step_matches_eager(cuda_device, arch):
+    cfg, params, plan = _graph_model(arch, cuda_device)
+    b, max_len = 4, 64
+    cache_g = init_cache(cfg, b, max_len, device=cuda_device)
+    cache_e = {k: v.clone() for k, v in cache_g.items()}
+    lanes = LaneTables(b, cuda_device)
+    graph = StepGraph(lambda: decode_step(
+        params, cache_g, lanes.tokens, cfg, plan, active=lanes.active)[0])
+    rng = np.random.default_rng(3)
+
+    def load(step):
+        active = rng.integers(0, 2, b).astype(bool)
+        active[step % b] = True
+        tokens = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+        lanes.load(active=active, tokens=tokens)
+        return [torch.from_numpy(a).to(cuda_device)
+                for a in (tokens, active)]
+
+    def same_cache(step):
+        for name in cache_g:
+            assert torch.equal(cache_g[name], cache_e[name]), (step, name)
+
+    _replay_against_eager(
+        graph, lambda tokens, active: decode_step(
+            params, cache_e, tokens, cfg, plan, active=active)[0],
+        load, same_cache)
+    assert int(cache_g["pos"].sum()) > 0
+    assert graph.launches["bitplane_gemv/decode"] == (
+        (7 if cfg.family == "dense" else 2) * cfg.n_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode", [("qwen2.5-3b", "paged"),
+                                       ("qwen2.5-3b", "slots"),
+                                       ("mamba2-130m", "slots")])
+def test_graph_engine_tokens_match_eager(cuda_device, arch, mode):
+    cfg, params, _ = _graph_model(arch, cuda_device)
+    kv_bits = 8 if mode == "paged" else 0
+    scfg = ServeConfig(max_new_tokens=6, page_size=4, prefill_chunk=5,
+                       engine=EngineConfig(weight_bits=4, kv_bits=kv_bits))
+    prompts = [list(range(1 + i, 4 + 3 * i)) for i in range(5)]
+    out = {}
+    for graphs in (True, False):
+        eng = ServeEngine(cfg, params, scfg, n_slots=3, max_len=48,
+                          mode=mode, cuda_graphs=graphs, device=cuda_device)
+        before = _launch_counts()
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        assert eng.cuda_graphs is graphs
+        out[graphs] = ([r.output for r in reqs], _moved(before))
+        if graphs:
+            assert all(g.graph is not None for g in eng._graphs)
+            assert len(eng.timings["capture"]) == len(eng._graphs)
+    assert out[True][0] == out[False][0]
+    assert all(len(o) == 6 for o in out[True][0])
+    # the replays counted every launch the eager engine counted
+    assert out[True][1] == out[False][1]

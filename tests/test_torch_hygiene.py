@@ -16,6 +16,12 @@
   CUDA graph.  The SSD scan's launcher, which runs three kernels and
   allocates their scratch, is also run with its C entry point replaced by
   a recorder and every host read of a tensor made to raise.
+* The modules a captured serving step runs (``models/{transformer,
+  attention,layers,ssm}.py``, ``engine/{plan,backends}.py``) build no
+  device tensor from host data and read nothing back: a CUDA graph
+  capture fails on a host-to-device copy or a host sync.  Checked in
+  their source, and by running the steps on the CPU with every such call
+  made to raise.
 * The two GEMVs share one decode source: ``csrc/gemv_decode.cuh`` holds
   the decode kernels, both ``bitplane_gemv.cu`` and ``int8_matvec.cu``
   include it and launch ``dec::launch``, and ``int8_matvec.cu`` defines no
@@ -28,6 +34,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -198,6 +205,113 @@ def test_launchers_read_nothing_back_from_the_device(path):
            and isinstance(node.func, ast.Attribute)
            and node.func.attr in HOST_READS]
     assert not bad, f"{path.relative_to(PORT)} reads back {bad}"
+
+
+STEP_MODULES = ("models/transformer.py", "models/attention.py",
+                "models/layers.py", "models/ssm.py", "engine/plan.py",
+                "engine/backends.py")
+HOST_DATA = ("tensor", "as_tensor", "asarray", "from_numpy")
+HOST_SYNCS = HOST_READS + ("nonzero", "masked_select", "cuda",
+                           "synchronize")
+
+
+def _host_traffic(tree):
+    """Calls of a module that would copy host data to the device or wait
+    on it: ``torch.tensor`` and its kin, host reads and syncs, and ``.to``
+    / ``.copy_`` with a device."""
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)):
+            continue
+        attr, owner = node.func.attr, node.func.value
+        if (attr in HOST_DATA and isinstance(owner, ast.Name)
+                and owner.id == "torch"):
+            yield f"torch.{attr}", node.lineno
+        elif attr in HOST_SYNCS:
+            yield attr, node.lineno
+        elif attr in ("to", "copy_") and (
+                any(k.arg == "device" for k in node.keywords)
+                or any("device" in ast.unparse(a) or (
+                    isinstance(a, ast.Constant) and a.value in ("cpu",
+                                                                "cuda"))
+                       for a in node.args)):
+            yield f".{attr}(device)", node.lineno
+
+
+def test_host_traffic_check_flags_the_old_neg_inf():
+    old = ("def _neg_inf(device):\n"
+           "    return torch.tensor(NEG_INF, dtype=torch.float32, "
+           "device=device)\n")
+    assert list(_host_traffic(ast.parse(old))) == [("torch.tensor", 2)]
+    moved = "y = x.to(q.device)\nz = x.to(torch.float32)\nw = m.nonzero()\n"
+    assert list(_host_traffic(ast.parse(moved))) == [(".to(device)", 1),
+                                                     ("nonzero", 3)]
+
+
+@pytest.mark.parametrize("name", STEP_MODULES)
+def test_step_modules_build_nothing_from_host_data(name):
+    path = PORT / name
+    bad = list(_host_traffic(ast.parse(path.read_text(), filename=str(path))))
+    assert not bad, f"{name} moves host data or syncs: {bad}"
+
+
+def _tiny(arch):
+    import dataclasses
+
+    from repro_torch.config import get_reduced
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         engine_bits=4)
+    return cfg, params
+
+
+@pytest.mark.parametrize("step", ["decode_step_paged", "prefill_chunk",
+                                  "decode_step_dense", "decode_step_ssm"])
+def test_steps_move_no_host_data(monkeypatch, step):
+    """The steps a graph captures run on the CPU with every call that
+    builds a tensor from host data or reads one back made to raise."""
+    from repro_torch.models import (
+        decode_step,
+        decode_step_paged,
+        init_cache,
+        prefill_chunk,
+    )
+    from repro_torch.serve import LaneTables, init_kv_pages
+
+    arch = "mamba2-130m" if step.endswith("ssm") else "qwen2.5-3b"
+    cfg, params = _tiny(arch)
+    b, chunk = 2, 4
+    lanes = LaneTables(b, "cpu", max_blocks=4, chunk=chunk)
+    lanes.load(block_tables=np.array([[1, 2, 0, 0], [3, 0, 0, 0]]),
+               pos=np.array([5, 2]), active=np.array([True, False]),
+               pos0=np.array([0, 1]), seq_lens=np.array([4, 3]))
+    if step.startswith("decode_step_") and step != "decode_step_paged":
+        cache = init_cache(cfg, b, 8, device="cpu")
+    else:
+        pages = init_kv_pages(cfg, 5, 4, kv_bits=8, device="cpu")
+
+    def host_data(*args, **kwargs):
+        raise AssertionError(f"{step} moved host data or read a tensor "
+                             "back")
+
+    for name in HOST_DATA:
+        monkeypatch.setattr(torch, name, host_data)
+    for name in ("item", "tolist", "cpu", "numpy", "nonzero", "__bool__",
+                 "__int__", "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, host_data)
+    if step == "decode_step_paged":
+        out = decode_step_paged(params, pages, lanes.block_tables, lanes.pos,
+                                lanes.active, lanes.tokens, cfg)
+    elif step == "prefill_chunk":
+        out = prefill_chunk(params, pages, lanes.block_tables,
+                            lanes.chunk_tokens, lanes.pos0, lanes.seq_lens,
+                            cfg)
+    else:
+        out, _ = decode_step(params, cache, lanes.tokens, cfg,
+                             active=lanes.active)
+    assert out.shape == (b, 1, cfg.vocab_size)
 
 
 def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch):

@@ -157,8 +157,7 @@ def test_cancel_releases_pages(model):
 
 def test_unported_options_are_refused(model):
     _, _, tcfg, tparams = model
-    for scfg in (tconfig.ServeConfig(mode="slots"),
-                 tconfig.ServeConfig(prefix_cache=True),
+    for scfg in (tconfig.ServeConfig(prefix_cache=True),
                  tconfig.ServeConfig(sched="budget"),
                  tconfig.ServeConfig(audit=1)):
         with pytest.raises(NotImplementedError, match="not ported"):
