@@ -49,6 +49,26 @@ exits non-zero:
                 prompts once more with ``cuda_graphs=False``
                 (``main_eager``): identical greedy tokens, both runs' tok/s
                 and step ms side by side (``main_graphs_vs_eager``).
+   ``prefix``   on ``main``'s configuration and params: 24 prompts of one
+                seeded 200-token system prompt and a 16-96-token suffix
+                each, request 0 served alone until its prefill completes,
+                then the other 23; ``prefix_cold`` without the prefix
+                cache, ``prefix_hot`` with it (identical greedy tokens; 23
+                hits, 1 miss, 4,600 hit tokens and 23 copy-on-write forks;
+                4,600 fewer prefill tokens computed), ``prefix_evict`` the
+                hot traffic in a 97-page pool (cached pages evicted,
+                identical tokens), each auditing itself after every phase
+                of every step (``ServeConfig(audit=2)``) and capturing its
+                two step graphs once; ``budget``: ``main``'s prompts under
+                ``sched="budget"`` (40 tokens a step), priorities
+                alternating interactive and batch: ``main``'s tokens, no
+                step over the budget; ``frontend``: a ``ServeFrontend``
+                over a hot engine on a manual clock, 8 streams of the
+                prefix traffic, one cancelled mid-prefill (its pages and
+                pins released, audited), one timed out, the others
+                streaming ``prefix_hot``'s tokens.  Each run prints tok/s,
+                prefill chunks and chunk ms, prompt tok/s, prefill tokens
+                computed, TTFT p50 / p99 and peak memory.
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
@@ -936,7 +956,7 @@ def prompts_for(cfg, n, lo, hi, seed):
 
 def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
                  max_len=1024, max_new=32, params=None, mode="auto",
-                 cuda_graphs=True, **engine_kw):
+                 cuda_graphs=True, serve_kw=None, clock=None, **engine_kw):
     from repro_torch.config import EngineConfig, ServeConfig
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
@@ -949,21 +969,32 @@ def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
     scfg = ServeConfig(max_new_tokens=max_new,
                        engine=EngineConfig(weight_bits=weight_bits,
                                            kv_bits=kv_bits, **engine_kw),
-                       page_size=16, prefill_chunk=32)
+                       page_size=16, prefill_chunk=32, **(serve_kw or {}))
     eng = ServeEngine(cfg, params, scfg, n_slots=n_slots, max_len=max_len,
                       seed=SEED, mode=mode, cuda_graphs=cuda_graphs,
-                      device=dev)
+                      clock=clock, device=dev)
     return eng, params
 
 
-def serve(torch, name, eng, prompts, max_new):
+def serve(torch, name, eng, prompts, max_new, *, first=None,
+          priorities=None, check_step=None):
     """Submit, run to the end, check every request and report; returns
-    the record and every request's tokens."""
+    the record and every request's tokens.  ``first``: submit only that
+    many prompts at the start, and the rest once those have completed
+    their prefill.  ``priorities``: each prompt's ``priority``.
+    ``check_step(eng, reqs)`` runs after every step."""
     import numpy as np
 
     from repro_torch.kernels import _build
 
-    reqs = [eng.submit(p) for p in prompts]
+    first = len(prompts) if first is None else first
+    priorities = priorities or ["default"] * len(prompts)
+
+    def submit(lo, hi):
+        return [eng.submit(p, priority=pr)
+                for p, pr in zip(prompts[lo:hi], priorities[lo:hi])]
+
+    reqs = submit(0, first)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -983,7 +1014,10 @@ def serve(torch, name, eng, prompts, max_new):
     attn_launches = 0
     t0 = time.perf_counter()
     done = []
-    while eng.has_work():
+    while eng.has_work() or len(reqs) < len(prompts):
+        if len(reqs) < len(prompts) and all(r.last_logits is not None
+                                            for r in reqs):
+            reqs += submit(first, len(prompts))
         ran = {part: len(eng.timings[part]) for part in gemv_launches}
         if slots:
             free = sum(r is None for r in eng.slot_req)
@@ -1016,6 +1050,8 @@ def serve(torch, name, eng, prompts, max_new):
         gemv_launches["prefill"] += moved["tensor_core"]
         gemv_launches["decode"] += moved["decode"]
         attn_launches += moved_attn["tensor_core"]
+        if check_step is not None:
+            check_step(eng, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -1035,6 +1071,7 @@ def serve(torch, name, eng, prompts, max_new):
     n_tok = sum(len(r.output) for r in reqs)
     n_prompt = sum(len(p) for p in prompts)
     dec, pf = eng.timings["decode"], eng.timings["prefill"]
+    ttft = [r.ttft for r in reqs]
     rec = dict(
         model=eng.cfg.name, mode=eng.mode, cuda_graphs=eng.cuda_graphs,
         layers=eng.cfg.n_layers, d_model=eng.cfg.d_model,
@@ -1044,12 +1081,20 @@ def serve(torch, name, eng, prompts, max_new):
         requests=len(reqs), prompt_tokens=n_prompt, new_tokens=n_tok,
         seconds=wall, tok_s=n_tok / wall, decode_steps=len(dec),
         decode_step_ms=1e3 * sum(dec) / max(len(dec), 1),
+        decode_step_ms_p50=1e3 * float(np.median(dec)) if dec else None,
         # paged: one entry a prefill chunk; slots: one a prompt's
         # sequential prefill
         prefill_chunks=len(pf),
         prefill_chunk_ms=1e3 * sum(pf) / max(len(pf), 1),
+        prefill_chunk_ms_p50=1e3 * float(np.median(pf)) if pf else None,
         prefill_tok_s=n_prompt / max(sum(pf), 1e-12),
+        prefill_computed=eng.prefill_computed,
+        ttft_p50_ms=1e3 * float(np.percentile(ttft, 50)),
+        ttft_p99_ms=1e3 * float(np.percentile(ttft, 99)),
+        sched=eng.scfg.sched, audit=eng.scfg.audit,
+        prefix_stats=eng.prefix_stats(),
         capture_s=sum(eng.timings["capture"]),
+        audit_s=sum(eng.timings["audit"]),
         graphs_captured=len(eng.timings["capture"]),
         preemptions=eng.preemptions,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1106,6 +1151,229 @@ def graphs_against_eager(torch, dev, name, cfg, weight_bits, kv_bits,
         raise AssertionError(f"{name}: graph and eager greedy tokens differ "
                              f"in {len(prompts) - same} requests")
     return params
+
+
+# ------------------------------------------------------- prefix phase
+PREFIX_SYSTEM = 200        # tokens of the shared system prompt
+PREFIX_POOL = 97           # prefix_evict's pool: idle cached pages must go
+FRONTEND_DEADLINE = 8.0    # seconds of the front end's manual clock
+
+
+def prefix_prompts(cfg, n=24):
+    """``n`` prompts: one seeded 200-token system prompt, then a unique
+    suffix of 16-96 tokens each (no two suffixes share a first token, so
+    every hit matches the system prompt and no more)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 30)
+    system = rng.integers(0, cfg.vocab_size, PREFIX_SYSTEM).tolist()
+    return [system + rng.integers(0, cfg.vocab_size,
+                                  int(rng.integers(16, 97))).tolist()
+            for _ in range(n)]
+
+
+class ManualClock:
+    """An injected clock: time moves only by ``advance``."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+
+
+def check_graphs(name, eng):
+    """The paged decode and prefill graphs, each captured once: the cache,
+    the forks and the budget's partial chunks add no capture."""
+    if (len(eng._graphs) != 2 or len(eng.timings["capture"]) != 2
+            or any(g.graph is None for g in eng._graphs)):
+        raise AssertionError(
+            f"{name}: {len(eng.timings['capture'])} captures of "
+            f"{len(eng._graphs)} graphs, wanted one of each of 2")
+
+
+def first_difference(name, tok_a, tok_b):
+    """Fail naming the first request and token where two runs differ."""
+    for i, (a, b) in enumerate(zip(tok_a, tok_b)):
+        if a != b:
+            at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                      min(len(a), len(b)))
+            raise AssertionError(
+                f"{name}: request {i} differs at new token {at}: "
+                f"{a[at:at + 4]} against {b[at:at + 4]}")
+
+
+def prefix_path(torch, dev, cfg, params, main_prompts, main_rec,
+                main_tokens):
+    """Phase ``prefix`` at ``main``'s configuration (on its params): the
+    prefix cache cold against hot, and hot in a pool that must evict;
+    the budget scheduler on ``main``'s prompts against ``main``'s tokens;
+    the streaming front end over a hot engine."""
+    prompts = prefix_prompts(cfg)
+    n = len(prompts)
+    runs = {}
+    # request 0 alone until its prefill completes, then the other 23: a
+    # request admitted with the first holder of the prefix would miss
+    for name, kw in (("prefix_cold", {}),
+                     ("prefix_hot", dict(prefix_cache=True)),
+                     ("prefix_evict", dict(prefix_cache=True,
+                                           n_pages=PREFIX_POOL))):
+        eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                              serve_kw=dict(audit=2, **kw))
+        runs[name] = serve(torch, name, eng, prompts, 32, first=1)
+        check_graphs(name, eng)
+        del eng
+        torch.cuda.empty_cache()
+    (cold, cold_tok), (hot, hot_tok), (evict, evict_tok) = (
+        runs[k] for k in ("prefix_cold", "prefix_hot", "prefix_evict"))
+    want = dict(hits=n - 1, misses=1, hit_tokens=(n - 1) * PREFIX_SYSTEM,
+                cow_forks=n - 1)
+    keys = ("seconds", "tok_s", "prefill_chunks", "prefill_chunk_ms",
+            "prefill_chunk_ms_p50", "prefill_tok_s", "prefill_computed",
+            "ttft_p50_ms", "ttft_p99_ms", "decode_step_ms",
+            "decode_step_ms_p50", "capture_s", "audit_s", "peak_mem_gib",
+            "preemptions")
+    emit("prefix", model=cfg.name, layers=cfg.n_layers, requests=n,
+         system_tokens=PREFIX_SYSTEM,
+         prompt_tokens=sum(len(p) for p in prompts),
+         identical_hot=sum(a == b for a, b in zip(cold_tok, hot_tok)),
+         identical_evict=sum(a == b for a, b in zip(cold_tok, evict_tok)),
+         evict_pool_pages=PREFIX_POOL,
+         **{f"{k}_{run}": rec[k] for k in keys
+            for run, rec in (("cold", cold), ("hot", hot),
+                             ("evict", evict))},
+         stats_hot=hot["prefix_stats"], stats_evict=evict["prefix_stats"])
+    first_difference("prefix_hot", cold_tok, hot_tok)
+    first_difference("prefix_evict", cold_tok, evict_tok)
+    got = {k: hot["prefix_stats"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"prefix_hot: stats {got}, wanted {want}")
+    if hot["prefill_computed"] != cold["prefill_computed"] - want[
+            "hit_tokens"]:
+        raise AssertionError(
+            f"prefix_hot: computed {hot['prefill_computed']} prefill "
+            f"tokens, cold {cold['prefill_computed']}")
+    if evict["prefix_stats"]["evicted_pages"] <= 0:
+        raise AssertionError("prefix_evict: no cached page was evicted")
+
+    budget_path(torch, dev, cfg, params, main_prompts, main_rec,
+                main_tokens)
+    frontend_path(torch, dev, cfg, params, prompts[:8], hot_tok[:8])
+
+
+def budget_path(torch, dev, cfg, params, prompts, main_rec, main_tokens):
+    """``main``'s prompts under ``sched="budget"`` (the default 40 tokens
+    a step: 8 lanes + one chunk), priorities alternating interactive and
+    batch: ``main``'s tokens, and no step over the budget."""
+    spend = {"prev": (0, 0), "max": 0, "steps": 0}
+
+    def within_budget(eng, reqs):
+        now = (eng.prefill_computed, sum(len(r.output) for r in reqs))
+        spent = (now[0] - spend["prev"][0]) + (now[1] - spend["prev"][1])
+        if spent > eng.sched.step_tokens:
+            raise AssertionError(f"budget: step {spend['steps']} spent "
+                                 f"{spent} > {eng.sched.step_tokens}")
+        spend.update(prev=now, max=max(spend["max"], spent),
+                     steps=spend["steps"] + 1)
+
+    eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                          serve_kw=dict(sched="budget", audit=1))
+    step_tokens = eng.sched.step_tokens
+    if step_tokens != eng.n_slots + eng.prefill_chunk:
+        raise AssertionError(f"budget: step_tokens {step_tokens}")
+    prios = ["interactive", "batch"] * (len(prompts) // 2)
+    rec, tokens = serve(torch, "budget", eng, prompts, 32,
+                        priorities=prios, check_step=within_budget)
+    check_graphs("budget", eng)
+    del eng
+    torch.cuda.empty_cache()
+    keys = ("tok_s", "prefill_chunks", "prefill_chunk_ms",
+            "prefill_chunk_ms_p50", "decode_steps", "decode_step_ms",
+            "decode_step_ms_p50", "ttft_p50_ms", "ttft_p99_ms")
+    emit("budget_vs_main", step_tokens=step_tokens, steps=spend["steps"],
+         max_step_spend=spend["max"],
+         identical_requests=sum(a == b for a, b in zip(tokens,
+                                                       main_tokens)),
+         **{f"{k}_budget": rec[k] for k in keys},
+         **{f"{k}_main": main_rec[k] for k in keys})
+    first_difference("budget", main_tokens, tokens)
+
+
+def frontend_path(torch, dev, cfg, params, prompts, batch_tokens):
+    """A ``ServeFrontend`` over a hot engine, on a manual clock that moves
+    1 s a front-end step: stream 0 warms the cache, then 7 more; the one
+    with the longest suffix is cancelled mid-prefill, the last times out.
+    Streamed tokens equal ``prefix_hot``'s."""
+    from repro_torch.serve import ServeFrontend
+
+    clock = ManualClock()
+    eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                          serve_kw=dict(prefix_cache=True, audit=2),
+                          clock=clock)
+    fe = ServeFrontend(eng, clock=clock)
+
+    def step():
+        live = fe.step()
+        clock.advance(1.0)
+        return live
+
+    t0 = time.perf_counter()
+    streams = [fe.submit(prompts[0])]
+    while streams[0].state in ("queued", "prefilling"):
+        step()
+    victim = max(range(1, len(prompts) - 1), key=lambda i: len(prompts[i]))
+    if len(prompts[victim]) - PREFIX_SYSTEM <= eng.prefill_chunk:
+        raise AssertionError("frontend: no suffix outlasts one chunk")
+    last = len(prompts) - 1
+    streams += [fe.submit(p, deadline_s=FRONTEND_DEADLINE if i == last
+                          else None)
+                for i, p in enumerate(prompts[1:], 1)]
+    step()
+    req = streams[victim].req
+    if streams[victim].state != "prefilling":
+        raise AssertionError(f"frontend: stream {victim} is "
+                             f"{streams[victim].state}, not prefilling")
+    slot = eng.slot_req.index(req)
+    held = len(eng.alloc._mapped[slot])
+    refs = int(eng.alloc.refcount.sum())
+    streams[victim].cancel()
+    eng.audit()
+    released = refs - int(eng.alloc.refcount.sum())
+    if released != held or req in eng.slot_req:
+        raise AssertionError(f"frontend: cancel released {released} of "
+                             f"{held} page references")
+    while step():
+        pass
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    eng.audit()
+    states = [s.state for s in streams]
+    want = ["done"] * len(prompts)
+    want[victim], want[last] = "cancelled", "timed_out"
+    same = [s.tokens == t for s, t in zip(streams, batch_tokens)]
+    timed = streams[last].tokens
+    emit("frontend", streams=len(streams), states=states,
+         identical_streams=sum(same), cancelled=victim, timed_out=last,
+         timed_out_tokens=len(timed), timeout_count=fe.timeout_count,
+         shed_count=fe.shed_count, seconds=seconds,
+         new_tokens=sum(len(s.tokens) for s in streams),
+         prefix_stats=eng.prefix_stats(),
+         ttft_steps=[s.ttft() for s in streams])
+    check_graphs("frontend", eng)
+    if states != want or fe.timeout_count != 1:
+        raise AssertionError(f"frontend: states {states}, wanted {want}")
+    if streams[victim].tokens or not all(
+            same[i] for i in range(len(streams)) if i not in (victim, last)):
+        raise AssertionError(f"frontend: streamed tokens differ: {same}")
+    if timed != batch_tokens[last][:len(timed)] or len(timed) >= 32:
+        raise AssertionError("frontend: the timed-out stream's tokens")
+    if int(eng.alloc.refcount.sum()) != 0:
+        raise AssertionError("frontend: pages still referenced")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def kernel_label(name: str) -> str:
@@ -1933,6 +2201,10 @@ def main() -> int:
         graphs_against_eager(torch, dev, "main", cfg, 4, 8, prompts, 32,
                              params=params, graph_rec=main_rec,
                              graph_tokens=main_tokens)
+        torch.cuda.empty_cache()
+
+    with Phase("prefix"):
+        prefix_path(torch, dev, cfg, params, prompts, main_rec, main_tokens)
         del params
         torch.cuda.empty_cache()
 

@@ -147,9 +147,8 @@ class EngineConfig:
 @dataclass(frozen=True)
 class ServeConfig:
     """Serving knobs, field for field those of the JAX package.  The port
-    serves ``mode="paged"`` with FCFS scheduling; ``prefix_cache``,
-    ``sched="budget"``, ``audit`` and the retry budget are refused by
-    ``repro_torch.serve.ServeEngine`` until they are ported."""
+    does not read the retry budget (``max_request_retries``,
+    ``retry_reset_steps``) yet: non-finite logits raise."""
 
     max_new_tokens: int = 32
     temperature: float = 0.0          # 0 = greedy

@@ -3,11 +3,18 @@ for the dense family) or a fixed-slot cache (the ssm family's mode).
 
 **Paged mode** (``mode="paged"``): KV state lives in a shared page pool
 (:mod:`repro_torch.serve.pages`) addressed through per-request block
-tables; the FCFS scheduler (:mod:`repro_torch.serve.scheduler`) admits
-requests by page capacity, prefills prompts in batched chunks through
-``prefill_chunk`` (one forward per chunk across all pending lanes),
-decodes one token per step for every ready lane, and preempts the
-longest-running request when pages run out.
+tables; the scheduler (:mod:`repro_torch.serve.scheduler`: FCFS, or
+``sched="budget"`` for a per-step token budget with weighted fair share)
+admits requests by page capacity, prefills prompts in batched chunks
+through ``prefill_chunk`` (one forward per chunk across all pending
+lanes), decodes one token per step for every ready lane, and preempts the
+longest-running request when pages run out.  With ``prefix_cache`` the
+pages of completed prompts are shared through a radix tree
+(:mod:`repro_torch.serve.prefix_cache`), and a request prefills only the
+suffix that no resident page holds.  ``audit`` (``ServeConfig.audit`` 1 /
+2) proves the allocator's, the tree's and the scheduler's invariants
+after every step (and phase).  :mod:`repro_torch.serve.frontend` streams
+tokens over this engine.
 
 **Fixed-slot mode** (``mode="slots"``, and what ``mode="auto"`` falls
 back to, with a warning, for the ssm family, whose O(1) recurrent state
@@ -33,11 +40,12 @@ counterpart of the JAX package's ``jax.jit`` of ``_dec``, ``_pf`` and
 ``_step``.  ``cuda_graphs=False`` runs them eagerly, as
 ``jax.disable_jit()`` would; on the CPU they always run eagerly.
 
-Not ported yet, and refused at construction rather than ignored: the
-prefix cache, the budget scheduler and runtime audits (in slots mode
-refused or warned about as the JAX package does), per-request retry /
-quarantine, telemetry, and the families other than dense and ssm (the
-audio family's token layout among them).
+Not ported yet: per-request retry / quarantine (non-finite logits
+raise), telemetry and ``metrics()``, chaos sites, ``snapshot`` /
+``restore``, and the families other than dense and ssm (the audio
+family's token layout among them), which are refused at construction.
+In slots mode the paged-pool options (prefix cache, budget scheduler,
+audits) are refused or warned about as the JAX package does.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import collections
 import dataclasses
 import logging
 import time
-from typing import Deque, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Deque, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,14 +69,22 @@ from repro_torch.models.transformer import (
     prefill_chunk as _prefill_chunk_fn,
     quantize_params,
 )
+from repro_torch.obs import clock as _obs_clock
 from repro_torch.serve.pages import (
+    AuditError,
     LaneTables,
     PageAllocator,
+    fork_tail_page,
     init_kv_pages,
     pages_for,
 )
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampler import sample
-from repro_torch.serve.scheduler import PagedScheduler
+from repro_torch.serve.scheduler import (
+    PRIORITY_WEIGHTS,
+    BudgetScheduler,
+    PagedScheduler,
+)
 from repro_torch.serve.step_graph import StepGraph
 
 logger = logging.getLogger(__name__)
@@ -103,20 +119,17 @@ class Request:
     prefill_pos: int = 0
     admit_seq: int = -1
     preemptions: int = 0
+    # prefill tokens served from the prefix cache at (re-)admission
+    cached_tokens: int = 0
+    # clock reading at ``submit()``: the anchor of per-request latency
+    submit_t: float = 0.0
+    # time to first token, from ``submit_t``
+    ttft: Optional[float] = None
+    priority: str = "default"         # interactive | default | batch
+    tenant: str = "default"           # fair-share accounting key part
     cancelled: bool = False
-    finish_reason: Optional[str] = None   # "length" | "cancelled"
-
-
-def _not_ported(scfg: ServeConfig) -> List[str]:
-    """The paged-mode options that are not ported yet."""
-    missing = []
-    if scfg.prefix_cache:
-        missing.append("prefix_cache")
-    if scfg.sched != "fcfs":
-        missing.append(f"sched={scfg.sched!r}")
-    if scfg.audit:
-        missing.append("audit")
-    return missing
+    # "length" | "cancelled" | "timed_out" (None while running)
+    finish_reason: Optional[str] = None
 
 
 def _resolve_mode(mode: str, family: str) -> Tuple[str, bool]:
@@ -139,13 +152,14 @@ def _resolve_mode(mode: str, family: str) -> Tuple[str, bool]:
     return mode, False
 
 
-def _check_slots_options(scfg: ServeConfig, auto_fallback: bool) -> None:
+def _check_slots_options(scfg: ServeConfig, prefix_cache: bool,
+                         auto_fallback: bool) -> None:
     """The paged-pool options in slots mode, as the JAX package treats
     them: refused with ``ValueError`` when slots mode was asked for;
     after ``auto``'s fallback the prefix cache is dropped silently (the
     fallback's warning names the family) and the others are ignored with
     a warning."""
-    if scfg.prefix_cache and not auto_fallback:
+    if prefix_cache and not auto_fallback:
         raise ValueError(
             "prefix_cache shares KV *pages* across requests; mode='slots' "
             "has no page pool to share")
@@ -177,13 +191,21 @@ class ServeEngine:
     ``n_slots × max_len`` rectangle (never preempts).  ``attn_backend``
     (``gather`` / ``cuda``) overrides the plan's.
 
+    ``prefix_cache``: share KV pages across requests through a radix tree
+    of resident pages (paged mode only); a bool, None defers to
+    ``ServeConfig.prefix_cache``.  The engine builds and owns the
+    :class:`PrefixCache` over its own pool.  ``clock``: the timebase of
+    ``Request.submit_t`` and ``ttft`` (default
+    :func:`repro_torch.obs.clock.now`); a test injects a manual one.
+
     ``cuda_graphs``: on a CUDA device, run each step as a replayed CUDA
     graph (the default) or eagerly (False); the params and the pool or
     cache are captured by address and must not be rebound.  ``timings``
     records the host-clock seconds of every prefill chunk (in slots mode,
     every prompt's sequential prefill) and decode step, each measured up
     to the host sync that reads its logits, and apart from them the
-    seconds of each graph capture (``"capture"``).
+    seconds of each graph capture (``"capture"``) and of each audit
+    (``"audit"``).
     """
 
     def __init__(
@@ -199,8 +221,10 @@ class ServeEngine:
         page_size: Optional[int] = None,
         n_pages: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
+        prefix_cache: Optional[bool] = None,
         attn_backend: Optional[str] = None,
         cuda_graphs: bool = True,
+        clock: Optional[Callable[[], float]] = None,
         device: DeviceLike = None,
     ):
         self.cfg = cfg
@@ -210,13 +234,18 @@ class ServeEngine:
                 f"serving family {cfg.family!r} is not ported yet")
         self.mode, auto_fallback = _resolve_mode(mode or self.scfg.mode,
                                                  cfg.family)
-        if self.mode == "paged":
-            missing = _not_ported(self.scfg)
-            if missing:
-                raise NotImplementedError(
-                    f"not ported yet: {', '.join(missing)}")
-        else:
-            _check_slots_options(self.scfg, auto_fallback)
+        if prefix_cache is None:
+            prefix_cache = self.scfg.prefix_cache
+        if not isinstance(prefix_cache, bool):
+            # an instance would index another pool's pages (and an empty
+            # one is falsy): refuse rather than surprise
+            raise TypeError(
+                f"prefix_cache must be a bool (got "
+                f"{type(prefix_cache).__name__}); the engine builds and "
+                "owns the PrefixCache over its own page pool")
+        if self.mode == "slots":
+            _check_slots_options(self.scfg, prefix_cache, auto_fallback)
+        self._clock = clock if clock is not None else _obs_clock.now
         self.device = resolve_device(device)
         # the EngineConfig is resolved into an EnginePlan exactly once
         self.plan = resolve_plan(self.scfg.engine, device=self.device)
@@ -237,18 +266,21 @@ class ServeEngine:
                 else self.scfg.engine.attn_backend),
             self.device)
         self._next_rid = 0
+        self.shed_count = 0  # AdmissionRejected raised since construction
         self.timings: Dict[str, List[float]] = {"prefill": [], "decode": [],
-                                                "capture": []}
+                                                "capture": [], "audit": []}
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.cuda_graphs else None)
         self._graphs: List[StepGraph] = []
+        self.prefix_cache: Optional[PrefixCache] = None
         if self.mode == "paged":
-            self._init_paged(page_size, n_pages, prefill_chunk)
+            self._init_paged(page_size, n_pages, prefill_chunk, prefix_cache)
         else:
             self._init_slots()
 
-    def _init_paged(self, page_size, n_pages, prefill_chunk) -> None:
+    def _init_paged(self, page_size, n_pages, prefill_chunk,
+                    prefix_cache: bool) -> None:
         self.page_size = page_size or self.scfg.page_size
         self.prefill_chunk = prefill_chunk or self.scfg.prefill_chunk
         self._max_blocks = pages_for(self.max_len, self.page_size)
@@ -260,7 +292,19 @@ class ServeEngine:
                                    kv_bits=self.kv_bits, device=self.device)
         self.alloc = PageAllocator(n_pages, self.page_size, self.n_slots,
                                    self.max_len)
-        self.sched = PagedScheduler(self.alloc, self.prefill_chunk)
+        if prefix_cache:  # attaches itself to the allocator
+            self.prefix_cache = PrefixCache(self.alloc)
+        if self.scfg.sched == "budget":
+            # default budget: every lane decodes plus one full prefill
+            # chunk a step
+            self.sched = BudgetScheduler(
+                self.alloc, self.prefill_chunk,
+                prefix_cache=self.prefix_cache,
+                step_tokens=(self.scfg.step_tokens
+                             or self.n_slots + self.prefill_chunk))
+        else:
+            self.sched = PagedScheduler(self.alloc, self.prefill_chunk,
+                                        prefix_cache=self.prefix_cache)
         # the scheduler's own queue and lane table, under the names slots
         # mode gives its own
         self.queue, self.slot_req = self.sched.queue, self.sched.slot_req
@@ -299,11 +343,14 @@ class ServeEngine:
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt: List[int],
-               max_new_tokens: Optional[int] = None) -> Request:
+               max_new_tokens: Optional[int] = None, *,
+               priority: str = "default",
+               tenant: str = "default") -> Request:
         """Enqueue a prompt; returns its :class:`Request`.  Raises
-        ``ValueError`` for a malformed prompt and
-        :class:`AdmissionRejected` when the bounded queue is full or the
-        prompt can never fit the pool."""
+        ``ValueError`` for a malformed prompt or an unknown ``priority``
+        and :class:`AdmissionRejected` when the bounded queue is full or
+        the prompt can never fit the pool.  ``priority`` and ``tenant``
+        are the budget scheduler's fair-share key."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError(
@@ -319,16 +366,24 @@ class ServeEngine:
                 f"prompt of {len(prompt)} tokens cannot fit max_len="
                 f"{self.max_len} with room to generate (limit is "
                 f"max_len - 2 = {self.max_len - 2})")
+        if priority not in PRIORITY_WEIGHTS:
+            raise ValueError(
+                f"unknown priority {priority!r}; choose from "
+                f"{sorted(PRIORITY_WEIGHTS)}")
         if self.scfg.max_queue and len(self.queue) >= self.scfg.max_queue:
+            self.shed_count += 1
             raise AdmissionRejected("queue_full")
         if (self.mode == "paged"
                 and pages_for(len(prompt) + 1, self.page_size)
                 > self.alloc.n_pages - 1):
+            self.shed_count += 1
             raise AdmissionRejected("pool_too_small")
         req = Request(self._next_rid, prompt,
                       self.scfg.max_new_tokens if max_new_tokens is None
-                      else max_new_tokens)
+                      else max_new_tokens,
+                      priority=priority, tenant=tenant)
         req.prefill_tokens = list(prompt)
+        req.submit_t = self._clock()
         self._next_rid += 1
         self.queue.append(req)
         return req
@@ -339,18 +394,23 @@ class ServeEngine:
     def step(self) -> List[Request]:
         """One scheduler iteration (admit -> prefill -> decode token ->
         retire); returns the requests that finished this step."""
-        if self.mode == "paged":
-            self.sched.admit()
-            self._prefill_once()
-        else:
+        if self.mode == "slots":
             self._admit()
-        # pre-decode retire: max_new_tokens=0 must emit no tokens
-        finished = self._retire(limit_only=True)
-        if self.mode == "paged":
-            self._decode_once_paged()
-        else:
+            # pre-decode retire: max_new_tokens=0 must emit no tokens
+            finished = self._retire(limit_only=True)
             self._decode_one()
+            finished.extend(self._retire())
+            return finished
+        self.sched.admit()
+        self._apply_forks()
+        self._maybe_audit(2)
+        self._prefill_once()
+        self._maybe_audit(2)
+        finished = self._retire(limit_only=True)
+        self._decode_once_paged()
+        self._maybe_audit(2)
         finished.extend(self._retire())
+        self._maybe_audit(1)
         return finished
 
     def run(self) -> List[Request]:
@@ -361,8 +421,12 @@ class ServeEngine:
         return finished
 
     def cancel(self, req: Request, reason: str = "cancelled") -> bool:
-        """Terminate a request now; in paged mode its pages are released
-        at once.  Returns False if it had already finished."""
+        """Terminate a request now, wherever it is.  In paged mode its
+        pages are released at once (prefix-cache pins and the private
+        pages of a chunked prefill included) and its pending
+        copy-on-write forks are dropped before their target page can be
+        reused.  Tokens generated so far stay on ``req.output``.  Returns
+        False if it had already reached a terminal state."""
         if req.done or req.cancelled:
             return False
         req.cancelled = True
@@ -370,6 +434,7 @@ class ServeEngine:
         for slot, r in enumerate(self.slot_req):
             if r is req:
                 if self.mode == "paged":
+                    self.sched.drop_forks(slot)
                     self.alloc.free_slot(slot)
                 self.slot_req[slot] = None
                 return True
@@ -377,9 +442,87 @@ class ServeEngine:
             self.queue.remove(req)
         return True
 
+    def request_phase(self, req: Request) -> str:
+        """Lifecycle phase: ``queued`` | ``prefilling`` | ``decoding`` |
+        ``done`` | ``cancelled`` (the front end tells cancelled and timed
+        out apart by ``finish_reason``)."""
+        if req.done:
+            return "done"
+        if req.cancelled:
+            return "cancelled"
+        for r in self.slot_req:
+            if r is req:
+                if (req.last_logits is None
+                        or req.prefill_pos < len(req.prefill_tokens)):
+                    return "prefilling"
+                return "decoding"
+        return "queued"
+
     @property
     def preemptions(self) -> int:
         return self.sched.preemptions if self.mode == "paged" else 0
+
+    @property
+    def prefill_computed(self) -> int:
+        """Prompt tokens actually run through ``prefill_chunk`` (cache
+        hits keep it below the total of the submitted prompts)."""
+        return self.sched.prefill_computed if self.mode == "paged" else 0
+
+    def prefix_stats(self) -> Optional[Dict[str, int]]:
+        """The prefix cache's counters, or None without a cache."""
+        return (self.prefix_cache.stats()
+                if self.prefix_cache is not None else None)
+
+    def audit(self) -> None:
+        """Prove the host-side bookkeeping invariants of the allocator
+        (refcounts, free list, block tables), the prefix cache's radix
+        tree and the scheduler (residency, queue, pending forks); raises
+        :class:`~repro_torch.serve.pages.AuditError` naming the first
+        violation.  Runs after every step (and phase) under
+        ``ServeConfig(audit=1)`` (``2``).  Paged mode only."""
+        if self.mode != "paged":
+            raise ValueError("audit() proves page-pool invariants; "
+                             "mode='slots' has no page pool")
+        self.alloc.audit()
+        if self.prefix_cache is not None:
+            self.prefix_cache.audit()
+        self._audit_sched()
+
+    def _audit_sched(self) -> None:
+        """A live request sits in one place (one lane or the queue), no
+        terminal request holds a lane or a queue place, and every pending
+        fork's target is a page its owner lane maps."""
+        def fail(msg: str) -> None:
+            raise AuditError(f"ServeEngine.audit: {msg}")
+
+        resident: Dict[int, int] = {}
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                if self.alloc._mapped[slot]:
+                    fail(f"empty lane {slot} still maps "
+                         f"{len(self.alloc._mapped[slot])} pages")
+                continue
+            if id(req) in resident:
+                fail(f"rid {req.rid} resident in two lanes")
+            resident[id(req)] = slot
+            if req.done or req.cancelled:
+                fail(f"terminal rid {req.rid} still resident in lane "
+                     f"{slot}")
+        seen_q = set()
+        for req in self.queue:
+            if id(req) in resident:
+                fail(f"rid {req.rid} both queued and resident")
+            if id(req) in seen_q:
+                fail(f"rid {req.rid} queued twice")
+            seen_q.add(id(req))
+            if req.done or req.cancelled:
+                fail(f"terminal rid {req.rid} still queued")
+        for slot, _src, dst in self.sched.pending_forks:
+            if self.slot_req[slot] is None:
+                fail(f"pending fork owned by empty lane {slot}")
+            if dst not in self.alloc._mapped[slot]:
+                fail(f"pending fork dst page {dst} not mapped by its "
+                     f"owner lane {slot}")
 
     @property
     def capture_seconds(self) -> float:
@@ -400,8 +543,26 @@ class ServeEngine:
             self.timings["capture"].append(capture)
         self.timings[part].append(spent - capture)
 
+    def _maybe_audit(self, level: int) -> None:
+        """:meth:`audit` when ``ServeConfig.audit`` reaches ``level`` (1:
+        after each step, 2: after each phase too)."""
+        if self.scfg.audit >= level:
+            t0 = time.perf_counter()
+            self.audit()
+            self.timings["audit"].append(time.perf_counter() - t0)
+
+    def _apply_forks(self) -> None:
+        """Run the page copies of the pending copy-on-write forks
+        (mid-page cache hits admitted this step), in place on the current
+        stream, before the prefill step reads or writes the pages."""
+        for _slot, src, dst in self.sched.pending_forks:
+            fork_tail_page(self.pages, src, dst)
+        self.sched.pending_forks.clear()
+
     def _prefill_once(self) -> None:
-        """Advance every pending prompt by one batched chunk."""
+        """Advance every pending prompt by one batched chunk; a prompt
+        whose prefill completes publishes its full pages to the prefix
+        cache."""
         batch = self.sched.prefill_batch()
         if batch is None:
             return
@@ -416,7 +577,14 @@ class ServeEngine:
             req.prefill_pos += n_real
             self.alloc.pos[slot] += n_real
             if req.prefill_pos >= len(req.prefill_tokens):
+                # the finiteness check comes first: poisoned pages are
+                # never published for other requests to share
                 req.last_logits = self._finite(req, lg[slot, -1])
+                if self.prefix_cache is not None:
+                    # the prompt's full pages are written for good now
+                    # (decode appends at positions past the prompt)
+                    self.prefix_cache.insert(req.prefill_tokens,
+                                             self.alloc.block_row(slot))
 
     def _decode_once_paged(self) -> None:
         lanes = self.sched.decode_lanes()
@@ -433,14 +601,14 @@ class ServeEngine:
         ready = [(s, r) for s, r in ready if self.slot_req[s] is r]
         if not ready:
             return
+        self.sched.charge_decode(ready)
         tokens = np.zeros((self.n_slots, 1), np.int32)
+        tnow = self._clock()
         for slot, req in ready:
-            tok = self._sample_next(req)
-            req.output.append(tok)
-            tokens[slot, 0] = tok
+            tokens[slot, 0] = self._emit(req, tnow)
         t0, captured = time.perf_counter(), self.capture_seconds
         self.lanes.load_tables(self.alloc)
-        self.lanes.load(active=self._lane_mask(s for s, _ in ready),
+        self.lanes.load(active=self.sched.lane_mask(s for s, _ in ready),
                         tokens=tokens)
         lg = self._host_logits(self._decode_paged())
         self._timed("decode", t0, captured)
@@ -488,14 +656,13 @@ class ServeEngine:
 
     def _decode_one(self) -> None:
         updates: Dict[int, int] = {}
+        tnow = self._clock()
         for slot, req in enumerate(self.slot_req):
             if req is None or req.last_logits is None:
                 continue
             if len(req.output) >= req.max_new_tokens:
                 continue
-            tok = self._sample_next(req)
-            req.output.append(tok)
-            updates[slot] = tok
+            updates[slot] = self._emit(req, tnow)
         if not updates:
             return
         tokens = np.zeros((self.n_slots, 1), np.int32)
@@ -533,6 +700,7 @@ class ServeEngine:
                 req.finish_reason = "length"
                 done.append(req)
                 if self.mode == "paged":
+                    self.sched.drop_forks(slot)
                     self.alloc.free_slot(slot)
                 self.slot_req[slot] = None
         return done
@@ -541,6 +709,15 @@ class ServeEngine:
         last = torch.from_numpy(np.asarray(req.last_logits))[None]
         return int(sample(last, self.generator, self.scfg.temperature,
                           self.scfg.top_k)[0])
+
+    def _emit(self, req: Request, tnow: float) -> int:
+        """Sample ``req``'s next token and append it; the first one sets
+        the request's time to first token."""
+        tok = self._sample_next(req)
+        if not req.output and req.ttft is None:
+            req.ttft = tnow - req.submit_t
+        req.output.append(tok)
+        return tok
 
     def _should_retire(self, req: Request, limit_only: bool) -> bool:
         limit = len(req.output) >= req.max_new_tokens

@@ -8,10 +8,18 @@ allocation.
   per-(token, head) scales ride along as ``(L, P, page_size, Hkv)`` bf16
   pools.  The model writes into the pools in place.
 * :class:`PageAllocator` — host-side free list and block tables:
-  capacity-based admission (``can_admit``), page grants during decode
+  capacity checks (``can_allocate``), page grants during decode
   (``ensure``) and whole-request reclaim (``free_slot``).  Physical page 0
   is the null page: idle lanes and masked prefill positions write there,
-  so the model functions never need a dynamic shape.
+  so the model functions never need a dynamic shape.  Pages are reference
+  counted: one page may back many lanes' block tables (a shared prompt
+  prefix), and with a prefix cache attached
+  (:mod:`repro_torch.serve.prefix_cache`) a page whose count drops to 0
+  stays resident as an evictable cached page instead of returning to the
+  free list; ``_take_page`` evicts such pages when the free list runs dry.
+* :func:`fork_tail_page` — the copy-on-write step of a mid-page cache
+  hit: the donor's partly filled page is copied, in place, into the
+  request's own page.
 * :class:`LaneTables` — persistent device buffers of the per-lane inputs
   of the serving steps (block tables, ``pos``, tokens, prefill bounds,
   the active mask), refilled with ``copy_`` before each step so that a
@@ -95,6 +103,11 @@ class PageAllocator:
     (logical block i -> physical page id; ``NULL_PAGE`` where unmapped) and
     a token count ``pos``.  Pages come from one shared free list, so the
     pool holds ``(n_pages - 1) * page_size`` tokens across all lanes.
+
+    A page mapped by ``k`` block tables has ``refcount == k``; the null
+    page is never allocated, freed, shared or evicted; a released page
+    returns to the free list unless an attached prefix cache holds it
+    resident (then it parks as an evictable cached page).
     """
 
     def __init__(self, n_pages: int, page_size: int, n_slots: int,
@@ -114,31 +127,82 @@ class PageAllocator:
         self.pos = np.zeros((n_slots,), np.int32)
         self._mapped: List[List[int]] = [[] for _ in range(n_slots)]
         self.refcount = np.zeros((n_pages,), np.int32)
+        self._cache = None  # attached PrefixCache (eviction provider)
+
+    # -------------------------------------------------------- prefix cache
+    def attach_cache(self, cache) -> None:
+        """Register a prefix cache as the owner of resident refcount-0
+        pages (``cache.holds``) and their evictor (``cache.evict``); the
+        capacity arithmetic counts its evictable pages as available."""
+        self._cache = cache
+
+    # ----------------------------------------------------------- capacity
+    @property
+    def free_pages(self) -> int:
+        return len(self.free)
+
+    @property
+    def evictable_pages(self) -> int:
+        """Cached refcount-0 pages the attached prefix cache could evict."""
+        return self._cache.evictable_count() if self._cache is not None else 0
 
     @property
     def used_pages(self) -> int:
         return (self.n_pages - 1) - len(self.free)
 
     def can_allocate(self, n_pages: int) -> bool:
-        return n_pages <= len(self.free)
+        """Could ``n_pages`` fresh pages be produced now, from the free
+        list and then from evictable cached pages?"""
+        if n_pages <= len(self.free):
+            return True
+        return n_pages <= len(self.free) + self.evictable_pages
 
-    def can_admit(self, n_tokens: int) -> bool:
-        """Room for a prompt of ``n_tokens`` plus one decode token?"""
-        return self.can_allocate(pages_for(n_tokens + 1, self.page_size))
-
-    def alloc_page(self, slot: int) -> Optional[int]:
-        """Allocate one private page as ``slot``'s next block."""
+    # --------------------------------------------------------- allocation
+    def _take_page(self) -> Optional[int]:
+        """Pop a free page, evicting a cached refcount-0 page first when
+        the free list is dry; None when neither has one."""
+        if not self.free and self._cache is not None:
+            self._cache.evict(1)
         if not self.free:
             return None
-        page = self.free.pop()
+        return self.free.pop()
+
+    def alloc_page(self, slot: int) -> Optional[int]:
+        """Allocate one private page as ``slot``'s next block (refcount
+        1): the copy-on-write target of a mid-page cache hit."""
+        page = self._take_page()
+        if page is None:
+            return None
         self.refcount[page] = 1
         self.block_tables[slot, len(self._mapped[slot])] = page
         self._mapped[slot].append(page)
         return page
 
+    def map_shared(self, slot: int, pages: List[int]) -> None:
+        """Map resident (cached) pages as ``slot``'s leading blocks, one
+        reference each: the cache-hit path.  Runs before any private
+        allocation for the slot."""
+        if self._mapped[slot]:
+            raise ValueError(
+                f"slot {slot} already holds pages; map the shared prefix "
+                "before allocating private pages")
+        for blk, page in enumerate(pages):
+            if page == NULL_PAGE:
+                raise ValueError("cannot share the null page")
+            self.refcount[page] += 1
+            if (self.refcount[page] == 1 and self._cache is not None
+                    and self._cache.holds(page)):
+                # 0 -> 1: the cached page leaves the evictable set (the
+                # prefix pins root first, so the cache's walk up is O(1))
+                self._cache._on_pin(page)
+            self._mapped[slot].append(page)
+            self.block_tables[slot, blk] = page
+
     def ensure(self, slot: int, n_tokens: int) -> bool:
-        """Grow ``slot``'s block table to cover ``n_tokens``; False (and no
-        change) when the free list cannot cover it."""
+        """Grow ``slot``'s block table to cover ``n_tokens``; False, with
+        the slot exactly as it was, when the pages cannot be produced
+        even by eviction.  A grant that fails part way is rolled back
+        page by page."""
         need = pages_for(n_tokens, self.page_size)
         if need > self.max_blocks:
             raise ValueError(
@@ -148,22 +212,49 @@ class PageAllocator:
             return True
         if not self.can_allocate(need - have):
             return False
-        for _ in range(have, need):
-            self.alloc_page(slot)
+        granted: List[int] = []
+        for blk in range(have, need):
+            page = self._take_page()
+            if page is None:
+                for g in reversed(granted):
+                    self._mapped[slot].pop()
+                    self.block_tables[slot, len(self._mapped[slot])] = (
+                        NULL_PAGE)
+                    self._release_page(g)
+                return False
+            granted.append(page)
+            self.refcount[page] = 1
+            self._mapped[slot].append(page)
+            self.block_tables[slot, blk] = page
         return True
 
     def _release_page(self, page: int) -> None:
+        """Drop one reference; at 0 the page returns to the free list
+        unless the prefix cache holds it resident (then it stays as an
+        evictable cached page).  The only way a page is freed."""
         if page == NULL_PAGE:
             raise ValueError("the null page is never freed")
         self.refcount[page] -= 1
         if self.refcount[page] < 0:
             raise AssertionError(f"page {page} refcount went negative")
         if self.refcount[page] == 0:
-            self.free.append(page)
+            if self._cache is not None and self._cache.holds(page):
+                # 1 -> 0: free_slot releases deepest first, so each
+                # node's parent is still pinned and the walk up is O(1)
+                self._cache._on_unpin(page)
+            else:
+                self.free.append(page)
+
+    def _reclaim_evicted(self, page: int) -> None:
+        """Return an evicted cached page (refcount already 0) to the free
+        list.  Called by the prefix cache only."""
+        assert page != NULL_PAGE and self.refcount[page] == 0
+        self.free.append(page)
 
     def free_slot(self, slot: int) -> None:
         """Release every page the slot maps (request retired or
-        preempted)."""
+        preempted); shared pages survive under their other owners or the
+        prefix cache."""
         for page in reversed(self._mapped[slot]):
             self._release_page(page)
         self._mapped[slot] = []
@@ -176,11 +267,12 @@ class PageAllocator:
 
     def audit(self) -> None:
         """Prove the bookkeeping invariants; raise :class:`AuditError`
-        naming the first violation: the null page is never referenced,
-        the free list holds unique in-range refcount-0 pages disjoint from
-        mapped pages, refcounts equal block-table references, each row is
-        its mapped pages then ``NULL_PAGE`` padding, ``pos`` fits the
-        mapped capacity, and every page is free or mapped."""
+        naming the first violation: the null page is never referenced;
+        the free list holds unique in-range refcount-0 pages, disjoint
+        from mapped and cache-resident pages; refcounts equal block-table
+        references (cache residency takes none); each row is its mapped
+        pages then ``NULL_PAGE`` padding; ``pos`` fits the mapped
+        capacity; and every page is free, mapped or cache-resident."""
         def fail(msg: str) -> None:
             raise AuditError(f"PageAllocator.audit: {msg}")
 
@@ -194,6 +286,10 @@ class PageAllocator:
                 fail(f"free list holds out-of-range page {p}")
             if self.refcount[p]:
                 fail(f"free page {p} has refcount {self.refcount[p]}")
+        cached = set(self._cache.pages()) if self._cache is not None else set()
+        if free_set & cached:
+            fail(f"page {min(free_set & cached)} is both free and "
+                 "cache-resident")
         counts = np.zeros((self.n_pages,), np.int64)
         mapped_set = set()
         for slot in range(self.n_slots):
@@ -220,9 +316,9 @@ class PageAllocator:
                  f"{int(counts[p])} block-table references")
         if free_set & mapped_set:
             fail(f"page {min(free_set & mapped_set)} is free and mapped")
-        leaked = set(range(1, self.n_pages)) - free_set - mapped_set
+        leaked = set(range(1, self.n_pages)) - free_set - mapped_set - cached
         if leaked:
-            fail(f"pages leaked (neither free nor mapped): "
+            fail(f"pages leaked (not free, mapped or cached): "
                  f"{sorted(leaked)[:8]}")
 
     def device_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -231,6 +327,25 @@ class PageAllocator:
         instead)."""
         return (torch.from_numpy(self.block_tables).to(device),
                 torch.from_numpy(self.pos).to(device))
+
+
+@torch.no_grad()
+def fork_tail_page(pages: KVPages, src: int, dst: int) -> None:
+    """Copy physical page ``src`` into ``dst`` over every layer of ``k``
+    and ``v`` (and of the scale pools when quantized), in place: the
+    copy-on-write step of a mid-page prefix-cache hit.
+
+    The whole page is copied: its leading slots are the shared prefix,
+    and every slot past the match is overwritten by the request's own
+    suffix prefill before anything attends to it.  ``src`` and ``dst``
+    are host ints, so the copy is queued on the current stream without a
+    sync.  The pool's tensors keep their storage: the serving steps'
+    CUDA graphs captured them by address.  (The JAX package's version
+    returns a new, donated pool instead.)
+    """
+    for t in (pages.k, pages.v, pages.k_scale, pages.v_scale):
+        if t is not None:
+            t[:, dst].copy_(t[:, src])
 
 
 class LaneTables:

@@ -51,7 +51,10 @@ held against eager calls of the same function on a copy of the same
 state: the same kernels on the same inputs, so logits and caches must be
 bit-identical, and each replay must add the launches, by kernel and by
 route, that an eager step counts.  ``ServeEngine`` with graphs gives the
-same greedy tokens as with ``cuda_graphs=False``, in both modes.
+same greedy tokens as with ``cuda_graphs=False``, in both modes.  A
+prefill chunk graph captured before ``fork_tail_page`` copies a donor page
+into a lane's own page in place (the copy-on-write step of a mid-page
+prefix-cache hit) reads the copy when it is replayed after it.
 """
 
 import dataclasses
@@ -101,7 +104,13 @@ from repro_torch.models import (
     init_params,
     prefill_chunk,
 )
-from repro_torch.serve import LaneTables, ServeEngine, StepGraph, init_kv_pages
+from repro_torch.serve import (
+    LaneTables,
+    ServeEngine,
+    StepGraph,
+    fork_tail_page,
+    init_kv_pages,
+)
 
 CASES = [(bits, radix) for bits in (2, 4, 8) for radix in (1, 2, 4, 8)
          if bits % radix == 0]
@@ -725,3 +734,65 @@ def test_graph_engine_tokens_match_eager(cuda_device, arch, mode):
     assert all(len(o) == 6 for o in out[True][0])
     # the replays counted every launch the eager engine counted
     assert out[True][1] == out[False][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_graph_prefill_reads_forked_page(cuda_device, kv_bits):
+    """Lane 0 resumes a prompt at position 21 (page 16): block 0 a shared
+    page, block 1 the fork target that ``fork_tail_page`` fills from a
+    donor page between the capture and the replay.  The replay equals an
+    eager chunk over a pool forked the same way (logits and pool), reads
+    the donor's first 5 slots through the copy (an unforked pool gives
+    other logits for lane 0 only), and the pool keeps its storage."""
+    cfg, params, plan = _graph_model("qwen2.5-3b", cuda_device, kv_bits)
+    b, nblk, page, chunk = 2, 4, 16, 16
+    shared, donor, dst, private = 1, 2, 3, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(5 + kv_bits)
+    pages_g = init_kv_pages(cfg, 16, page, kv_bits=kv_bits,
+                            device=cuda_device)
+    _random_pool(pages_g, gen)
+    lanes = LaneTables(b, cuda_device, max_blocks=nblk, chunk=chunk)
+    graph = StepGraph(lambda: prefill_chunk(
+        params, pages_g, lanes.block_tables, lanes.chunk_tokens,
+        lanes.pos0, lanes.seq_lens, cfg, plan))
+    rng = np.random.default_rng(kv_bits)
+    bt = np.zeros((b, nblk), np.int32)
+    bt[0, :3] = [shared, dst, private]
+    bt[1, :2] = [8, 9]
+    pos0 = np.array([page + 5, 3], np.int32)
+    seq_lens = pos0 + np.array([chunk, 9], np.int32)
+
+    def load():
+        tokens = rng.integers(0, cfg.vocab_size, (b, chunk)).astype(np.int32)
+        lanes.load(block_tables=bt, chunk_tokens=tokens, pos0=pos0,
+                   seq_lens=seq_lens)
+        return [torch.from_numpy(a).to(cuda_device)
+                for a in (bt, tokens, pos0, seq_lens)]
+
+    for _ in range(2):                    # the eager call, the capture
+        load()
+        graph()
+    assert graph.graph is not None
+    names = [n for n in ("k", "v", "k_scale", "v_scale")
+             if getattr(pages_g, n) is not None]
+    ptrs = [getattr(pages_g, n).data_ptr() for n in names]
+    unforked = _clone_pages(pages_g)
+    fork_tail_page(pages_g, donor, dst)
+    pages_e = _clone_pages(pages_g)
+    inputs = load()
+    before = _launch_counts()
+    out_g = graph().clone()
+    torch.cuda.synchronize()
+    assert _moved(before)["paged_prefill_attention/tensor_core"] == (
+        cfg.n_layers)
+    out_e = prefill_chunk(params, pages_e, *inputs, cfg, plan)
+    out_u = prefill_chunk(params, unforked, *inputs, cfg, plan)
+    assert torch.equal(out_g, out_e)
+    assert _same_pages(pages_g, pages_e)
+    assert not torch.equal(out_u[0], out_e[0])
+    assert torch.equal(out_u[1], out_e[1])
+    for n in names:
+        t = getattr(pages_g, n)
+        assert torch.equal(t[:, dst, :5], t[:, donor, :5]), n
+    assert [getattr(pages_g, n).data_ptr() for n in names] == ptrs

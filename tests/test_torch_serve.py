@@ -156,11 +156,22 @@ def test_cancel_releases_pages(model):
 
 
 def test_unported_options_are_refused(model):
+    """The prefix cache, the budget scheduler and audits are ported: each
+    constructs and serves the same tokens as the plain FCFS engine.  The
+    sharded engine is still refused."""
     _, _, tcfg, tparams = model
-    for scfg in (tconfig.ServeConfig(prefix_cache=True),
-                 tconfig.ServeConfig(sched="budget"),
-                 tconfig.ServeConfig(audit=1)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(tcfg, tparams, scfg, device="cpu")
+    outputs = []
+    for kw in ({}, dict(prefix_cache=True), dict(sched="budget"),
+               dict(audit=1)):
+        eng = ServeEngine(tcfg, tparams,
+                          tconfig.ServeConfig(max_new_tokens=4, **kw),
+                          n_slots=2, max_len=32, page_size=4,
+                          prefill_chunk=3, device="cpu")
+        reqs = [eng.submit(p) for p in PROMPTS]
+        eng.run()
+        assert all(r.done and len(r.output) == 4 for r in reqs)
+        outputs.append([r.output for r in reqs])
+    assert eng.scfg.audit == 1
+    assert all(o == outputs[0] for o in outputs[1:])
     with pytest.raises(NotImplementedError, match="not ported"):
         tconfig.EngineConfig(sharded=True)
