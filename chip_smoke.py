@@ -69,6 +69,28 @@ exits non-zero:
                 streaming ``prefix_hot``'s tokens.  Each run prints tok/s,
                 prefill chunks and chunk ms, prompt tok/s, prefill tokens
                 computed, TTFT p50 / p99 and peak memory.
+   ``obs``      ``main``'s prompts once more on its configuration with
+                ``repro_torch.obs`` on (trace, profiler ranges): ``main``'s
+                tokens, tok/s beside ``main``'s, the host ms p50 / p99 of
+                each step phase (the trace's spans) and of each dispatch
+                (the registry), the decode graph's replay ms (CUDA
+                events), the sampling ms a decode step, TTFT / TPOT /
+                queue wait, the cost ledger's bytes and FLOPs of one
+                decode step and one prefill chunk over their mean and p50
+                times as shares of 3.35 TB/s and 989 TFLOP/s
+                (``decode_hbm_roofline_share_*``, ``prefill_mfu_*``), the
+                validated Chrome trace (``chiprun_out/obs_trace.json``)
+                and the Prometheus text's length.
+   ``chaos``    ``chaos_drill``: ``prefix_hot``'s traffic under a seeded
+                ``ChaosInjector`` at every engine site with a retry budget
+                of 5: every site fired, retries, no quarantine, wasted
+                FLOPs in the ledger, every audit passed, and
+                ``prefix_hot``'s tokens, exactly for a request never
+                retried or preempted and up to a near tie for one
+                recomputed by prefill; ``quarantine``: 8 short prompts
+                through ``ServeFrontend``, ``nan_logits`` at its third
+                check with no budget: one stream in ``error``, the others
+                a clean run's, the victim's pages zero on the card.
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
@@ -956,7 +978,8 @@ def prompts_for(cfg, n, lo, hi, seed):
 
 def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
                  max_len=1024, max_new=32, params=None, mode="auto",
-                 cuda_graphs=True, serve_kw=None, clock=None, **engine_kw):
+                 cuda_graphs=True, serve_kw=None, clock=None, chaos=None,
+                 **engine_kw):
     from repro_torch.config import EngineConfig, ServeConfig
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
@@ -972,7 +995,7 @@ def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
                        page_size=16, prefill_chunk=32, **(serve_kw or {}))
     eng = ServeEngine(cfg, params, scfg, n_slots=n_slots, max_len=max_len,
                       seed=SEED, mode=mode, cuda_graphs=cuda_graphs,
-                      clock=clock, device=dev)
+                      clock=clock, device=dev, chaos=chaos)
     return eng, params
 
 
@@ -982,7 +1005,8 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
     the record and every request's tokens.  ``first``: submit only that
     many prompts at the start, and the rest once those have completed
     their prefill.  ``priorities``: each prompt's ``priority``.
-    ``check_step(eng, reqs)`` runs after every step."""
+    ``check_step(eng, reqs)`` runs after every step.  Without a chaos
+    injector no request may be retried or quarantined."""
     import numpy as np
 
     from repro_torch.kernels import _build
@@ -1064,10 +1088,19 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
                 f"{len(r.output)} tokens, wanted {max_new}")
         if not all(0 <= t < eng.cfg.vocab_size for t in r.output):
             raise AssertionError(f"{name}: token outside the vocabulary")
-        # the engine raises on non-finite logits at every step; the last
-        # ones are held here too
-        if r.last_logits is None or not np.isfinite(r.last_logits).all():
+        # the engine retries or quarantines a lane whose logits are not
+        # finite; the last ones are held here too.  A request retried or
+        # preempted after its last token retires before its re-prefill
+        # completes, with no logits
+        if r.last_logits is None:
+            if not (r.retries or r.preemptions):
+                raise AssertionError(f"{name}: request {r.rid} has no "
+                                     "logits")
+        elif not np.isfinite(r.last_logits).all():
             raise AssertionError(f"{name}: non-finite logits")
+    if eng.chaos is None and (eng.retried or eng.quarantined):
+        raise AssertionError(f"{name}: {eng.retried} retries, "
+                             f"{eng.quarantined} quarantines")
     n_tok = sum(len(r.output) for r in reqs)
     n_prompt = sum(len(p) for p in prompts)
     dec, pf = eng.timings["decode"], eng.timings["prefill"]
@@ -1096,7 +1129,8 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
         capture_s=sum(eng.timings["capture"]),
         audit_s=sum(eng.timings["audit"]),
         graphs_captured=len(eng.timings["capture"]),
-        preemptions=eng.preemptions,
+        preemptions=eng.preemptions, retried=eng.retried,
+        quarantined=eng.quarantined,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         launches=launches, route_launches=dict(_build.ROUTE_LAUNCHES),
         gemv_tensor_core_launches=gemv_launches["prefill"],
@@ -1262,6 +1296,7 @@ def prefix_path(torch, dev, cfg, params, main_prompts, main_rec,
     budget_path(torch, dev, cfg, params, main_prompts, main_rec,
                 main_tokens)
     frontend_path(torch, dev, cfg, params, prompts[:8], hot_tok[:8])
+    return hot, hot_tok
 
 
 def budget_path(torch, dev, cfg, params, prompts, main_rec, main_tokens):
@@ -1374,6 +1409,340 @@ def frontend_path(torch, dev, cfg, params, prompts, batch_tokens):
         raise AssertionError("frontend: pages still referenced")
     del eng
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- obs and chaos phases
+TRACE_PATH = ROOT / "chiprun_out" / "obs_trace.json"
+CHAOS_RATES = {"page_grant": 0.05, "step_fault": 0.05, "nan_logits": 0.05,
+               "preempt_storm": 0.02}
+# the whole phase's bf16 logit tolerance, for the drill's near ties
+CHAOS_LOGIT_TOL = 0.125
+
+
+def _pct(values, q):
+    import numpy as np
+
+    return float(np.percentile(values, q)) if values else None
+
+
+def _ms_pcts(values):
+    """p50 and p99 of seconds, in ms."""
+    return [None if v is None else 1e3 * v
+            for v in (_pct(values, 50), _pct(values, 99))]
+
+
+def _phase_seconds(events):
+    """Host seconds of each step phase span (B/E pairs on the engine
+    track) of a Chrome trace, by phase."""
+    from repro_torch.obs.trace import ENGINE_TID
+
+    out, open_at = {}, {}
+    for ev in events:
+        if ev.get("tid") != ENGINE_TID or ev["ph"] not in ("B", "E"):
+            continue
+        if ev["ph"] == "B":
+            open_at[ev["name"]] = ev["ts"]
+        else:
+            out.setdefault(ev["name"], []).append(
+                (ev["ts"] - open_at.pop(ev["name"])) / 1e6)
+    return out
+
+
+def obs_path(torch, dev, cfg, params, prompts, main_rec, main_tokens):
+    """Phase ``obs``: ``main``'s configuration and 16 prompts with
+    ``repro_torch.obs.enable(trace=True, annotations=True)``: ``main``'s
+    tokens, tok/s beside ``main``'s with telemetry off, the host time of
+    each step phase (from the trace's spans) and of each dispatch (the
+    registry's histograms) beside the decode graph's replay time (CUDA
+    events), TTFT / TPOT / queue wait from the timelines, and the cost
+    ledger's modeled bytes and FLOPs of one decode step and one prefill
+    chunk over their measured times: shares of the card's memory rate
+    and bf16 peak.  The Chrome trace goes under ``chiprun_out/`` and is
+    validated."""
+    import repro_torch.obs as obs
+
+    obs.enable(trace=True, annotations=True)
+    try:
+        eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params)
+    finally:
+        obs.disable()
+    tel = eng.obs
+    if not isinstance(tel, obs.Telemetry):
+        raise AssertionError("obs: the engine has no live telemetry")
+    step_fn, replays = eng._decode_paged, []
+
+    def timed_step():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn()
+        end.record()
+        replays.append((start, end))
+        return out
+
+    eng._decode_paged = timed_step
+    sample, sample_s = eng._sample_next, []
+
+    def timed_sample(req):
+        t0 = time.perf_counter()
+        tok = sample(req)
+        sample_s.append(time.perf_counter() - t0)
+        return tok
+
+    eng._sample_next = timed_sample
+    rec, tokens = serve(torch, "obs_main", eng, prompts, 32)
+    check_graphs("obs_main", eng)
+    first_difference("obs_main", main_tokens, tokens)
+    # the eager first call and the capture are not replays
+    replay_ms = [s.elapsed_time(e) for s, e in replays[2:]]
+    reg = tel.registry
+    trace = tel.tracer.export()
+    counts = obs.validate_trace(trace)
+    TRACE_PATH.parent.mkdir(parents=True, exist_ok=True)
+    tel.export_chrome_trace(str(TRACE_PATH))
+    phases = _phase_seconds(trace["traceEvents"])
+    tls = list(tel.timelines.values())
+    dec_tab = obs.total_cost(eng._decode_cost_table)
+    pf_tab = obs.total_cost(eng._prefill_cost_table)
+    dec_s, pf_s = eng.timings["decode"], eng.timings["prefill"]
+    led = tel.costs.snapshot()
+    # every dispatch was charged: the ledger is the tables times the steps
+    want_flops = dec_tab.flops * len(dec_s) + pf_tab.flops * len(pf_s)
+    if not math.isclose(led["total_flops"], want_flops, rel_tol=1e-9):
+        raise AssertionError(f"obs: ledger {led['total_flops']} FLOPs, "
+                             f"tables x steps {want_flops}")
+
+    def shares(cost, seconds):
+        t = dict(mean=sum(seconds) / len(seconds), p50=_pct(seconds, 50))
+        return {k: dict(hbm=cost.bytes / (v * PEAK_HBM_BYTES_S),
+                        mfu=cost.flops / (v * PEAK_OPS_S["bfloat16"]))
+                for k, v in t.items()}
+
+    dec_share = shares(dec_tab, dec_s)
+    replay_share = shares(dec_tab, [ms / 1e3 for ms in replay_ms])
+    pf_share = shares(pf_tab, pf_s)
+    hist = {name: reg.histogram(name).to_dict() for name in (
+        "serve_step_s", "serve_prefill_chunk_s", "serve_decode_step_s")}
+    out = dict(
+        requests=len(prompts), identical_requests=sum(
+            a == b for a, b in zip(main_tokens, tokens)),
+        tok_s_obs=rec["tok_s"], tok_s_main=main_rec["tok_s"],
+        tok_s_ratio=rec["tok_s"] / main_rec["tok_s"],
+        decode_steps=len(dec_s), prefill_chunks=len(pf_s),
+        graphs_captured=rec["graphs_captured"],
+        steps=tel.snapshot()["steps"],
+        phase_ms_p50_p99={name: _ms_pcts(v) for name, v in phases.items()},
+        phase_ms_mean={name: 1e3 * sum(v) / len(v)
+                       for name, v in phases.items()},
+        registry_ms_p50_p99={name: [None if h[q] is None else 1e3 * h[q]
+                                    for q in ("p50", "p99")]
+                             for name, h in hist.items()},
+        sample_ms_per_decode_step=1e3 * sum(sample_s) / len(dec_s),
+        decode_step_ms_mean=1e3 * sum(dec_s) / len(dec_s),
+        decode_step_ms_p50=1e3 * _pct(dec_s, 50),
+        replay_ms_mean=sum(replay_ms) / len(replay_ms),
+        replay_ms_p50=_pct(replay_ms, 50), replays=len(replay_ms),
+        prefill_chunk_ms_mean=1e3 * sum(pf_s) / len(pf_s),
+        prefill_chunk_ms_p50=1e3 * _pct(pf_s, 50),
+        ttft_ms_p50_p99=_ms_pcts([t.ttft for t in tls]),
+        tpot_ms_p50_p99=_ms_pcts([t.tpot for t in tls]),
+        queue_wait_ms_p50_p99=_ms_pcts([t.queue_wait for t in tls]),
+        decode_step_bytes=dec_tab.bytes, decode_step_flops=dec_tab.flops,
+        prefill_chunk_bytes=pf_tab.bytes, prefill_chunk_flops=pf_tab.flops,
+        decode_bytes_by_op={op: c.bytes for op, c
+                            in eng._decode_cost_table.items()},
+        decode_hbm_roofline_share_mean=dec_share["mean"]["hbm"],
+        decode_hbm_roofline_share_p50=dec_share["p50"]["hbm"],
+        decode_hbm_roofline_share_replay_mean=replay_share["mean"]["hbm"],
+        decode_mfu_mean=dec_share["mean"]["mfu"],
+        prefill_mfu_mean=pf_share["mean"]["mfu"],
+        prefill_mfu_p50=pf_share["p50"]["mfu"],
+        prefill_hbm_roofline_share_mean=pf_share["mean"]["hbm"],
+        prefill_hbm_roofline_share_p50=pf_share["p50"]["hbm"],
+        ledger_total_bytes=led["total_bytes"],
+        ledger_total_flops=led["total_flops"],
+        trace_events=len(trace["traceEvents"]),
+        trace_dropped=trace["otherData"]["dropped_events"],
+        trace_tracks=len(counts), trace_file=str(TRACE_PATH),
+        prometheus_chars=len(tel.prometheus_text()),
+        request_states=tel.snapshot()["request_states"])
+    emit("obs", **out)
+    if out["identical_requests"] != len(prompts):
+        raise AssertionError("obs: tokens differ from main's")
+    if out["request_states"] != {"retired": len(prompts)}:
+        raise AssertionError(f"obs: states {out['request_states']}")
+    if min(len(phases.get(p, ())) for p in ("admit", "prefill",
+                                             "decode")) == 0:
+        raise AssertionError(f"obs: phases {sorted(phases)}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def chaos_path(torch, dev, cfg, params, hot_rec, hot_tok):
+    """Phase ``chaos``: ``prefix_hot``'s 24 shared-prompt requests on a hot
+    engine at ``audit=2`` under ``ChaosInjector(seed=0, CHAOS_RATES)`` and
+    a retry budget of 5: every site fired, retries and no quarantine,
+    wasted FLOPs in the ledger, every audit passed, two captures, and
+    ``prefix_hot``'s tokens up to a near tie.  A request that was never
+    retried or preempted must give ``prefix_hot``'s tokens exactly.  A
+    retried or preempted one recomputes its K/V by prefill, where
+    ``prefix_hot`` computed the generated tokens' K/V by decode steps: the
+    two GEMV routes and attention kernels sum in other orders, and a bf16
+    or int8 rounding may fall the other way, so where it first differs
+    from ``prefix_hot``, ``prefix_hot``'s token must be among the drill's
+    top 8 candidates and within ``2 * CHAOS_LOGIT_TOL`` of its best
+    logit (the ``whole`` phase's rule).  Then a quarantine through ``ServeFrontend``
+    (``nan_logits`` at its third check, no retry budget) over 8 short
+    prompts: one stream in ``error``, the others equal to a clean run's,
+    the quarantined lane's pages zero on the card, the trace valid."""
+    import numpy as np
+
+    import repro_torch.obs as obs
+    from repro_torch.ft import ChaosInjector
+
+    prompts = prefix_prompts(cfg)
+    chaos = ChaosInjector(seed=0, rates=CHAOS_RATES)
+    obs.enable(trace=True)
+    try:
+        eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                              chaos=chaos,
+                              serve_kw=dict(audit=2, prefix_cache=True,
+                                            max_request_retries=5))
+    finally:
+        obs.disable()
+    reqs, top = [], {}
+    submit, sample = eng.submit, eng._sample_next
+
+    def recording_submit(*args, **kwargs):
+        reqs.append(submit(*args, **kwargs))
+        return reqs[-1]
+
+    def recording_sample(req):
+        lg = np.asarray(req.last_logits, np.float32).reshape(-1)
+        idx = np.argpartition(lg, -8)[-8:]
+        top[req.rid, len(req.output)] = dict(zip(idx.tolist(),
+                                                 lg[idx].tolist()))
+        return sample(req)
+
+    eng.submit, eng._sample_next = recording_submit, recording_sample
+    rec, tokens = serve(torch, "chaos_drill", eng, prompts, 32, first=1)
+    check_graphs("chaos_drill", eng)
+    ties = []
+    for r, want, got in zip(reqs, hot_tok, tokens):
+        if want == got:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+        cand = top[r.rid, i]
+        margin = (cand[got[i]] - cand[want[i]] if want[i] in cand
+                  else math.inf)
+        ties.append(dict(request=r.rid, token=i, margin=margin,
+                         retries=r.retries, preemptions=r.preemptions,
+                         best_logit=cand[got[i]]))
+    m = eng.metrics()
+    counters = m["obs"]["metrics"]["counters"]
+    fired = chaos.summary()
+    drill = dict(
+        requests=len(prompts), rates=CHAOS_RATES, fired=fired,
+        identical_requests=sum(a == b for a, b in zip(hot_tok, tokens)),
+        recomputed_requests=sum(bool(r.retries or r.preemptions)
+                                for r in reqs),
+        near_tie_divergences=ties, logit_tol=CHAOS_LOGIT_TOL,
+        retried=eng.retried, quarantined=eng.quarantined,
+        preemptions=eng.preemptions, tok_s=rec["tok_s"],
+        tok_s_hot=hot_rec["tok_s"], tok_s_ratio=rec["tok_s"]
+        / hot_rec["tok_s"], prefill_chunks=rec["prefill_chunks"],
+        decode_steps=rec["decode_steps"],
+        prefill_computed=rec["prefill_computed"],
+        prefill_computed_hot=hot_rec["prefill_computed"],
+        wasted_flops=m["costs"]["wasted_flops"],
+        wasted_bytes=m["costs"]["wasted_bytes"],
+        total_flops=m["costs"]["total_flops"],
+        audits=counters.get("serve_audits_total", 0),
+        audit_failures=counters.get("serve_audit_failures_total", 0),
+        graphs_captured=rec["graphs_captured"],
+        trace_events=len(eng.obs.tracer.events))
+    obs.validate_trace(eng.obs.tracer.export())
+    emit("chaos_drill", **drill)
+    bad = [t for t in ties if not (t["retries"] or t["preemptions"])
+           or t["margin"] > 2 * CHAOS_LOGIT_TOL]
+    if bad:
+        raise AssertionError(f"chaos: tokens differ from prefix_hot's "
+                             f"beyond a near tie: {bad}")
+    missing = [s for s in CHAOS_RATES if not fired.get(s)]
+    if missing or not eng.retried or eng.quarantined:
+        raise AssertionError(f"chaos: sites never fired {missing}, "
+                             f"{eng.retried} retries, {eng.quarantined} "
+                             "quarantines")
+    if not drill["wasted_flops"] > 0 or not drill["audits"] or drill[
+            "audit_failures"]:
+        raise AssertionError(f"chaos: ledger / audits {drill}")
+    del eng
+    torch.cuda.empty_cache()
+    quarantine_path(torch, dev, cfg, params)
+
+
+def quarantine_path(torch, dev, cfg, params):
+    """8 short prompts through ``ServeFrontend``: once clean, once under
+    ``nan_logits`` at its third check (a decode step: every prompt fits
+    one chunk) with no retry budget.  The quarantined lane's private
+    pages are read back on the card right after the scrub."""
+    import repro_torch.obs as obs
+    from repro_torch.ft import ChaosInjector
+    from repro_torch.serve import ServeFrontend
+
+    prompts = prompts_for(cfg, 8, 8, 32, SEED + 40)
+    streams, scrubbed = {}, []
+    for name, chaos in (("clean", None), ("quarantine", ChaosInjector(
+            seed=0, schedule={"nan_logits": {2}}))):
+        obs.enable(trace=True)
+        try:
+            eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                                  chaos=chaos, serve_kw=dict(
+                                      audit=2, max_request_retries=0))
+        finally:
+            obs.disable()
+        quarantine = eng._quarantine
+
+        def watched(slot, req, kind, eng=eng, quarantine=quarantine):
+            private = [p for p in eng.alloc._mapped[slot]
+                       if eng.alloc.refcount[p] == 1]
+            quarantine(slot, req, kind)
+            idx = torch.tensor(private, device=dev)
+            torch.cuda.synchronize()
+            nonzero = sum(int(torch.count_nonzero(t[:, idx])) for t in (
+                eng.pages.k, eng.pages.v, eng.pages.k_scale,
+                eng.pages.v_scale) if t is not None)
+            scrubbed.append(dict(rid=req.rid, pages=len(private),
+                                 nonzero_after_scrub=nonzero))
+
+        eng._quarantine = watched
+        fe = ServeFrontend(eng)
+        got = [fe.submit(p) for p in prompts]
+        fe.drain()
+        torch.cuda.synchronize()
+        eng.audit()
+        obs.validate_trace(eng.obs.tracer.export())
+        streams[name] = [(s.state, s.tokens) for s in got]
+        # every prompt fits one chunk: only the decode step is captured
+        if eng.timings["capture"] == [] or eng._graphs[0].graph is None:
+            raise AssertionError(f"quarantine_{name}: the decode step "
+                                 "was not captured")
+        del eng, fe
+        torch.cuda.empty_cache()
+    states = [s for s, _ in streams["quarantine"]]
+    same = [i for i, ((s, t), (_, c)) in enumerate(
+        zip(streams["quarantine"], streams["clean"])) if s != "error"
+        and t == c]
+    emit("quarantine", streams=len(prompts), states=states,
+         identical_other_streams=len(same), scrubbed=scrubbed,
+         clean_states=[s for s, _ in streams["clean"]])
+    if states.count("error") != 1 or len(same) != len(prompts) - 1:
+        raise AssertionError(f"quarantine: states {states}, {len(same)} "
+                             "other streams equal the clean run's")
+    if len(scrubbed) != 1 or scrubbed[0]["pages"] == 0 or scrubbed[0][
+            "nonzero_after_scrub"]:
+        raise AssertionError(f"quarantine: scrub {scrubbed}")
 
 
 def kernel_label(name: str) -> str:
@@ -2204,7 +2573,14 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with Phase("prefix"):
-        prefix_path(torch, dev, cfg, params, prompts, main_rec, main_tokens)
+        hot_rec, hot_tok = prefix_path(torch, dev, cfg, params, prompts,
+                                       main_rec, main_tokens)
+
+    with Phase("obs"):
+        obs_path(torch, dev, cfg, params, prompts, main_rec, main_tokens)
+
+    with Phase("chaos"):
+        chaos_path(torch, dev, cfg, params, hot_rec, hot_tok)
         del params
         torch.cuda.empty_cache()
 

@@ -146,9 +146,11 @@ class EngineConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Serving knobs, field for field those of the JAX package.  The port
-    does not read the retry budget (``max_request_retries``,
-    ``retry_reset_steps``) yet: non-finite logits raise."""
+    """Serving knobs, field for field those of the JAX package.  The retry
+    budget (``max_request_retries``, ``retry_reset_steps``) bounds each
+    request's recompute-style retries after a step fault or non-finite
+    logits in paged mode; past it the request is quarantined
+    (``finish_reason="error"``)."""
 
     max_new_tokens: int = 32
     temperature: float = 0.0          # 0 = greedy

@@ -40,12 +40,34 @@ counterpart of the JAX package's ``jax.jit`` of ``_dec``, ``_pf`` and
 ``_step``.  ``cuda_graphs=False`` runs them eagerly, as
 ``jax.disable_jit()`` would; on the CPU they always run eagerly.
 
-Not ported yet: per-request retry / quarantine (non-finite logits
-raise), telemetry and ``metrics()``, chaos sites, ``snapshot`` /
-``restore``, and the families other than dense and ssm (the audio
-family's token layout among them), which are refused at construction.
-In slots mode the paged-pool options (prefix cache, budget scheduler,
-audits) are refused or warned about as the JAX package does.
+**Telemetry** (:mod:`repro_torch.obs`): with ``repro_torch.obs``
+enabled, or an explicit ``telemetry=``, every step is framed into admit /
+prefill / decode phases and every request transition, prefill chunk and
+decode step reports to a :class:`~repro_torch.obs.Telemetry`, whose cost
+ledger is charged each step's modeled FLOPs and bytes
+(:mod:`repro_torch.obs.costs`); ``metrics()`` returns the snapshot.  The
+hooks run around each step's replay and the host read of its logits,
+never inside a captured step.  With obs off the engine holds
+``NULL_TELEMETRY``: no extra clock read, no state.
+
+**Fault isolation** (paged mode): a lane whose step fails (a
+``ChaosInjector``'s ``step_fault``) or whose fresh logits are non-finite
+is retried recompute-style, as a preemption, within its request's budget
+(``ServeConfig.max_request_retries`` / ``retry_reset_steps``, one
+:class:`~repro_torch.ft.RestartPolicy` per request) and quarantined past
+it (``finish_reason="error"``); either way its private pages are zeroed
+in place first (:func:`~repro_torch.serve.pages.scrub_pages`) and every
+other lane is untouched.  ``chaos=`` (a
+:class:`~repro_torch.ft.ChaosInjector`) drives the engine's sites
+(``page_grant``, ``step_fault``, ``nan_logits``, ``preempt_storm``) and
+the front end's (``cancel``, ``deadline_skew``); slots mode, like the JAX
+package's, injects none and checks no logits.
+
+Not ported yet: ``snapshot`` / ``restore``, and the families other than
+dense and ssm (the audio family's token layout among them), which are
+refused at construction.  In slots mode the paged-pool options (prefix
+cache, budget scheduler, audits) are refused or warned about as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -59,9 +81,11 @@ from typing import Callable, Deque, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.config.base import ModelConfig, ServeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import resolve_attn_backend, resolve_plan
+from repro_torch.ft.failures import RestartPolicy
 from repro_torch.models.transformer import (
     decode_step,
     decode_step_paged,
@@ -69,7 +93,6 @@ from repro_torch.models.transformer import (
     prefill_chunk as _prefill_chunk_fn,
     quantize_params,
 )
-from repro_torch.obs import clock as _obs_clock
 from repro_torch.serve.pages import (
     AuditError,
     LaneTables,
@@ -77,6 +100,7 @@ from repro_torch.serve.pages import (
     fork_tail_page,
     init_kv_pages,
     pages_for,
+    scrub_pages,
 )
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampler import sample
@@ -128,8 +152,10 @@ class Request:
     priority: str = "default"         # interactive | default | batch
     tenant: str = "default"           # fair-share accounting key part
     cancelled: bool = False
-    # "length" | "cancelled" | "timed_out" (None while running)
+    # "length" | "cancelled" | "timed_out" | "error" (None while running)
     finish_reason: Optional[str] = None
+    # recompute-style retries after step faults / non-finite logits
+    retries: int = 0
 
 
 def _resolve_mode(mode: str, family: str) -> Tuple[str, bool]:
@@ -195,8 +221,12 @@ class ServeEngine:
     of resident pages (paged mode only); a bool, None defers to
     ``ServeConfig.prefix_cache``.  The engine builds and owns the
     :class:`PrefixCache` over its own pool.  ``clock``: the timebase of
-    ``Request.submit_t`` and ``ttft`` (default
+    ``Request.submit_t``, ``ttft`` and the telemetry's spans (default
     :func:`repro_torch.obs.clock.now`); a test injects a manual one.
+    ``telemetry``: an explicit ``Telemetry`` / ``NullTelemetry``; None
+    defers to the process-wide ``repro_torch.obs`` switch.  ``chaos``: an
+    optional :class:`~repro_torch.ft.ChaosInjector` whose faults report
+    through this engine's telemetry.
 
     ``cuda_graphs``: on a CUDA device, run each step as a replayed CUDA
     graph (the default) or eagerly (False); the params and the pool or
@@ -226,6 +256,8 @@ class ServeEngine:
         cuda_graphs: bool = True,
         clock: Optional[Callable[[], float]] = None,
         device: DeviceLike = None,
+        telemetry=None,
+        chaos=None,
     ):
         self.cfg = cfg
         self.scfg = scfg or ServeConfig()
@@ -245,7 +277,14 @@ class ServeEngine:
                 "owns the PrefixCache over its own page pool")
         if self.mode == "slots":
             _check_slots_options(self.scfg, prefix_cache, auto_fallback)
-        self._clock = clock if clock is not None else _obs_clock.now
+        self._clock = clock if clock is not None else obs.clock.now
+        self.obs = (telemetry if telemetry is not None
+                    else obs.telemetry(clock))
+        self.chaos = chaos
+        if chaos is not None:
+            # every fired fault reports through the engine's telemetry,
+            # the allocator's page_grant site included
+            chaos.obs = self.obs
         self.device = resolve_device(device)
         # the EngineConfig is resolved into an EnginePlan exactly once
         self.plan = resolve_plan(self.scfg.engine, device=self.device)
@@ -267,6 +306,14 @@ class ServeEngine:
             self.device)
         self._next_rid = 0
         self.shed_count = 0  # AdmissionRejected raised since construction
+        self.quarantined = 0  # requests finished with finish_reason="error"
+        self.retried = 0  # recompute-style retries granted across requests
+        self._engine_step = 0
+        # per-request retry budgets (rid -> RestartPolicy), created at the
+        # first fault, dropped at terminal states
+        self._retry: Dict[int, RestartPolicy] = {}
+        self._errored_step: List[Request] = []
+        self.obs.attach_engine(n_slots, self.mode)
         self.timings: Dict[str, List[float]] = {"prefill": [], "decode": [],
                                                 "capture": [], "audit": []}
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
@@ -291,20 +338,22 @@ class ServeEngine:
         self.pages = init_kv_pages(self.cfg, n_pages, self.page_size,
                                    kv_bits=self.kv_bits, device=self.device)
         self.alloc = PageAllocator(n_pages, self.page_size, self.n_slots,
-                                   self.max_len)
+                                   self.max_len, obs=self.obs)
+        self.alloc.chaos = self.chaos  # page_grant fault site
         if prefix_cache:  # attaches itself to the allocator
-            self.prefix_cache = PrefixCache(self.alloc)
+            self.prefix_cache = PrefixCache(self.alloc, obs=self.obs)
         if self.scfg.sched == "budget":
             # default budget: every lane decodes plus one full prefill
             # chunk a step
             self.sched = BudgetScheduler(
                 self.alloc, self.prefill_chunk,
-                prefix_cache=self.prefix_cache,
+                prefix_cache=self.prefix_cache, obs=self.obs,
                 step_tokens=(self.scfg.step_tokens
                              or self.n_slots + self.prefill_chunk))
         else:
             self.sched = PagedScheduler(self.alloc, self.prefill_chunk,
-                                        prefix_cache=self.prefix_cache)
+                                        prefix_cache=self.prefix_cache,
+                                        obs=self.obs)
         # the scheduler's own queue and lane table, under the names slots
         # mode gives its own
         self.queue, self.slot_req = self.sched.queue, self.sched.slot_req
@@ -319,6 +368,14 @@ class ServeEngine:
         self._prefill_paged = self._step_fn(lambda: _prefill_chunk_fn(
             params, pages, lanes.block_tables, lanes.chunk_tokens,
             lanes.pos0, lanes.seq_lens, cfg, plan, attn_backend=abk))
+        # the cost ledger's tables: the steps' shapes are fixed at
+        # construction, so one table per step kind prices every step.
+        # Built at the first charged step; with obs off they never exist.
+        self._cost_dims = None
+        self._cost_specs = None
+        self._decode_cost_table = None
+        self._prefill_cost_table = None
+        self._fork_cost_table = None
 
     def _init_slots(self) -> None:
         self.cache = init_cache(self.cfg, self.n_slots, self.max_len,
@@ -372,11 +429,13 @@ class ServeEngine:
                 f"{sorted(PRIORITY_WEIGHTS)}")
         if self.scfg.max_queue and len(self.queue) >= self.scfg.max_queue:
             self.shed_count += 1
+            self.obs.on_shed("queue_full")
             raise AdmissionRejected("queue_full")
         if (self.mode == "paged"
                 and pages_for(len(prompt) + 1, self.page_size)
                 > self.alloc.n_pages - 1):
             self.shed_count += 1
+            self.obs.on_shed("pool_too_small")
             raise AdmissionRejected("pool_too_small")
         req = Request(self._next_rid, prompt,
                       self.scfg.max_new_tokens if max_new_tokens is None
@@ -386,6 +445,7 @@ class ServeEngine:
         req.submit_t = self._clock()
         self._next_rid += 1
         self.queue.append(req)
+        self.obs.on_submit(req.rid, len(prompt), req.submit_t)
         return req
 
     def has_work(self) -> bool:
@@ -393,24 +453,47 @@ class ServeEngine:
 
     def step(self) -> List[Request]:
         """One scheduler iteration (admit -> prefill -> decode token ->
-        retire); returns the requests that finished this step."""
-        if self.mode == "slots":
-            self._admit()
-            # pre-decode retire: max_new_tokens=0 must emit no tokens
-            finished = self._retire(limit_only=True)
-            self._decode_one()
-            finished.extend(self._retire())
-            return finished
-        self.sched.admit()
-        self._apply_forks()
+        retire); returns the requests that finished this step, the
+        quarantined ones included.  Framed for the telemetry: a step span
+        on the engine track, the step counter and its duration."""
+        t0 = self.obs.now()
+        self.obs.step_begin()
+        try:
+            if self.mode == "slots":
+                return self._step_slots()
+            return self._step_paged()
+        finally:
+            self.obs.step_end(t0)
+
+    def _step_paged(self) -> List[Request]:
+        self._engine_step += 1
+        self._errored_step = []  # quarantines land here (terminal too)
+        if self.chaos is not None and self.chaos.fire("preempt_storm"):
+            # mass eviction drill: recompute-style, token-preserving
+            self.sched.preempt_storm()
+        with self.obs.phase("admit"):
+            self.sched.admit()
+            self._apply_forks()
         self._maybe_audit(2)
-        self._prefill_once()
+        with self.obs.phase("prefill"):
+            self._prefill_once()
         self._maybe_audit(2)
+        # pre-decode retire: max_new_tokens=0 must emit no tokens
         finished = self._retire(limit_only=True)
-        self._decode_once_paged()
+        with self.obs.phase("decode"):
+            self._decode_once_paged()
         self._maybe_audit(2)
         finished.extend(self._retire())
         self._maybe_audit(1)
+        finished.extend(self._errored_step)
+        return finished
+
+    def _step_slots(self) -> List[Request]:
+        self._admit()
+        # pre-decode retire: max_new_tokens=0 must emit no tokens
+        finished = self._retire(limit_only=True)
+        self._decode_one()
+        finished.extend(self._retire())
         return finished
 
     def run(self) -> List[Request]:
@@ -431,6 +514,8 @@ class ServeEngine:
             return False
         req.cancelled = True
         req.finish_reason = reason
+        self._retry.pop(req.rid, None)
+        self.obs.on_cancel(req.rid, reason)
         for slot, r in enumerate(self.slot_req):
             if r is req:
                 if self.mode == "paged":
@@ -472,6 +557,84 @@ class ServeEngine:
         """The prefix cache's counters, or None without a cache."""
         return (self.prefix_cache.stats()
                 if self.prefix_cache is not None else None)
+
+    def metrics(self) -> Dict:
+        """The engine's snapshot, with the JAX package's keys: lifecycle
+        counters, the prefix cache's stats when a cache is attached, the
+        fault-isolation counters and the chaos injector's fired faults
+        (``ft``), and with telemetry on its snapshot (``obs``: steps,
+        request states, the registry) and the cost ledger (``costs``)."""
+        out: Dict = {
+            "mode": self.mode,
+            "submitted": self._next_rid,
+            "shed": self.shed_count,
+            "preemptions": self.preemptions,
+            "quarantined": self.quarantined,
+            "prefill_computed": self.prefill_computed,
+        }
+        if self.prefix_cache is not None:
+            out["prefix"] = self.prefix_cache.stats()
+        out["ft"] = {
+            "quarantined": self.quarantined,
+            "retried": self.retried,
+            "chaos": (self.chaos.summary()
+                      if self.chaos is not None else {}),
+        }
+        if self.obs.enabled:
+            out["obs"] = self.obs.snapshot()
+            out["costs"] = self.obs.costs.snapshot()
+        return out
+
+    # ---------------------------------------------------- cost attribution
+    def _cost_base(self):
+        """Model dims + the live parameters' linear specs (packed weights
+        price at ``bits/8`` bytes a weight)."""
+        if self._cost_specs is None:
+            self._cost_dims = obs.model_dims(self.cfg)
+            self._cost_specs = obs.linear_specs(self.params)
+        return self._cost_dims, self._cost_specs
+
+    def _charge_decode(self, rids) -> None:
+        """Charge one paged decode step to the ledger.  The step always
+        runs the full ``(n_slots, max_blocks·page_size)`` shapes however
+        many lanes are active, so one table is exact for every step; the
+        total is split across the lanes that decoded.  The activations
+        are priced at the tables' default 4 bytes, as the JAX package's
+        engine prices them."""
+        if not self.obs.enabled:
+            return
+        if self._decode_cost_table is None:
+            dims, specs = self._cost_base()
+            self._decode_cost_table = obs.decode_step_costs(
+                dims, batch=self.n_slots,
+                context=self._max_blocks * self.page_size,
+                page_size=self.page_size, attn_backend=self.attn_backend,
+                kv_bits=self.kv_bits, specs=specs)
+        self.obs.on_costs(self._decode_cost_table, rids)
+
+    def _charge_prefill(self, rids) -> None:
+        """Charge one prefill chunk (``(n_slots, chunk)``, padded; see
+        :meth:`_charge_decode`)."""
+        if not self.obs.enabled:
+            return
+        if self._prefill_cost_table is None:
+            dims, specs = self._cost_base()
+            self._prefill_cost_table = obs.prefill_chunk_costs(
+                dims, batch=self.n_slots, chunk=self.prefill_chunk,
+                context=self._max_blocks * self.page_size,
+                page_size=self.page_size, attn_backend=self.attn_backend,
+                kv_bits=self.kv_bits, specs=specs)
+        self.obs.on_costs(self._prefill_cost_table, rids)
+
+    def _charge_fork(self, rid: int) -> None:
+        """Charge one copy-on-write tail-page fork (pure page copies)."""
+        if not self.obs.enabled:
+            return
+        if self._fork_cost_table is None:
+            dims, _ = self._cost_base()
+            self._fork_cost_table = obs.fork_cost(
+                dims, page_size=self.page_size, kv_bits=self.kv_bits)
+        self.obs.on_costs(self._fork_cost_table, (rid,))
 
     def audit(self) -> None:
         """Prove the host-side bookkeeping invariants of the allocator
@@ -546,17 +709,26 @@ class ServeEngine:
     def _maybe_audit(self, level: int) -> None:
         """:meth:`audit` when ``ServeConfig.audit`` reaches ``level`` (1:
         after each step, 2: after each phase too)."""
-        if self.scfg.audit >= level:
-            t0 = time.perf_counter()
+        if self.scfg.audit < level:
+            return
+        t0 = time.perf_counter()
+        try:
             self.audit()
-            self.timings["audit"].append(time.perf_counter() - t0)
+        except AuditError:
+            self.obs.on_audit(self.scfg.audit, False)
+            raise
+        self.timings["audit"].append(time.perf_counter() - t0)
+        self.obs.on_audit(self.scfg.audit, True)
 
     def _apply_forks(self) -> None:
         """Run the page copies of the pending copy-on-write forks
         (mid-page cache hits admitted this step), in place on the current
         stream, before the prefill step reads or writes the pages."""
-        for _slot, src, dst in self.sched.pending_forks:
+        for slot, src, dst in self.sched.pending_forks:
             fork_tail_page(self.pages, src, dst)
+            owner = self.slot_req[slot]
+            if owner is not None:
+                self._charge_fork(owner.rid)
         self.sched.pending_forks.clear()
 
     def _prefill_once(self) -> None:
@@ -567,19 +739,35 @@ class ServeEngine:
         if batch is None:
             return
         tokens, pos0, seq_lens, lanes = batch
+        t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
-        self.lanes.load(block_tables=self.alloc.block_tables,
-                        chunk_tokens=tokens, pos0=pos0, seq_lens=seq_lens)
-        lg = self._host_logits(self._prefill_paged())
+        with self.obs.annotate("serve.prefill_chunk"):
+            self.lanes.load(block_tables=self.alloc.block_tables,
+                            chunk_tokens=tokens, pos0=pos0,
+                            seq_lens=seq_lens)
+            lg = self._host_logits(self._prefill_paged())
         self._timed("prefill", t0, captured)
+        self.obs.on_prefill([(slot, self.slot_req[slot].rid, n)
+                             for slot, n in lanes], t_obs)
+        self._charge_prefill([self.slot_req[slot].rid for slot, _ in lanes])
+        fault_slot, lg = self._inject_lane_chaos([s for s, _ in lanes], lg)
         for slot, n_real in lanes:
             req = self.slot_req[slot]
+            if slot == fault_slot:
+                # a failed chunk on this lane: none of its bookkeeping
+                # advances; retry or quarantine
+                self._fault(slot, req, "step_fault")
+                continue
             req.prefill_pos += n_real
             self.alloc.pos[slot] += n_real
             if req.prefill_pos >= len(req.prefill_tokens):
-                # the finiteness check comes first: poisoned pages are
-                # never published for other requests to share
-                req.last_logits = self._finite(req, lg[slot, -1])
+                last = lg[slot, -1]
+                if not np.all(np.isfinite(last)):
+                    # caught before the insert: poisoned pages are never
+                    # published for other requests to share
+                    self._fault(slot, req, "nan_logits")
+                    continue
+                req.last_logits = last
                 if self.prefix_cache is not None:
                     # the prompt's full pages are written for good now
                     # (decode appends at positions past the prompt)
@@ -606,15 +794,108 @@ class ServeEngine:
         tnow = self._clock()
         for slot, req in ready:
             tokens[slot, 0] = self._emit(req, tnow)
+        t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
-        self.lanes.load_tables(self.alloc)
-        self.lanes.load(active=self.sched.lane_mask(s for s, _ in ready),
-                        tokens=tokens)
-        lg = self._host_logits(self._decode_paged())
+        with self.obs.annotate("serve.decode_step"):
+            self.lanes.load_tables(self.alloc)
+            self.lanes.load(
+                active=self.sched.lane_mask(s for s, _ in ready),
+                tokens=tokens)
+            lg = self._host_logits(self._decode_paged())
         self._timed("decode", t0, captured)
+        self.obs.on_decode([(s, r.rid) for s, r in ready], t_obs)
+        self._charge_decode([r.rid for _, r in ready])
+        fault_slot, lg = self._inject_lane_chaos([s for s, _ in ready], lg)
         for slot, req in ready:
+            if slot == fault_slot:
+                self._fault(slot, req, "step_fault")
+                continue
+            last = lg[slot, -1]
+            if not np.all(np.isfinite(last)):
+                # the token appended above came from valid logits and its
+                # K/V write landed; the recompute retry replays it, so the
+                # greedy tokens are unchanged: only these logits are lost
+                self._fault(slot, req, "nan_logits")
+                continue
             self.alloc.pos[slot] += 1
-            req.last_logits = self._finite(req, lg[slot, -1])
+            req.last_logits = last
+
+    # ----------------------------------------------- faults / quarantine
+    def _inject_lane_chaos(self, slots: List[int], lg: np.ndarray):
+        """Consult the chaos injector after a step landed: returns
+        ``(fault_slot, lg)``, where ``fault_slot`` (or None) takes a
+        simulated step failure and ``lg`` may have one lane's logits
+        overwritten with NaN (in a copy), which then meets the same
+        finiteness check a real fault would."""
+        if self.chaos is None or not slots:
+            return None, lg
+        fault_slot = None
+        if self.chaos.fire("step_fault"):
+            fault_slot = slots[self.chaos.pick("step_fault", len(slots))]
+        if self.chaos.fire("nan_logits"):
+            victim = slots[self.chaos.pick("nan_logits", len(slots))]
+            lg = np.array(lg)
+            lg[victim] = np.nan
+        return fault_slot, lg
+
+    def _scrub_slot_pages(self, slot: int) -> None:
+        """Zero a faulted lane's private pages before they return to the
+        free list (:func:`~repro_torch.serve.pages.scrub_pages`: in place,
+        no host sync).  Pages the prefix cache holds or other lanes share
+        are skipped: a clean prefill wrote them before this request's
+        fault and other requests still read them."""
+        cached = (set(self.prefix_cache.pages())
+                  if self.prefix_cache is not None else set())
+        private = [p for p in self.alloc._mapped[slot]
+                   if self.alloc.refcount[p] == 1 and p not in cached]
+        if private:
+            scrub_pages(self.pages, private)
+
+    def _fault(self, slot: int, req: Request, kind: str) -> None:
+        """One lane's step failed (a simulated step failure or non-finite
+        logits).  Within its request's retry budget the request is
+        requeued at the head, recompute-style, exactly as a preemption
+        (greedy tokens are kept); past it, it is quarantined with
+        ``finish_reason="error"``.  Every other lane is untouched."""
+        self.obs.on_fault(req.rid, kind)
+        pol = self._retry.get(req.rid)
+        if pol is None:
+            pol = self._retry[req.rid] = RestartPolicy(
+                max_restarts=self.scfg.max_request_retries, backoff_s=0.0,
+                reset_after_steps=self.scfg.retry_reset_steps)
+        try:
+            pol.on_failure(RuntimeError(kind), self._engine_step)
+        except RuntimeError:
+            self._quarantine(slot, req, kind)
+            return
+        self._scrub_slot_pages(slot)
+        self.sched.drop_forks(slot)
+        self.alloc.free_slot(slot)
+        self.slot_req[slot] = None
+        req.prefill_tokens = list(req.prompt) + list(req.output)
+        req.prefill_pos = 0
+        req.cached_tokens = 0
+        req.last_logits = None
+        req.retries += 1
+        self.retried += 1
+        self.queue.appendleft(req)
+        self.obs.on_retry(req.rid, kind, pol.restarts)
+
+    def _quarantine(self, slot: int, req: Request, kind: str) -> None:
+        """Remove a request whose retry budget is spent: its pages are
+        scrubbed and released, its pending forks dropped, and it ends with
+        ``finish_reason="error"``; tokens generated so far stay on
+        ``req.output``."""
+        req.cancelled = True
+        req.finish_reason = "error"
+        self._scrub_slot_pages(slot)
+        self.sched.drop_forks(slot)
+        self.alloc.free_slot(slot)
+        self.slot_req[slot] = None
+        self._retry.pop(req.rid, None)
+        self.quarantined += 1
+        self._errored_step.append(req)  # step() returns terminals
+        self.obs.on_quarantine(req.rid, kind, len(req.output))
 
     # ------------------------------------------------------ slots internals
     def _admit(self) -> None:
@@ -622,6 +903,7 @@ class ServeEngine:
             if self.slot_req[slot] is None and self.queue:
                 req = self.queue.popleft()
                 self.slot_req[slot] = req
+                self.obs.on_admit(req.rid, slot, 0)
                 self._reset_slot(slot)
                 self._prefill_slot(slot, req)
 
@@ -641,18 +923,20 @@ class ServeEngine:
         this slot active, every other slot frozen.  The tokens reach the
         step's buffer by a copy on the device, so the loop never waits on
         the host until the last logits are read."""
+        t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
-        prompt = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(
-            self.device)
-        self.lanes.load(tokens=np.zeros((self.n_slots, 1), np.int32),
-                        active=self._lane_mask([slot]))
-        logits = None
-        for i in range(len(req.prompt)):
-            self.lanes.tokens[slot].copy_(prompt[i:i + 1])
-            logits = self._slots_step()
-        req.last_logits = self._finite(req, self._host_logits(logits)[slot,
-                                                                       -1])
+        with self.obs.annotate("serve.prefill_slot"):
+            prompt = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(
+                self.device)
+            self.lanes.load(tokens=np.zeros((self.n_slots, 1), np.int32),
+                            active=self._lane_mask([slot]))
+            logits = None
+            for i in range(len(req.prompt)):
+                self.lanes.tokens[slot].copy_(prompt[i:i + 1])
+                logits = self._slots_step()
+            req.last_logits = self._host_logits(logits)[slot, -1]
         self._timed("prefill", t0, captured)
+        self.obs.on_prefill([(slot, req.rid, len(req.prompt))], t_obs)
 
     def _decode_one(self) -> None:
         updates: Dict[int, int] = {}
@@ -668,27 +952,22 @@ class ServeEngine:
         tokens = np.zeros((self.n_slots, 1), np.int32)
         for slot, tok in updates.items():
             tokens[slot, 0] = tok
+        t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
-        self.lanes.load(tokens=tokens, active=self._lane_mask(updates))
-        lg = self._host_logits(self._slots_step())
+        with self.obs.annotate("serve.decode_step"):
+            self.lanes.load(tokens=tokens, active=self._lane_mask(updates))
+            lg = self._host_logits(self._slots_step())
         self._timed("decode", t0, captured)
+        self.obs.on_decode([(s, self.slot_req[s].rid) for s in updates],
+                           t_obs)
         for slot in updates:
-            req = self.slot_req[slot]
-            req.last_logits = self._finite(req, lg[slot, -1])
+            self.slot_req[slot].last_logits = lg[slot, -1]
 
     # ------------------------------------------------------------- shared
     def _lane_mask(self, slots: Iterable[int]) -> np.ndarray:
         mask = np.zeros((self.n_slots,), bool)
         mask[list(slots)] = True
         return mask
-
-    @staticmethod
-    def _finite(req: Request, logits: np.ndarray) -> np.ndarray:
-        if not np.all(np.isfinite(logits)):
-            # per-request retry / quarantine is not ported yet: fail loudly
-            raise FloatingPointError(
-                f"non-finite logits for request {req.rid}")
-        return logits
 
     def _retire(self, limit_only: bool = False) -> List[Request]:
         done = []
@@ -703,6 +982,8 @@ class ServeEngine:
                     self.sched.drop_forks(slot)
                     self.alloc.free_slot(slot)
                 self.slot_req[slot] = None
+                self._retry.pop(req.rid, None)
+                self.obs.on_retire(req.rid, "length", len(req.output))
         return done
 
     def _sample_next(self, req: Request) -> int:
@@ -716,6 +997,9 @@ class ServeEngine:
         tok = self._sample_next(req)
         if not req.output and req.ttft is None:
             req.ttft = tnow - req.submit_t
+            self.obs.on_first_token(req.rid, req.ttft, tnow)
+        else:
+            self.obs.on_token(req.rid, tnow)
         req.output.append(tok)
         return tok
 

@@ -32,6 +32,8 @@ Stream lifecycle::
     queued -> prefilling -> decoding -> done
        |           |           |     -> cancelled  (TokenStream.cancel)
        |           +-----------+---- -> timed_out  (deadline_s elapsed)
+       |           +-----------+---- -> error      (quarantined by the
+       |                                            engine's fault path)
        +---------------------------- -> shed       (admission refused)
 
 The front-end is synchronous-cooperative, not threaded: ``step()`` runs
@@ -40,9 +42,10 @@ stream iteration calls ``step()`` on demand.  A ``clock`` injectable
 (default the serve-path clock, :func:`repro_torch.obs.clock.now`) keeps
 deadline behavior deterministic under test.  Like the scheduler and
 allocator, all of this is host-side state: nothing here changes what the
-serving steps (or their CUDA graphs) see.  The engine's quarantine state
-``error``, the telemetry calls and the chaos sites (``cancel``,
-``deadline_skew``) are not ported yet.
+serving steps (or their CUDA graphs) see.  Sheds and timeouts report to
+the engine's telemetry, and the engine's ``ChaosInjector`` fires the
+front end's two sites in ``step``: ``cancel`` (a client hangs up) and
+``deadline_skew`` (the deadline sweep sees a clock ``skew_s`` ahead).
 """
 
 from __future__ import annotations
@@ -57,19 +60,22 @@ DONE = "done"
 CANCELLED = "cancelled"
 TIMED_OUT = "timed_out"
 SHED = "shed"
+# quarantined by the engine after a step fault / non-finite logits
+# exhausted its retry budget (finish_reason="error")
+ERROR = "error"
 # live stream states (mirror ServeEngine.request_phase)
 QUEUED = "queued"
 PREFILLING = "prefilling"
 DECODING = "decoding"
 
-TERMINAL_STATES = (DONE, CANCELLED, TIMED_OUT, SHED)
+TERMINAL_STATES = (DONE, CANCELLED, TIMED_OUT, SHED, ERROR)
 
 
 class TokenStream:
     """One request's async handle: iterate for tokens, inspect for SLA.
 
     ``tokens`` / ``token_times`` grow as the engine emits; ``state`` is
-    one of queued/prefilling/decoding/done/cancelled/timed_out/shed.
+    one of queued/prefilling/decoding/done/cancelled/timed_out/shed/error.
     ``first_token_t`` / ``finish_t`` are clock readings for TTFT/TPOT
     accounting (``None`` until they happen).  Iteration yields each
     token id exactly once, driving the shared engine while this stream
@@ -173,6 +179,7 @@ class ServeFrontend:
                                      priority=priority, tenant=tenant)
         except AdmissionRejected as e:
             self.shed_count += 1
+            self.engine.obs.on_frontend_shed(e.reason)
             stream = TokenStream(self, None, now, deadline_s,
                                  shed_reason=e.reason)
             self.streams.append(stream)
@@ -199,14 +206,25 @@ class ServeFrontend:
         """Expire deadlines, run one engine step, pump new tokens into
         their streams.  Returns True while any live stream remains."""
         now = self._clock()
+        chaos = self.engine.chaos
+        if chaos is not None and self._live:
+            # fire() reports itself through chaos.obs
+            if chaos.fire("cancel"):
+                victim = self._live[chaos.pick("cancel", len(self._live))]
+                self.cancel(victim)
+            if chaos.fire("deadline_skew"):
+                # the sweep below sees a skewed clock: deadlines near the
+                # boundary trip early, mid-prefill or mid-decode
+                now = now + chaos.skew_s
         for stream in list(self._live):
             if (stream.deadline_s is not None
                     and now - stream.arrival_t >= stream.deadline_s):
-                # cancel() is False if the engine already retired the
-                # request: without the guard it would be counted timed
-                # out *and* keep its real terminal state
+                # cancel() is False if the engine already retired or
+                # quarantined the request: without the guard it would be
+                # counted timed out *and* keep its real terminal state
                 if self.engine.cancel(stream.req, "timed_out"):
                     self.timeout_count += 1
+                    self.engine.obs.on_frontend_timeout()
         if self.engine.has_work():
             self.engine.step()
         self._pump()
@@ -236,6 +254,8 @@ class ServeFrontend:
             elif req.cancelled:
                 if req.finish_reason == "timed_out":
                     stream.state = TIMED_OUT
+                elif req.finish_reason == "error":
+                    stream.state = ERROR
                 else:
                     stream.state = CANCELLED
                 stream.finish_t = now

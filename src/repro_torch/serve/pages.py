@@ -17,9 +17,13 @@ allocation.
   (:mod:`repro_torch.serve.prefix_cache`) a page whose count drops to 0
   stays resident as an evictable cached page instead of returning to the
   free list; ``_take_page`` evicts such pages when the free list runs dry.
+  An attached ``ChaosInjector`` fails page grants at its ``page_grant``
+  site, and the allocator reports pool occupancy to its telemetry.
 * :func:`fork_tail_page` — the copy-on-write step of a mid-page cache
   hit: the donor's partly filled page is copied, in place, into the
   request's own page.
+* :func:`scrub_pages` — zero a faulted lane's private pages, in place,
+  before they return to the free list.
 * :class:`LaneTables` — persistent device buffers of the per-lane inputs
   of the serving steps (block tables, ``pos``, tokens, prefill bounds,
   the active mask), refilled with ``copy_`` before each step so that a
@@ -37,6 +41,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 
 NULL_PAGE = 0  # physical page 0 is never allocated; garbage writes land here
 
@@ -111,7 +116,8 @@ class PageAllocator:
     """
 
     def __init__(self, n_pages: int, page_size: int, n_slots: int,
-                 max_len: int):
+                 max_len: int, obs=None):
+        self.obs = obs if obs is not None else NULL_TELEMETRY
         self.page_size = page_size
         self.n_pages = n_pages
         self.n_slots = n_slots
@@ -128,6 +134,7 @@ class PageAllocator:
         self._mapped: List[List[int]] = [[] for _ in range(n_slots)]
         self.refcount = np.zeros((n_pages,), np.int32)
         self._cache = None  # attached PrefixCache (eviction provider)
+        self.chaos = None   # optional ft.ChaosInjector (page_grant site)
 
     # -------------------------------------------------------- prefix cache
     def attach_cache(self, cache) -> None:
@@ -135,6 +142,16 @@ class PageAllocator:
         pages (``cache.holds``) and their evictor (``cache.evict``); the
         capacity arithmetic counts its evictable pages as available."""
         self._cache = cache
+
+    def _emit_pages(self) -> None:
+        """Publish pool occupancy (free / cache-resident / evictable) to
+        telemetry: the pages track's counter series and the per-step
+        memory sample.  Skipped with telemetry off."""
+        if self.obs.enabled:
+            self.obs.on_pages(
+                len(self.free),
+                self._cache.cached_pages if self._cache is not None else 0,
+                self.evictable_pages)
 
     # ----------------------------------------------------------- capacity
     @property
@@ -160,7 +177,12 @@ class PageAllocator:
     # --------------------------------------------------------- allocation
     def _take_page(self) -> Optional[int]:
         """Pop a free page, evicting a cached refcount-0 page first when
-        the free list is dry; None when neither has one."""
+        the free list is dry; None when neither has one.  The chaos hook
+        fires before the pop: a fired ``page_grant`` fails the grant as a
+        dry pool would, so every caller takes its real out-of-capacity
+        path (admission blocks, decode preempts, a fork downgrades)."""
+        if self.chaos is not None and self.chaos.fire("page_grant"):
+            return None
         if not self.free and self._cache is not None:
             self._cache.evict(1)
         if not self.free:
@@ -176,6 +198,7 @@ class PageAllocator:
         self.refcount[page] = 1
         self.block_tables[slot, len(self._mapped[slot])] = page
         self._mapped[slot].append(page)
+        self._emit_pages()
         return page
 
     def map_shared(self, slot: int, pages: List[int]) -> None:
@@ -197,6 +220,7 @@ class PageAllocator:
                 self._cache._on_pin(page)
             self._mapped[slot].append(page)
             self.block_tables[slot, blk] = page
+        self._emit_pages()
 
     def ensure(self, slot: int, n_tokens: int) -> bool:
         """Grow ``slot``'s block table to cover ``n_tokens``; False, with
@@ -221,11 +245,13 @@ class PageAllocator:
                     self.block_tables[slot, len(self._mapped[slot])] = (
                         NULL_PAGE)
                     self._release_page(g)
+                self._emit_pages()
                 return False
             granted.append(page)
             self.refcount[page] = 1
             self._mapped[slot].append(page)
             self.block_tables[slot, blk] = page
+        self._emit_pages()
         return True
 
     def _release_page(self, page: int) -> None:
@@ -250,6 +276,7 @@ class PageAllocator:
         list.  Called by the prefix cache only."""
         assert page != NULL_PAGE and self.refcount[page] == 0
         self.free.append(page)
+        self._emit_pages()
 
     def free_slot(self, slot: int) -> None:
         """Release every page the slot maps (request retired or
@@ -260,6 +287,7 @@ class PageAllocator:
         self._mapped[slot] = []
         self.block_tables[slot, :] = NULL_PAGE
         self.pos[slot] = 0
+        self._emit_pages()
 
     def block_row(self, slot: int) -> np.ndarray:
         """The slot's block-table row (a copy)."""
@@ -346,6 +374,33 @@ def fork_tail_page(pages: KVPages, src: int, dst: int) -> None:
     for t in (pages.k, pages.v, pages.k_scale, pages.v_scale):
         if t is not None:
             t[:, dst].copy_(t[:, src])
+
+
+@torch.no_grad()
+def scrub_pages(pages: KVPages, page_ids: List[int]) -> None:
+    """Zero physical pages ``page_ids`` over every layer of ``k`` and
+    ``v`` (and of the scale pools when quantized), in place.
+
+    A non-finite fault may have written NaN into a lane's pages, and the
+    attention paths mask additively (``score + -inf``): a NaN left in the
+    masked tail of a reused page would still poison the next tenant's
+    softmax.  In an int8 pool the poison sits in the scales, so they are
+    zeroed too.  The ids are host ints, taken as runs of consecutive
+    pages, so each run is one ``zero_`` queued on the current stream with
+    no host sync; the tensors keep their storage, which the serving
+    steps' CUDA graphs captured by address.  (The JAX package's
+    ``_scrub_slot_pages`` rebinds the pool with ``.at[:, idx].set(0)``.)
+    """
+    ids = sorted(page_ids)
+    runs, start = [], 0
+    for i in range(1, len(ids) + 1):
+        if i == len(ids) or ids[i] != ids[i - 1] + 1:
+            runs.append((ids[start], ids[i - 1] + 1))
+            start = i
+    for t in (pages.k, pages.v, pages.k_scale, pages.v_scale):
+        if t is not None:
+            for lo, hi in runs:
+                t[:, lo:hi].zero_()
 
 
 class LaneTables:

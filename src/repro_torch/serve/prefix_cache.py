@@ -26,8 +26,10 @@
   eviction always comes before preemption.
 
 All of this is host-side state, like the block tables: the serving steps
-and their CUDA graphs see only the pool and the block tables.  Telemetry
-hooks and ``snapshot_state`` / ``restore_state`` are not ported yet.
+and their CUDA graphs see only the pool and the block tables.  Inserts
+and evictions report to the engine's telemetry (``on_cache_insert`` /
+``on_cache_evict``).  ``snapshot_state`` / ``restore_state`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 from repro_torch.serve.pages import NULL_PAGE, AuditError, PageAllocator
 
 
@@ -97,8 +100,9 @@ class PrefixCache:
     list runs dry.
     """
 
-    def __init__(self, alloc: PageAllocator):
+    def __init__(self, alloc: PageAllocator, obs=None):
         self.alloc = alloc
+        self.obs = obs if obs is not None else NULL_TELEMETRY
         self.page_size = alloc.page_size
         self.root = _Node(None, None, NULL_PAGE)
         self._by_page: Dict[int, _Node] = {}
@@ -263,6 +267,8 @@ class PrefixCache:
             child.last_used = self._tick()
             node = child
         self.inserted_pages += new
+        if new:
+            self.obs.on_cache_insert(new)
         return new
 
     # ------------------------------------------------------------ eviction
@@ -349,6 +355,8 @@ class PrefixCache:
                     and ref[parent.page] == 0):
                 heapq.heappush(self._lru, (parent.last_used, parent.page))
         self.evicted_pages += evicted
+        if evicted:
+            self.obs.on_cache_evict(evicted)
         return evicted
 
     # -------------------------------------------------------------- audit

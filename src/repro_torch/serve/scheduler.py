@@ -30,7 +30,9 @@ per ``(tenant, priority)`` key, and admission that skips over requests
 that do not fit.  Both policies drive the same lane-independent steps, so
 greedy tokens are the same under either.
 
-Not ported yet: the telemetry calls and the ``preempt_storm`` chaos site.
+Admissions, cache hits and misses and preemptions report to the engine's
+telemetry; :meth:`PagedScheduler.preempt_storm` is the ``preempt_storm``
+chaos site's mass eviction.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 from repro_torch.serve.pages import PageAllocator, pages_for
 
 PrefillBatch = Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -59,8 +62,9 @@ class PagedScheduler:
     """Admission + prefill batching + preemption over ``n_slots`` lanes."""
 
     def __init__(self, alloc: PageAllocator, chunk: int,
-                 prefix_cache=None):
+                 prefix_cache=None, obs=None):
         self.alloc = alloc
+        self.obs = obs if obs is not None else NULL_TELEMETRY
         self.chunk = int(chunk)
         if self.chunk < 1:
             raise ValueError(f"prefill chunk must be >= 1, got {chunk}")
@@ -156,11 +160,17 @@ class PagedScheduler:
             self.prefix_cache.hits += bool(matched)
             self.prefix_cache.misses += not matched
             self.prefix_cache.hit_tokens += matched
+            if matched:
+                self.obs.on_cache_hit(req.rid, matched,
+                                      match.partial is not None)
+            else:
+                self.obs.on_cache_miss(req.rid)
             if fork is not None:
                 self.pending_forks.append(fork)
                 self.prefix_cache.cow_forks += 1
         req.prefill_pos = matched
         req.cached_tokens = matched
+        self.obs.on_admit(req.rid, slot, matched)
         return True
 
     # ----------------------------------------------------------- prefill
@@ -243,6 +253,7 @@ class PagedScheduler:
 
     def _preempt(self, slot: int) -> None:
         req = self.slot_req[slot]
+        self.obs.on_preempt(req.rid, slot)
         self.alloc.free_slot(slot)
         self.slot_req[slot] = None
         # recompute-style: everything generated so far becomes prefill (a
@@ -255,6 +266,18 @@ class PagedScheduler:
         self.preemptions += 1
         self.drop_forks(slot)
         self.queue.appendleft(req)
+
+    def preempt_storm(self) -> int:
+        """Preempt every resident request (the chaos injector's
+        ``preempt_storm`` site, a mass-eviction drill).  Recompute-style
+        preemption keeps greedy tokens, so a storm costs latency and
+        prefill compute, never tokens.  Returns the lanes preempted."""
+        n = 0
+        for slot in range(self.n_slots):
+            if self.slot_req[slot] is not None:
+                self._preempt(slot)
+                n += 1
+        return n
 
 
 class BudgetScheduler(PagedScheduler):
@@ -280,8 +303,8 @@ class BudgetScheduler(PagedScheduler):
     """
 
     def __init__(self, alloc: PageAllocator, chunk: int,
-                 prefix_cache=None, *, step_tokens: int):
-        super().__init__(alloc, chunk, prefix_cache=prefix_cache)
+                 prefix_cache=None, obs=None, *, step_tokens: int):
+        super().__init__(alloc, chunk, prefix_cache=prefix_cache, obs=obs)
         self.step_tokens = int(step_tokens)
         # >= 2: one token of prefill progress plus the completion reserve
         # must fit an otherwise idle step, or a 1-token tail would wait

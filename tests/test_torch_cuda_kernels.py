@@ -54,7 +54,10 @@ route, that an eager step counts.  ``ServeEngine`` with graphs gives the
 same greedy tokens as with ``cuda_graphs=False``, in both modes.  A
 prefill chunk graph captured before ``fork_tail_page`` copies a donor page
 into a lane's own page in place (the copy-on-write step of a mid-page
-prefix-cache hit) reads the copy when it is replayed after it.
+prefix-cache hit) reads the copy when it is replayed after it.  A lane
+quarantined after NaN was planted in its pages (``-k scrub``): the scrub
+zeroes its private pages in place, and the engine's graphs, captured
+before it, replay over them and give a clean engine's tokens.
 """
 
 import dataclasses
@@ -796,3 +799,60 @@ def test_graph_prefill_reads_forked_page(cuda_device, kv_bits):
         t = getattr(pages_g, n)
         assert torch.equal(t[:, dst, :5], t[:, donor, :5]), n
     assert [getattr(pages_g, n).data_ptr() for n in names] == ptrs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_graph_replays_over_scrubbed_pages(cuda_device, kv_bits):
+    """An engine whose two graphs were captured serves a victim request,
+    whose pages then hold NaN (in the values of a bf16 pool, the scales
+    of an int8 one) and which is quarantined (retry budget 0).  The scrub
+    zeroes the victim's private pages in place (the pool keeps its
+    storage); the next request reuses them through the same graphs and
+    gets the tokens of a clean engine's eager run."""
+    cfg, params, _ = _graph_model("qwen2.5-3b", cuda_device)
+    scfg = ServeConfig(max_new_tokens=6, page_size=4, prefill_chunk=5,
+                       max_request_retries=0,
+                       engine=EngineConfig(weight_bits=4, kv_bits=kv_bits))
+    warm, victim_p = [1, 2, 3, 4, 5, 6, 7], list(range(20, 33))
+    after_p = [40, 41, 42, 43, 44, 45]
+
+    def engine(graphs):
+        return ServeEngine(cfg, params, scfg, n_slots=1, max_len=48,
+                           mode="paged", cuda_graphs=graphs,
+                           device=cuda_device)
+
+    clean = engine(False)
+    want = clean.submit(after_p)
+    clean.run()
+    eng = engine(True)
+    eng.submit(warm)
+    eng.run()
+    assert all(g.graph is not None for g in eng._graphs)
+    victim = eng.submit(victim_p)
+    while victim.last_logits is None:
+        eng.step()
+    private = list(eng.alloc._mapped[0])
+    tensors = [t for t in (eng.pages.k, eng.pages.v, eng.pages.k_scale,
+                           eng.pages.v_scale) if t is not None]
+    ptrs = [t.data_ptr() for t in tensors]
+    idx = torch.tensor(private, device=cuda_device)
+    poisoned = (eng.pages.k_scale, eng.pages.v_scale) if kv_bits else (
+        eng.pages.k, eng.pages.v)
+    for t in poisoned:
+        t[:, idx] = float("nan")
+    eng._fault(0, victim, "nan_logits")
+    torch.cuda.synchronize()
+    assert victim.finish_reason == "error" and eng.quarantined == 1
+    for t in tensors:
+        assert not t[:, idx].any()
+        assert torch.isfinite(t.float()).all()
+    assert [t.data_ptr() for t in tensors] == ptrs
+    eng.audit()
+    after = eng.submit(after_p)
+    eng.step()
+    assert set(eng.alloc._mapped[0]) & set(private)
+    eng.run()
+    torch.cuda.synchronize()
+    assert after.output == want.output and len(want.output) == 6
+    assert len(eng.timings["capture"]) == 2

@@ -430,3 +430,144 @@ def test_gemvs_share_one_decode_source():
     int8 = (CSRC / "int8_matvec.cu").read_text()
     assert _kernels_defined(int8) == ["int8_matvec_kernel"]
     assert "dec::launch<8>" in int8
+
+
+# ------------------------------------------ observability, fault isolation
+OBS_FT = ("obs/registry.py", "obs/spans.py", "obs/trace.py", "obs/costs.py",
+          "obs/telemetry.py", "obs/clock.py", "obs/__init__.py",
+          "ft/chaos.py", "ft/failures.py", "ft/__init__.py")
+
+
+@pytest.mark.parametrize("name", OBS_FT)
+def test_obs_and_ft_import_no_jax_or_repro(name):
+    """``obs/`` and ``ft/`` keep their own copies of the JAX package's
+    modules and import neither package (the per-file check above covers
+    them too; this one fails if a module goes missing)."""
+    path = PORT / name
+    assert path in _port_files()
+    bad = [(mod, line) for mod, line in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{name} imports {bad}"
+
+
+def _function_source(path: Path, owner: str, name: str):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef) and owner and node.name == owner:
+            tree = node
+            break
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return node
+    raise AssertionError(f"{owner}.{name} not found in {path}")
+
+
+@pytest.mark.parametrize("owner,name", [("", "scrub_pages"),
+                                        ("ServeEngine", "_scrub_slot_pages")])
+def test_scrub_reads_nothing_back_in_source(owner, name):
+    path = PORT / ("serve/pages.py" if not owner else "serve/engine.py")
+    bad = list(_host_traffic(_function_source(path, owner, name)))
+    assert not bad, f"{name} moves host data or syncs: {bad}"
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_scrub_runs_with_every_host_read_raising(monkeypatch, kv_bits):
+    """The scrub zeroes the listed pages (runs of consecutive ids) of
+    every pool in place, with every call that would build a tensor from
+    host data or read one back made to raise."""
+    from repro_torch.config import get_reduced
+    from repro_torch.serve.pages import init_kv_pages, scrub_pages
+
+    pages = init_kv_pages(get_reduced("qwen2.5-3b"), 9, 4, kv_bits=kv_bits,
+                          device="cpu")
+    pools = [t for t in (pages.k, pages.v, pages.k_scale, pages.v_scale)
+             if t is not None]
+    for t in pools:
+        t.fill_(1)
+    ptrs = [t.data_ptr() for t in pools]
+
+    def host_read(*args, **kwargs):
+        raise AssertionError("the scrub read a tensor on the host")
+
+    with monkeypatch.context() as m:
+        for name in HOST_DATA:
+            m.setattr(torch, name, host_read)
+        for name in ("item", "tolist", "cpu", "numpy", "nonzero",
+                     "__bool__", "__int__", "__float__", "__index__"):
+            m.setattr(torch.Tensor, name, host_read)
+        scrub_pages(pages, [6, 2, 3, 8])
+    for t in pools:
+        zeroed = [p for p in range(9) if not t[:, p].any()]
+        assert zeroed == [2, 3, 6, 8]
+    assert [t.data_ptr() for t in pools] == ptrs
+
+
+class _StepWatch:
+    """Telemetry whose every hook fails while a captured step runs."""
+
+    def __init__(self, inner):
+        self.inner, self.in_step, self.calls = inner, False, 0
+
+    def __getattr__(self, name):
+        attr = getattr(self.inner, name)
+        if not callable(attr):
+            return attr
+
+        def hook(*args, **kwargs):
+            assert not self.in_step, f"telemetry {name} inside a step"
+            self.calls += 1
+            return attr(*args, **kwargs)
+        return hook
+
+
+def test_no_telemetry_inside_a_captured_step():
+    """No hook, clock read or ledger charge runs inside the functions the
+    engine captures as CUDA graphs: their lambdas reference nothing of the
+    engine's telemetry, and a serve run with every hook failing while a
+    step function runs completes."""
+    import dataclasses
+
+    from repro_torch.config import ServeConfig, get_reduced
+    from repro_torch.models import init_params
+    from repro_torch.obs import Telemetry
+    from repro_torch.serve import ServeEngine
+
+    tree = ast.parse((PORT / "serve/engine.py").read_text())
+    lambdas = [node.args[0] for node in ast.walk(tree)
+               if isinstance(node, ast.Call)
+               and getattr(node.func, "attr", "") == "_step_fn"]
+    assert len(lambdas) == 3
+    for lam in lambdas:
+        names = {n.id for n in ast.walk(lam) if isinstance(n, ast.Name)}
+        assert not names & {"self", "obs", "time", "_clock"}, names
+    for name in STEP_MODULES:
+        text = (PORT / name).read_text()
+        assert "repro_torch.obs" not in text and "perf_counter" not in text
+
+    cfg = dataclasses.replace(get_reduced("qwen2.5-3b"), dtype="float32",
+                              n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    watch = _StepWatch(Telemetry(trace=True))
+    for mode in ("paged", "slots"):
+        eng = ServeEngine(cfg, params, ServeConfig(max_new_tokens=3,
+                                                   page_size=4,
+                                                   prefill_chunk=3),
+                          n_slots=2, max_len=32, mode=mode,
+                          telemetry=watch, device="cpu")
+        names = (("_decode_paged", "_prefill_paged") if mode == "paged"
+                 else ("_slots_step",))
+        for fn_name in names:
+            fn = getattr(eng, fn_name)
+
+            def stepped(fn=fn):
+                watch.in_step = True
+                try:
+                    return fn()
+                finally:
+                    watch.in_step = False
+            setattr(eng, fn_name, stepped)
+        for p in ([1, 2, 3], [4, 5, 6, 7, 8]):
+            eng.submit(p)
+        calls = watch.calls
+        eng.run()
+        assert watch.calls > calls

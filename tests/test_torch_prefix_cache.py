@@ -86,7 +86,8 @@ def make_engine(model, pkg, *, max_new=5, n_slots=1, max_len=32,
     weights; ``kw`` splits into ``ServeConfig`` fields and engine
     arguments."""
     cfg, params, tcfg, tparams = model
-    scfg_keys = ("sched", "step_tokens", "max_queue", "audit")
+    scfg_keys = ("sched", "step_tokens", "max_queue", "audit",
+                 "max_request_retries", "retry_reset_steps")
     scfg_kw = {k: kw.pop(k) for k in scfg_keys if k in kw}
     scfg_kw.setdefault("audit", 2)
     if pkg == "jax":
