@@ -91,6 +91,28 @@ exits non-zero:
                 through ``ServeFrontend``, ``nan_logits`` at its third
                 check with no budget: one stream in ``error``, the others
                 a clean run's, the victim's pages zero on the card.
+   ``snapshot`` the recovery drill on ``main``'s params: ``main``'s 16
+                prompts run to a kill point k (requests decoding, lanes
+                mid-prefill, requests queued), ``save_snapshot`` to
+                ``build/snapshots/``, a fresh engine ``load_snapshot`` s
+                and runs to the end; then the first engine, its two graphs
+                captured, ``restore`` s in place (no new capture, the pool
+                and lane buffers at the same addresses) and runs to the
+                end again; the same on ``prefix_hot``'s traffic with the
+                cache's tree (hit counters going on from the snapshot's).
+                A restore recomputes nothing: ``main``'s / ``prefix_hot``'s
+                tokens, exactly or (reported by request) up to a near tie.
+                Snapshot bytes, codec, save / load / restore seconds.
+   ``dense``    starcoder2-15b (40 layers), gemma3-27b (62 layers, window
+                1024 on 5 of 6 layers, 8 prompts of 1,100-1,900 tokens,
+                max_len 2048) and mistral-large-123b cut to 8 of its 88
+                layers, at published widths, served paged at
+                ``weight_bits=4, kv_bits=8``, 8 lanes, page 16, chunk 32:
+                tok/s, step and chunk ms, peak memory, launches by route,
+                the cost ledger's decode bytes over the step as a share of
+                3.35 TB/s; graphs against eager (identical tokens); and
+                ``whole``'s check at 2 layers (gemma3: one local, one
+                global layer, prompts past the window).
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
@@ -160,6 +182,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1026,14 +1049,18 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
     # replays counted through their capture's launches.  Paged mode: the
     # GEMV's tensor-core route must launch in exactly the steps that ran a
     # prefill chunk, its decode route in exactly those that ran a decode
-    # step (each adds one entry to ``eng.timings``), and its rows route
-    # never; the chunked prefill's tensor-core route once a layer in every
+    # step (each adds one entry to ``eng.timings``) and, for an untied
+    # lm_head, once in each that ran a chunk, and its rows route never; the chunked prefill's tensor-core route once a layer in every
     # step that ran a chunk, its CUDA-core route never.  Slots mode: every
     # prompt token admitted and every decode step is one full-sequence
     # decode step, so the decode route launches a full step's GEMVs for
     # each, and no other route or attention kernel ever launches
     slots = eng.mode == "slots"
+    # an untied lm_head is packed too: one more GEMV a decode step, and in
+    # paged mode one at M = n_slots for each prefill chunk's last tokens
+    head = int(not isinstance(eng.params.get("lm_head", {}), dict))
     per_step = (7 if eng.cfg.family == "dense" else 2) * eng.cfg.n_layers
+    per_step += head
     gemv_launches = {"prefill": 0, "decode": 0}
     attn_launches = 0
     t0 = time.perf_counter()
@@ -1062,9 +1089,10 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
                                      f"prompt tokens: wanted {want}")
             want_attn = 0
         else:
+            lm_head = head * ran["prefill"]
             if ((moved["tensor_core"] > 0) != ran["prefill"]
-                    or (moved["decode"] > 0) != ran["decode"]
-                    or moved["rows"]):
+                    or (moved["decode"] - lm_head > 0) != ran["decode"]
+                    or moved["decode"] < lm_head or moved["rows"]):
                 raise AssertionError(f"{name}: GEMV routes {moved} in a "
                                      f"step that ran {ran}")
             want_attn = eng.cfg.n_layers * ran["prefill"]
@@ -1745,6 +1773,336 @@ def quarantine_path(torch, dev, cfg, params):
         raise AssertionError(f"quarantine: scrub {scrubbed}")
 
 
+# ------------------------------------------- snapshot and dense phases
+SNAPSHOT_DIR = ROOT / "build" / "snapshots"
+
+
+def _restart_point(eng):
+    """A kill point worth restoring from: some request has decoded, some
+    lane is still in its chunked prefill and some request still queues."""
+    lanes = [r for r in eng.slot_req if r is not None]
+    return (any(len(r.output) >= 2 for r in lanes) and eng.queue
+            and any(r.prefill_pos < len(r.prefill_tokens) for r in lanes))
+
+
+def _drive(eng, prompts, first, until=None, limit=5000):
+    """Submit ``first`` prompts, the rest once those have their first
+    logits (``serve()``'s ``first``), and step until ``until(eng)`` holds
+    after a step (None: until the engine drains).  Returns the requests
+    submitted and the steps taken."""
+    reqs = [eng.submit(p) for p in prompts[:first]]
+    steps = 0
+    while eng.has_work() or len(reqs) < len(prompts):
+        if len(reqs) < len(prompts) and all(r.last_logits is not None
+                                            for r in reqs):
+            reqs += [eng.submit(p) for p in prompts[first:]]
+        eng.step()
+        steps += 1
+        if until is not None and until(eng):
+            return reqs, steps
+        if steps > limit:
+            raise AssertionError("snapshot: the engine did not drain")
+    if until is not None:
+        raise AssertionError("snapshot: no restart point was reached")
+    return reqs, steps
+
+
+def _recording_top(eng):
+    """Record the top 8 logits of every sampling step of ``eng`` by
+    (rid, token index), for the near-tie rule."""
+    import numpy as np
+
+    top, sample = {}, eng._sample_next
+
+    def recording(req):
+        lg = np.asarray(req.last_logits, np.float32).reshape(-1)
+        idx = np.argpartition(lg, -8)[-8:]
+        top[req.rid, len(req.output)] = dict(zip(idx.tolist(),
+                                                 lg[idx].tolist()))
+        return sample(req)
+
+    eng._sample_next = recording
+    return top
+
+
+def _finish(name, eng, n_req, max_new):
+    """Run a restored engine to the end: every in-flight request done
+    with ``max_new`` tokens and finite logits; its tokens by rid."""
+    import numpy as np
+
+    done = eng.run()
+    if len(done) != n_req:
+        raise AssertionError(f"{name}: {len(done)} of {n_req} finished")
+    for r in done:
+        if not r.done or len(r.output) != max_new or r.retries or (
+                r.last_logits is None
+                or not np.isfinite(r.last_logits).all()):
+            raise AssertionError(f"{name}: request {r.rid} done={r.done} "
+                                 f"with {len(r.output)} tokens")
+    return {r.rid: r.output for r in done}
+
+
+def near_ties(name, want, got, top):
+    """Greedy tokens of a run (``got`` by rid) against a reference
+    (``want`` by rid): exact, or up to a near tie by the ``whole`` /
+    ``chaos`` phases' rule (at the first difference the reference's token
+    is among the run's top 8 and within ``2 * CHAOS_LOGIT_TOL`` of its
+    best logit).  Returns the differing requests, named; raises past a
+    near tie."""
+    ties = []
+    for rid, w in sorted(want.items()):
+        g = got[rid]
+        if g == w:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(w, g)) if a != b)
+        cand = top[rid, i]
+        margin = (cand[g[i]] - cand[w[i]] if w[i] in cand else math.inf)
+        ties.append(dict(request=rid, token=i, margin=margin,
+                         best_logit=cand[g[i]]))
+    bad = [t for t in ties if t["margin"] > 2 * CHAOS_LOGIT_TOL]
+    if bad:
+        raise AssertionError(f"{name}: tokens differ beyond a near tie: "
+                             f"{bad}")
+    return ties
+
+
+def kill_and_restore(torch, dev, name, cfg, params, prompts, want_tokens,
+                     *, first, serve_kw=None, want_stats=None):
+    """The recovery drill on the card.  Engine A runs ``prompts`` to the
+    first restart point (step k: requests decoding, lanes mid-prefill,
+    requests queued) and saves a snapshot to disk (``save_snapshot``);
+    A runs on to the end (its tokens: ``want_tokens``).  A fresh engine
+    on the same params loads the snapshot (``load_snapshot``) and runs to
+    the end; then A itself, with both step graphs captured, restores the
+    in-memory snapshot (``restore``, in place: no new capture, the pool at
+    the same addresses) and runs to the end once more.  A restore
+    recomputes nothing, so the tokens must equal ``want_tokens`` exactly;
+    a difference within a near tie is reported, by request, as a
+    finding."""
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    max_new = 32
+    eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                          serve_kw=serve_kw)
+    reqs, k = _drive(eng, prompts, first, until=_restart_point)
+    lanes = [r for r in eng.slot_req if r is not None]
+    state = dict(k=k, queued=len(eng.queue),
+                 prefilling=sum(r.prefill_pos < len(r.prefill_tokens)
+                                for r in lanes),
+                 decoding=sum(bool(r.output) for r in lanes),
+                 tokens_out=sum(len(r.output) for r in reqs))
+    stats_at_k = eng.prefix_stats()
+    directory = SNAPSHOT_DIR / name
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = eng.snapshot()
+    snapshot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.save_snapshot(str(directory), k)
+    save_s = time.perf_counter() - t0
+    manifest = ckpt.read_manifest(str(directory), k)
+    n_bytes = {leaf["path"]: leaf["nbytes"] for leaf in manifest["leaves"]}
+    shard = directory / f"step_{k:08d}" / "shard_0.bin"
+    # A runs on to the end: the uninterrupted run
+    while eng.has_work():
+        eng.step()
+    a_tokens = {r.rid: r.output for r in reqs}
+    first_difference(f"{name}_uninterrupted",
+                     [want_tokens[r.rid] for r in reqs],
+                     [a_tokens[r.rid] for r in reqs])
+    check_graphs(f"{name}_uninterrupted", eng)
+    in_flight = len(snap["host"]["requests"])
+
+    fresh, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                            serve_kw=serve_kw)
+    top_fresh = _recording_top(fresh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load_snapshot(str(directory))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    stats_loaded = fresh.prefix_stats()
+    got_fresh = _finish(f"{name}_fresh", fresh, in_flight, max_new)
+    check_graphs(f"{name}_fresh", fresh)
+    stats_fresh = fresh.prefix_stats()
+    del fresh
+    torch.cuda.empty_cache()
+
+    pools = {n: t.data_ptr() for n, t in eng._pool_tensors().items()}
+    lanes_ptr = {n: t.data_ptr() for n, t in vars(eng.lanes).items()}
+    captures = len(eng.timings["capture"])
+    top_in_place = _recording_top(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.restore(snap)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got_in_place = _finish(f"{name}_in_place", eng, in_flight, max_new)
+    same_ptrs = (pools == {n: t.data_ptr()
+                           for n, t in eng._pool_tensors().items()}
+                 and lanes_ptr == {n: t.data_ptr()
+                                   for n, t in vars(eng.lanes).items()})
+    new_captures = len(eng.timings["capture"]) - captures
+    want = {rid: want_tokens[rid] for rid in got_fresh}
+    ties_fresh = near_ties(f"{name}_fresh", want, got_fresh, top_fresh)
+    ties_in_place = near_ties(f"{name}_in_place", want, got_in_place,
+                              top_in_place)
+    rec = dict(
+        model=cfg.name, layers=cfg.n_layers, requests=len(prompts),
+        restart_point=state, in_flight=in_flight,
+        codec=manifest["codec"],
+        snapshot_bytes=sum(n_bytes.values()),
+        pool_bytes=sum(v for p, v in n_bytes.items()
+                       if p.startswith("pages/")),
+        logits_bytes=sum(v for p, v in n_bytes.items()
+                         if p.startswith("logits/")),
+        shard_file_bytes=shard.stat().st_size,
+        snapshot_s=snapshot_s, save_s=save_s, load_s=load_s,
+        restore_in_place_s=restore_s,
+        exact_fresh=sum(got_fresh[r] == want[r] for r in want),
+        exact_in_place=sum(got_in_place[r] == want[r] for r in want),
+        near_ties_fresh=ties_fresh, near_ties_in_place=ties_in_place,
+        in_place_new_captures=new_captures,
+        in_place_same_addresses=same_ptrs,
+        prefix_stats_at_k=stats_at_k, prefix_stats_loaded=stats_loaded,
+        prefix_stats_end=stats_fresh, prefix_stats_want=want_stats)
+    emit(name, **rec)
+    shutil.rmtree(directory, ignore_errors=True)
+    if new_captures or not same_ptrs:
+        raise AssertionError(f"{name}: the in-place restore captured "
+                             f"{new_captures} graphs, same addresses "
+                             f"{same_ptrs}")
+    check_graphs(f"{name}_in_place", eng)
+    if stats_loaded != stats_at_k or (want_stats is not None
+                                      and stats_fresh != want_stats):
+        raise AssertionError(f"{name}: prefix stats {stats_loaded} at load "
+                             f"({stats_at_k} at k), {stats_fresh} at the "
+                             f"end ({want_stats} wanted)")
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def snapshot_path(torch, dev, cfg, params, main_prompts, main_tokens,
+                  hot_rec, hot_tok):
+    """Phase ``snapshot``: the recovery drill (``kill_and_restore``) on
+    ``main``'s 16 prompts and on ``prefix_hot``'s traffic (the cache's
+    tree restored, its hit counters going on from the snapshot's to
+    ``prefix_hot``'s)."""
+    main = kill_and_restore(torch, dev, "snapshot_main", cfg, params,
+                            main_prompts, dict(enumerate(main_tokens)),
+                            first=len(main_prompts))
+    hot = kill_and_restore(torch, dev, "snapshot_prefix_hot", cfg, params,
+                           prefix_prompts(cfg), dict(enumerate(hot_tok)),
+                           first=1, serve_kw=dict(prefix_cache=True,
+                                                  audit=2),
+                           want_stats=hot_rec["prefix_stats"])
+    return main, hot
+
+
+# the dense configs served on the card: (arch, depth cut, prompts (n, lo,
+# hi), max_len).  gemma3's prompts pass its 1024-token window;
+# mistral-large at 8 of its 88 layers (its 4-bit codes at 88 layers are
+# about 61 GB)
+DENSE_CASES = [("starcoder2-15b", None, (16, 33, 300), 1024),
+               ("gemma3-27b", None, (8, 1100, 1900), 2048),
+               ("mistral-large-123b", 8, (16, 33, 300), 1024)]
+
+
+def dense_config(arch, n_layers=None, **changes):
+    from repro_torch.config import get_arch
+
+    cfg = get_arch(arch)
+    if n_layers is not None:
+        changes["n_layers"] = n_layers
+    return dataclasses.replace(cfg, **changes)
+
+
+def decode_bytes_share(eng, rec):
+    """The cost ledger's bytes of one decode step of ``eng`` (its tables,
+    as the engine charges them) over the measured mean and p50 step, as
+    shares of 3.35 TB/s."""
+    import repro_torch.obs as obs
+
+    table = obs.decode_step_costs(
+        obs.model_dims(eng.cfg), batch=eng.n_slots,
+        context=eng._max_blocks * eng.page_size, page_size=eng.page_size,
+        attn_backend=eng.attn_backend, kv_bits=eng.kv_bits,
+        specs=obs.linear_specs(eng.params))
+    n_bytes = obs.total_cost(table).bytes
+    return dict(
+        decode_step_bytes=n_bytes,
+        decode_bound_ms=1e3 * n_bytes / PEAK_HBM_BYTES_S,
+        decode_hbm_roofline_share_mean=n_bytes / (
+            rec["decode_step_ms"] / 1e3 * PEAK_HBM_BYTES_S),
+        decode_hbm_roofline_share_p50=n_bytes / (
+            rec["decode_step_ms_p50"] / 1e3 * PEAK_HBM_BYTES_S))
+
+
+def dense_path(torch, dev):
+    """Phase ``dense``: each of ``DENSE_CASES`` served paged at
+    ``weight_bits=4, kv_bits=8``, 8 lanes, page 16, chunk 32, with the
+    step graphs (tok/s, step and chunk ms, peak memory, launches by route,
+    the ledger's decode bytes share), then eagerly (identical tokens),
+    then at 2 layers against the plain-backend engine (``whole``'s check;
+    gemma3 with one local and one global layer, prompts past the
+    window)."""
+    out = {}
+    for arch, depth, (n, lo, hi), max_len in DENSE_CASES:
+        cfg = dense_config(arch, depth)
+        prompts = prompts_for(cfg, n, lo, hi, SEED + 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, params = build_engine(torch, dev, cfg, 4, 8, max_len=max_len)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        name = f"dense_{arch}"
+        rec, tokens = serve(torch, name, eng, prompts, 32)
+        check_graphs(name, eng)
+        share = decode_bytes_share(eng, rec)
+        windows = sorted({0 if cfg.is_global_layer(i) else
+                          cfg.sliding_window for i in range(cfg.n_layers)})
+        routes = {k: route_counts(k, rec["route_launches"])
+                  for k in ("bitplane_gemv", "paged_prefill_attention")}
+        routes["paged_decode_attention"] = rec["launches"][
+            "paged_decode_attention"]
+        out[arch] = dict(
+            model=cfg.name, layers=cfg.n_layers,
+            layers_published=dense_config(arch).n_layers,
+            depth_cut=(f"{dense_config(arch).n_layers} -> {cfg.n_layers} "
+                       "layers" if depth else None),
+            d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+            group=cfg.n_heads // cfg.n_kv_heads, d_ff=cfg.d_ff,
+            vocab=cfg.vocab_size, mlp_gated=cfg.mlp_gated,
+            tied=cfg.tie_embeddings, windows=windows, max_len=max_len,
+            prompts=[n, lo, hi], init_s=init_s,
+            **{k: rec[k] for k in (
+                "tok_s", "decode_steps", "decode_step_ms",
+                "decode_step_ms_p50", "prefill_chunks", "prefill_chunk_ms",
+                "prefill_chunk_ms_p50", "prefill_tok_s", "peak_mem_gib",
+                "capture_s", "launches")},
+            routes=routes, **share)
+        emit(f"{name}_summary", **out[arch])
+        if min(rec["launches"][k] for k in PAGED_KERNELS) == 0:
+            raise AssertionError(f"{name}: launches {rec['launches']}")
+        del eng
+        torch.cuda.empty_cache()
+        graphs_against_eager(torch, dev, name, cfg, 4, 8, prompts, 32,
+                             params=params, graph_rec=rec,
+                             graph_tokens=tokens, max_len=max_len)
+        del params
+        torch.cuda.empty_cache()
+        # two layers at full width against the plain path
+        two = (dense_config(arch, 2, global_every=2) if cfg.sliding_window
+               else dense_config(arch, 2))
+        whole_path_check(torch, dev, cfg=two, max_len=max_len,
+                         prompts=prompts_for(two, 8, lo, hi, SEED + 51),
+                         name=f"{name}_whole")
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_label(name: str) -> str:
     """A profiler kernel name without its namespace, return type and
     arguments: ``dec::decode_mma_kernel<4, 16>``."""
@@ -1918,8 +2276,10 @@ def profile_decode_steps(torch, eng, prompts, n_steps=4, n_chunks=2):
     return rec
 
 
-def whole_path_check(torch, dev):
-    """Kernel engine vs plain-backend engine at 2 layers, full width.
+def whole_path_check(torch, dev, cfg=None, prompts=None, max_len=1024,
+                     name="whole"):
+    """Kernel engine vs plain-backend engine at 2 layers, full width
+    (``cfg``; qwen2.5-3b by default, on 8 prompts of 33-300 tokens).
 
     Greedy tokens must agree.  Both paths round activations to bf16, and a
     bf16 rounding of a sum added in another order may fall the other way,
@@ -1937,15 +2297,16 @@ def whole_path_check(torch, dev):
     import numpy as np
 
     logit_tol = 0.125
-    cfg = full_config(n_layers=2)
-    prompts = prompts_for(cfg, 8, 33, 300, SEED + 6)
+    if cfg is None:
+        cfg = full_config(n_layers=2)
+        prompts = prompts_for(cfg, 8, 33, 300, SEED + 6)
     records = {}
     params = None
-    for name, kw in (("cuda", {}),
-                     ("plain", dict(backend="reference",
-                                    attn_backend="gather"))):
+    for run, kw in (("cuda", {}),
+                    ("plain", dict(backend="reference",
+                                   attn_backend="gather"))):
         eng, params = build_engine(torch, dev, cfg, 4, 8, max_new=16,
-                                   params=params, **kw)
+                                   params=params, max_len=max_len, **kw)
         seen = {}
         sample = eng._sample_next
 
@@ -1958,17 +2319,17 @@ def whole_path_check(torch, dev):
         reqs = [eng.submit(p) for p in prompts]
         eng.run()
         torch.cuda.synchronize()
-        records[name] = ([r.output for r in reqs], seen, eng)
+        records[run] = ([r.output for r in reqs], seen, eng)
     (tok_k, log_k, eng_k), (tok_p, log_p, eng_p) = (records["cuda"],
                                                     records["plain"])
     if (eng_k.plan.backend, eng_k.attn_backend) != ("cuda", "cuda") or (
             eng_p.plan.backend, eng_p.attn_backend) != ("reference",
                                                         "gather"):
-        raise AssertionError("whole: engines did not resolve as asked")
+        raise AssertionError(f"{name}: engines did not resolve as asked")
     first_err = max(float(np.abs(log_k[i][0] - log_p[i][0]).max())
                     for i in log_p)
     if first_err > logit_tol:
-        raise AssertionError(f"whole: first-step logits differ by "
+        raise AssertionError(f"{name}: first-step logits differ by "
                              f"{first_err} > {logit_tol}")
     identical, near_ties = 0, []
     for rid, (a, b) in enumerate(zip(tok_k, tok_p)):
@@ -1980,12 +2341,18 @@ def whole_path_check(torch, dev):
         margin = float(top2[1] - top2[0])
         if margin > 2 * logit_tol:
             raise AssertionError(
-                f"whole: request {rid} differs at token {i} where the plain "
+                f"{name}: request {rid} differs at token {i} where the plain "
                 f"path's margin is {margin}")
         near_ties.append(dict(request=rid, token=i, margin=margin))
-    emit("whole", layers=cfg.n_layers, requests=len(prompts),
+    emit(name, model=cfg.name, layers=cfg.n_layers,
+         windows=sorted({0 if cfg.is_global_layer(i) else cfg.sliding_window
+                         for i in range(cfg.n_layers)}),
+         requests=len(prompts), prompt_tokens=[len(p) for p in prompts],
          identical_requests=identical, near_tie_divergences=near_ties,
-         first_step_logit_max_abs_err=first_err, logit_tol=logit_tol)
+         first_step_logit_max_abs_err=first_err,
+         first_step_logit_max_abs=max(float(np.abs(v[0]).max())
+                                      for v in log_p.values()),
+         logit_tol=logit_tol)
 
 
 # ---------------------------------------------- full-sequence kernels
@@ -2581,8 +2948,15 @@ def main() -> int:
 
     with Phase("chaos"):
         chaos_path(torch, dev, cfg, params, hot_rec, hot_tok)
+
+    with Phase("snapshot"):
+        snapshot_path(torch, dev, cfg, params, prompts, main_tokens,
+                      hot_rec, hot_tok)
         del params
         torch.cuda.empty_cache()
+
+    with Phase("dense"):
+        dense_path(torch, dev)
 
     with Phase("second"):
         cfg = full_config(n_layers=4)

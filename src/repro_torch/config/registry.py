@@ -32,8 +32,11 @@ def register_arch(arch_id: str, config: ModelConfig,
 
 
 _ARCH_MODULES = {
+    "gemma3-27b": "gemma3_27b",
     "mamba2-130m": "mamba2_130m",
+    "mistral-large-123b": "mistral_large_123b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "starcoder2-15b": "starcoder2_15b",
 }
 
 

@@ -173,6 +173,44 @@ def _decode_mask(cur_pos: torch.Tensor, t: int, window: int) -> torch.Tensor:
     return _mask(cur_pos.long()[:, None], kv_pos, window)[:, 0]   # (B, T)
 
 
+def attend_local_gather(
+    q: torch.Tensor,             # (B, S, Hq, D)
+    k: torch.Tensor,             # (B, S, Hkv, D)
+    v: torch.Tensor,
+    positions: torch.Tensor,     # (B, S)
+    window: int,
+) -> torch.Tensor:
+    """Sliding-window attention without S×S scores: each block of
+    ``window`` queries attends to the ``2 * window`` keys that end with
+    its own block (one window of history padded in front with position
+    -1, which masks it).  ``S`` must be a multiple of ``window``.  The
+    JAX package's ``attend_local_gather`` (``attention.py:223``), with
+    scores, softmax and ``p·v`` in float32."""
+    b, s, hq, d = q.shape
+    n_kv = k.shape[2]
+    g, w = hq // n_kv, window
+    if s % w:
+        raise ValueError(f"attend_local_gather: S={s} is not a multiple "
+                         f"of the window {w}")
+    nq = s // w
+    pad = (0, 0, 0, 0, w, 0)
+    kpad = torch.nn.functional.pad(k, pad).float()
+    vpad = torch.nn.functional.pad(v, pad).float()
+    ppad = torch.nn.functional.pad(positions, (w, 0), value=-1)
+    # block i covers padded keys [i*w, i*w + 2w)
+    kw = torch.stack([kpad[:, i * w:i * w + 2 * w] for i in range(nq)], 1)
+    vw = torch.stack([vpad[:, i * w:i * w + 2 * w] for i in range(nq)], 1)
+    pw = torch.stack([ppad[:, i * w:i * w + 2 * w] for i in range(nq)], 1)
+    qg = q.reshape(b, nq, w, n_kv, g, d).float()
+    sc = torch.einsum("bnqhgd,bnkhd->bnhgqk", qg, kw) * d ** -0.5
+    msk = _mask(positions.reshape(b, nq, w), pw, w)[:, :, None, None]
+    msk = msk & (pw >= 0)[:, :, None, None, None, :]
+    sc = torch.where(msk, sc, _neg_inf(q.device))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bnhgqk,bnkhd->bnqhgd", p, vw)
+    return out.reshape(b, s, hq, d).to(q.dtype)
+
+
 def attend_decode(
     q: torch.Tensor,             # (B, 1, Hq, D)
     k_cache: torch.Tensor,       # (B, T, Hkv, D)

@@ -51,8 +51,10 @@ def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 def swiglu(p: dict, x: torch.Tensor, plan: Optional[EnginePlan] = None
            ) -> torch.Tensor:
-    if "w_gate" not in p:  # plain GELU MLP
-        return dense(p["w_down"], F.gelu(dense(p["w_up"], x, plan)), plan)
+    if "w_gate" not in p:
+        # plain GELU MLP, in the tanh form: ``jax.nn.gelu``'s default
+        return dense(p["w_down"], F.gelu(dense(p["w_up"], x, plan),
+                                         approximate="tanh"), plan)
     gate = dense(p["w_gate"], x, plan)
     up = dense(p["w_up"], x, plan)
     return dense(p["w_down"], F.silu(gate) * up, plan)

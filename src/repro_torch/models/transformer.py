@@ -44,6 +44,7 @@ from repro_torch.models.attention import (
     attend_decode,
     attend_dense,
     attend_flash,
+    attend_local_gather,
     attend_paged_decode,
     attend_paged_prefill,
 )
@@ -249,8 +250,10 @@ def _resolve(eng, attn_backend, device):
 
 
 def _attn_apply(p, x, positions, cfg, plan, window, *, use_flash: bool,
-                attn_backend: str, sequential: bool):
-    """Full-sequence attention sub-block.  Returns (out, (k, v))."""
+                attn_backend: str, sequential: bool,
+                local_gather: bool = False):
+    """Full-sequence attention sub-block.  Returns (out, (k, v)).
+    ``local_gather``: a windowed layer runs :func:`attend_local_gather`."""
     b, s, _ = x.shape
     dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -259,7 +262,9 @@ def _attn_apply(p, x, positions, cfg, plan, window, *, use_flash: bool,
     v = dense(p["attn"]["wv"], h, plan).reshape(b, s, hkv, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if use_flash:
+    if local_gather and window > 0:
+        o = attend_local_gather(q, k, v, positions, window)
+    elif use_flash:
         o = attend_flash(q, k, v, positions, window,
                          attn_backend=attn_backend, sequential=sequential)
     else:
@@ -287,6 +292,7 @@ def forward(
     eng: Optional[EnginePlan] = None,
     return_hidden: bool = False,
     attn_backend: Optional[str] = None,
+    local_gather: bool = False,
 ):
     """Full-sequence forward (scoring).  Returns (logits ``(B, S, V)``,
     aux loss) — or (hidden ``(B, S, D)``, aux loss) with ``return_hidden``.
@@ -294,16 +300,22 @@ def forward(
     At :data:`FLASH_THRESHOLD` tokens and more, attention runs
     :func:`attend_flash`; the ``cuda`` attention backend (the default on a
     CUDA device) runs the flash and SSD-scan kernels, ``gather`` their
-    plain versions.  The JAX package's ``remat`` and ``local_gather``
-    options belong to training and to the sliding-window family, which are
-    not ported.
+    plain versions.  ``local_gather``: for a config with both local and
+    global layers (``sliding_window`` and ``global_every``, gemma3), every
+    local layer runs :func:`attend_local_gather` (S a multiple of the
+    window), as the JAX package's unscanned layer loop does; other configs
+    ignore it, as JAX's scan does.  The JAX package's ``remat`` belongs to
+    training, which is not ported.
     """
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
                                                  attn_backend)
     use_kernel = mixers["attn_backend"] == "cuda"
+    local_gather = (local_gather and cfg.sliding_window > 0
+                    and cfg.global_every > 0)
     if cfg.family == "dense":
         for lp, win in zip(params["layers"], _layer_windows(cfg)):
-            x, _ = _attn_apply(lp, x, positions, cfg, plan, win, **mixers)
+            x, _ = _attn_apply(lp, x, positions, cfg, plan, win,
+                               local_gather=local_gather, **mixers)
             x = _mlp_apply(lp, x, cfg, plan)
     else:
         for lp in params["layers"]:

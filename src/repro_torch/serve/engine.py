@@ -63,9 +63,18 @@ other lane is untouched.  ``chaos=`` (a
 the front end's (``cancel``, ``deadline_skew``); slots mode, like the JAX
 package's, injects none and checks no logits.
 
-Not ported yet: ``snapshot`` / ``restore``, and the families other than
-dense and ssm (the audio family's token layout among them), which are
-refused at construction.  In slots mode the paged-pool options (prefix
+**Snapshot / restore** (paged mode): :meth:`ServeEngine.snapshot` copies
+every piece of serving state to host memory (the page pool, the sampling
+generator, the allocator, the prefix cache's tree, the scheduler and every
+in-flight request) under the JAX package's array names and host JSON, and
+:meth:`~ServeEngine.restore` writes it back in place, into the pool the
+step graphs captured, so a restored engine resumes on its graphs;
+:meth:`~ServeEngine.save_snapshot` / :meth:`~ServeEngine.load_snapshot`
+persist it through :mod:`repro_torch.ckpt`, in the JAX package's format
+(a snapshot the JAX engine saved loads here).
+
+Not ported yet: the families other than dense and ssm (the audio family's
+token layout among them), which are refused at construction.  In slots mode the paged-pool options (prefix
 cache, budget scheduler, audits) are refused or warned about as the JAX
 package does.
 """
@@ -82,6 +91,7 @@ import numpy as np
 import torch
 
 import repro_torch.obs as obs
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.config.base import ModelConfig, ServeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import resolve_attn_backend, resolve_plan
@@ -94,6 +104,7 @@ from repro_torch.models.transformer import (
     quantize_params,
 )
 from repro_torch.serve.pages import (
+    NULL_PAGE,
     AuditError,
     LaneTables,
     PageAllocator,
@@ -203,6 +214,18 @@ def _check_slots_options(scfg: ServeConfig, prefix_cache: bool,
                              "mode='slots' has no page pool to audit")
         logger.warning("ServeEngine: audit ignored in mode='slots' "
                        "(no page pool)")
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A snapshot array as a CPU tensor: a tensor as it is, a numpy array
+    without a copy (a bfloat16 one, from the JAX package, through its
+    2-byte payload)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class ServeEngine:
@@ -686,6 +709,246 @@ class ServeEngine:
             if dst not in self.alloc._mapped[slot]:
                 fail(f"pending fork dst page {dst} not mapped by its "
                      f"owner lane {slot}")
+
+    # ================================================= snapshot / restore
+    def _geometry(self) -> Dict:
+        return {
+            "family": self.cfg.family,
+            "n_slots": self.n_slots,
+            "max_len": self.max_len,
+            "page_size": self.page_size,
+            "n_pages": self.alloc.n_pages,
+            "prefill_chunk": self.prefill_chunk,
+            "kv_bits": self.kv_bits,
+            "sched": type(self.sched).__name__,
+            "prefix_cache": self.prefix_cache is not None,
+        }
+
+    def _pool_tensors(self) -> Dict[str, torch.Tensor]:
+        pools = {"pages/k": self.pages.k, "pages/v": self.pages.v}
+        if self.pages.quantized:
+            pools["pages/k_scale"] = self.pages.k_scale
+            pools["pages/v_scale"] = self.pages.v_scale
+        return pools
+
+    def snapshot(self) -> Dict:
+        """Crash-consistent snapshot of all serving state (paged mode).
+
+        Returns ``{"arrays": {name: array}, "host": <JSON-able>}`` with the
+        JAX package's names: the page pool (``pages/k``, ``pages/v`` and,
+        for int8 pools, ``pages/k_scale`` / ``pages/v_scale``, as CPU
+        tensors), each in-flight request's last logits
+        (``logits/<rid>``), and the sampling generator's state
+        (``generator``, uint8; the JAX package stores its PRNG key as
+        ``key``); the host part holds the geometry, the engine's
+        counters, the allocator's tables, the requests, the scheduler
+        (with the budget scheduler's virtual time and the pending
+        copy-on-write forks), the retry budgets and the prefix cache's
+        tree.  Every array is copied to host memory now, so later steps
+        cannot change a snapshot taken.  Terminal requests are the
+        caller's, not the engine's, and are left out; telemetry state
+        restarts fresh.  Persist it with :meth:`save_snapshot`.
+        """
+        if self.mode != "paged":
+            raise ValueError("snapshot() covers the paged engine only")
+        arrays: Dict = {name: t.detach().to("cpu", copy=True)
+                        for name, t in self._pool_tensors().items()}
+        arrays["generator"] = self.generator.get_state().numpy().copy()
+
+        live: List[Request] = [r for r in self.sched.slot_req
+                               if r is not None]
+        live += [r for r in self.sched.queue if r not in live]
+        reqs = []
+        for r in live:
+            if r.last_logits is not None:
+                arrays[f"logits/{r.rid}"] = np.array(r.last_logits)
+            reqs.append({
+                "rid": r.rid,
+                "prompt": [int(t) for t in r.prompt],
+                "max_new_tokens": r.max_new_tokens,
+                "output": [int(t) for t in r.output],
+                "prefill_tokens": [int(t) for t in r.prefill_tokens],
+                "prefill_pos": r.prefill_pos,
+                "admit_seq": r.admit_seq,
+                "preemptions": r.preemptions,
+                "cached_tokens": r.cached_tokens,
+                "submit_t": r.submit_t,
+                "ttft": r.ttft,
+                "priority": r.priority,
+                "tenant": r.tenant,
+                "retries": r.retries,
+            })
+
+        sched: Dict = {
+            "queue": [r.rid for r in self.sched.queue],
+            "slots": [r.rid if r is not None else None
+                      for r in self.sched.slot_req],
+            "admit_seq": self.sched._admit_seq,
+            "preemptions": self.sched.preemptions,
+            "prefill_computed": self.sched.prefill_computed,
+            "pending_forks": [list(f) for f in self.sched.pending_forks],
+        }
+        if isinstance(self.sched, BudgetScheduler):
+            sched["vtime"] = [[t, p, vt] for (t, p), vt
+                              in self.sched._vtime.items()]
+
+        host: Dict = {
+            "geometry": self._geometry(),
+            "engine": {
+                "next_rid": self._next_rid,
+                "shed_count": self.shed_count,
+                "quarantined": self.quarantined,
+                "retried": self.retried,
+                "engine_step": self._engine_step,
+            },
+            "alloc": {
+                "free": [int(p) for p in self.alloc.free],
+                "pos": [int(x) for x in self.alloc.pos],
+                "mapped": [[int(p) for p in m]
+                           for m in self.alloc._mapped],
+            },
+            "requests": reqs,
+            "sched": sched,
+            "retry": {str(rid): [pol.restarts, pol.last_failure_step]
+                      for rid, pol in self._retry.items()},
+        }
+        if self.prefix_cache is not None:
+            host["cache"] = self.prefix_cache.snapshot_state()
+        return {"arrays": arrays, "host": host}
+
+    def restore(self, snap: Dict) -> None:
+        """Load a :meth:`snapshot` into this engine, which must have the
+        snapshot's geometry (family, lanes, lengths, page pool, kv_bits,
+        scheduler class, prefix cache; a mismatch raises ``ValueError``
+        naming the fields).  Stepping then resumes where the snapshot was
+        taken, with the same greedy tokens.
+
+        Everything is written in place: the pool, its scales and the
+        lane buffers keep their storage, because the step graphs read
+        them by address, so an engine that has captured its graphs goes
+        on replaying them.  A snapshot the JAX engine took (``key``, no
+        ``generator``) restores too; this engine then keeps its own
+        generator, whose draws differ from JAX's anyway, and greedy
+        decoding reads none.
+        """
+        if self.mode != "paged":
+            raise ValueError("restore() covers the paged engine only")
+        host = snap["host"]
+        geom, mine = host["geometry"], self._geometry()
+        diff = {k: (geom.get(k), mine[k]) for k in mine
+                if geom.get(k) != mine[k]}
+        if diff:
+            raise ValueError(
+                f"snapshot geometry does not match this engine: {diff}")
+
+        arrays = snap["arrays"]
+        with torch.no_grad():
+            for name, pool in self._pool_tensors().items():
+                pool.copy_(_host_tensor(arrays[name]))
+        if "generator" in arrays:
+            self.generator.set_state(
+                _host_tensor(arrays["generator"]).to(torch.uint8))
+
+        # allocator first: the cache's blocked recount reads refcounts
+        alloc = host["alloc"]
+        self.alloc.free[:] = [int(p) for p in alloc["free"]]
+        self.alloc._mapped[:] = [[int(p) for p in m]
+                                 for m in alloc["mapped"]]
+        self.alloc.pos[:] = alloc["pos"]
+        self.alloc.block_tables[:, :] = NULL_PAGE
+        self.alloc.refcount[:] = 0
+        for slot, mapped in enumerate(self.alloc._mapped):
+            for blk, page in enumerate(mapped):
+                self.alloc.block_tables[slot, blk] = page
+                self.alloc.refcount[page] += 1
+        if self.prefix_cache is not None:
+            self.prefix_cache.restore_state(host["cache"])
+
+        by_rid: Dict[int, Request] = {}
+        for r in host["requests"]:
+            req = Request(r["rid"], list(r["prompt"]), r["max_new_tokens"],
+                          priority=r["priority"], tenant=r["tenant"])
+            req.output = list(r["output"])
+            req.prefill_tokens = list(r["prefill_tokens"])
+            req.prefill_pos = r["prefill_pos"]
+            req.admit_seq = r["admit_seq"]
+            req.preemptions = r["preemptions"]
+            req.cached_tokens = r["cached_tokens"]
+            req.submit_t = r["submit_t"]
+            req.ttft = r["ttft"]
+            req.retries = r["retries"]
+            lg = arrays.get(f"logits/{req.rid}")
+            if lg is not None:
+                req.last_logits = _host_tensor(lg).float().numpy().copy()
+            by_rid[req.rid] = req
+
+        # the scheduler's queue and lane table in place: the engine's
+        # ``queue`` / ``slot_req`` are the same objects
+        sched = host["sched"]
+        self.sched.queue.clear()
+        self.sched.queue.extend(by_rid[rid] for rid in sched["queue"])
+        self.sched.slot_req[:] = [by_rid[rid] if rid is not None else None
+                                  for rid in sched["slots"]]
+        self.sched._admit_seq = sched["admit_seq"]
+        self.sched.preemptions = sched["preemptions"]
+        self.sched.prefill_computed = sched["prefill_computed"]
+        self.sched.pending_forks = [
+            (int(s), int(src), int(dst))
+            for s, src, dst in sched["pending_forks"]]
+        if isinstance(self.sched, BudgetScheduler):
+            self.sched._vtime = {(t, p): vt
+                                 for t, p, vt in sched.get("vtime", [])}
+
+        eng = host["engine"]
+        self._next_rid = eng["next_rid"]
+        self.shed_count = eng["shed_count"]
+        self.quarantined = eng["quarantined"]
+        self.retried = eng.get("retried", 0)  # absent in older snapshots
+        self._engine_step = eng["engine_step"]
+        self._retry = {}
+        for rid, (restarts, last_step) in host["retry"].items():
+            self._retry[int(rid)] = RestartPolicy(
+                max_restarts=self.scfg.max_request_retries, backoff_s=0.0,
+                reset_after_steps=self.scfg.retry_reset_steps,
+                restarts=restarts, last_failure_step=last_step)
+        # in-flight requests resume under this engine's telemetry: fresh
+        # timelines open for every restored rid, so their spans end
+        # cleanly at retirement
+        self.obs.on_restore(sorted(by_rid))
+
+    def save_snapshot(self, directory: str, step: int) -> str:
+        """Persist :meth:`snapshot` through :mod:`repro_torch.ckpt`
+        (manifest, checksummed shards, atomic commit), in the JAX
+        package's layout.  Returns the written path."""
+        snap = self.snapshot()
+        specs = {name: [list(a.shape), ckpt.dtype_name(a)]
+                 for name, a in snap["arrays"].items()}
+        return ckpt.save_checkpoint(
+            directory, step, snap["arrays"],
+            extra={"kind": "serve-engine-snapshot",
+                   "host": snap["host"], "array_specs": specs})
+
+    def load_snapshot(self, directory: str,
+                      step: Optional[int] = None) -> int:
+        """Restore from a :meth:`save_snapshot` directory, this package's
+        or the JAX package's (``step=None`` loads the latest committed
+        snapshot).  Returns the step loaded.  The template the checkpoint
+        loads into is rebuilt from the manifest's ``array_specs``: a
+        snapshot describes itself."""
+        if step is None:
+            step = ckpt.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no committed snapshot in {directory}")
+        extra = ckpt.read_manifest(directory, step)["extra"]
+        if extra.get("kind") != "serve-engine-snapshot":
+            raise ValueError(
+                f"{directory} step {step} is not a serve-engine snapshot")
+        template = {name: ckpt.template_leaf(shape, dt)
+                    for name, (shape, dt) in extra["array_specs"].items()}
+        arrays, _ = ckpt.load_checkpoint(directory, template, step)
+        self.restore({"arrays": arrays, "host": extra["host"]})
+        return step
 
     @property
     def capture_seconds(self) -> float:

@@ -28,8 +28,8 @@
 All of this is host-side state, like the block tables: the serving steps
 and their CUDA graphs see only the pool and the block tables.  Inserts
 and evictions report to the engine's telemetry (``on_cache_insert`` /
-``on_cache_evict``).  ``snapshot_state`` / ``restore_state`` are not
-ported yet.
+``on_cache_evict``).  ``snapshot_state`` / ``restore_state`` carry the
+tree through ``ServeEngine.snapshot`` / ``restore``.
 """
 
 from __future__ import annotations
@@ -358,6 +358,89 @@ class PrefixCache:
         if evicted:
             self.obs.on_cache_evict(evicted)
         return evicted
+
+    # --------------------------------------------------- snapshot / restore
+    def snapshot_state(self) -> Dict:
+        """JSON-able tree state for ``ServeEngine.snapshot()``.
+
+        Nodes are listed in DFS preorder (every parent precedes its
+        children) keyed by page id: page ids are unique tree positions,
+        so ``parent`` page 0 (the null page, the root's id) means the
+        root.  The incremental eviction state (``_blocked``,
+        ``blocked_children``, the LRU heap) is derived state and is not
+        stored: :meth:`restore_state` recomputes it from the refcounts.
+        """
+        nodes: List[Dict] = []
+        stack: List[_Node] = [self.root]
+        while stack:
+            node = stack.pop()
+            if node is not self.root:
+                nodes.append({
+                    "page": int(node.page),
+                    "key": [int(t) for t in node.key],
+                    "parent": (int(node.parent.page)
+                               if node.parent is not self.root else 0),
+                    "last_used": int(node.last_used),
+                })
+            stack.extend(node.children.values())
+        return {
+            "nodes": nodes,
+            "clock": self._clock,
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_tokens": self.hit_tokens,
+            "cow_forks": self.cow_forks,
+            "inserted_pages": self.inserted_pages,
+            "evicted_pages": self.evicted_pages,
+        }
+
+    def restore_state(self, state: Dict) -> None:
+        """Rebuild the tree from :meth:`snapshot_state`.
+
+        The allocator's refcounts must already be restored: the blocked
+        counters are recomputed bottom-up from them.  Every node goes onto
+        the LRU heap, an over-approximation that the heap's pop-time
+        validation discards (interior or pinned entries are skipped, stale
+        ages re-queue).
+        """
+        self.root = _Node(None, None, NULL_PAGE)
+        self._by_page = {}
+        for n in state["nodes"]:  # preorder: parents already rebuilt
+            parent = (self.root if n["parent"] == 0
+                      else self._by_page[n["parent"]])
+            key = tuple(n["key"])
+            node = _Node(parent, key, n["page"])
+            node.last_used = n["last_used"]
+            parent.children[key] = node
+            self._by_page[n["page"]] = node
+        # the blocked state bottom-up (post-order = reversed preorder)
+        ref = self.alloc.refcount
+        order: List[_Node] = []
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            order.append(node)
+            stack.extend(node.children.values())
+        blocked: Dict[int, bool] = {}
+        self._blocked = 0
+        for node in reversed(order):
+            node.blocked_children = sum(
+                1 for c in node.children.values() if blocked[id(c)])
+            if node is self.root:
+                continue
+            b = bool(node.blocked_children > 0 or ref[node.page] > 0)
+            blocked[id(node)] = b
+            self._blocked += b
+        self._lru = [(node.last_used, page)
+                     for page, node in self._by_page.items()]
+        heapq.heapify(self._lru)
+        self._clock = state["clock"]
+        self.hits = state["hits"]
+        self.misses = state["misses"]
+        self.hit_tokens = state["hit_tokens"]
+        self.cow_forks = state["cow_forks"]
+        self.inserted_pages = state["inserted_pages"]
+        self.evicted_pages = state["evicted_pages"]
 
     # -------------------------------------------------------------- audit
     def audit(self) -> None:

@@ -57,7 +57,16 @@ into a lane's own page in place (the copy-on-write step of a mid-page
 prefix-cache hit) reads the copy when it is replayed after it.  A lane
 quarantined after NaN was planted in its pages (``-k scrub``): the scrub
 zeroes its private pages in place, and the engine's graphs, captured
-before it, replay over them and give a clean engine's tokens.
+before it, replay over them and give a clean engine's tokens.  An
+in-place ``ServeEngine.restore`` into an engine with captured graphs
+(``-k restore``) keeps the pool's and the lane buffers' addresses,
+captures nothing, and gives the uninterrupted run's tokens.
+
+The dense configs' shapes (``-k dense_groups``): both paged-attention
+kernels at G 2 (gemma3-27b, 16 KV heads) and G 12 (starcoder2-15b,
+mistral-large-123b: a part-filled second decode pass, a ragged last query
+block in a 32-token chunk), over 1,100-2,048 keys with and without
+gemma3's 1024-key window.
 """
 
 import dataclasses
@@ -312,6 +321,83 @@ def test_prefill_attention_matches_plain(cuda_device, kind, window, g,
     assert _build.LAUNCHES["paged_prefill_attention"] == before + 1
     assert _build.ROUTE_LAUNCHES[path] == before_route + 1
     assert path.endswith("cuda_core" if kind == "float32" else "tensor_core")
+    r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, window, ks, vs)
+    torch.testing.assert_close(y[:3].float(), r[:3].float(),
+                               **_attn_tol(kind))
+    assert bool(torch.isfinite(y[3]).all())
+
+
+# the dense configs' head groups (Hkv, G): gemma3-27b 16 x 2, starcoder2-15b
+# 4 x 12, mistral-large-123b 8 x 12 (decode goes 8 query heads a pass, so
+# G 12 leaves a part-filled second pass; the chunked prefill takes 64 // G
+# chunk offsets a block, so a 32-token chunk at G 12 ends in a ragged block
+# of 2 offsets); gemma3's window of 1024 keys over contexts past it
+DENSE_GROUPS = [(16, 2), (4, 12), (8, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("hkv,g", DENSE_GROUPS)
+def test_decode_attention_dense_groups(cuda_device, kind, window, hkv, g):
+    """Decode over a 2048-key table at G 2 and 12, lanes at positions 0,
+    1023, 1100, 1500 and 2047 (past the window for the last three), with
+    and without gemma3's 1024-key window: one launch, the same bits twice,
+    within the plain version's tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(hkv * g + window)
+    b, dh, page = 5, 128, 16
+    nblk = 2048 // page
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, dh,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    pos = torch.tensor([0, 1023, 1100, 1500, 2047], dtype=torch.int32,
+                       device=cuda_device)
+    before = _build.LAUNCHES["paged_decode_attention"]
+    y = paged_attention(q, kp, vp, bt, pos, window, ks, vs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_decode_attention"] == before + 1
+    assert torch.equal(y, paged_attention(q, kp, vp, bt, pos, window, ks,
+                                          vs))
+    r = paged_attention_ref(q, kp, vp, bt, pos, window, ks, vs)
+    assert y.shape == r.shape and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("start", [0, 1100])
+@pytest.mark.parametrize("hkv,g", DENSE_GROUPS)
+def test_prefill_attention_dense_groups(cuda_device, kind, window, start,
+                                        hkv, g):
+    """A 32-token chunk at G 2 and 12 (the ragged last query block of G
+    12), from ``pos0`` near 0 or past 1,100 keys, with and without the
+    1024-key window; a ragged and an idle lane: the tensor-core route,
+    one launch, within the plain version's tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(
+        hkv * g + window + start)
+    b, dh, page, c = 4, 128, 16, 32
+    nblk = 12 + -(-start // page)
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, dh,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    q = torch.randn((b, c, hkv * g, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    pos0 = start + torch.tensor([0, 19, 100, 40], dtype=torch.int32,
+                                device=cuda_device)
+    seq = pos0 + c
+    seq[2] -= 7
+    seq[3] = pos0[3]
+    path = "paged_prefill_attention/tensor_core"
+    assert prefill_route(q.dtype, kp.dtype, dh, g) == "tensor_core"
+    before = _build.ROUTE_LAUNCHES[path]
+    y = paged_prefill_attention(q, kp, vp, bt, pos0, seq, window, ks, vs)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
     r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, window, ks, vs)
     torch.testing.assert_close(y[:3].float(), r[:3].float(),
                                **_attn_tol(kind))
@@ -856,3 +942,50 @@ def test_graph_replays_over_scrubbed_pages(cuda_device, kv_bits):
     torch.cuda.synchronize()
     assert after.output == want.output and len(want.output) == 6
     assert len(eng.timings["capture"]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_graph_engine_restore_in_place(cuda_device, kv_bits):
+    """``ServeEngine.restore`` into an engine whose two step graphs are
+    captured: the snapshot taken mid-run (lanes prefilling, requests
+    queued) is restored after the engine has run to the end; the pool,
+    its scales and the lane buffers keep their addresses, no graph is
+    captured again, and the restored run gives the uninterrupted run's
+    tokens, as does a fresh engine loading the snapshot from disk."""
+    import tempfile
+
+    cfg, params, _ = _graph_model("qwen2.5-3b", cuda_device)
+    scfg = ServeConfig(max_new_tokens=6, page_size=4, prefill_chunk=5,
+                       engine=EngineConfig(weight_bits=4, kv_bits=kv_bits))
+    prompts = [list(range(1 + i, 4 + 3 * i)) for i in range(6)]
+
+    def engine():
+        return ServeEngine(cfg, params, scfg, n_slots=3, max_len=48,
+                           mode="paged", device=cuda_device)
+
+    eng = engine()
+    reqs = [eng.submit(p) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    assert eng.queue and any(r.output for r in reqs)
+    snap = eng.snapshot()
+    eng.run()
+    want = {r.rid: r.output for r in reqs}
+    assert all(g.graph is not None for g in eng._graphs)
+    captures = len(eng.timings["capture"])
+    tensors = list(eng._pool_tensors().values()) + list(
+        vars(eng.lanes).values())
+    ptrs = [t.data_ptr() for t in tensors]
+    eng.restore(snap)
+    got = {r.rid: r.output for r in eng.run()}
+    torch.cuda.synchronize()
+    assert got == {rid: want[rid] for rid in got} and len(got) == 6
+    assert len(eng.timings["capture"]) == captures
+    assert [t.data_ptr() for t in tensors] == ptrs
+    with tempfile.TemporaryDirectory() as d:
+        eng.restore(snap)
+        eng.save_snapshot(d, 3)
+        fresh = engine()
+        fresh.load_snapshot(d)
+        assert {r.rid: r.output for r in fresh.run()} == got

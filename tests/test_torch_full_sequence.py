@@ -21,6 +21,7 @@ and ``prefill`` equals decoding the prompt token by token, as
 ``tests/test_decode_equivalence.py`` holds them in JAX.
 """
 
+import dataclasses
 import functools
 from unittest import mock
 
@@ -257,3 +258,103 @@ def test_port_init_params_ssm_shapes():
     packed = tmodels.init_params(tcfg, torch.Generator().manual_seed(0),
                                  engine_bits=8)
     assert packed["layers"][2]["ssm"]["in_proj"].bits == 8
+
+
+# --------------------------------------------------------------------------
+# the dense configs of slice 11: starcoder2-15b (plain GELU MLP, tanh form
+# as jax.nn.gelu's default), gemma3-27b (sliding windows, 5 local : 1
+# global at full size; reduced: window 8, every third layer global) and
+# mistral-large-123b; logits within TOL (rtol = atol = 1e-4, float32 sums
+# in another order)
+DENSE_ARCHS = ["starcoder2-15b", "gemma3-27b", "mistral-large-123b"]
+
+
+def _gelu_qwen():
+    return reduced_f32("qwen2.5-3b", mlp_gated=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(cfg, weight_bits, local_gather=False, seed=1):
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    eng = None
+    if weight_bits:
+        params = quantize_params(params, cfg, weight_bits)
+        eng = EngineConfig(weight_bits=weight_bits, backend="reference")
+    toks = _tokens(cfg, seed)
+    fwd = jax.jit(functools.partial(forward, cfg=cfg, eng=eng, remat="none",
+                                    local_gather=local_gather))
+    logits, _ = fwd(params, {"tokens": jnp.asarray(toks)})
+    tcfg = torch_cfg(cfg)
+    tparams = params_from_numpy(jax_params_to_numpy(params), tcfg,
+                                device="cpu")
+    plan = t_resolve_plan(tconfig.EngineConfig(
+        weight_bits=weight_bits, backend="reference"), device="cpu")
+    return np.asarray(logits), toks, tcfg, tparams, plan
+
+
+@pytest.mark.parametrize("which", ["starcoder2-15b", "qwen2.5-3b-gelu"])
+def test_gelu_mlp_matches_jax(which):
+    """The plain MLP's GELU is the tanh form on both sides: reduced
+    starcoder2-15b and reduced qwen2.5-3b with ``mlp_gated=False``,
+    tokens ``default_rng(1)`` of shape (2, 32), ``forward`` on ``gather``
+    within 1e-4 (with the exact erf GELU the first differs by 8.7e-4)."""
+    cfg = (reduced_f32("starcoder2-15b") if which == "starcoder2-15b"
+           else _gelu_qwen())
+    assert not cfg.mlp_gated
+    ref, toks, tcfg, tparams, plan = _jax_forward(cfg, 0)
+    assert "w_gate" not in tparams["layers"][0]["mlp"]
+    logits, _ = tmodels.forward(tparams, {"tokens": torch.from_numpy(toks)},
+                                tcfg, plan, attn_backend="gather")
+    np.testing.assert_allclose(logits.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("route", ["gather", "cuda"])
+@pytest.mark.parametrize("weight_bits", [0, 8])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_configs_forward_match_jax(arch, weight_bits, route):
+    cfg = reduced_f32(arch)
+    ref, toks, tcfg, tparams, plan = _jax_forward(cfg, weight_bits)
+    logits, _ = tmodels.forward(tparams, {"tokens": torch.from_numpy(toks)},
+                                tcfg, plan, attn_backend=route)
+    np.testing.assert_allclose(logits.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("weight_bits", [0, 8])
+def test_gemma3_local_gather_matches_jax(weight_bits):
+    """``forward(local_gather=True)`` on reduced gemma3 (window 8, S = 32,
+    a multiple of it): every local layer through
+    :func:`attend_local_gather`, against JAX's unscanned loop, within TOL;
+    and equal to the masked dense path within TOL, the same function."""
+    cfg = reduced_f32("gemma3-27b")
+    assert S % cfg.sliding_window == 0
+    ref, toks, tcfg, tparams, plan = _jax_forward(cfg, weight_bits, True)
+    batch = {"tokens": torch.from_numpy(toks)}
+    with mock.patch.object(tt, "attend_local_gather",
+                           wraps=tt.attend_local_gather) as spy:
+        logits, _ = tmodels.forward(tparams, batch, tcfg, plan,
+                                    attn_backend="gather", local_gather=True)
+    local = sum(not tcfg.is_global_layer(i) for i in range(tcfg.n_layers))
+    assert spy.call_count == local > 0
+    np.testing.assert_allclose(logits.numpy(), ref, **TOL)
+    dense_logits, _ = tmodels.forward(tparams, batch, tcfg, plan,
+                                      attn_backend="gather")
+    np.testing.assert_allclose(logits.numpy(), dense_logits.numpy(), **TOL)
+
+
+def test_local_gather_needs_whole_windows():
+    cfg = reduced_f32("gemma3-27b")
+    _, toks, tcfg, tparams, plan = _jax_forward(cfg, 0)
+    with pytest.raises(ValueError, match="multiple"):
+        tmodels.forward(tparams, {"tokens": torch.from_numpy(toks[:, :30])},
+                        tcfg, plan, local_gather=True)
+
+
+def test_port_registry_holds_the_dense_configs():
+    """Each config file of the port equals the JAX package's, published
+    and reduced."""
+    from repro.config import get_arch as j_get_arch, get_reduced as j_red
+
+    for arch in DENSE_ARCHS:
+        for mine, ref in ((tconfig.get_arch(arch), j_get_arch(arch)),
+                          (tconfig.get_reduced(arch), j_red(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch

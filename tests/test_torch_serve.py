@@ -46,7 +46,7 @@ def model():
 
 
 def _serve_both(model, *, weight_bits=0, kv_bits=0, max_new=5, n_slots=2,
-                max_len=32, prompts=PROMPTS, **kw):
+                max_len=32, prompts=PROMPTS, port_attn="gather", **kw):
     cfg, params, tcfg, tparams = model
     out = []
     for pkg in ("jax", "torch"):
@@ -64,7 +64,7 @@ def _serve_both(model, *, weight_bits=0, kv_bits=0, max_new=5, n_slots=2,
             eng = ServeEngine(
                 tcfg, tparams, tconfig.ServeConfig(max_new_tokens=max_new,
                                                    engine=ecfg),
-                n_slots=n_slots, max_len=max_len, attn_backend="gather",
+                n_slots=n_slots, max_len=max_len, attn_backend=port_attn,
                 device="cpu", **kw)
         for p in prompts:
             eng.submit(p)
@@ -175,3 +175,52 @@ def test_unported_options_are_refused(model):
     assert all(o == outputs[0] for o in outputs[1:])
     with pytest.raises(NotImplementedError, match="not ported"):
         tconfig.EngineConfig(sharded=True)
+
+
+# ----------------------------------------------- the dense configs
+DENSE_ARCHS = ["starcoder2-15b", "gemma3-27b", "mistral-large-123b"]
+# int8 pages at 4-bit weights: the pools hold the same codes and scales
+# in both packages, but the 4-bit GEMVs' last-bit differences reach the
+# scores, and a bf16 rounding of ``p * s_v`` that falls the other way moves
+# an attention output by a bf16 ulp (2^-8 relative); reduced
+# mistral-large-123b's logits (|x| < 3.5) then differ by up to 2.6e-3
+# (1.7e-6 at float32 weights, 3.9e-6 with full-precision pages)
+DENSE_KV8_TOL = dict(rtol=1e-3, atol=5e-3)
+# gemma3's reduced window is 8 keys: prompts of 9-21 tokens pass it
+DENSE_PROMPTS = [list(range(1, 22)), [4, 5, 6, 7, 8, 9, 10, 11, 12],
+                 [9] * 14, [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]]
+
+
+@pytest.fixture(scope="module")
+def dense_models():
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = reduced_f32(arch)
+        params = init_params(cfg, jax.random.PRNGKey(0))
+        tcfg = torch_cfg(cfg)
+        out[arch] = (cfg, params, tcfg, params_from_numpy(
+            jax_params_to_numpy(params), tcfg, device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("attn_backend", ["gather", "cuda"])
+@pytest.mark.parametrize("kv_bits", [0, 8])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_configs_tokens_match_jax(dense_models, arch, kv_bits,
+                                        attn_backend):
+    """Reduced starcoder2-15b (GELU MLP), gemma3-27b (window 8 on two of
+    every three layers, prompts past it) and mistral-large-123b, served
+    paged at 4-bit weights: the port's greedy tokens equal JAX's
+    ``gather`` serve path, and with int8 pages the final logits agree
+    within DENSE_KV8_TOL.  ``cuda`` on the CPU runs the paged kernels'
+    plain versions behind their wrappers (windows included)."""
+    (_, jreq), (teng, treq) = _serve_both(
+        dense_models[arch], weight_bits=4, kv_bits=kv_bits, max_new=6,
+        max_len=48, prompts=DENSE_PROMPTS, page_size=4, prefill_chunk=5,
+        port_attn=attn_backend)
+    assert teng.attn_backend == attn_backend
+    for j, t in zip(jreq, treq):
+        assert j.output == t.output, (arch, j.rid, j.output, t.output)
+        if kv_bits:
+            np.testing.assert_allclose(t.last_logits, j.last_logits,
+                                       **DENSE_KV8_TOL)
