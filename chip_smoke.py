@@ -17,11 +17,19 @@ exits non-zero:
                 M 1 / 2 / 4 / 8, run twice for the same bits; ``rows``
                 float32 x, ``tensor_core`` bfloat16 x at larger M), the
                 last at ragged prefill M (100, 8192), K and N (300, 1983,
-                3352); paged decode attention's splits over a 4096-key
-                table (G 1-12, Dh 64-128, pages 16 / 32, run twice); flash
-                attention (D up to 128, padded outside 32 / 64 / 128) and
-                the chunked prefill through both of their routes
-                (``tensor_core`` bfloat16, ``cuda_core`` float32); the SSD
+                3352); the bit-plane GEMV's expert-grouped launch (stacked
+                MoE experts) through its three routes (``grouped_decode``
+                at 8 rows an expert, run twice for the same bits;
+                ``grouped_tensor_core`` / ``grouped_rows`` at 64) at
+                llama4-scout's and qwen3-moe's expert shapes, with routed
+                counts, empty experts, every row in one expert and every
+                expert at the bound; paged decode attention's splits over
+                a 4096-key table (G 1-12, Dh 64-128, pages 16 / 32, run
+                twice); flash attention (D up to 256, padded outside 32 /
+                64 / 128 / 256) and the chunked prefill through both of
+                their routes (``tensor_core`` bfloat16, ``cuda_core``
+                float32), the prefill's tensor-core route at D 192 and
+                256 too; the SSD
                 scan at 1, 16 and 32 chunks, N 64 and 128, bfloat16 and
                 float32 inputs, and chunks over 256 steps that the kernels
                 cut, with a shorter last chunk (``SSD_CASES``, every call
@@ -33,7 +41,11 @@ exits non-zero:
                 paged, ``long`` and ``ssm`` decode steps); with the
                 bit-plane GEMV at 8 (radix 1, 2), 4 and 2 bits beside the
                 int8 bit-parallel baseline, the card's version of the
-                paper's bit-serial against bit-parallel comparison.  The
+                paper's bit-serial against bit-parallel comparison; the
+                grouped launch at the MoE experts' shapes, a decode step
+                (8 lanes routed: the bound counts the touched experts'
+                codes) and a chunk (64 rows an expert), against
+                ``torch.bmm`` on the touched experts' bf16 weights.  The
                 rows of the kernels that replaced an earlier design carry
                 its time (``earlier_ms``, ``EARLIER_MS``).
 4. ``main``     paged serving: ``ServeEngine`` on full-width qwen2.5-3b (36
@@ -113,6 +125,21 @@ exits non-zero:
                 3.35 TB/s; graphs against eager (identical tokens); and
                 ``whole``'s check at 2 layers (gemma3: one local, one
                 global layer, prompts past the window).
+   ``moe``      after ``dense`` has freed its params: llama4-scout-17b-a16e
+                (48 layers, full width, 16 experts top-1 and a shared
+                expert) and qwen3-moe-235b-a22b cut to 16 of 94 layers
+                (128 experts top-8), ``main``'s setup and traffic, the
+                expert linears on the grouped launch: tok/s, step and
+                chunk ms, init seconds, peak memory, launches by route
+                (the grouped routes above 0, checked step by step), the
+                ledger's decode bytes share (every expert priced, as the
+                JAX package's ledger prices them) and the routed one (the
+                experts the steps touched); ``moe_*_profile``: four
+                decode steps and two chunks by kernel, as
+                ``main_profile``; graphs against eager (identical
+                tokens); ``whole``'s check at 2 layers in
+                float32 with float32 pages (a router near-tie rerouted by
+                a bf16 rounding is no kernel fault).
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
@@ -156,6 +183,9 @@ exits non-zero:
                 tensor-core route, with that route's launches on the same
                 paths (``long`` and ``main`` prefill; ``engine``, which
                 runs the int8 baseline at M = 1 only, for ``int8_matvec``);
+                ``bitplane_gemv_grouped``, the grouped launch, with its
+                launches by route in ``moe``'s llama4-scout run and its
+                timed rows (``grouped``);
                 for every kernel with routes its path's launches by route
                 (``routes``) and the route its timed record took.
 
@@ -224,6 +254,11 @@ KERNELS = {
     "int8_matvec": dict(
         route="cuda", source="src/repro_torch/csrc/int8_matvec.cu",
         replaces="src/repro/kernels/int8_matvec/kernel.py:40"),
+    # the same TPU kernel's function over stacked MoE experts: the
+    # expert-grouped launch of its three designs (grouped_* routes)
+    "bitplane_gemv_grouped": dict(
+        route="cuda", source="src/repro_torch/csrc/bitplane_gemv_grouped.cu",
+        replaces="src/repro/kernels/bitplane_gemv/kernel.py:93"),
 }
 PAGED_KERNELS = ("bitplane_gemv", "paged_decode_attention",
                  "paged_prefill_attention")
@@ -239,6 +274,19 @@ INT8_RAGGED = (2001, 1003)
 # 8-byte aligned (mamba2-130m's in_proj)
 TC_RAGGED = [(520, 300), (200, 1983), (768, 3352)]
 TC_ROWS = (100, 8192)
+# the MoE experts' linears (K, N, experts, top_k): llama4-scout-17b-a16e's
+# w_gate/w_up and w_down, qwen3-moe-235b-a22b's; the grouped GEMV's
+# parity adds a ragged shape.  A decode step routes 8 lanes' tokens, a
+# prefill chunk at most 8 rows a lane (the capacity of a 32-token chunk)
+GROUPED_SHAPES = [(5120, 8192, 16, 1), (8192, 5120, 16, 1),
+                  (4096, 1536, 128, 8), (1536, 4096, 128, 8)]
+GROUPED_NAMES = {(5120, 8192): "llama4 w_gate/w_up",
+                 (8192, 5120): "llama4 w_down",
+                 (4096, 1536): "qwen3 w_gate/w_up",
+                 (1536, 4096): "qwen3 w_down"}
+GROUPED_BOUNDS = {"decode": 8, "chunk": 64}
+# phase moe: (arch, layers or None for all), served with main's setup
+MOE_CASES = [("llama4-scout-17b-a16e", None), ("qwen3-moe-235b-a22b", 16)]
 # the engine phase's exact GEMVs: qwen2.5-3b's wq (K = N = 2048); the U55's
 # largest resident 8-bit square GEMV is added at run time
 ENGINE_DIMS = (2048,)
@@ -439,7 +487,8 @@ def gemv_parity(torch, dev):
                         worst_used = max(worst_used, used)
                         n_cases += 1
     torch.cuda.synchronize()
-    routes = route_counts("bitplane_gemv")
+    routes = {r: n for r, n in route_counts("bitplane_gemv").items()
+              if not r.startswith("grouped_")}
     if not all(routes.values()):
         raise AssertionError(f"bitplane_gemv parity missed a route: {routes}")
     emit("parity", kernel="bitplane_gemv", cases=n_cases,
@@ -494,6 +543,192 @@ def gemv_time(torch, dev, m, k, n, bits=4, radix=1, dt=None):
                max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
                plain_ms=plain, library_ms=lib, library="torch.matmul on "
                "the dequantized weight", bytes=n_bytes, ops=n_ops,
+               bound_ms=bms, bound_by=by)
+    emit("time", **rec)
+    return rec
+
+
+# ------------------------------------------- grouped (MoE) GEMV phase
+def routed_counts(torch, dev, gen, experts, top_k, lanes, tokens, cap):
+    """Rows per expert of a routing of ``lanes`` x ``tokens`` tokens to
+    ``top_k`` distinct experts each by a random router, kept under the
+    per-lane capacity ``cap``: (E,) int32 on ``dev``."""
+    scores = torch.rand((lanes, tokens, experts), generator=gen, device=dev)
+    top = torch.topk(scores, top_k, dim=-1).indices
+    per_lane = torch.zeros((lanes, experts), dtype=torch.int32, device=dev)
+    per_lane.scatter_add_(1, top.reshape(lanes, -1),
+                          torch.ones_like(top.reshape(lanes, -1),
+                                          dtype=torch.int32))
+    return per_lane.clamp(max=cap).sum(0).int()
+
+
+def grouped_case(torch, dev, gen, bits, k, n, counts, dt):
+    """Stacked random codes and scales and rows sorted by expert for
+    ``counts`` rows an expert, with 3 rows past the last expert's."""
+    experts = counts.numel()
+    packed = torch.randint(-128, 128, (experts, k * bits // 8, n),
+                           generator=gen, device=dev, dtype=torch.int8)
+    scale = torch.rand((experts, 1, n), generator=gen, device=dev) / 64 + 1e-3
+    offsets = torch.zeros(experts + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0)
+    rows = int(offsets[-1])
+    x = torch.randn((rows + 3, k), generator=gen, device=dev).to(dt)
+    return packed, scale, x, offsets, rows
+
+
+def grouped_parity(torch, dev):
+    """The grouped launch against its plain version through each route:
+    a decode bound of 8 rows an expert (``grouped_decode``, run twice:
+    the same bits) and a chunk bound of 64 (``grouped_tensor_core`` for
+    bf16 x, ``grouped_rows`` for float32), with routed counts (some
+    experts empty), every row in one expert, and every expert at the
+    bound, at both configs' expert shapes and a ragged one."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._gemv import grouped_route
+    from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv_grouped
+    from repro_torch.kernels.bitplane_gemv.ref import (
+        bitplane_gemv_grouped_ref,
+    )
+
+    _build.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    worst, worst_used, n_cases = 0.0, 0.0, 0
+    shapes = GROUPED_SHAPES + [(200, 300, 6, 2)]
+    for k, n, experts, top_k in shapes:
+        for mode, bound in GROUPED_BOUNDS.items():
+            tokens = 1 if mode == "decode" else 32
+            patterns = {
+                "routed": routed_counts(torch, dev, gen, experts, top_k, 8,
+                                        tokens, bound // 8),
+                "one": torch.zeros(experts, dtype=torch.int32, device=dev),
+                "full": torch.full((experts,), bound, dtype=torch.int32,
+                                   device=dev)}
+            patterns["one"][experts // 2] = bound
+            for pattern, counts in patterns.items():
+                for dt in (torch.bfloat16, torch.float32):
+                    for bits in ((4,) if k != 200 else (2, 4, 8)):
+                        packed, scale, x, offsets, rows = grouped_case(
+                            torch, dev, gen, bits, k, n, counts, dt)
+                        path = grouped_route(bound, dt)
+                        before = route_counts("bitplane_gemv")[path]
+                        y = bitplane_gemv_grouped(
+                            packed, scale, x, offsets, max_rows=bound,
+                            bits=bits, out_dtype=dt)
+                        if route_counts("bitplane_gemv")[path] != before + 1:
+                            raise AssertionError(f"grouped: {path} not "
+                                                 "counted")
+                        r = bitplane_gemv_grouped_ref(
+                            packed, scale, x, offsets, max_rows=bound,
+                            bits=bits, out_dtype=dt)
+                        rtol, atol = gemv_tol(dt, r)
+                        err, used = check_close(
+                            "bitplane_gemv_grouped", y[:rows], r[:rows],
+                            rtol, atol, k=k, n=n, experts=experts,
+                            pattern=pattern, bound=bound, bits=bits,
+                            dtype=str(dt))
+                        if mode == "decode" and not torch.equal(
+                                y[:rows], bitplane_gemv_grouped(
+                                    packed, scale, x, offsets,
+                                    max_rows=bound, bits=bits,
+                                    out_dtype=dt)[:rows]):
+                            raise AssertionError(
+                                f"grouped decode K={k} N={n}: two runs "
+                                "differ")
+                        worst = max(worst, err)
+                        worst_used = max(worst_used, used)
+                        n_cases += 1
+                        del packed, scale, x, y, r
+    torch.cuda.synchronize()
+    routes = {r: v for r, v in route_counts("bitplane_gemv").items()
+              if r.startswith("grouped_")}
+    if not all(routes.values()):
+        raise AssertionError(f"grouped parity missed a route: {routes}")
+    emit("parity", kernel="bitplane_gemv_grouped", cases=n_cases,
+         sweep="(K,N,E) llama4 (5120,8192,16), (8192,5120,16), qwen3 "
+               "(4096,1536,128), (1536,4096,128), ragged (200,300,6) x "
+               "bound {8 decode, 64 chunk} x counts {routed (experts "
+               "empty), one expert at the bound, every expert at the "
+               "bound} x {bfloat16, float32} x 4 bits (2/4/8 on the ragged "
+               "shape); decode run twice, the same bits",
+         tolerance="float32: rtol 1e-5, atol 1e-5*max|ref|; bfloat16 "
+                   "output: rtol 2^-7 (one ulp), atol 1e-5*max|ref|",
+         max_abs_err=worst, max_share_of_tol=worst_used, routes=routes)
+
+
+def grouped_time(torch, dev, k, n, experts, top_k, mode, bits=4):
+    """Kernel, plain and library times of one grouped call, bf16 x: at
+    ``decode``, 8 lanes' tokens routed (the touched experts get 1-8 rows);
+    at ``chunk``, every expert at the chunk's bound of 64 rows.  The bound
+    counts the codes and scales of the touched experts, x and y; the
+    library call is ``torch.bmm`` over the touched experts' bf16 weights
+    with each expert's rows padded to the most any has."""
+    from repro_torch.core import unpack_weights
+    from repro_torch.kernels._gemv import grouped_route
+    from repro_torch.kernels.bitplane_gemv.kernel import (
+        bitplane_gemv_grouped_cuda,
+    )
+    from repro_torch.kernels.bitplane_gemv.ref import (
+        bitplane_gemv_grouped_ref,
+    )
+
+    dt = torch.bfloat16
+    bound = GROUPED_BOUNDS[mode]
+    gen = torch.Generator(device=dev).manual_seed(SEED + k + n + bound)
+    if mode == "decode":
+        counts = routed_counts(torch, dev, gen, experts, top_k, 8, 1, 1)
+    else:
+        counts = torch.full((experts,), bound, dtype=torch.int32,
+                            device=dev)
+    packed, scale, x, offsets, rows = grouped_case(torch, dev, gen, bits, k,
+                                                   n, counts, dt)
+
+    def kernel(p):
+        return bitplane_gemv_grouped_cuda(p, scale, x, offsets,
+                                          max_rows=bound, bits=bits,
+                                          radix=1, out_dtype=dt)
+
+    def plain(p):
+        return bitplane_gemv_grouped_ref(p, scale, x, offsets,
+                                         max_rows=bound, bits=bits,
+                                         out_dtype=dt)
+
+    y, r = kernel(packed), plain(packed)
+    rtol, atol = gemv_tol(dt, r)
+    err, _ = check_close("bitplane_gemv_grouped", y[:rows], r[:rows], rtol,
+                         atol, k=k, n=n, mode=mode)
+    touched = int((counts > 0).sum())
+    per_expert = k * n * bits // 8 + 4 * n
+    n_bytes = touched * per_expert + 2 * rows * (k + n)
+    n_ops = 2 * rows * k * n
+    bms, by = bound_ms(n_bytes, n_ops, "bfloat16")
+    copies = n_copies(touched * per_expert)
+    packs = [packed.clone() for _ in range(copies)]
+    ms = timed_ms(kernel, [(p,) for p in packs], torch)
+    plain_ms = timed_ms(plain, [(p,) for p in packs[:2]], torch)
+    del packs
+    # the library call: the touched experts' weights dequantized to bf16,
+    # each expert's rows in a slot padded to the most any has
+    idx = torch.nonzero(counts).flatten()
+    width = int(counts.max())
+    w_deq = torch.stack([(unpack_weights(packed[e], bits).float()
+                          * scale[e]).to(dt) for e in idx.tolist()])
+    slots = torch.zeros((touched, width, k), dtype=dt, device=dev)
+    for j, e in enumerate(idx.tolist()):
+        lo, c = int(offsets[e]), int(counts[e])
+        slots[j, :c] = x[lo:lo + c]
+    lib_copies = [w_deq.clone() for _ in
+                  range(n_copies(w_deq.numel() * w_deq.element_size()))]
+    lib = timed_ms(lambda w: torch.bmm(slots, w), [(w,) for w in lib_copies],
+                   torch)
+    del lib_copies, w_deq
+    rec = dict(kernel="bitplane_gemv_grouped",
+               linear=GROUPED_NAMES.get((k, n), ""), mode=mode, k=k, n=n,
+               experts=experts, touched=touched, rows=rows,
+               max_rows=bound, bits=bits, dtype="bfloat16",
+               gemv_route=grouped_route(bound, dt), max_abs_err=err,
+               tol=dict(rtol=rtol, atol=atol), ms=ms, plain_ms=plain_ms,
+               library_ms=lib, library="torch.bmm on the touched experts' "
+               "dequantized bf16 weights", bytes=n_bytes, ops=n_ops,
                bound_ms=bms, bound_by=by)
     emit("time", **rec)
     return rec
@@ -612,6 +847,55 @@ def attn_parity(torch, dev):
                        "rtol=atol=2^-7", max_abs_err=err,
              max_share_of_tol=used,
              **({"routes": routes} if name == "prefill" else {}))
+
+
+def prefill_head_dim_parity(torch, dev):
+    """The chunked prefill's tensor-core route at head dims past 128 (256,
+    and 192 padded to it): bf16 and int8 pools, windows 0 and 37, pos0
+    past 256 tokens of context, a ragged and an idle lane."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_prefill_attention,
+    )
+    from repro_torch.kernels.paged_attention.ref import paged_prefill_ref
+
+    _build.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    b, hkv, g, page, nblk, c = 8, 2, 8, 16, 24, 32
+    worst, worst_used, n_cases = 0.0, 0.0, 0
+    for kind in ("bfloat16", "int8"):
+        for dh in (192, 256):
+            kp, vp, ks, vs = attn_pools(torch, dev, gen, kind, b * nblk + 1,
+                                        page, hkv, dh)
+            bt = (1 + torch.randperm(b * nblk, generator=gen, device=dev)
+                  ).reshape(b, nblk).int()
+            rtol, atol = attn_tol(kind)
+            for window in (0, 37):
+                pos0 = torch.tensor([0, 7, 16, 45, 100, 201, 300, 120],
+                                    dtype=torch.int32, device=dev)
+                seq = pos0 + c
+                seq[6] = pos0[6] + 5
+                seq[7] = pos0[7]
+                q = torch.randn((b, c, hkv * g, dh), generator=gen,
+                                device=dev).bfloat16()
+                y = paged_prefill_attention(q, kp, vp, bt, pos0, seq,
+                                            window, ks, vs)
+                r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, window, ks,
+                                      vs)
+                err, used = check_close("paged_prefill_attention", y[:7],
+                                        r[:7], rtol, atol, kind=kind, dh=dh,
+                                        window=window)
+                worst, worst_used = max(worst, err), max(worst_used, used)
+                n_cases += 1
+    torch.cuda.synchronize()
+    routes = route_counts("paged_prefill_attention")
+    if routes != {"cuda_core": 0, "tensor_core": n_cases}:
+        raise AssertionError(f"prefill at D 192/256: routes {routes}")
+    emit("parity", kernel="paged_prefill_attention", cases=n_cases,
+         sweep="head dims {192 (padded), 256} x pools {bfloat16,int8} x "
+               "window {0,37}; G=8, page 16, pos0 0-300, a ragged and an "
+               "idle lane", tolerance="rtol=atol=2^-7", max_abs_err=worst,
+         max_share_of_tol=worst_used, routes=routes)
 
 
 def decode_split_parity(torch, dev):
@@ -1050,18 +1334,27 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
     # GEMV's tensor-core route must launch in exactly the steps that ran a
     # prefill chunk, its decode route in exactly those that ran a decode
     # step (each adds one entry to ``eng.timings``) and, for an untied
-    # lm_head, once in each that ran a chunk, and its rows route never; the chunked prefill's tensor-core route once a layer in every
-    # step that ran a chunk, its CUDA-core route never.  Slots mode: every
-    # prompt token admitted and every decode step is one full-sequence
-    # decode step, so the decode route launches a full step's GEMVs for
-    # each, and no other route or attention kernel ever launches
+    # lm_head, once in each that ran a chunk, and its rows route never; the
+    # chunked prefill's tensor-core route once a layer in every step that
+    # ran a chunk, its CUDA-core route never.  A moe layer's three expert
+    # linears take the grouped launch instead: grouped_tensor_core once
+    # each in a step that ran a chunk, grouped_decode once each in one
+    # that ran a decode step, grouped_rows never (none for the other
+    # families).  Slots mode: every prompt token admitted and every decode
+    # step is one full-sequence decode step, so the decode routes launch
+    # a full step's GEMVs for each, and no other route or attention kernel
+    # ever launches
     slots = eng.mode == "slots"
     # an untied lm_head is packed too: one more GEMV a decode step, and in
     # paged mode one at M = n_slots for each prefill chunk's last tokens
     head = int(not isinstance(eng.params.get("lm_head", {}), dict))
-    per_step = (7 if eng.cfg.family == "dense" else 2) * eng.cfg.n_layers
-    per_step += head
+    family, n_layers = eng.cfg.family, eng.cfg.n_layers
+    flat = {"dense": 7, "ssm": 2,
+            "moe": 4 + 3 * bool(eng.cfg.n_shared_experts)}[family]
+    per_step = flat * n_layers + head
+    per_grouped = 3 * n_layers if family == "moe" else 0
     gemv_launches = {"prefill": 0, "decode": 0}
+    grouped_launches = {"prefill": 0, "decode": 0}
     attn_launches = 0
     t0 = time.perf_counter()
     done = []
@@ -1078,17 +1371,24 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
         done.extend(eng.step())
         moved = {k: v - before[k]
                  for k, v in route_counts("bitplane_gemv").items()}
+        grouped = {k.removeprefix("grouped_"): moved.pop(k)
+                   for k in list(moved) if k.startswith("grouped_")}
         moved_attn = {k: v - before_attn[k] for k, v in
                       route_counts("paged_prefill_attention").items()}
         ran = {part: len(eng.timings[part]) > n for part, n in ran.items()}
         if slots:
             want = per_step * (admitted + ran["decode"])
+            want_grouped = {"decode": per_grouped * (admitted
+                                                     + ran["decode"]),
+                            "rows": 0, "tensor_core": 0}
             if moved != {"decode": want, "rows": 0, "tensor_core": 0}:
                 raise AssertionError(f"{name}: GEMV routes {moved} in a "
                                      f"step that ran {ran}, {admitted} "
                                      f"prompt tokens: wanted {want}")
             want_attn = 0
         else:
+            want_grouped = {"decode": per_grouped * ran["decode"], "rows": 0,
+                            "tensor_core": per_grouped * ran["prefill"]}
             lm_head = head * ran["prefill"]
             if ((moved["tensor_core"] > 0) != ran["prefill"]
                     or (moved["decode"] - lm_head > 0) != ran["decode"]
@@ -1099,8 +1399,14 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
         if moved_attn != {"cuda_core": 0, "tensor_core": want_attn}:
             raise AssertionError(f"{name}: prefill attention routes "
                                  f"{moved_attn} in a step that ran {ran}")
+        if grouped != want_grouped:
+            raise AssertionError(f"{name}: grouped GEMV routes {grouped} in "
+                                 f"a step that ran {ran}: wanted "
+                                 f"{want_grouped}")
         gemv_launches["prefill"] += moved["tensor_core"]
         gemv_launches["decode"] += moved["decode"]
+        grouped_launches["prefill"] += grouped["tensor_core"]
+        grouped_launches["decode"] += grouped["decode"]
         attn_launches += moved_attn["tensor_core"]
         if check_step is not None:
             check_step(eng, reqs)
@@ -1163,6 +1469,8 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
         launches=launches, route_launches=dict(_build.ROUTE_LAUNCHES),
         gemv_tensor_core_launches=gemv_launches["prefill"],
         gemv_decode_launches=gemv_launches["decode"],
+        gemv_grouped_tensor_core_launches=grouped_launches["prefill"],
+        gemv_grouped_decode_launches=grouped_launches["decode"],
         prefill_attention_tensor_core_launches=attn_launches,
         prefill_attention_per_chunk=attn_launches / max(len(pf), 1))
     emit(name, **rec)
@@ -1173,6 +1481,9 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
     if not gemv_launches["decode"] or (not slots
                                        and not gemv_launches["prefill"]):
         raise AssertionError(f"{name}: GEMV launches {gemv_launches}")
+    if family == "moe" and not (grouped_launches["decode"] and (
+            slots or grouped_launches["prefill"])):
+        raise AssertionError(f"{name}: grouped launches {grouped_launches}")
     if eng.cuda_graphs and eng.timings["capture"] == []:
         raise AssertionError(f"{name}: no step was captured")
     return rec, [r.output for r in reqs]
@@ -2010,7 +2321,7 @@ DENSE_CASES = [("starcoder2-15b", None, (16, 33, 300), 1024),
                ("mistral-large-123b", 8, (16, 33, 300), 1024)]
 
 
-def dense_config(arch, n_layers=None, **changes):
+def arch_config(arch, n_layers=None, **changes):
     from repro_torch.config import get_arch
 
     cfg = get_arch(arch)
@@ -2050,7 +2361,7 @@ def dense_path(torch, dev):
     window)."""
     out = {}
     for arch, depth, (n, lo, hi), max_len in DENSE_CASES:
-        cfg = dense_config(arch, depth)
+        cfg = arch_config(arch, depth)
         prompts = prompts_for(cfg, n, lo, hi, SEED + 50)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2069,8 +2380,8 @@ def dense_path(torch, dev):
             "paged_decode_attention"]
         out[arch] = dict(
             model=cfg.name, layers=cfg.n_layers,
-            layers_published=dense_config(arch).n_layers,
-            depth_cut=(f"{dense_config(arch).n_layers} -> {cfg.n_layers} "
+            layers_published=arch_config(arch).n_layers,
+            depth_cut=(f"{arch_config(arch).n_layers} -> {cfg.n_layers} "
                        "layers" if depth else None),
             d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
             group=cfg.n_heads // cfg.n_kv_heads, d_ff=cfg.d_ff,
@@ -2094,11 +2405,135 @@ def dense_path(torch, dev):
         del params
         torch.cuda.empty_cache()
         # two layers at full width against the plain path
-        two = (dense_config(arch, 2, global_every=2) if cfg.sliding_window
-               else dense_config(arch, 2))
+        two = (arch_config(arch, 2, global_every=2) if cfg.sliding_window
+               else arch_config(arch, 2))
         whole_path_check(torch, dev, cfg=two, max_len=max_len,
                          prompts=prompts_for(two, 8, lo, hi, SEED + 51),
                          name=f"{name}_whole")
+        torch.cuda.empty_cache()
+    return out
+
+
+def routed_bytes_share(eng, rec, ledger):
+    """The ledger's decode step with its stacked expert linears priced for
+    the experts the run's decode steps touched (mean over steps, summed
+    over layers: ``eng.experts_touched``) in place of every expert, over
+    the measured mean and p50 step, as shares of 3.35 TB/s."""
+    import numpy as np
+
+    import repro_torch.obs as obs
+
+    touched = eng.experts_touched["decode"]
+    specs = obs.linear_specs(eng.params)
+    table = obs.decode_step_costs(
+        obs.model_dims(eng.cfg), batch=eng.n_slots,
+        context=eng._max_blocks * eng.page_size, page_size=eng.page_size,
+        attn_backend=eng.attn_backend, kv_bits=eng.kv_bits, specs=specs)
+    mean_touched = float(np.mean(touched))
+    n_bytes = obs.total_cost(obs.routed_costs(table, specs,
+                                              touched=mean_touched)).bytes
+    if abs(obs.total_cost(table).bytes - ledger["decode_step_bytes"]) > 1:
+        raise AssertionError("routed_bytes_share: not the ledger's table")
+    share = dict(
+        experts_touched_per_step_mean=mean_touched,
+        experts_touched_per_layer_mean=mean_touched / eng.cfg.n_layers,
+        experts_per_layer=eng.cfg.n_experts,
+        routed_decode_step_bytes=n_bytes,
+        routed_decode_bound_ms=1e3 * n_bytes / PEAK_HBM_BYTES_S,
+        routed_hbm_roofline_share_mean=n_bytes / (
+            rec["decode_step_ms"] / 1e3 * PEAK_HBM_BYTES_S),
+        routed_hbm_roofline_share_p50=n_bytes / (
+            rec["decode_step_ms_p50"] / 1e3 * PEAK_HBM_BYTES_S))
+    if share["routed_hbm_roofline_share_mean"] > 1:
+        raise AssertionError(f"routed bytes share above 1: {share}")
+    return share
+
+
+def moe_path(torch, dev):
+    """Phase ``moe``: each of ``MOE_CASES`` served paged with ``main``'s
+    setup (``weight_bits=4, kv_bits=8``, 8 lanes, max_len 1024, page 16,
+    chunk 32, 16 prompts of 33-300 tokens, 32 new tokens each) with the
+    step graphs: tok/s, step and chunk ms, init seconds, peak memory,
+    launches by route (the grouped routes above 0), the ledger's decode
+    bytes share (every expert priced, as the JAX package's ledger prices
+    them) and the routed one (the experts the steps touched); then
+    eagerly (identical tokens); then at 2 layers in float32 with float32
+    pages against the plain-backend engine (``whole``'s check).  Returns
+    each case's record."""
+    out = {}
+    for arch, depth in MOE_CASES:
+        cfg = arch_config(arch, depth)
+        prompts = prompts_for(cfg, 16, 33, 300, SEED + 60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, params = build_engine(torch, dev, cfg, 4, 8)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        name = f"moe_{arch}"
+        rec, tokens = serve(torch, name, eng, prompts, 32)
+        check_graphs(name, eng)
+        ledger = decode_bytes_share(eng, rec)
+        routed = routed_bytes_share(eng, rec, ledger)
+        chunks_touched = eng.experts_touched["prefill"]
+        routed["experts_touched_per_chunk_mean"] = (
+            sum(chunks_touched) / max(len(chunks_touched), 1))
+        # where a decode step's device time goes: 8 more prompts, four
+        # decode-only steps and two chunks profiled (replays)
+        prof = profile_decode_steps(
+            torch, eng, prompts_for(cfg, 8, 33, 300, SEED + 62),
+            name=f"{name}_profile")
+        routes = {k: route_counts(k, rec["route_launches"])
+                  for k in ("bitplane_gemv", "paged_prefill_attention")}
+        routes["paged_decode_attention"] = rec["launches"][
+            "paged_decode_attention"]
+        grouped = {r: v for r, v in routes["bitplane_gemv"].items()
+                   if r.startswith("grouped_")}
+        if not (grouped["grouped_decode"] and grouped["grouped_tensor_core"]):
+            raise AssertionError(f"{name}: grouped routes {grouped}")
+        out[arch] = dict(
+            model=cfg.name, layers=cfg.n_layers,
+            layers_published=arch_config(arch).n_layers,
+            depth_cut=(f"{arch_config(arch).n_layers} -> {cfg.n_layers} "
+                       "layers" if depth else None),
+            d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+            experts=cfg.n_experts, top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff,
+            shared_experts=cfg.n_shared_experts, vocab=cfg.vocab_size,
+            prompts=[16, 33, 300], init_s=init_s,
+            **{k: rec[k] for k in (
+                "tok_s", "decode_steps", "decode_step_ms",
+                "decode_step_ms_p50", "prefill_chunks", "prefill_chunk_ms",
+                "prefill_chunk_ms_p50", "prefill_tok_s", "peak_mem_gib",
+                "capture_s", "launches", "gemv_grouped_decode_launches",
+                "gemv_grouped_tensor_core_launches")},
+            routes=routes, grouped_routes=grouped,
+            ledger_bytes_note="every expert of every layer priced, as "
+                              "the JAX package's ledger prices them",
+            **ledger, **routed,
+            **{f"profile_{k}": prof.get(k) for k in (
+                "replay_ms", "replay_share", "step_wall_ms",
+                "device_kernel_ms_per_step", "device_busy_share",
+                "port_kernels_ms_per_step")})
+        emit(f"{name}_summary", **out[arch])
+        if min(rec["launches"][k] for k in PAGED_KERNELS) == 0:
+            raise AssertionError(f"{name}: launches {rec['launches']}")
+        del eng
+        torch.cuda.empty_cache()
+        graphs_against_eager(torch, dev, name, cfg, 4, 8, prompts, 32,
+                             params=params, graph_rec=rec,
+                             graph_tokens=tokens)
+        del params
+        torch.cuda.empty_cache()
+        # two layers at full width against the plain path, in float32 with
+        # float32 pages: top-k routing is discontinuous, and with bf16
+        # activations, or the bf16 roundings of int8 pages, the two paths
+        # differ by enough to reroute a token at a router near-tie
+        # (qwen3-moe's 8th and 9th of 128 experts; PERF.md); in
+        # float32 throughout they route alike, and the near-tie rule holds
+        # the rest of the path
+        two = arch_config(arch, 2, dtype="float32")
+        whole_path_check(torch, dev, cfg=two,
+                         prompts=prompts_for(two, 8, 33, 300, SEED + 61),
+                         name=f"{name}_whole", kv_bits=0)
         torch.cuda.empty_cache()
     return out
 
@@ -2169,7 +2604,8 @@ def _trace_summary(kept, by_name, launches, top):
                                           key=lambda kv: -kv[1])[:top]])
 
 
-def profile_decode_steps(torch, eng, prompts, n_steps=4, n_chunks=2):
+def profile_decode_steps(torch, eng, prompts, n_steps=4, n_chunks=2,
+                         name="main_profile"):
     """Device time of ``n_steps`` paged decode steps (and of ``n_chunks``
     prefill chunks), by kernel, and the device's busy share of a step.
 
@@ -2249,7 +2685,7 @@ def profile_decode_steps(torch, eng, prompts, n_steps=4, n_chunks=2):
         eng._decode_paged = step_fn
     n = len(kept)
     if n == 0 or not plain:
-        raise AssertionError("main profile: no decode-only step ran")
+        raise AssertionError(f"{name}: no decode-only step ran")
     have_trace = all(k["ours"] > 0 for k in kept)
     rec = dict(steps=n, source="torch.profiler" if have_trace
                else "cuda_events", cuda_graphs=eng.cuda_graphs,
@@ -2272,12 +2708,12 @@ def profile_decode_steps(torch, eng, prompts, n_steps=4, n_chunks=2):
                 chunks=len(chunk_labels),
                 window_ms=[k["window_ms"] for k in chunks[0]],
                 **_trace_summary(*chunks, 12)[1])
-    emit("main_profile", **rec)
+    emit(name, **rec)
     return rec
 
 
 def whole_path_check(torch, dev, cfg=None, prompts=None, max_len=1024,
-                     name="whole"):
+                     name="whole", kv_bits=8):
     """Kernel engine vs plain-backend engine at 2 layers, full width
     (``cfg``; qwen2.5-3b by default, on 8 prompts of 33-300 tokens).
 
@@ -2293,6 +2729,7 @@ def whole_path_check(torch, dev, cfg=None, prompts=None, max_len=1024,
     ulp is 2^-5; two layers of bf16 activations whose roundings may fall
     either way, then the bf16 rounding of each logit, stay within four
     such ulps.
+
     """
     import numpy as np
 
@@ -2305,7 +2742,7 @@ def whole_path_check(torch, dev, cfg=None, prompts=None, max_len=1024,
     for run, kw in (("cuda", {}),
                     ("plain", dict(backend="reference",
                                    attn_backend="gather"))):
-        eng, params = build_engine(torch, dev, cfg, 4, 8, max_new=16,
+        eng, params = build_engine(torch, dev, cfg, 4, kv_bits, max_new=16,
                                    params=params, max_len=max_len, **kw)
         seen = {}
         sample = eng._sample_next
@@ -2319,6 +2756,7 @@ def whole_path_check(torch, dev, cfg=None, prompts=None, max_len=1024,
         reqs = [eng.submit(p) for p in prompts]
         eng.run()
         torch.cuda.synchronize()
+        del eng._sample_next   # the wrapper held the engine in a cycle
         records[run] = ([r.output for r in reqs], seen, eng)
     (tok_k, log_k, eng_k), (tok_p, log_p, eng_p) = (records["cuda"],
                                                     records["plain"])
@@ -2352,7 +2790,7 @@ def whole_path_check(torch, dev, cfg=None, prompts=None, max_len=1024,
          first_step_logit_max_abs_err=first_err,
          first_step_logit_max_abs=max(float(np.abs(v[0]).max())
                                       for v in log_p.values()),
-         logit_tol=logit_tol)
+         logit_tol=logit_tol, dtype=cfg.dtype, kv_bits=kv_bits)
 
 
 # ---------------------------------------------- full-sequence kernels
@@ -2396,7 +2834,12 @@ FLASH_CASES = [("bfloat16", 4096, 0, {}), ("bfloat16", 4100, 0, {}),
                ("bfloat16", 4096, 0, dict(d=112)),
                ("bfloat16", 1000, 64, dict(hq=8, hkv=2, d=16)),
                ("float32", 2048, 0, dict(d=112)),
-               ("float32", 1000, 0, dict(hq=8, hkv=2, d=16))]
+               ("float32", 1000, 0, dict(hq=8, hkv=2, d=16)),
+               # head dims past 128: the tiles' 256, and 192 padded to it
+               ("bfloat16", 2048, 0, dict(d=256)),
+               ("bfloat16", 1000, 64, dict(hq=8, hkv=2, d=192)),
+               ("float32", 1000, 0, dict(d=256)),
+               ("float32", 777, 37, dict(hq=8, hkv=2, d=192))]
 
 
 def flash_parity(torch, dev):
@@ -2892,7 +3335,9 @@ def main() -> int:
 
     with Phase("parity"):
         gemv_parity(torch, dev)
+        grouped_parity(torch, dev)
         attn_parity(torch, dev)
+        prefill_head_dim_parity(torch, dev)
         decode_split_parity(torch, dev)
         flash_parity(torch, dev)
         ssd_parity(torch, dev)
@@ -2923,6 +3368,12 @@ def main() -> int:
                 gemv_time(torch, dev, 8, k, n, bits=bits, radix=radix)
         int8_rows = [int8_time(torch, dev, m, k, n)
                      for m in (1, 8, 256, 8192) for (k, n) in GEMV_SHAPES]
+        # the MoE experts' linears through the grouped launch, at a decode
+        # step (8 lanes routed) and a chunk (every expert at 64 rows)
+        grouped_rows = [grouped_time(torch, dev, k, n, e, top_k, mode)
+                        for (k, n, e, top_k) in GROUPED_SHAPES
+                        for mode in ("decode", "chunk")]
+        torch.cuda.empty_cache()
 
     with Phase("main"):
         cfg = full_config()
@@ -2957,6 +3408,9 @@ def main() -> int:
 
     with Phase("dense"):
         dense_path(torch, dev)
+
+    with Phase("moe"):
+        moe_rec = moe_path(torch, dev)
 
     with Phase("second"):
         cfg = full_config(n_layers=4)
@@ -3021,7 +3475,8 @@ def main() -> int:
             "paged_prefill_attention": attn_rows[("int8", "prefill")],
             "flash_attention": flash_rec, "ssd_scan": ssd_rec,
             "int8_matvec": next(r for r in int8_rows if r["m"] == 8
-                                and (r["k"], r["n"]) == GEMV_SHAPES[2])}
+                                and (r["k"], r["n"]) == GEMV_SHAPES[2]),
+            "bitplane_gemv_grouped": grouped_rows[0]}
     shapes = {"bitplane_gemv": "decode w_gate/w_up: M=8, K=2048, N=11008, "
                                "4-bit, bf16",
               "paged_decode_attention": "decode: 8 lanes, 41-332 keys, "
@@ -3032,7 +3487,10 @@ def main() -> int:
                                  "D=128, bf16, causal",
               "ssd_scan": "prefill: B=4, S=4096, H=24, P=64, N=128, "
                           "chunk 256, bf16 inputs",
-              "int8_matvec": "M=8, K=2048, N=11008, bf16 x and output"}
+              "int8_matvec": "M=8, K=2048, N=11008, bf16 x and output",
+              "bitplane_gemv_grouped": "llama4 w_gate/w_up decode: 16 "
+                                       "experts, 8 lanes routed top-1, "
+                                       "K=5120, N=8192, 4-bit, bf16"}
     # launches on each kernel's own path: paged serving (main) for the
     # first three, the one-shot prefills of long and ssm for flash and the
     # SSD scan, the engine path for the int8 baseline
@@ -3041,6 +3499,10 @@ def main() -> int:
         "flash_attention"]
     launches["ssd_scan"] = ssm_rec["prefill_launches"]["ssd_scan"]
     launches["int8_matvec"] = engine_rec["launches"]["int8_matvec"]
+    # the grouped launch on its own path: phase moe's llama4-scout run
+    moe_main = moe_rec[MOE_CASES[0][0]]
+    launches["bitplane_gemv_grouped"] = sum(
+        moe_main["grouped_routes"].values())
     # the same paths' launches by route, for the kernels with routes
     path_routes = {
         "bitplane_gemv": route_counts("bitplane_gemv",
@@ -3048,7 +3510,8 @@ def main() -> int:
         "paged_prefill_attention": route_counts(
             "paged_prefill_attention", main_rec["route_launches"]),
         "flash_attention": long_rec["prefill_flash_routes"],
-        "int8_matvec": engine_rec["int8_routes"]}
+        "int8_matvec": engine_rec["int8_routes"],
+        "bitplane_gemv_grouped": moe_main["grouped_routes"]}
     kernels = []
     for name, meta in KERNELS.items():
         rep = reps[name]
@@ -3065,7 +3528,12 @@ def main() -> int:
                 profile_rec["port_kernels_ms_per_step"][name]}
                if name in profile_rec.get("port_kernels_ms_per_step", {})
                else {}),
-            **({"prefill": prefill[name]} if name in prefill else {})))
+            **({"prefill": prefill[name]} if name in prefill else {}),
+            **({"grouped": [{k: r[k] for k in (
+                "linear", "mode", "k", "n", "experts", "touched", "rows",
+                "gemv_route", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for r in grouped_rows]}
+               if name == "bitplane_gemv_grouped" else {})))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

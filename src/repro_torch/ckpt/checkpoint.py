@@ -17,10 +17,14 @@ into the step directory and then commits it.  A step without
 :func:`load_checkpoint`, so a crash between the shards and the commit
 leaves the last complete checkpoint the latest.
 
-A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
-arrays or Python scalars; ``None`` is an empty subtree.  Leaf paths are
-the JAX package's (``jax.tree_util.tree_flatten_with_path``): dict keys
-in sorted order and sequence indices, joined by ``/``.  A bfloat16
+A tree is nested dicts, lists, tuples and engine ``PackedLinear`` s whose
+leaves are tensors, numpy arrays or Python scalars; ``None`` is an empty
+subtree.  Leaf paths are the JAX package's
+(``jax.tree_util.tree_flatten_with_path``): dict keys in sorted order and
+sequence indices, joined by ``/``; a ``PackedLinear`` is JAX's registered
+dataclass, its ``.packed``, ``.scale`` and ``.bias`` in that order (a
+stacked expert linear's ``(E, Kp, N)`` codes and ``(E, 1, N)`` scales are
+two leaves, as in JAX).  A bfloat16
 tensor is written as its raw 2-byte payload under dtype ``"bfloat16"``,
 as the JAX package writes one, and read back bit for bit (numpy has no
 bfloat16: the payload goes through int16, never through float32).
@@ -37,8 +41,12 @@ import os
 import shutil
 from typing import Any, Dict, List, Optional, Tuple
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from repro_torch.engine.packed import PackedLinear
 
 try:
     import zstandard
@@ -46,6 +54,9 @@ except ImportError:  # the card machine has no zstandard
     zstandard = None
 
 Tree = Any
+
+# the data fields of JAX's registered PackedLinear, in its flattening order
+_PACKED_FIELDS = ("packed", "scale", "bias")
 
 _MAGIC = "repro-imagine-ckpt-v1"
 BF16 = "bfloat16"
@@ -95,6 +106,9 @@ def _leaf_paths(tree: Tree) -> Tuple[List[str], List[Any]]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, prefix + [str(i)])
+        elif isinstance(node, PackedLinear):
+            for name in _PACKED_FIELDS:
+                walk(getattr(node, name), prefix + ["." + name])
         elif node is not None:
             paths.append("/".join(prefix))
             leaves.append(node)
@@ -114,6 +128,9 @@ def _unflatten(template: Tree, leaves: List[Any]) -> Tree:
             return out
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
+        if isinstance(node, PackedLinear):
+            return dataclasses.replace(node, **{
+                name: build(getattr(node, name)) for name in _PACKED_FIELDS})
         if node is None:
             return None
         return next(it)

@@ -33,9 +33,11 @@ def register_arch(arch_id: str, config: ModelConfig,
 
 _ARCH_MODULES = {
     "gemma3-27b": "gemma3_27b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "mamba2-130m": "mamba2_130m",
     "mistral-large-123b": "mistral_large_123b",
     "qwen2.5-3b": "qwen2_5_3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "starcoder2-15b": "starcoder2_15b",
 }
 

@@ -31,7 +31,7 @@ def pack_weights(q: torch.Tensor, bits: int, axis: int = 0) -> torch.Tensor:
     word = torch.zeros_like(u[:, 0])
     for s in range(per_byte):
         word |= u[:, s] << (s * bits)
-    return torch.movedim(word.view(torch.int8), 0, axis)
+    return torch.movedim(word.view(torch.int8), 0, axis).contiguous()
 
 
 def unpack_weights(packed: torch.Tensor, bits: int,

@@ -41,7 +41,12 @@
 //     ragged tail of S is zero-filled by the copies and masked by index
 //     (no padded copy);
 //   * the epilogue stages the bf16 output tile through shared memory so
-//     each thread stores 16 bytes of a row.
+//     each thread stores 16 bytes of a row;
+//   * D = 256 (161 KB of tiles, one block an SM): the 64 x 256 float32
+//     accumulator takes 128 registers a thread, so O += P V is issued one
+//     16-key step at a time (P hi + lo of that step, then wait), which
+//     keeps 8 P registers live instead of 32, and each step is two
+//     m64n128k16 over V's two column halves (tc_attention.cuh).
 // An mma.sync design of the same tile (ldmatrix fragments, every warp
 // reading all of K and V, as the paged prefill does) was a quarter slower
 // at the one-shot prefill's shape (PERF.md).
@@ -283,6 +288,9 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, Hq, Hkv, window, sm_scale,
                             stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, B, S, Hq, Hkv, window, sm_scale,
+                            stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -407,21 +415,34 @@ __global__ void __launch_bounds__(tca::THREADS, 2) flash_tc_kernel(
       }
     }
     tca::softmax<D, false>(w, s, nullptr, lane);
-    uint32_t hi[BKV_ / 16][4], lo[BKV_ / 16][4];
+    if constexpr (D <= 128) {
+      uint32_t hi[BKV_ / 16][4], lo[BKV_ / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BKV_ / 16; ++kk) {
-      tca::p_frags<true>(s, kk, hi[kk], lo[kk]);
-    }
-    tc::wgmma_fence();
+      for (int kk = 0; kk < BKV_ / 16; ++kk) {
+        tca::p_frags<true>(s, kk, hi[kk], lo[kk]);
+      }
+      tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKV_ / 16; ++kk) {
-      const uint64_t dv = tca::desc_v<D>(vt_s, kk);
-      tca::wgmma_pv<D>(w.o, hi[kk], dv);
-      tca::wgmma_pv<D>(w.o, lo[kk], dv);
+      for (int kk = 0; kk < BKV_ / 16; ++kk) {
+        tca::wgmma_pv<D>(w.o, hi[kk], vt_s, kk);
+        tca::wgmma_pv<D>(w.o, lo[kk], vt_s, kk);
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tca::keep(w.o);
+    } else {   // one step's P live at a time beside the 128-register O
+#pragma unroll
+      for (int kk = 0; kk < BKV_ / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        tca::p_frags<true>(s, kk, hi, lo);
+        tc::wgmma_fence();
+        tca::wgmma_pv<D>(w.o, hi, vt_s, kk);
+        tca::wgmma_pv<D>(w.o, lo, vt_s, kk);
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+        tca::keep(w.o);
+      }
     }
-    tc::wgmma_commit();
-    tc::wgmma_wait<0>();
-    tca::keep(w.o);
     __syncthreads();  // every warp is done with stage st before its refill
   }
 
@@ -473,7 +494,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // Route cuda_core.  q (B, S, Hq, D), k / v (B, S, Hkv, D) -> out (B, S, Hq,
-// D), all of one dtype (0 = float32, 1 = bfloat16); D in {32, 64, 128}; Hq
+// D), all of one dtype (0 = float32, 1 = bfloat16); D in {32, 64, 128,
+// 256}; Hq
 // a multiple of Hkv; window 0 = full causal.  Returns a cudaError_t.
 extern "C" int imagine_flash_attention(const void* q, const void* k,
                                        const void* v, void* out, int B,
@@ -517,6 +539,9 @@ extern "C" int imagine_flash_attention_tc(const void* q, const void* k,
       return launch_tc<64>(q, k, v, out, B, S, Hq, Hkv, window, sm_scale, s);
     case 128:
       return launch_tc<128>(q, k, v, out, B, S, Hq, Hkv, window, sm_scale,
+                            s);
+    case 256:
+      return launch_tc<256>(q, k, v, out, B, S, Hq, Hkv, window, sm_scale,
                             s);
     default:
       return (int)cudaErrorInvalidValue;

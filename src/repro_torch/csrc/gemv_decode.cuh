@@ -38,6 +38,16 @@
 // A b <= 8-bit code is exact in bf16 and a bf16 x times it exact in
 // float32, so both products are the TPU kernels' (which cast x to float32
 // and dot exact codes); only the order of the float32 sums differs.
+//
+// The expert-grouped launch (`launch_grouped`, the bit-plane GEMV's
+// stacked MoE experts): the same kernels with the experts on grid.z.  A
+// block reads its expert's rows [offsets[e], offsets[e+1]) from device
+// memory and returns at once when there are none (a cluster shares one
+// expert, so all its blocks return together); otherwise it takes that
+// expert's codes, scales, rows of x and rows of y by base offsets and
+// runs as above on its first ROWS rows.  A step thus reads the codes of
+// the experts it routed rows to and no others, and the launch waits on
+// nothing from the host.
 
 #pragma once
 
@@ -215,14 +225,23 @@ __device__ __forceinline__ void reduce_store(
 // split blockIdx.y takes K steps [y * per, (y + 1) * per), its warps every
 // WARPS-th of them.  D (16 x 8) = A (16 columns x 16 K) x B (16 K x 8 rows
 // of x): lane (g, t) adds y rows 2t, 2t + 1 at its 16 columns.
-template <int BITS, int VEC>
+template <int BITS, int VEC, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 decode_mma_kernel(const uint8_t* __restrict__ packed,
                   const float* __restrict__ scale,
                   const __nv_bfloat16* __restrict__ x,
-                  void* __restrict__ out, int M, int K, int N, int per,
-                  int x_vec, int out_bf16) {
+                  void* __restrict__ out, const int* __restrict__ offsets,
+                  int M, int K, int N, int per, int x_vec, int out_bf16) {
   using S = Step<BITS>;
+  if constexpr (GROUPED) {   // expert blockIdx.z's rows, codes and scales
+    const int e = blockIdx.z, r0 = offsets[e];
+    M = min(offsets[e + 1] - r0, ROWS);
+    if (M <= 0) return;     // the whole cluster: it shares the expert
+    packed += (size_t)e * (K * BITS / 8) * N;
+    scale += (size_t)e * N;
+    x += (size_t)r0 * K;
+    out = static_cast<uint8_t*>(out) + (size_t)r0 * N * (out_bf16 ? 2 : 4);
+  }
   __shared__ __align__(16) float red[WARPS][ROWS][COLS];
   __shared__ __align__(16) float part[ROWS][COLS];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -296,13 +315,23 @@ decode_mma_kernel(const uint8_t* __restrict__ packed,
 // float32 x on the CUDA cores (bf16 would round x), rows 0 .. MR - 1
 // (MR >= M): the same grid, loads and columns; lane (g, t) sums its four
 // K a step for its 16 columns, then the four t of a column are added.
-template <int BITS, int VEC, int MR>
+template <int BITS, int VEC, int MR, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 decode_fma_kernel(const uint8_t* __restrict__ packed,
                   const float* __restrict__ scale,
                   const float* __restrict__ x, void* __restrict__ out,
-                  int M, int K, int N, int per, int x_vec, int out_bf16) {
+                  const int* __restrict__ offsets, int M, int K, int N,
+                  int per, int x_vec, int out_bf16) {
   using S = Step<BITS>;
+  if constexpr (GROUPED) {   // expert blockIdx.z's rows, codes and scales
+    const int e = blockIdx.z, r0 = offsets[e];
+    M = min(offsets[e + 1] - r0, ROWS);
+    if (M <= 0) return;     // the whole cluster: it shares the expert
+    packed += (size_t)e * (K * BITS / 8) * N;
+    scale += (size_t)e * N;
+    x += (size_t)r0 * K;
+    out = static_cast<uint8_t*>(out) + (size_t)r0 * N * (out_bf16 ? 2 : 4);
+  }
   __shared__ __align__(16) float red[WARPS][ROWS][COLS];
   __shared__ __align__(16) float part[ROWS][COLS];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -403,31 +432,37 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, cudaStream_t stream,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int BITS, int VEC>
+// grid (column tiles, splits, experts): `experts` 1 and `offsets` null for
+// the plain launch, M then the rows of x.
+template <int BITS, int VEC, bool GROUPED>
 int launch_vec(const void* packed, const void* scale, const void* x,
-               void* out, int M, int K, int N, int splits, int per,
-               int x_vec, int x_bf16, int out_bf16, cudaStream_t stream) {
-  const dim3 grid((N + COLS - 1) / COLS, splits);
+               void* out, const int* offsets, int experts, int M, int K,
+               int N, int splits, int per, int x_vec, int x_bf16,
+               int out_bf16, cudaStream_t stream) {
+  const dim3 grid((N + COLS - 1) / COLS, splits, experts);
   const uint8_t* p = static_cast<const uint8_t*>(packed);
   const float* s = static_cast<const float*>(scale);
   if (x_bf16) {
-    return launch_cluster(decode_mma_kernel<BITS, VEC>, grid, stream, p, s,
-                          static_cast<const __nv_bfloat16*>(x), out, M, K, N,
-                          per, x_vec, out_bf16);
+    return launch_cluster(decode_mma_kernel<BITS, VEC, GROUPED>, grid, stream,
+                          p, s, static_cast<const __nv_bfloat16*>(x), out,
+                          offsets, M, K, N, per, x_vec, out_bf16);
   }
   const float* xf = static_cast<const float*>(x);
-  if (M == 1) {
-    return launch_cluster(decode_fma_kernel<BITS, VEC, 1>, grid, stream, p,
-                          s, xf, out, M, K, N, per, x_vec, out_bf16);
+  if (M == 1 && !GROUPED) {
+    return launch_cluster(decode_fma_kernel<BITS, VEC, 1, GROUPED>, grid,
+                          stream, p, s, xf, out, offsets, M, K, N, per, x_vec,
+                          out_bf16);
   }
-  return launch_cluster(decode_fma_kernel<BITS, VEC, ROWS>, grid, stream, p,
-                        s, xf, out, M, K, N, per, x_vec, out_bf16);
+  return launch_cluster(decode_fma_kernel<BITS, VEC, ROWS, GROUPED>, grid,
+                        stream, p, s, xf, out, offsets, M, K, N, per, x_vec,
+                        out_bf16);
 }
 
-template <int BITS>
-int launch(const void* packed, const void* scale, const void* x, void* out,
-           int M, int K, int N, int splits, int x_bf16, int out_bf16,
-           cudaStream_t stream) {
+template <int BITS, bool GROUPED>
+int launch_any(const void* packed, const void* scale, const void* x,
+               void* out, const int* offsets, int experts, int M, int K,
+               int N, int splits, int x_bf16, int out_bf16,
+               cudaStream_t stream) {
   const int k_steps = (K + KSTEP - 1) / KSTEP;
   if (M > ROWS || splits < 1 || splits > MAX_SPLITS || splits > k_steps) {
     return (int)cudaErrorInvalidValue;
@@ -436,18 +471,46 @@ int launch(const void* packed, const void* scale, const void* x, void* out,
   if ((k_steps + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   const uintptr_t pa = reinterpret_cast<uintptr_t>(packed);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  // x rows read 4 elements at a time when every row start is aligned
+  // x rows read 4 elements at a time when every row start is aligned (an
+  // expert's rows start at a whole row, so the same holds for each)
   const int x_vec = K % 4 == 0 && xa % (x_bf16 ? 8 : 16) == 0;
+  // an expert's codes start N * K * BITS / 8 bytes on: as aligned as N
   if (N % 16 == 0 && pa % 16 == 0) {
-    return launch_vec<BITS, 16>(packed, scale, x, out, M, K, N, splits, per,
-                                x_vec, x_bf16, out_bf16, stream);
+    return launch_vec<BITS, 16, GROUPED>(packed, scale, x, out, offsets,
+                                         experts, M, K, N, splits, per, x_vec,
+                                         x_bf16, out_bf16, stream);
   }
   if (N % 8 == 0 && pa % 8 == 0) {
-    return launch_vec<BITS, 8>(packed, scale, x, out, M, K, N, splits, per,
-                               x_vec, x_bf16, out_bf16, stream);
+    return launch_vec<BITS, 8, GROUPED>(packed, scale, x, out, offsets,
+                                        experts, M, K, N, splits, per, x_vec,
+                                        x_bf16, out_bf16, stream);
   }
-  return launch_vec<BITS, 1>(packed, scale, x, out, M, K, N, splits, per,
-                             x_vec, x_bf16, out_bf16, stream);
+  return launch_vec<BITS, 1, GROUPED>(packed, scale, x, out, offsets,
+                                      experts, M, K, N, splits, per, x_vec,
+                                      x_bf16, out_bf16, stream);
+}
+
+template <int BITS>
+int launch(const void* packed, const void* scale, const void* x, void* out,
+           int M, int K, int N, int splits, int x_bf16, int out_bf16,
+           cudaStream_t stream) {
+  return launch_any<BITS, false>(packed, scale, x, out, nullptr, 1, M, K, N,
+                                 splits, x_bf16, out_bf16, stream);
+}
+
+// Stacked experts: packed (E, K*BITS/8, N), scale (E, 1, N), x and out
+// rows sorted by expert with expert e's at [offsets[e], offsets[e+1]) on
+// the device; each expert's first ROWS rows are computed.
+template <int BITS>
+int launch_grouped(const void* packed, const void* scale, const void* x,
+                   void* out, const int* offsets, int experts, int K, int N,
+                   int splits, int x_bf16, int out_bf16,
+                   cudaStream_t stream) {
+  if (experts < 1 || experts > 65535 || offsets == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_any<BITS, true>(packed, scale, x, out, offsets, experts,
+                                ROWS, K, N, splits, x_bf16, out_bf16, stream);
 }
 
 }  // namespace dec

@@ -76,7 +76,10 @@
 //   * int8 codes land as bytes and are widened to bf16 tiles in shared
 //     memory (exactly: c + 2^23 + 128 in a float's low byte, less the
 //     same); their per-key scales are read one step ahead into registers;
-//   * S = Q K^T and O += P V on mma.sync m16n8k16 with float32 sums.
+//   * S = Q K^T and O += P V on mma.sync m16n8k16 with float32 sums;
+//   * head dims 32, 64, 128 and 256 (others zero-padded by the launcher);
+//     at 256 the accumulator takes 128 registers a thread, and the Q
+//     fragments are read from shared memory at each step instead of held.
 //
 // Prefill, cuda_core (float32 queries or pools): `paged_attention_kernel`:
 //   * one block per (lane, KV head, query block) holds all G query heads
@@ -405,15 +408,20 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
 // swizzled), the query rows passing through stage 1's K slot.  int8
 // pools: two stages of [K][V] int8 tiles ([BKV][D] bytes), the bf16 K and
 // V tiles they widen into (the query rows pass through the K one), and the
-// step's K and V scales as float32.
+// step's K and V scales as float32.  D = 256: the warps read their Q
+// fragments at every step (tc_attention.cuh, `kQInRegs`), so the query
+// tile has a slot of its own after the rest (160 KB in all).
 template <int D, bool QUANT>
 struct PfLayout {
   static constexpr int TILE = tca::Swz<D>::TILE_BYTES;
   static constexpr int STAGE = 2 * tca::BKV * D * (QUANT ? 1 : 2);
   static constexpr int WIDE = 2 * STAGE;
   static constexpr int SCALES = WIDE + 2 * TILE;
-  static constexpr int BYTES = QUANT ? SCALES + 2 * tca::BKV * 4 : WIDE;
-  static constexpr int Q_SLOT = QUANT ? WIDE : STAGE;
+  static constexpr int SHARED = QUANT ? SCALES + 2 * tca::BKV * 4 : WIDE;
+  static constexpr bool Q_OWN = !tca::kQInRegs<D>;
+  static constexpr int Q_SLOT = Q_OWN ? SHARED : QUANT ? WIDE : STAGE;
+  static constexpr int BYTES = Q_OWN ? SHARED + TILE : SHARED;
+  static_assert(BYTES <= 232448, "227 KB of shared memory a block");
 };
 
 // One int8 [BKV][D] tile widened to a swizzled bf16 tile: each code c as
@@ -546,7 +554,9 @@ __global__ void __launch_bounds__(tca::THREADS, 2) paged_prefill_tc_kernel(
   __syncthreads();
   tca::Warp<D> w;
   tca::load_q(w, base + L::Q_SLOT, 16 * warp, lane);
-  __syncthreads();  // every warp holds its rows: the slot may be refilled
+  // every warp holds its rows (D = 256: they stay in a slot of their own):
+  // the slot may be refilled
+  __syncthreads();
 
   const int r0 = 16 * warp + lane / 4;   // rows r0 and r0 + 8
   const int qpos[2] = {pbase + c_lo + r0 / G, pbase + c_lo + (r0 + 8) / G};
@@ -656,6 +666,7 @@ int dispatch_prefill_tc(const void* q, const void* k_pages,
     case 32: IMAGINE_PF_TC(32);
     case 64: IMAGINE_PF_TC(64);
     case 128: IMAGINE_PF_TC(128);
+    case 256: IMAGINE_PF_TC(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef IMAGINE_PF_TC

@@ -19,6 +19,13 @@
 //
 // What a warp holds: the D-wide float32 output accumulator and, for rows g
 // and g + 8 of the lane's quad (g = lane / 4), the running max m and sum l.
+// Head dims are 32, 64, 128 and 256.  At D = 256 the accumulator alone is
+// 128 float32 registers a thread (64 rows a warpgroup, or 16 a warp, times
+// 256 columns over 128 or 32 threads), so nothing else of that size stays
+// in registers beside it: the paged prefill's warps read their Q fragments
+// from the query tile in shared memory at each k-step instead of holding
+// them (`kQInRegs`), and flash attention issues O += P V one 16-key step
+// at a time, so only one step's P fragments are live.
 // Accumulator element e of n8 block j is row g + 8 * (e >> 1), column
 // 8j + 2t + (e & 1) (t = lane % 4), on mma.sync and on wgmma (whose warp w
 // holds rows 16w .. 16w + 15 of the 64): the row statistics are quad
@@ -75,7 +82,8 @@ constexpr int BKV = 64;          // keys a step
 // consecutive rows) fall in 8 distinct bank groups.
 template <int D>
 struct Swz {
-  static_assert(D == 32 || D == 64 || D == 128, "head dims 32, 64, 128");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 256,
+                "head dims 32, 64, 128, 256");
   static constexpr int CH = D / 8;                    // chunks a row
   static constexpr int ROW_B = D >= 64 ? 128 : 2 * D;  // bytes a block row
   static constexpr int CPH = ROW_B / 16;              // chunks a block row
@@ -123,9 +131,17 @@ __device__ __forceinline__ uint32_t pack_rest(float x, float y,
   return pack(x - hx, y - hy);
 }
 
+// Q's A fragments stay in registers up to D = 128 (D / 4 registers a
+// thread); at D = 256 they would take 64 beside the accumulator's 128.
+template <int D>
+constexpr bool kQInRegs = D <= 128;
+
 template <int D>
 struct Warp {
-  uint32_t q[D / 16][4];   // the warp's 16 query rows, A fragments
+  uint32_t q[kQInRegs<D> ? D / 16 : 1][4];   // the warp's 16 query rows,
+                                             // A fragments (kQInRegs)
+  uint32_t q_tile;         // !kQInRegs: the query tile ...
+  int q_row0;              // ... and the warp's first row in it
   float o[D / 8][4];       // the output accumulator
   float m[2], l[2];        // rows g and g + 8: running max and sum
 };
@@ -145,15 +161,27 @@ __device__ __forceinline__ void start(Warp<D>& w) {
   }
 }
 
-// The warp's A fragments from rows row0 .. row0 + 15 of a swizzled tile;
-// the accumulator and statistics start empty.
+// The A fragment of k-step kk from rows row0 .. row0 + 15 of a swizzled
+// tile.
+template <int D>
+__device__ __forceinline__ void q_frag(uint32_t tile, int row0, int kk,
+                                       int lane, uint32_t (&a)[4]) {
+  ldsm_x4(tile + Swz<D>::off(row0 + (lane & 15), 2 * kk + (lane >> 4)), a);
+}
+
+// The warp's A fragments from rows row0 .. row0 + 15 of a swizzled tile
+// (!kQInRegs: the tile's address, which must then hold them until the
+// warp's last `scores`); the accumulator and statistics start empty.
 template <int D>
 __device__ __forceinline__ void load_q(Warp<D>& w, uint32_t tile, int row0,
                                        int lane) {
+  if constexpr (kQInRegs<D>) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    ldsm_x4(tile + Swz<D>::off(row0 + (lane & 15), 2 * kk + (lane >> 4)),
-            w.q[kk]);
+    for (int kk = 0; kk < D / 16; ++kk) q_frag<D>(tile, row0, kk, lane,
+                                                  w.q[kk]);
+  } else {
+    w.q_tile = tile;
+    w.q_row0 = row0;
   }
   start(w);
 }
@@ -172,12 +200,19 @@ __device__ __forceinline__ void scores(const Warp<D>& w, uint32_t kt,
   const int half = (lane >> 3) & 1;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (kQInRegs<D>) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = w.q[kk][i];
+    } else {
+      q_frag<D>(w.q_tile, w.q_row0, kk, lane, a);
+    }
 #pragma unroll
     for (int j = 0; j < BKV / 8; j += 2) {
       uint32_t b[4];
       ldsm_x4(kt + Swz<D>::off(8 * j + key, 2 * kk + half), b);
-      mma(s[j], w.q[kk], b[0], b[1]);
-      mma(s[j + 1], w.q[kk], b[2], b[3]);
+      mma(s[j], a, b[0], b[1]);
+      mma(s[j + 1], a, b[2], b[3]);
     }
   }
 }
@@ -384,42 +419,68 @@ __device__ __forceinline__ void wgmma_rs_t_n64(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x 128 float32) += A (64 x 16 bf16, in registers) @ B (16 x 128
-// bf16, MN-major in shared memory: the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[16][4],
+// d[J0 .. J0 + 15] (64 x 128 float32) += A (64 x 16 bf16, in registers) @
+// B (16 x 128 bf16, MN-major in shared memory: the transpose bit set).
+template <int J0, int N>
+__device__ __forceinline__ void wgmma_rs_t_n128(float (&d)[N][4],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
+  static_assert(J0 + 16 <= N, "128 columns of the accumulator");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "+f"(d[J0 + 0][0]), "+f"(d[J0 + 0][1]),
+        "+f"(d[J0 + 0][2]), "+f"(d[J0 + 0][3]),
+        "+f"(d[J0 + 1][0]), "+f"(d[J0 + 1][1]),
+        "+f"(d[J0 + 1][2]), "+f"(d[J0 + 1][3]),
+        "+f"(d[J0 + 2][0]), "+f"(d[J0 + 2][1]),
+        "+f"(d[J0 + 2][2]), "+f"(d[J0 + 2][3]),
+        "+f"(d[J0 + 3][0]), "+f"(d[J0 + 3][1]),
+        "+f"(d[J0 + 3][2]), "+f"(d[J0 + 3][3]),
+        "+f"(d[J0 + 4][0]), "+f"(d[J0 + 4][1]),
+        "+f"(d[J0 + 4][2]), "+f"(d[J0 + 4][3]),
+        "+f"(d[J0 + 5][0]), "+f"(d[J0 + 5][1]),
+        "+f"(d[J0 + 5][2]), "+f"(d[J0 + 5][3]),
+        "+f"(d[J0 + 6][0]), "+f"(d[J0 + 6][1]),
+        "+f"(d[J0 + 6][2]), "+f"(d[J0 + 6][3]),
+        "+f"(d[J0 + 7][0]), "+f"(d[J0 + 7][1]),
+        "+f"(d[J0 + 7][2]), "+f"(d[J0 + 7][3]),
+        "+f"(d[J0 + 8][0]), "+f"(d[J0 + 8][1]),
+        "+f"(d[J0 + 8][2]), "+f"(d[J0 + 8][3]),
+        "+f"(d[J0 + 9][0]), "+f"(d[J0 + 9][1]),
+        "+f"(d[J0 + 9][2]), "+f"(d[J0 + 9][3]),
+        "+f"(d[J0 + 10][0]), "+f"(d[J0 + 10][1]),
+        "+f"(d[J0 + 10][2]), "+f"(d[J0 + 10][3]),
+        "+f"(d[J0 + 11][0]), "+f"(d[J0 + 11][1]),
+        "+f"(d[J0 + 11][2]), "+f"(d[J0 + 11][3]),
+        "+f"(d[J0 + 12][0]), "+f"(d[J0 + 12][1]),
+        "+f"(d[J0 + 12][2]), "+f"(d[J0 + 12][3]),
+        "+f"(d[J0 + 13][0]), "+f"(d[J0 + 13][1]),
+        "+f"(d[J0 + 13][2]), "+f"(d[J0 + 13][3]),
+        "+f"(d[J0 + 14][0]), "+f"(d[J0 + 14][1]),
+        "+f"(d[J0 + 14][2]), "+f"(d[J0 + 14][3]),
+        "+f"(d[J0 + 15][0]), "+f"(d[J0 + 15][1]),
+        "+f"(d[J0 + 15][2]), "+f"(d[J0 + 15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x D) += P (k-step kk, in registers) @ V (keys 16kk .. 16kk + 15 of
+// the tile at `vt`).  D = 256: two m64n128k16, V's column blocks 0-1 and
+// 2-3 (each pair laid out as a D = 128 tile's).
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 8][4],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint32_t vt, int kk) {
+  const uint64_t db = desc_v<D>(vt, kk);
   if constexpr (D == 32) wgmma_rs_t_n32(d, a, db);
   if constexpr (D == 64) wgmma_rs_t_n64(d, a, db);
-  if constexpr (D == 128) wgmma_rs_t_n128(d, a, db);
+  if constexpr (D == 128) wgmma_rs_t_n128<0>(d, a, db);
+  if constexpr (D == 256) {
+    wgmma_rs_t_n128<0>(d, a, db);
+    wgmma_rs_t_n128<16>(d, a, desc_v<D>(vt + 2 * Swz<D>::BLOCK, kk));
+  }
 }
 
 // Keeps the compiler from moving accumulators across the wait for the

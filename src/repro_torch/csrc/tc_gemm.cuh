@@ -55,6 +55,17 @@
 //     kernel adds them in split order and applies the scale, so the result
 //     is the same every run (no atomics).
 //
+// The expert-grouped launch (`launch_grouped`, the bit-plane GEMV's stacked
+// MoE experts): grid.z runs over the experts instead of K splits (there
+// is no split: the experts fill the card).  A block reads its expert's
+// rows [offsets[e], offsets[e+1]) from device memory, returns at once
+// when its row tile lies past them, and otherwise runs the tile above on
+// that expert's codes, scales, rows of x and rows of y, by base offsets
+// (the copies are cp.async from pointers: no descriptor to rebuild).  The
+// row tiles of a launch are sized by a static bound on an expert's rows,
+// so a step reads only the codes of the experts it routed rows to and the
+// launch can be captured in a graph.
+//
 // Timing copies only (tc_gemm_ablation.py at the root of the repository):
 // TC_ABLATE_DECODE, TC_ABLATE_MMA and TC_ABLATE_EPILOGUE each leave one part
 // of the kernel out, and the result is then wrong.  No build of the
@@ -337,22 +348,32 @@ __device__ __forceinline__ void stage_frag(const float (&acc)[64], uint8_t* sm,
 // t - 1 once the consumers have marked it empty.  Warpgroups 0 and 1
 // consume stage t: rebuild A for each 16-deep step while the previous
 // step's wgmma run, wait for the last, mark the stage empty.
-template <int BITS, int XV, int PV>
+template <int BITS, int XV, int PV, bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 1)
 tc_gemm_kernel(const uint8_t* __restrict__ packed,
                const float* __restrict__ scale,
                const __nv_bfloat16* __restrict__ x, void* __restrict__ out,
-               float* __restrict__ partial, int M, int K, int N,
-               int tiles_per_split, int x_vec, int p_vec, int out_bf16) {
+               float* __restrict__ partial, const int* __restrict__ offsets,
+               int M, int K, int N, int tiles_per_split, int x_vec,
+               int p_vec, int out_bf16) {
   using L = Smem<BITS>;
   constexpr int STAGES = L::STAGES, AHEAD = L::AHEAD;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  if constexpr (GROUPED) {   // expert blockIdx.z's rows, codes and scales
+    const int e = blockIdx.z, r0 = offsets[e];
+    M = offsets[e + 1] - r0;
+    if (m0 >= M) return;     // every thread of the block: no barrier yet
+    packed += (size_t)e * (K * BITS / 8) * N;
+    scale += (size_t)e * N;
+    x += (size_t)r0 * K;
+    out = static_cast<uint8_t*>(out) + (size_t)r0 * N * (out_bf16 ? 2 : 4);
+  }
   extern __shared__ __align__(1024) uint8_t tc_smem_raw[];
   uint8_t* sm = tc_smem_raw + ((1024 - (smem_u32(tc_smem_raw) & 1023)) & 1023);
   const uint32_t sa = smem_u32(sm);
   const int wg = threadIdx.x / 128;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int k_tiles = (K + BK - 1) / BK;
-  const int kt0 = blockIdx.z * tiles_per_split;
+  const int kt0 = GROUPED ? 0 : blockIdx.z * tiles_per_split;
   const int nt = min(k_tiles, kt0 + tiles_per_split) - kt0;
 
   if (wg == CONSUMERS) {
@@ -497,6 +518,31 @@ inline int copy_width(const void* base, long long row_bytes, int narrow) {
   return narrow;
 }
 
+// The kernel at the alignment of x's rows and of the packed rows.
+template <int BITS, bool GROUPED>
+int launch_tile(const void* packed, const void* scale, const void* x,
+                void* out, void* partial, const int* offsets, dim3 grid,
+                int M, int K, int N, int per, int out_bf16,
+                cudaStream_t stream) {
+  const int x_vec = copy_width(x, 2LL * K, 2);
+  const int p_vec = copy_width(packed, N, 1);
+  auto kernel = tc_gemm_kernel<BITS, 0, 0, GROUPED>;
+  if (x_vec == 16 && p_vec == 16) {
+    kernel = tc_gemm_kernel<BITS, 16, 16, GROUPED>;
+  }
+  if (x_vec == 16 && p_vec == 8) kernel = tc_gemm_kernel<BITS, 16, 8, GROUPED>;
+  constexpr int smem = Smem<BITS>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
+      static_cast<const __nv_bfloat16*>(x), out,
+      static_cast<float*>(partial), offsets, M, K, N, per, x_vec, p_vec,
+      out_bf16);
+  return (int)cudaGetLastError();
+}
+
 // y = (x @ W) * scale through the tile above; `splits` K splits (every
 // split non-empty), `partial` a float32 (splits, M, N) buffer when
 // splits > 1.  Returns a cudaError_t.
@@ -514,21 +560,10 @@ int launch(const void* packed, const void* scale, const void* x, void* out,
   if ((splits > 1) != (partial != nullptr)) return (int)cudaErrorInvalidValue;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const int x_vec = copy_width(x, 2LL * K, 2);
-  const int p_vec = copy_width(packed, N, 1);
-  auto kernel = tc_gemm_kernel<BITS, 0, 0>;
-  if (x_vec == 16 && p_vec == 16) kernel = tc_gemm_kernel<BITS, 16, 16>;
-  if (x_vec == 16 && p_vec == 8) kernel = tc_gemm_kernel<BITS, 16, 8>;
-  constexpr int smem = Smem<BITS>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const float*>(scale),
-      static_cast<const __nv_bfloat16*>(x), out,
-      static_cast<float*>(partial), M, K, N, per, x_vec, p_vec, out_bf16);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int err = launch_tile<BITS, false>(packed, scale, x, out, partial,
+                                           nullptr, grid, M, K, N, per,
+                                           out_bf16, stream);
+  if (err != cudaSuccess || splits == 1) return err;
   const long long total = (long long)M * N;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
                                                        : 4096);
@@ -536,6 +571,25 @@ int launch(const void* packed, const void* scale, const void* x, void* out,
       static_cast<const float*>(partial), static_cast<const float*>(scale),
       out, M, N, splits, out_bf16);
   return (int)cudaGetLastError();
+}
+
+// Stacked experts: packed (E, K*BITS/8, N), scale (E, 1, N), x and out
+// rows sorted by expert with expert e's at [offsets[e], offsets[e+1]) on
+// the device; each expert's first ceil(max_rows / BM) * BM rows are
+// computed.
+template <int BITS>
+int launch_grouped(const void* packed, const void* scale, const void* x,
+                   void* out, const int* offsets, int experts, int max_rows,
+                   int K, int N, int out_bf16, cudaStream_t stream) {
+  if (max_rows <= 0 || K <= 0 || N <= 0 || K % (8 / BITS) != 0 ||
+      experts < 1 || experts > 65535 || offsets == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((N + BN - 1) / BN, (max_rows + BM - 1) / BM, experts);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  return launch_tile<BITS, true>(packed, scale, x, out, nullptr, offsets,
+                                 grid, max_rows, K, N, (K + BK - 1) / BK,
+                                 out_bf16, stream);
 }
 
 }  // namespace tc

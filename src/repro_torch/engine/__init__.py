@@ -1,5 +1,6 @@
 """The GEMV engine's front door: :class:`PackedLinear`, the backend
-registry (``reference`` / ``bit_serial`` / ``cuda``) and
+registry (``reference`` / ``bit_serial`` / ``cuda``, each with its grouped
+form for stacked experts) and
 :class:`EnginePlan`, resolved once from an ``EngineConfig`` and a device.
 
 Typical use::
@@ -12,7 +13,9 @@ Typical use::
 from repro_torch.engine.backends import (
     ATTN_BACKENDS,
     get_backend,
+    get_grouped_backend,
     register_backend,
+    register_grouped_backend,
     resolve_attn_backend,
     resolve_backend_name,
 )
@@ -31,10 +34,12 @@ __all__ = [
     "PackedLinear",
     "as_packed",
     "get_backend",
+    "get_grouped_backend",
     "is_packed",
     "pack_linear",
     "plan_for_bits",
     "register_backend",
+    "register_grouped_backend",
     "resolve_attn_backend",
     "resolve_backend_name",
     "resolve_plan",

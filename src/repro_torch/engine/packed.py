@@ -24,9 +24,11 @@ VALID_BITS = (2, 4, 8)
 class PackedLinear:
     """Weight-stationary bit-packed linear: ``y = x @ W [+ bias]``.
 
-    ``packed``: int8 ``(in_features * bits // 8, out_features)``.
-    ``scale``: float32 ``(1, out_features)``.
+    ``packed``: int8 ``(..., in_features * bits // 8, out_features)``.
+    ``scale``: float32 ``(..., 1, out_features)``.
     ``bias``: optional ``(out_features,)``.
+    A leading axis, if any, stacks experts (``(E, Kp, N)`` with ``(E, 1,
+    N)`` scales, the MoE layer's ``w_gate`` / ``w_up`` / ``w_down``).
     """
 
     packed: torch.Tensor
@@ -35,6 +37,12 @@ class PackedLinear:
     bits: int = 8
     in_features: int = 0
     out_features: int = 0
+
+    def nbytes(self) -> int:
+        """Device bytes of the codes, scales and bias, every expert."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.packed, self.scale, self.bias)
+                   if t is not None)
 
 
 def validate_bits(bits: Any) -> int:
@@ -50,16 +58,20 @@ def validate_bits(bits: Any) -> int:
 
 def pack_linear(w: torch.Tensor, bits: int = 8, *,
                 bias: Optional[torch.Tensor] = None) -> PackedLinear:
-    """Quantize and bit-pack a float ``(K, N)`` weight into engine form."""
+    """Quantize and bit-pack a float ``(K, N)`` weight, or a stack of
+    experts ``(E, K, N)``, along K into engine form: one scale per output
+    channel (per expert), as the JAX package's ``pack_linear`` does."""
     bits = validate_bits(bits)
-    if w.ndim != 2:
-        raise ValueError(f"weight must be 2-D (K, N), got {tuple(w.shape)}")
-    k, n = w.shape
+    if w.ndim not in (2, 3):
+        raise ValueError("weight must be (K, N) or stacked (E, K, N), got "
+                         f"{tuple(w.shape)}")
+    k, n = w.shape[-2:]
     if (k * bits) % 8 != 0:
         raise ValueError(
             f"in_features {k} * bits {bits} must pack into whole int8 words")
-    q, scale = quantize_symmetric(w, bits, axis=0)
-    return PackedLinear(pack_weights(q, bits, axis=0), scale, bias, bits, k, n)
+    q, scale = quantize_symmetric(w, bits, axis=-2)
+    return PackedLinear(pack_weights(q, bits, axis=-2), scale, bias, bits, k,
+                        n)
 
 
 def as_packed(p: Any, *, bits_hint: Optional[int] = None) -> PackedLinear:

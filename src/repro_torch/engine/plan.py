@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.engine.backends import (
     get_backend,
+    get_grouped_backend,
     resolve_attn_backend,
     resolve_backend_name,
 )
@@ -64,6 +65,25 @@ class EnginePlan:
         if lin.bias is not None:
             y = y + lin.bias.to(y.dtype)
         return y
+
+    def apply_grouped(self, lin, x: torch.Tensor, offsets: torch.Tensor,
+                      max_rows: int) -> torch.Tensor:
+        """Stacked experts ``(E, Kp, N)``: ``y[offsets[e]:offsets[e+1]] =
+        x[...] @ W[e] * scale[e]`` for ``x`` ``(R, K)`` sorted by expert,
+        ``offsets`` ``(E + 1,)`` int32 on x's device and ``max_rows`` a
+        bound on any expert's rows fixed by the shapes (the kernel's launch
+        is sized by it, never by the data).  Rows past ``offsets[E]`` are
+        undefined; an expert's rows past ``max_rows`` are the caller's
+        error.  ``(R, N)`` in x's dtype."""
+        lin = as_packed(lin, bits_hint=self.bits)
+        if lin.packed.ndim != 3 or x.ndim != 2:
+            raise ValueError("apply_grouped: stacked (E, Kp, N) weights and "
+                             f"(R, K) rows, got {tuple(lin.packed.shape)} "
+                             f"and {tuple(x.shape)}")
+        if lin.bias is not None:
+            raise ValueError("apply_grouped: stacked experts carry no bias")
+        return get_grouped_backend(self.backend)(self, lin, x, offsets,
+                                                 max_rows, x.dtype)
 
 
 def resolve_plan(cfg, *, device) -> Optional[EnginePlan]:

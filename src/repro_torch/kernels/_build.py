@@ -50,13 +50,17 @@ LAUNCHES: Dict[str, int] = {
 }
 
 # the designs of the kernels that have more than one: the GEMVs' picked by
-# M and the type of x (_gemv.route), flash and chunked-prefill attention's
+# M and the type of x (_gemv.route, _gemv.grouped_route), flash and
+# chunked-prefill attention's
 # by dtype (flash_attention.kernel.route, paged_attention.kernel.
 # prefill_route)
 GEMV_ROUTES = ("decode", "rows", "tensor_core")
+# the bit-plane GEMV's expert-grouped launch (stacked MoE experts), the same
+# three designs picked by the static bound on an expert's rows
+GROUPED_ROUTES = tuple(f"grouped_{r}" for r in GEMV_ROUTES)
 ATTENTION_ROUTES = ("cuda_core", "tensor_core")
 ROUTES: Dict[str, Tuple[str, ...]] = {
-    "bitplane_gemv": GEMV_ROUTES,
+    "bitplane_gemv": GEMV_ROUTES + GROUPED_ROUTES,
     "int8_matvec": GEMV_ROUTES,
     "flash_attention": ATTENTION_ROUTES,
     "paged_prefill_attention": ATTENTION_ROUTES,

@@ -8,7 +8,12 @@ card; ``tc::launch`` in ``tc_gemm.cuh`` refuses a split that holds no K.
 is the K split of both GEMVs' decode route (``dec::`` in
 ``csrc/gemv_decode.cuh``, the int8 codes taken as 8-bit packed rows: a
 cluster of ``splits`` blocks per column tile of ``DECODE_COLS``, K in steps
-of ``DECODE_K_STEP``).
+of ``DECODE_K_STEP``).  ``grouped_route`` and ``grouped_decode_splits`` are
+the same choices for the bit-plane GEMV's expert-grouped launch, made from
+the static bound on an expert's rows, never from the routing; the
+grouped launch's plain versions put each expert's rows into ``max_rows``
+slots (``expert_slots``, ``gather_slots``, ``scatter_slots``) so that they
+read nothing back from the device either.
 """
 
 from __future__ import annotations
@@ -32,6 +37,25 @@ def route(m: int, x_dtype: torch.dtype) -> str:
     if m <= DECODE_ROWS:
         return "decode"
     return "tensor_core" if x_dtype == torch.bfloat16 else "rows"
+
+
+def grouped_route(max_rows: int, x_dtype: torch.dtype) -> str:
+    """The design of a grouped launch whose experts get at most
+    ``max_rows`` rows each (a bound fixed by the shapes, so the launch can
+    be captured in a graph): ``route``'s choice at M = ``max_rows``, under
+    the ``grouped_`` names."""
+    return "grouped_" + route(max_rows, x_dtype)
+
+
+def grouped_decode_splits(k: int, n: int, experts: int, sms: int) -> int:
+    """K splits of the grouped decode route: :func:`decode_splits` with
+    the column tiles of every expert that can receive a row (``experts``:
+    at most the experts, and at most the rows)."""
+    tiles = math.ceil(n / DECODE_COLS) * max(1, experts)
+    k_steps = math.ceil(k / DECODE_K_STEP)
+    want = max(1, min(DECODE_MAX_SPLITS, math.ceil(sms / tiles), k_steps))
+    per = math.ceil(k_steps / want)
+    return math.ceil(k_steps / per)
 
 
 def tc_splits(m: int, n: int, k: int, sms: int) -> int:
@@ -61,6 +85,34 @@ def decode_splits(k: int, n: int, sms: int) -> int:
     want = max(1, min(DECODE_MAX_SPLITS, math.ceil(sms / tiles), k_steps))
     per = math.ceil(k_steps / want)
     return math.ceil(k_steps / per)
+
+
+def expert_slots(offsets: torch.Tensor, max_rows: int):
+    """``(idx, valid)``, both ``(E, max_rows)``: the row of expert e's j-th
+    slot (0 where empty) and whether the slot holds one of its rows."""
+    j = torch.arange(max_rows, device=offsets.device)
+    idx = offsets[:-1, None].long() + j
+    valid = idx < offsets[1:, None].long()
+    return torch.where(valid, idx, torch.zeros_like(idx)), valid
+
+
+def gather_slots(x: torch.Tensor, idx: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` into ``(E, max_rows, K)`` slots, zero where empty."""
+    return torch.where(valid[..., None], x[idx],
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def scatter_slots(y: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                  n_rows: int) -> torch.Tensor:
+    """``(E, max_rows, N)`` slot results back to ``(n_rows, N)`` rows;
+    rows no slot holds are zero (empty slots land on a spare row that is
+    dropped)."""
+    n = y.shape[-1]
+    out = torch.zeros((n_rows + 1, n), dtype=y.dtype, device=y.device)
+    dst = torch.where(valid, idx, torch.full_like(idx, n_rows))
+    out.index_copy_(0, dst.reshape(-1), y.reshape(-1, n))
+    return out[:n_rows]
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-TILE_HEAD_DIMS = (32, 64, 128)
+TILE_HEAD_DIMS = (32, 64, 128, 256)
 
 
 def padded_head_dim(d: int, what: str) -> int:

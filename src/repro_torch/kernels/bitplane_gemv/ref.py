@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bitplane import unpack_weights
+from repro_torch.kernels._gemv import expert_slots, gather_slots, scatter_slots
 
 
 def bitplane_gemv_ref(
@@ -38,3 +39,28 @@ def bitplane_gemv_ref(
             digit = digit - (sign << radix)
         acc = acc + float(1 << (d * radix)) * (xf @ digit.to(torch.float32))
     return (acc * scale).to(out_dtype)
+
+
+def bitplane_gemv_grouped_ref(
+    packed: torch.Tensor,   # (E, K * bits // 8, N) int8
+    scale: torch.Tensor,    # (E, 1, N) float32
+    x: torch.Tensor,        # (R, K), rows sorted by expert
+    offsets: torch.Tensor,  # (E + 1,) int32
+    *,
+    max_rows: int,
+    bits: int = 8,
+    radix: int = 1,
+    out_dtype=torch.float32,
+) -> torch.Tensor:
+    """The grouped function: for each expert e, ``y[offsets[e]:offsets[e +
+    1]] = bitplane_gemv_ref(packed[e], scale[e], x[...])``, each expert's
+    rows gathered into ``max_rows`` slots first, so nothing is read back
+    from the device.  Rows past ``offsets[E]`` are zero here (the kernel
+    leaves them unwritten)."""
+    idx, valid = expert_slots(offsets, max_rows)
+    xs = gather_slots(x, idx, valid)
+    y = torch.stack([bitplane_gemv_ref(packed[e], scale[e], xs[e],
+                                       bits=bits, radix=radix,
+                                       out_dtype=out_dtype)
+                     for e in range(packed.shape[0])])
+    return scatter_slots(y, idx, valid, x.shape[0])

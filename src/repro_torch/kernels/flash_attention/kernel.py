@@ -8,7 +8,7 @@ designs by dtype, each its own C entry point: ``tensor_core`` for
 bfloat16 (wgmma tiles, P split into bf16 hi + lo) and ``cuda_core`` for
 float32.  No route ever gives way to the other or to the plain version.
 Both are compiled for the head dims of ``HEAD_DIMS``; any other D up to
-128 is zero-padded to the next of them (``_heads``).
+256 is zero-padded to the next of them (``_heads``).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def route(dtype: torch.dtype, d: int) -> str:
     """The design that takes q, k, v of ``dtype`` and head dim ``d``:
     ``tensor_core`` for bfloat16, ``cuda_core`` for float32 (bf16 operands
-    would round it).  Raises for any other dtype and for ``d`` above 128."""
+    would round it).  Raises for any other dtype and for ``d`` above 256."""
     padded_head_dim(d, "flash_attention_cuda")
     if dtype == torch.bfloat16:
         return "tensor_core"

@@ -13,7 +13,7 @@ host.  Chunked prefill has two designs, each its own C entry point, picked
 by dtype (``prefill_route``): ``tensor_core`` (mma.sync tiles) for
 bfloat16 queries over bfloat16 or int8 pools, ``cuda_core`` when the
 queries or the pools are float32; the tensor-core tiles take head dims of
-``TC_HEAD_DIMS`` and any other up to 128 zero-padded (``_heads``).  No
+``TC_HEAD_DIMS`` and any other up to 256 zero-padded (``_heads``).  No
 route ever gives way to the other or to the plain version.
 """
 

@@ -1,4 +1,4 @@
-"""Decoder LM of the dense and ssm families.
+"""Decoder LM of the dense, moe and ssm families.
 
 Parameters are a plain dictionary::
 
@@ -6,22 +6,30 @@ Parameters are a plain dictionary::
      "layers": [{"ln1", "attn": {"wq", "wk", "wv", "wo"},
                  "ln2", "mlp": {"w_gate", "w_up", "w_down"}}, ...]}
 
-for the dense family and ``"layers": [{"ln1", "ssm": {...}}, ...]`` for
-the ssm family (``models/ssm.py``), with one entry per layer (the JAX
+for the dense family, the same with ``"moe": {"router", "w_gate", "w_up",
+"w_down"[, "shared"]}`` (``models/moe.py``: stacked experts) in place of
+``"mlp"`` for the moe family, and ``"layers": [{"ln1", "ssm": {...}},
+...]`` for the ssm family (``models/ssm.py``), with one entry per layer (the JAX
 package stacks layers on a leading axis and scans; here the layer loop is
 a Python loop, so every layer's window is a Python ``int``).  A linear is
-``{"w": (K, N)[, "bias"]}`` or, after :func:`quantize_params`, an engine
+``{"w": (K, N)[, "bias"]}`` (an expert stack a ``(E, K, N)`` tensor) or,
+after :func:`quantize_params`, an engine
 :class:`~repro_torch.engine.PackedLinear`.
 
 Two paths:
 
 * the full-sequence path, :func:`forward` and the slots-layout cache path
   :func:`init_cache` / one-shot :func:`prefill` / :func:`decode_step`,
-  for both families; at :data:`FLASH_THRESHOLD` tokens and more attention
-  runs flash attention, and the ssm family runs the SSD scan, both as
-  CUDA kernels on the ``cuda`` attention backend;
+  for the three families; at :data:`FLASH_THRESHOLD` tokens and more
+  attention runs flash attention, and the ssm family runs the SSD scan,
+  both as CUDA kernels on the ``cuda`` attention backend;
 * paged serving, :func:`prefill_chunk` / :func:`decode_step_paged`, for
-  the dense family.
+  the dense and moe families.
+
+The moe family's steps take ``expert_counts``, an ``(L, E)`` int32 tensor
+that each MoE layer fills in place with the rows each expert computed, so
+a step's touched experts can be read after it (a captured graph refills
+it on every replay).
 
 :func:`prefill`, :func:`decode_step`, :func:`decode_step_paged` and
 :func:`prefill_chunk` write caches and page pools **in place**
@@ -56,6 +64,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
+from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.ssm import (
     _ssm_run,
     init_ssm,
@@ -67,14 +76,15 @@ Params = Dict[str, Any]
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                "in_proj", "out_proj")
-_FULL_SEQUENCE = ("dense", "ssm")
+_FULL_SEQUENCE = ("dense", "moe", "ssm")
+_PAGED = ("dense", "moe")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_family(cfg: ModelConfig, families=("dense",)) -> None:
+def _check_family(cfg: ModelConfig, families=_PAGED) -> None:
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported on this path; it runs "
@@ -86,8 +96,10 @@ def _check_family(cfg: ModelConfig, families=("dense",)) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """One layer's parameters, drawn on the generator's device."""
+def init_layer(cfg: ModelConfig, gen: torch.Generator,
+               engine_bits: int = 0) -> Params:
+    """One layer's parameters, drawn on the generator's device; a moe
+    layer's experts packed to ``engine_bits`` as each is drawn."""
     dtype = _dtype(cfg)
     if cfg.family == "ssm":
         return {"ln1": torch.zeros((cfg.d_model,), dtype=dtype,
@@ -95,12 +107,8 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
                 "ssm": init_ssm(cfg, gen, dtype)}
     d, dh = cfg.d_model, cfg.resolved_head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    mlp = {"w_up": init_linear(gen, d, f, dtype),
-           "w_down": init_linear(gen, f, d, dtype)}
-    if cfg.mlp_gated:
-        mlp["w_gate"] = init_linear(gen, d, f, dtype)
     zeros = torch.zeros((d,), dtype=dtype, device=gen.device)
-    return {
+    layer = {
         "ln1": zeros,
         "attn": {
             "wq": init_linear(gen, d, hq * dh, dtype, bias=cfg.qkv_bias),
@@ -109,8 +117,16 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
             "wo": init_linear(gen, hq * dh, d, dtype),
         },
         "ln2": zeros.clone(),
-        "mlp": mlp,
     }
+    if cfg.family == "moe":
+        layer["moe"] = init_moe(cfg, gen, dtype, engine_bits)
+        return layer
+    mlp = {"w_up": init_linear(gen, d, f, dtype),
+           "w_down": init_linear(gen, f, d, dtype)}
+    if cfg.mlp_gated:
+        mlp["w_gate"] = init_linear(gen, d, f, dtype)
+    layer["mlp"] = mlp
+    return layer
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -128,7 +144,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
     layers = []
     for _ in range(cfg.n_layers):
-        layer = init_layer(cfg, gen)
+        layer = init_layer(cfg, gen, engine_bits)
         if engine_bits:
             layer = _quantize_layer(layer, engine_bits)
         layers.append(layer)
@@ -158,6 +174,25 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 def _mlp_apply(lp, x, cfg, plan):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + swiglu(lp["mlp"], h, plan)
+
+
+def _moe_apply(lp, x, cfg, plan, counts=None):
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y, aux = moe_block(lp["moe"], h, cfg, plan, counts)
+    return x + y, aux
+
+
+def _ffn_apply(lp, x, cfg, plan, counts=None):
+    """A layer's second sub-block: the MoE block (with its aux loss) in a
+    moe layer, the MLP (aux None) otherwise.  ``counts``: the MoE block's
+    ``(E,)`` rows-per-expert output."""
+    if "moe" in lp:
+        return _moe_apply(lp, x, cfg, plan, counts)
+    return _mlp_apply(lp, x, cfg, plan), None
+
+
+def _layer_counts(expert_counts, layer):
+    return None if expert_counts is None else expert_counts[layer]
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -296,6 +331,8 @@ def forward(
 ):
     """Full-sequence forward (scoring).  Returns (logits ``(B, S, V)``,
     aux loss) — or (hidden ``(B, S, D)``, aux loss) with ``return_hidden``.
+    The aux loss is the moe family's router loss summed over layers (a
+    float32 zero for the others).
 
     At :data:`FLASH_THRESHOLD` tokens and more, attention runs
     :func:`attend_flash`; the ``cuda`` attention backend (the default on a
@@ -312,17 +349,19 @@ def forward(
     use_kernel = mixers["attn_backend"] == "cuda"
     local_gather = (local_gather and cfg.sliding_window > 0
                     and cfg.global_every > 0)
-    if cfg.family == "dense":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family != "ssm":
         for lp, win in zip(params["layers"], _layer_windows(cfg)):
             x, _ = _attn_apply(lp, x, positions, cfg, plan, win,
                                local_gather=local_gather, **mixers)
-            x = _mlp_apply(lp, x, cfg, plan)
+            x, a = _ffn_apply(lp, x, cfg, plan)
+            if a is not None:
+                aux = aux + a
     else:
         for lp in params["layers"]:
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             x = x + ssm_forward(lp["ssm"], h, cfg, plan,
                                 use_kernel=use_kernel)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return _lm_logits(params, x, cfg, plan), aux
@@ -333,7 +372,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                kv_bits: int = 0, device: DeviceLike = None) -> Params:
     """Decode cache in the slots layout, on ``device`` (None means the GPU).
 
-    dense: ``k``/``v`` ``(L, B, max_len, Hkv, Dh)`` at full precision;
+    dense and moe: ``k``/``v`` ``(L, B, max_len, Hkv, Dh)`` at full
+    precision;
     ssm: ``conv`` ``(L, B, cw - 1, d_inner + 2N)`` and ``h`` ``(L, B, H, P,
     N)`` float32; both with ``pos`` ``(B,)`` int32.  The JAX package's int8
     (``kv_bits=8``), unstacked and ``split_local`` layouts are not ported
@@ -353,7 +393,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     dtype = dtype or _dtype(cfg)
     cache: Params = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                         device=device)}
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -389,7 +429,7 @@ def prefill(
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
                                                  attn_backend)
     s = x.shape[1]
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         if s > cache["k"].shape[2]:
             raise ValueError(f"prefill: {s} prompt tokens exceed the cache's "
                              f"{cache['k'].shape[2]} slots")
@@ -397,7 +437,7 @@ def prefill(
                                               _layer_windows(cfg))):
             x, (k, v) = _attn_apply(lp, x, positions, cfg, plan, win,
                                     **mixers)
-            x = _mlp_apply(lp, x, cfg, plan)
+            x, _ = _ffn_apply(lp, x, cfg, plan)
             for name, val in (("k", k), ("v", v)):
                 cache[name][layer, :, :s] = val.to(cache[name].dtype)
                 cache[name][layer, :, s:] = 0
@@ -450,6 +490,7 @@ def decode_step(
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
     active: Optional[torch.Tensor] = None,   # (B,) bool
+    expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
 ):
     """One token of autoregressive decode over the slots cache.  Returns
     (logits ``(B, 1, V)``, cache): the cache's tensors, ``pos`` included,
@@ -467,13 +508,14 @@ def decode_step(
     plan, _ = _resolve(eng, attn_backend, tokens.device)
     pos = cache["pos"]
     x = _embed(params, tokens)
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         for layer, (lp, win) in enumerate(zip(params["layers"],
                                               _layer_windows(cfg))):
             x = _attn_decode_apply(lp, x, cache["k"][layer],
                                    cache["v"][layer], pos, cfg, plan, win,
                                    active)
-            x = _mlp_apply(lp, x, cfg, plan)
+            x, _ = _ffn_apply(lp, x, cfg, plan,
+                              _layer_counts(expert_counts, layer))
     else:
         for layer, lp in enumerate(params["layers"]):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -510,10 +552,13 @@ def decode_step_paged(
     cfg: ModelConfig,
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
+    expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
 ) -> torch.Tensor:
     """One token of greedy decode over paged KV; returns logits
     ``(B, 1, V)``.  Inactive lanes write their K/V into the null page and
-    their logits are meaningless.  ``pages`` is updated in place."""
+    their logits are meaningless (in a moe layer each lane routes its own
+    token: a lane's capacity is its own).  ``pages`` is updated in
+    place."""
     _check_family(cfg)
     plan, abk = _resolve(eng, attn_backend, tokens.device)
     b = tokens.shape[0]
@@ -535,7 +580,8 @@ def decode_step_paged(
         o = attend_paged_decode(q, kp, vp, block_tables, pos, win,
                                 k_scale=ks, v_scale=vs, attn_backend=abk)
         x = x + dense(lp["attn"]["wo"], o.reshape(b, 1, hq * dh), plan)
-        x = _mlp_apply(lp, x, cfg, plan)
+        x, _ = _ffn_apply(lp, x, cfg, plan,
+                          _layer_counts(expert_counts, layer))
     return _lm_logits(params, x, cfg, plan)
 
 
@@ -550,6 +596,7 @@ def prefill_chunk(
     cfg: ModelConfig,
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
+    expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
 ) -> torch.Tensor:
     """One batched chunk of prompt prefill against paged KV.
 
@@ -557,7 +604,9 @@ def prefill_chunk(
     chunk padding and idle lanes (``seq_lens == pos0``) write into the null
     page and their queries are ignored.  Attention sees the lane's whole
     resident prefix plus this chunk.  Returns the last valid token's
-    logits ``(B, 1, V)``; ``pages`` is updated in place.
+    logits ``(B, 1, V)``; ``pages`` is updated in place.  In a moe layer
+    every position of a lane's chunk routes, the padding too, and takes
+    capacity from the lane's tokens, as in the JAX package.
     """
     _check_family(cfg)
     plan, abk = _resolve(eng, attn_backend, tokens.device)
@@ -583,7 +632,8 @@ def prefill_chunk(
                                  seq_lens, win, k_scale=ks, v_scale=vs,
                                  attn_backend=abk)
         x = x + dense(lp["attn"]["wo"], o.reshape(b, c, hq * dh), plan)
-        x = _mlp_apply(lp, x, cfg, plan)
+        x, _ = _ffn_apply(lp, x, cfg, plan,
+                          _layer_counts(expert_counts, layer))
     last = torch.clamp(seq_lens - pos0 - 1, 0, c - 1)
     h_last = x[torch.arange(b, device=x.device), last][:, None]
     return _lm_logits(params, h_last, cfg, plan)
@@ -599,6 +649,8 @@ def _quantize_layer(layer: Params, bits: int) -> Params:
     for key, val in layer.items():
         if key in _QUANT_KEYS and isinstance(val, dict) and "w" in val:
             out[key] = pack_linear(val["w"], bits, bias=val.get("bias"))
+        elif key in _QUANT_KEYS and torch.is_tensor(val) and val.ndim == 3:
+            out[key] = pack_linear(val, bits)             # stacked experts
         elif isinstance(val, dict):
             out[key] = _quantize_layer(val, bits)
         else:
@@ -609,13 +661,14 @@ def _quantize_layer(layer: Params, bits: int) -> Params:
 @torch.no_grad()
 def quantize_params(params: Params, cfg: ModelConfig, bits: int = 8
                     ) -> Params:
-    """Every linear of every layer becomes a :class:`PackedLinear`;
-    embeddings and norms stay dense.  Already-packed linears pass
+    """Every linear of every layer becomes a :class:`PackedLinear`, a moe
+    layer's stacked experts one ``(E, Kp, N)`` linear each; embeddings,
+    norms and the router stay dense.  Already-packed linears pass
     through.  Packing runs layer by layer."""
     _check_family(cfg, _FULL_SEQUENCE)
     out = dict(params)
     out["layers"] = [_quantize_layer(lp, bits) for lp in params["layers"]]
-    if "lm_head" in params and "w" in params["lm_head"]:
-        out["lm_head"] = pack_linear(params["lm_head"]["w"], bits,
-                                     bias=params["lm_head"].get("bias"))
+    head = params.get("lm_head")
+    if isinstance(head, dict) and "w" in head:
+        out["lm_head"] = pack_linear(head["w"], bits, bias=head.get("bias"))
     return out

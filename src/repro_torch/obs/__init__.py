@@ -49,6 +49,7 @@ from repro_torch.obs.costs import (
     linear_specs,
     model_dims,
     prefill_chunk_costs,
+    routed_costs,
     specs_from_dims,
     total_cost,
 )
@@ -89,6 +90,7 @@ __all__ = [
     "linear_specs",
     "model_dims",
     "prefill_chunk_costs",
+    "routed_costs",
     "specs_from_dims",
     "telemetry",
     "total_cost",

@@ -379,7 +379,8 @@ def _fold(specs: List[LinearSpec]) -> List[LinearSpec]:
 def linear_specs(params: Any, prefix: str = "") -> List[LinearSpec]:
     """Walk a (possibly engine-quantized) parameter tree into LinearSpecs.
 
-    Duck-typed: ``PackedLinear`` leaves carry their own bits/shape;
+    Duck-typed: ``PackedLinear`` leaves carry their own bits/shape (a
+    stacked ``(E, Kp, N)`` expert linear is ``stack`` = E, as in JAX);
     ``{"w"[, "bias"]}`` dicts are dense linears.  A list (the port's
     per-layer list, ``params["layers"]``) folds the same linear of every
     element into one spec with ``stack`` = the list's length — the spec
@@ -392,13 +393,20 @@ def linear_specs(params: Any, prefix: str = "") -> List[LinearSpec]:
     out: List[LinearSpec] = []
     if _is_packed(params):
         key = prefix.rsplit("/", 1)[-1]
+        lead = tuple(params.packed.shape[:-2])
+        stack = 1
+        for d in lead:
+            stack *= int(d)
         out.append(LinearSpec(
             name=prefix or "linear",
             in_features=int(params.in_features),
             out_features=int(params.out_features),
             bits=int(params.bits),
+            stack=stack,
             bias=getattr(params, "bias", None) is not None,
-            partition="row" if key in _ROW_PARALLEL else "col",
+            # stacked experts: JAX packs them with no partition preference
+            partition=(None if lead else
+                       "row" if key in _ROW_PARALLEL else "col"),
         ))
         return out
     if isinstance(params, (list, tuple)):
@@ -427,6 +435,25 @@ def linear_specs(params: Any, prefix: str = "") -> List[LinearSpec]:
             name = f"{prefix}/{key}" if prefix else str(key)
             if isinstance(sub, (dict, list, tuple)) or _is_packed(sub):
                 out.extend(linear_specs(sub, name))
+    return out
+
+
+# the stacked expert linears of a moe layer, by the end of their spec names
+EXPERT_LINEARS = ("moe/w_gate", "moe/w_up", "moe/w_down")
+
+
+def routed_costs(table: Dict[str, OpCost], specs: Sequence[LinearSpec], *,
+                 touched: float) -> Dict[str, OpCost]:
+    """A step's op table with its stacked expert linears priced for the
+    experts the step's routing sent rows to: ``touched`` expert-layers
+    (distinct experts a layer, summed over layers) in place of every
+    expert of every layer.  The ledger (``table``), as the JAX package's,
+    prices them all; a grouped launch reads only the touched experts'
+    codes, so a bytes share of the card is stated on this table."""
+    out = dict(table)
+    for s in specs:
+        if s.name.endswith(EXPERT_LINEARS) and s.key in table:
+            out[s.key] = table[s.key].scaled(touched / s.stack)
     return out
 
 

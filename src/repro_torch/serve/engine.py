@@ -1,5 +1,6 @@
 """Continuous-batching serving engine over a paged KV cache (the default
-for the dense family) or a fixed-slot cache (the ssm family's mode).
+for the dense and moe families) or a fixed-slot cache (the ssm family's
+mode).
 
 **Paged mode** (``mode="paged"``): KV state lives in a shared page pool
 (:mod:`repro_torch.serve.pages`) addressed through per-request block
@@ -73,10 +74,18 @@ step graphs captured, so a restored engine resumes on its graphs;
 persist it through :mod:`repro_torch.ckpt`, in the JAX package's format
 (a snapshot the JAX engine saved loads here).
 
-Not ported yet: the families other than dense and ssm (the audio family's
-token layout among them), which are refused at construction.  In slots mode the paged-pool options (prefix
-cache, budget scheduler, audits) are refused or warned about as the JAX
-package does.
+**The moe family** serves in both modes.  Each paged step fills an ``(L,
+E)`` int32 table of rows per expert on the card (``expert_counts``, one
+per step kind, written in place so the graphs refill it); after the step
+the engine reads it with the logits and keeps the experts it touched,
+summed over layers, in ``experts_touched["decode" | "prefill"]``: the
+expert codes a grouped launch actually read (``obs.routed_costs`` prices
+a step on them beside the ledger's all-experts price).
+
+Not ported yet: the families other than dense, moe and ssm (the audio
+family's token layout among them), which are refused at construction.  In
+slots mode the paged-pool options (prefix cache, budget scheduler, audits)
+are refused or warned about as the JAX package does.
 """
 
 from __future__ import annotations
@@ -124,8 +133,8 @@ from repro_torch.serve.step_graph import StepGraph
 
 logger = logging.getLogger(__name__)
 
-SERVE_FAMILIES = ("dense", "ssm")
-PAGED_FAMILIES = ("dense",)
+SERVE_FAMILIES = ("dense", "moe", "ssm")
+PAGED_FAMILIES = ("dense", "moe")
 
 
 class AdmissionRejected(RuntimeError):
@@ -344,6 +353,10 @@ class ServeEngine:
                             if self.cuda_graphs else None)
         self._graphs: List[StepGraph] = []
         self.prefix_cache: Optional[PrefixCache] = None
+        # the moe family's rows per expert of the latest step of each kind
+        self.expert_counts: Optional[Dict[str, torch.Tensor]] = None
+        self.experts_touched: Dict[str, List[int]] = {"decode": [],
+                                                      "prefill": []}
         if self.mode == "paged":
             self._init_paged(page_size, n_pages, prefill_chunk, prefix_cache)
         else:
@@ -385,12 +398,20 @@ class ServeEngine:
                                 chunk=self.prefill_chunk)
         params, pages, lanes = self.params, self.pages, self.lanes
         cfg, plan, abk = self.cfg, self.plan, self.attn_backend
+        counts = {"decode": None, "prefill": None}
+        if cfg.family == "moe":
+            counts = self.expert_counts = {
+                kind: torch.zeros((cfg.n_layers, cfg.n_experts),
+                                  dtype=torch.int32, device=self.device)
+                for kind in counts}
         self._decode_paged = self._step_fn(lambda: decode_step_paged(
             params, pages, lanes.block_tables, lanes.pos, lanes.active,
-            lanes.tokens, cfg, plan, attn_backend=abk))
+            lanes.tokens, cfg, plan, attn_backend=abk,
+            expert_counts=counts["decode"]))
         self._prefill_paged = self._step_fn(lambda: _prefill_chunk_fn(
             params, pages, lanes.block_tables, lanes.chunk_tokens,
-            lanes.pos0, lanes.seq_lens, cfg, plan, attn_backend=abk))
+            lanes.pos0, lanes.seq_lens, cfg, plan, attn_backend=abk,
+            expert_counts=counts["prefill"]))
         # the cost ledger's tables: the steps' shapes are fixed at
         # construction, so one table per step kind prices every step.
         # Built at the first charged step; with obs off they never exist.
@@ -969,6 +990,14 @@ class ServeEngine:
             self.timings["capture"].append(capture)
         self.timings[part].append(spent - capture)
 
+    def _note_experts(self, kind: str) -> None:
+        """The experts the latest ``kind`` step touched, summed over its
+        layers (moe only; read after the step's logits, outside the
+        step's time)."""
+        if self.expert_counts is not None:
+            self.experts_touched[kind].append(
+                int((self.expert_counts[kind] > 0).sum()))
+
     def _maybe_audit(self, level: int) -> None:
         """:meth:`audit` when ``ServeConfig.audit`` reaches ``level`` (1:
         after each step, 2: after each phase too)."""
@@ -1010,6 +1039,7 @@ class ServeEngine:
                             seq_lens=seq_lens)
             lg = self._host_logits(self._prefill_paged())
         self._timed("prefill", t0, captured)
+        self._note_experts("prefill")
         self.obs.on_prefill([(slot, self.slot_req[slot].rid, n)
                              for slot, n in lanes], t_obs)
         self._charge_prefill([self.slot_req[slot].rid for slot, _ in lanes])
@@ -1066,6 +1096,7 @@ class ServeEngine:
                 tokens=tokens)
             lg = self._host_logits(self._decode_paged())
         self._timed("decode", t0, captured)
+        self._note_experts("decode")
         self.obs.on_decode([(s, r.rid) for s, r in ready], t_obs)
         self._charge_decode([r.rid for _, r in ready])
         fault_slot, lg = self._inject_lane_chaos([s for s, _ in ready], lg)

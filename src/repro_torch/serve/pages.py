@@ -76,7 +76,7 @@ def init_kv_pages(cfg: ModelConfig, n_pages: int, page_size: int,
                   device: DeviceLike = None) -> KVPages:
     """An all-zeros page pool for ``cfg`` on ``device`` (None: the GPU)."""
     device = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"paged KV for family {cfg.family!r} is not ported yet")
     if kv_bits not in (0, 8):

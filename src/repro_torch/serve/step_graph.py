@@ -21,6 +21,7 @@ again on every replay (``_build.recording`` / ``add_launches``).
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -43,6 +44,11 @@ class StepGraph:
 
     A capture that fails raises; the step never falls back to eager.
     ``capture_seconds`` is the host time the capture took.
+
+    The garbage collector is held off during the capture: a dead engine's
+    graphs, freed by a collection in the middle of this capture, would
+    invalidate it (tearing a graph down is not permitted while a stream
+    captures).  They are freed at a later collection instead.
     """
 
     def __init__(self, fn: Callable[[], Any], *, pool=None):
@@ -67,8 +73,14 @@ class StepGraph:
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with _build.recording() as launches:
-            with torch.cuda.graph(graph, pool=self.pool):
-                output = self.fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.recording() as launches:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    output = self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self.output, self.launches = graph, output, launches
         self.capture_seconds = time.perf_counter() - t0

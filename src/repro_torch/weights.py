@@ -46,7 +46,7 @@ def _convert(node: Any, layer: Optional[int], device, dtype) -> Any:
         bias = node.get("bias")
         if bias is not None:
             bias = _tensor(pick(bias), device, dtype)
-        kp, n = packed.shape
+        kp, n = packed.shape[-2:]
         return PackedLinear(packed, scale, bias, bits, kp * (8 // bits), n)
     if isinstance(node, dict):
         return {k: _convert(v, layer, device,

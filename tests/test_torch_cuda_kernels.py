@@ -40,8 +40,8 @@ kernels (paged decode attention split over the keys, the GEMVs' decode
 route split over K, shared by the int8 baseline at 8 bits) reduce their
 splits in a fixed order: their cases also run each call twice and require
 the same bits.  Flash attention and the
-paged prefill take head dims outside 32 / 64 / 128 through the launcher's
-zero padding (D = 16 and 112 here).
+paged prefill take head dims outside 32 / 64 / 128 / 256 through the launcher's
+zero padding (D = 16, 112 and 192 here).
 
 The serving steps as CUDA graphs (``-k graph``): ``decode_step_paged``,
 ``prefill_chunk`` and the full-sequence ``decode_step`` (dense and ssm),
@@ -67,6 +67,21 @@ kernels at G 2 (gemma3-27b, 16 KV heads) and G 12 (starcoder2-15b,
 mistral-large-123b: a part-filled second decode pass, a ragged last query
 block in a 32-token chunk), over 1,100-2,048 keys with and without
 gemma3's 1024-key window.
+
+The bit-plane GEMV's expert-grouped launch (``-k grouped``): stacked
+experts at llama4-scout's (K 5120 -> N 8192, 8192 -> 5120; 16 experts) and
+qwen3-moe's (4096 -> 1536, 1536 -> 4096; 128 experts) shapes and a ragged
+one (K 200, N 300), through each of its three routes (``grouped_decode``
+at a bound of 8 rows an expert, ``grouped_tensor_core`` for bfloat16 and
+``grouped_rows`` for float32 at 64), with empty experts, every row in one
+expert, experts at the bound and ragged counts; the same tolerances as the
+flat GEMV, the decode route twice for the same bits.  The MoE serving
+steps as graphs (``-k graph_moe``): reduced qwen3-moe and llama4-scout
+``decode_step_paged`` / ``prefill_chunk`` replays bit-identical to eager
+calls, with the routed experts' counts, and an engine's tokens with graphs
+equal to eager.  Head dims past 128 (``-k head_dim_256``): flash attention
+(both routes) and the chunked prefill's tensor-core route at D 192
+(padded) and 256.
 """
 
 import dataclasses
@@ -88,9 +103,15 @@ from repro_torch.core.controller import run_gemv
 from repro_torch.engine import resolve_plan
 from repro_torch.core.isa import MAX_ELEMS
 from repro_torch.kernels import _build
-from repro_torch.kernels._gemv import route
-from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
-from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
+from repro_torch.kernels._gemv import grouped_route, route
+from repro_torch.kernels.bitplane_gemv.ops import (
+    bitplane_gemv,
+    bitplane_gemv_grouped,
+)
+from repro_torch.kernels.bitplane_gemv.ref import (
+    bitplane_gemv_grouped_ref,
+    bitplane_gemv_ref,
+)
 from repro_torch.kernels.flash_attention.kernel import (
     route as flash_route,
 )
@@ -989,3 +1010,245 @@ def test_graph_engine_restore_in_place(cuda_device, kv_bits):
         fresh = engine()
         fresh.load_snapshot(d)
         assert {r.rid: r.output for r in fresh.run()} == got
+
+
+
+# ------------------------------------------------ grouped (MoE) GEMV
+# (K, N, experts): llama4-scout's and qwen3-moe's expert linears, ragged
+GROUPED_SHAPES = [(5120, 8192, 16), (8192, 5120, 16), (4096, 1536, 128),
+                  (1536, 4096, 128), (200, 300, 6)]
+
+
+def _grouped_counts(kind, experts, bound, gen, dev):
+    """Rows per expert: ``ragged`` (random, some experts empty, one at the
+    bound), ``one`` (every row in one expert, at the bound) or ``full``
+    (every expert at the bound)."""
+    if kind == "one":
+        counts = torch.zeros(experts, dtype=torch.int32)
+        counts[experts // 2] = bound
+    elif kind == "full":
+        counts = torch.full((experts,), bound, dtype=torch.int32)
+    else:
+        counts = torch.randint(0, bound + 1, (experts,), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(
+                                   experts + bound))
+        counts[::3] = 0
+        counts[1] = bound
+    return counts.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts_kind", ["ragged", "one", "full"])
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+@pytest.mark.parametrize("bound,xdt", [(8, "bfloat16"), (8, "float32"),
+                                       (64, "bfloat16"), (64, "float32")])
+def test_grouped_gemv_matches_plain(cuda_device, bound, xdt, shape,
+                                    counts_kind):
+    k, n, experts = shape
+    dt = getattr(torch, xdt)
+    bits = 4
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n + bound)
+    packed = torch.randint(-128, 128, (experts, k * bits // 8, n),
+                           generator=gen, device=cuda_device,
+                           dtype=torch.int8)
+    scale = torch.rand((experts, 1, n), generator=gen,
+                       device=cuda_device) / 64 + 1e-3
+    counts = _grouped_counts(counts_kind, experts, bound, gen, cuda_device)
+    offsets = torch.zeros(experts + 1, dtype=torch.int32, device=cuda_device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    rows = int(offsets[-1])
+    x = torch.randn((rows + 5, k), generator=gen,
+                    device=cuda_device).to(dt)
+    path = f"bitplane_gemv/{grouped_route(bound, dt)}"
+    assert path.endswith({8: "grouped_decode", 64: "grouped_tensor_core"
+                          if xdt == "bfloat16" else "grouped_rows"}[bound])
+    before = _build.ROUTE_LAUNCHES[path]
+    y = bitplane_gemv_grouped(packed, scale, x, offsets, max_rows=bound,
+                              bits=bits, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    r = bitplane_gemv_grouped_ref(packed, scale, x, offsets, max_rows=bound,
+                                  bits=bits, out_dtype=dt)
+    assert y.shape == (rows + 5, n) and y.dtype == dt
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y[:rows].float(), r[:rows].float(), rtol=rtol,
+                               atol=1e-5 * r.float().abs().max().item())
+    if bound == 8:
+        again = bitplane_gemv_grouped(packed, scale, x, offsets,
+                                      max_rows=bound, bits=bits, out_dtype=dt)
+        assert torch.equal(again[:rows], y[:rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,radix", [(2, 2), (8, 1), (8, 4)])
+@pytest.mark.parametrize("bound,xdt", [(8, "bfloat16"), (8, "float32"),
+                                       (40, "bfloat16"), (40, "float32")])
+def test_grouped_gemv_bits_match_plain(cuda_device, bits, radix, bound, xdt):
+    """The other code widths through each grouped route, on quantized
+    weights (ragged K 520, N 300)."""
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(bits + bound)
+    experts, k, n = 5, 520, 300
+    w = torch.randn((experts, k, n), generator=gen, device=cuda_device)
+    q, scale = quantize_symmetric(w, bits, axis=-2)
+    packed = pack_weights(q, bits, axis=-2)
+    counts = _grouped_counts("ragged", experts, bound, gen, cuda_device)
+    offsets = torch.zeros(experts + 1, dtype=torch.int32, device=cuda_device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    rows = int(offsets[-1])
+    x = torch.randn((rows, k), generator=gen, device=cuda_device).to(dt)
+    y = bitplane_gemv_grouped(packed, scale, x, offsets, max_rows=bound,
+                              bits=bits, radix=radix, out_dtype=dt)
+    r = bitplane_gemv_grouped_ref(packed, scale, x, offsets, max_rows=bound,
+                                  bits=bits, radix=radix, out_dtype=dt)
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol,
+                               atol=1e-5 * r.float().abs().max().item())
+
+
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_graph_moe_paged_steps_match_eager(cuda_device, arch):
+    """``decode_step_paged`` and ``prefill_chunk`` of a reduced MoE model
+    as graphs: each replay bit-identical to an eager call on a copy of the
+    state, the routed experts' counts too, with the grouped routes'
+    launches (a MoE layer runs its three expert linears grouped)."""
+    cfg, params, plan = _graph_model(arch, cuda_device, kv_bits=8)
+    b, nblk, page, chunk = 4, 6, 16, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    pages_g = init_kv_pages(cfg, b * nblk + 1, page, kv_bits=8,
+                            device=cuda_device)
+    _random_pool(pages_g, gen)
+    pages_e = _clone_pages(pages_g)
+    lanes = LaneTables(b, cuda_device, max_blocks=nblk, chunk=chunk)
+    shape = (cfg.n_layers, cfg.n_experts)
+    counts_g = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+    counts_e = torch.zeros_like(counts_g)
+    rng = np.random.default_rng(20)
+
+    def same(step):
+        assert _same_pages(pages_g, pages_e), step
+        assert torch.equal(counts_g, counts_e), step
+
+    decode = StepGraph(lambda: decode_step_paged(
+        params, pages_g, lanes.block_tables, lanes.pos, lanes.active,
+        lanes.tokens, cfg, plan, expert_counts=counts_g))
+
+    def load_decode(step):
+        bt, pos = _paged_inputs(rng, b, nblk, page, 1)
+        active = rng.integers(0, 2, b).astype(bool)
+        active[step % b] = True
+        tokens = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+        lanes.load(block_tables=bt, pos=pos, active=active, tokens=tokens)
+        return [torch.from_numpy(a).to(cuda_device)
+                for a in (bt, pos, active, tokens)]
+
+    _replay_against_eager(
+        decode, lambda bt, pos, active, tokens: decode_step_paged(
+            params, pages_e, bt, pos, active, tokens, cfg, plan,
+            expert_counts=counts_e), load_decode, same)
+    assert decode.launches["bitplane_gemv/grouped_decode"] == (
+        3 * cfg.n_layers)
+    prefill = StepGraph(lambda: prefill_chunk(
+        params, pages_g, lanes.block_tables, lanes.chunk_tokens,
+        lanes.pos0, lanes.seq_lens, cfg, plan, expert_counts=counts_g))
+
+    def load_prefill(step):
+        bt, pos0 = _paged_inputs(rng, b, nblk, page, chunk)
+        seq_lens = pos0 + rng.integers(0, chunk + 1, b).astype(np.int32)
+        tokens = rng.integers(0, cfg.vocab_size, (b, chunk)).astype(np.int32)
+        lanes.load(block_tables=bt, chunk_tokens=tokens, pos0=pos0,
+                   seq_lens=seq_lens)
+        return [torch.from_numpy(a).to(cuda_device)
+                for a in (bt, tokens, pos0, seq_lens)]
+
+    _replay_against_eager(
+        prefill, lambda bt, tokens, pos0, seq_lens: prefill_chunk(
+            params, pages_e, bt, tokens, pos0, seq_lens, cfg, plan,
+            expert_counts=counts_e), load_prefill, same)
+    assert prefill.launches["bitplane_gemv/grouped_tensor_core"] == (
+        3 * cfg.n_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode", [(a, m) for a in MOE_ARCHS
+                                       for m in ("paged", "slots")])
+def test_graph_moe_engine_tokens_match_eager(cuda_device, arch, mode):
+    cfg, params, _ = _graph_model(arch, cuda_device)
+    kv_bits = 8 if mode == "paged" else 0
+    scfg = ServeConfig(max_new_tokens=6, page_size=4, prefill_chunk=5,
+                       engine=EngineConfig(weight_bits=4, kv_bits=kv_bits))
+    prompts = [list(range(1 + i, 4 + 3 * i)) for i in range(5)]
+    out = {}
+    for graphs in (True, False):
+        eng = ServeEngine(cfg, params, scfg, n_slots=3, max_len=48,
+                          mode=mode, cuda_graphs=graphs, device=cuda_device)
+        before = _launch_counts()
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        out[graphs] = ([r.output for r in reqs], _moved(before),
+                       dict(eng.experts_touched))
+    assert out[True][0] == out[False][0]
+    assert out[True][1] == out[False][1]
+    assert out[True][2] == out[False][2]
+    assert out[True][1]["bitplane_gemv/grouped_decode"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256(cuda_device, xdt, window, d):
+    """Head dims past 128: 192 zero-padded to the tiles' 256, and 256."""
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(d + window)
+    s, hq, hkv = 777, 8, 2
+    q = torch.randn((2, s, hq, d), generator=gen, device=cuda_device).to(dt)
+    k = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
+    v = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
+    path = f"flash_attention/{flash_route(dt, d)}"
+    before = _build.ROUTE_LAUNCHES[path]
+    y = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    r = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), window=window).transpose(1, 2)
+    assert y.shape == q.shape and y.dtype == dt
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("window", [0, 37])
+def test_prefill_attention_head_dim_256(cuda_device, kind, d, window):
+    """The chunked prefill's tensor-core route at head dims past 128, over
+    contexts past one 64-key step, a ragged and an idle lane."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + window)
+    b, hkv, g, page, c, nblk = 4, 2, 4, 16, 32, 14
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, d,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    q = torch.randn((b, c, hkv * g, d), generator=gen,
+                    device=cuda_device).bfloat16()
+    pos0 = torch.tensor([0, 45, 150, 60], dtype=torch.int32,
+                        device=cuda_device)
+    seq = pos0 + c
+    seq[2] -= 7
+    seq[3] = pos0[3]
+    before = _build.ROUTE_LAUNCHES["paged_prefill_attention/tensor_core"]
+    y = paged_prefill_attention(q, kp, vp, bt, pos0, seq, window, ks, vs)
+    torch.cuda.synchronize()
+    assert (_build.ROUTE_LAUNCHES["paged_prefill_attention/tensor_core"]
+            == before + 1)
+    r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, window, ks, vs)
+    assert y.shape == r.shape
+    torch.testing.assert_close(y[:3].float(), r[:3].float(),
+                               **_attn_tol(kind))
+    assert bool(torch.isfinite(y[3]).all())

@@ -25,9 +25,9 @@ bf16 hi + lo) and held against JAX ``flash_attention_ref`` on bf16 inputs
 at ``chip_smoke.py``'s bf16 tolerance (``flash_tol``: rtol 2^-7, one bf16
 ulp of the value, atol 1e-5); a model that rounds p to bf16 once misses
 that tolerance, which is why the kernel splits p.  Both routes take the
-head dims 32 / 64 / 128; the launcher zero-pads any other D up to 128 to
-the next of them and passes the scale of the true D (``kernels/_heads.py``):
-D = 16 and 112 go through that padding into the tensor-core model (bf16)
+head dims 32 / 64 / 128 / 256; the launcher zero-pads any other D up to
+256 to the next of them and passes the scale of the true D
+(``kernels/_heads.py``): D = 16, 112 and 192 go through that padding into the tensor-core model (bf16)
 and into plain float32 attention (the CUDA-core route's function), against
 JAX at the tolerances above.
 """
@@ -136,8 +136,8 @@ def test_route_by_dtype(dtype, want, d):
     assert route(dtype, d) == want
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 160),
-                                     (torch.float32, 256),
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 288),
+                                     (torch.float32, 320),
                                      (torch.float16, 128)])
 def test_route_refuses_what_no_design_takes(dtype, d):
     with pytest.raises(ValueError):
@@ -149,6 +149,17 @@ def test_route_refuses_what_no_design_takes(dtype, d):
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
                                         (torch.float32, "cuda_core")])
 def test_route_takes_every_head_dim_up_to_128(dtype, want, d, width):
+    assert route(dtype, d) == want
+    assert padded_head_dim(d, "flash_attention_cuda") == width
+
+
+@pytest.mark.parametrize("d,width", [(129, 256), (160, 256), (192, 256),
+                                     (256, 256)])
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
+                                        (torch.float32, "cuda_core")])
+def test_route_takes_head_dims_up_to_256(dtype, want, d, width):
+    """Head dims in (128, 256] take both routes, zero-padded to the tiles'
+    256; above 256 the launcher raises (the case above)."""
     assert route(dtype, d) == want
     assert padded_head_dim(d, "flash_attention_cuda") == width
 
@@ -238,7 +249,7 @@ def test_bf16_p_misses_the_tolerance_the_split_meets():
 
 
 @pytest.mark.parametrize("window", [0, 37])
-@pytest.mark.parametrize("d", [16, 112])
+@pytest.mark.parametrize("d", [16, 112, 192])
 def test_tensor_core_model_pads_head_dim(d, window):
     """The launcher's padding into the tensor-core route's arithmetic:
     q, k, v zero-padded to the tiles' width, the scale of the true D, the
@@ -255,7 +266,7 @@ def test_tensor_core_model_pads_head_dim(d, window):
 
 
 @pytest.mark.parametrize("window", [0, 64])
-@pytest.mark.parametrize("d", [16, 112])
+@pytest.mark.parametrize("d", [16, 112, 192])
 def test_float32_padding_matches_jax_interpret(d, window):
     """The CUDA-core route's function on padded float32 inputs (masked
     softmax attention with the scale of the true D, in float32), sliced

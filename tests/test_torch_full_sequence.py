@@ -93,11 +93,12 @@ def _jax_run(arch, weight_bits, threshold):
     with mock.patch.object(jt, "FLASH_THRESHOLD", threshold):
         fwd = jax.jit(functools.partial(forward, cfg=cfg, eng=eng,
                                         remat="none"))
-        logits, _ = fwd(params, {"tokens": jnp.asarray(toks)})
+        logits, aux = fwd(params, {"tokens": jnp.asarray(toks)})
         pf = jax.jit(functools.partial(prefill, cfg=cfg, eng=eng))
         cache = init_cache(cfg, B, MAX_LEN)
         pl, cache = pf(params, {"tokens": jnp.asarray(toks)}, cache=cache)
-    out = dict(forward=np.asarray(logits), prefill=np.asarray(pl),
+    out = dict(forward=np.asarray(logits), aux=float(aux),
+               prefill=np.asarray(pl),
                prefill_cache=_cache_np(cache), decode=[], tokens=[])
     dec = jax.jit(functools.partial(decode_step, cfg=cfg, eng=eng))
     nxt = np.argmax(np.asarray(pl)[:, -1], -1)[:, None].astype(np.int32)
@@ -358,3 +359,69 @@ def test_port_registry_holds_the_dense_configs():
         for mine, ref in ((tconfig.get_arch(arch), j_get_arch(arch)),
                           (tconfig.get_reduced(arch), j_red(arch))):
             assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
+
+
+# ------------------------------------------------------------ moe family
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.parametrize("threshold,route", ROUTES)
+@pytest.mark.parametrize("weight_bits", [0, 4])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_jax(arch, weight_bits, threshold, route,
+                                 monkeypatch):
+    """Reduced qwen3-moe and llama4-scout: ``forward`` logits within TOL
+    and the router aux loss summed over layers within 1e-6 of JAX's."""
+    ref = _jax_run(arch, weight_bits, threshold)
+    tcfg, tparams, plan = _port_model(arch, weight_bits)
+    monkeypatch.setattr(tt, "FLASH_THRESHOLD", threshold)
+    toks = torch.from_numpy(_tokens(tcfg, 1))
+    logits, aux = tmodels.forward(tparams, {"tokens": toks}, tcfg, plan,
+                                  attn_backend=route)
+    np.testing.assert_allclose(logits.numpy(), ref["forward"], **TOL)
+    assert aux.dtype == torch.float32 and float(aux) > 0
+    assert abs(float(aux) - ref["aux"]) <= 1e-6
+
+
+@pytest.mark.parametrize("weight_bits", [0, 4])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_and_decode_match_jax(arch, weight_bits):
+    """One-shot ``prefill`` and greedy ``decode_step`` s of the moe family
+    against JAX's: logits and caches within TOL, the same tokens."""
+    ref = _jax_run(arch, weight_bits, 4096)
+    tcfg, tparams, plan = _port_model(arch, weight_bits)
+    toks = torch.from_numpy(_tokens(tcfg, 1))
+    cache = tmodels.init_cache(tcfg, B, MAX_LEN, device="cpu")
+    logits, cache = tmodels.prefill(tparams, {"tokens": toks}, tcfg, cache,
+                                    plan)
+    np.testing.assert_allclose(logits.numpy(), ref["prefill"], **TOL)
+    _assert_cache_close(cache, ref["prefill_cache"])
+    nxt = torch.argmax(logits[:, -1], -1)[:, None].int()
+    for step in range(N_DECODE):
+        np.testing.assert_array_equal(nxt.numpy(), ref["tokens"][step])
+        logits, cache = tmodels.decode_step(tparams, cache, nxt, tcfg, plan)
+        np.testing.assert_allclose(logits.numpy(), ref["decode"][step],
+                                   **TOL)
+        nxt = torch.argmax(logits[:, -1], -1)[:, None].int()
+    _assert_cache_close(cache, ref["final_cache"])
+
+
+def test_port_registry_holds_the_moe_configs():
+    """The port's moe config files equal the JAX package's, published and
+    reduced, and the port's own init packs each expert stack as drawn."""
+    from repro.config import get_arch as j_get_arch, get_reduced as j_red
+
+    for arch in MOE_ARCHS:
+        for mine, ref in ((tconfig.get_arch(arch), j_get_arch(arch)),
+                          (tconfig.get_reduced(arch), j_red(arch))):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
+        tcfg = tconfig.get_reduced(arch)
+        tp = tmodels.init_params(tcfg, torch.Generator().manual_seed(0),
+                                 engine_bits=4)
+        moe = tp["layers"][0]["moe"]
+        assert moe["w_gate"].packed.shape == (
+            tcfg.n_experts, tcfg.d_model // 2, tcfg.moe_d_ff)
+        assert moe["w_down"].scale.shape == (tcfg.n_experts, 1,
+                                             tcfg.d_model)
+        assert "w" in moe["router"]
+        assert ("shared" in moe) == bool(tcfg.n_shared_experts)

@@ -208,8 +208,8 @@ def test_launchers_read_nothing_back_from_the_device(path):
 
 
 STEP_MODULES = ("models/transformer.py", "models/attention.py",
-                "models/layers.py", "models/ssm.py", "engine/plan.py",
-                "engine/backends.py")
+                "models/layers.py", "models/ssm.py", "models/moe.py",
+                "engine/plan.py", "engine/backends.py")
 HOST_DATA = ("tensor", "as_tensor", "asarray", "from_numpy")
 HOST_SYNCS = HOST_READS + ("nonzero", "masked_select", "cuda",
                            "synchronize")
@@ -268,7 +268,10 @@ def _tiny(arch):
 
 
 @pytest.mark.parametrize("step", ["decode_step_paged", "prefill_chunk",
-                                  "decode_step_dense", "decode_step_ssm"])
+                                  "decode_step_dense", "decode_step_ssm",
+                                  "decode_step_paged_moe",
+                                  "prefill_chunk_moe",
+                                  "decode_step_slots_moe"])
 def test_steps_move_no_host_data(monkeypatch, step):
     """The steps a graph captures run on the CPU with every call that
     builds a tensor from host data or reads one back made to raise."""
@@ -280,8 +283,12 @@ def test_steps_move_no_host_data(monkeypatch, step):
     )
     from repro_torch.serve import LaneTables, init_kv_pages
 
-    arch = "mamba2-130m" if step.endswith("ssm") else "qwen2.5-3b"
+    arch = {"ssm": "mamba2-130m", "moe": "qwen3-moe-235b-a22b"}.get(
+        step.rsplit("_", 1)[-1], "qwen2.5-3b")
     cfg, params = _tiny(arch)
+    counts = (torch.zeros((cfg.n_layers, cfg.n_experts), dtype=torch.int32)
+              if arch.startswith("qwen3") else None)
+    step = step.removesuffix("_moe")
     b, chunk = 2, 4
     lanes = LaneTables(b, "cpu", max_blocks=4, chunk=chunk)
     lanes.load(block_tables=np.array([[1, 2, 0, 0], [3, 0, 0, 0]]),
@@ -303,15 +310,38 @@ def test_steps_move_no_host_data(monkeypatch, step):
         monkeypatch.setattr(torch.Tensor, name, host_data)
     if step == "decode_step_paged":
         out = decode_step_paged(params, pages, lanes.block_tables, lanes.pos,
-                                lanes.active, lanes.tokens, cfg)
+                                lanes.active, lanes.tokens, cfg,
+                                expert_counts=counts)
     elif step == "prefill_chunk":
         out = prefill_chunk(params, pages, lanes.block_tables,
                             lanes.chunk_tokens, lanes.pos0, lanes.seq_lens,
-                            cfg)
+                            cfg, expert_counts=counts)
     else:
         out, _ = decode_step(params, cache, lanes.tokens, cfg,
-                             active=lanes.active)
+                             active=lanes.active, expert_counts=counts)
     assert out.shape == (b, 1, cfg.vocab_size)
+    if counts is not None:   # every layer kept every token's k pairs
+        rows = b * (chunk if step == "prefill_chunk" else 1) * cfg.top_k
+        assert torch.equal(counts.sum(1), torch.full((cfg.n_layers,), rows))
+
+
+def test_build_digest_covers_the_grouped_launch_headers(monkeypatch,
+                                                        tmp_path):
+    """The grouped launch lives in the headers the two GEMVs share
+    (gemv_decode.cuh, tc_gemm.cuh): a change to either rebuilds."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build._digest()
+    for header in ("gemv_decode.cuh", "tc_gemm.cuh"):
+        text = (csrc / header).read_text()
+        assert "launch_grouped" in text
+        (csrc / header).write_text(text + "\n")
+        assert _build._digest() != first
+        (csrc / header).write_text(text)
+        assert _build._digest() == first
 
 
 def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch):
@@ -343,12 +373,14 @@ def test_launch_counts_by_kernel_and_route(monkeypatch):
     _build.reset_launches()
     counted = (("bitplane_gemv", "tensor_core"), ("int8_matvec", "decode"),
                ("flash_attention", "tensor_core"),
-               ("paged_prefill_attention", "cuda_core"))
+               ("paged_prefill_attention", "cuda_core"),
+               ("bitplane_gemv", "grouped_decode"))
     for kernel, route in counted:
         _build.count(kernel, route)
     _build.count("ssd_scan")
     _build.count("paged_decode_attention")
-    for kernel in ("bitplane_gemv", "int8_matvec", "flash_attention",
+    assert _build.LAUNCHES["bitplane_gemv"] == 2
+    for kernel in ("int8_matvec", "flash_attention",
                    "paged_prefill_attention", "ssd_scan",
                    "paged_decode_attention"):
         assert _build.LAUNCHES[kernel] == 1
@@ -357,6 +389,11 @@ def test_launch_counts_by_kernel_and_route(monkeypatch):
         for k, routes in _build.ROUTES.items() for r in routes}
     assert set(_build.ROUTES["flash_attention"]) == {"cuda_core",
                                                      "tensor_core"}
+    # the bit-plane GEMV's expert-grouped launch: the same three designs
+    assert _build.ROUTES["bitplane_gemv"] == (
+        "decode", "rows", "tensor_core", "grouped_decode", "grouped_rows",
+        "grouped_tensor_core")
+    assert _build.ROUTES["int8_matvec"] == ("decode", "rows", "tensor_core")
     assert (_build.ROUTES["paged_prefill_attention"]
             == _build.ROUTES["flash_attention"])
     _build.reset_launches()

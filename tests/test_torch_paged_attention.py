@@ -274,7 +274,7 @@ def test_prefill_route_by_dtype(q_dtype, pool_dtype, want, dh):
 
 
 @pytest.mark.parametrize("q_dtype,pool_dtype,dh,group", [
-    (torch.bfloat16, torch.bfloat16, 160, 8),    # head dim past the tiles
+    (torch.bfloat16, torch.bfloat16, 288, 8),    # head dim past the tiles
     (torch.bfloat16, torch.int8, 128, 65),       # rows a block
     (torch.float16, torch.bfloat16, 128, 8),     # dtypes
     (torch.bfloat16, torch.float16, 128, 8)])
@@ -292,6 +292,15 @@ def test_prefill_route_pads_other_head_dims(pool_dtype, dh):
     assert pa_kernel.prefill_route(torch.bfloat16, pool_dtype, dh,
                                    8) == "tensor_core"
     assert padded_head_dim(dh, "t") == {16: 32, 96: 128, 112: 128}[dh]
+
+
+@pytest.mark.parametrize("dh", [160, 192, 256])
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.int8])
+def test_prefill_route_takes_head_dims_up_to_256(pool_dtype, dh):
+    """Head dims in (128, 256] take the tensor-core route, padded to 256."""
+    assert pa_kernel.prefill_route(torch.bfloat16, pool_dtype, dh,
+                                   8) == "tensor_core"
+    assert padded_head_dim(dh, "t") == 256
 
 
 def _tc_prefill_model(q, kp, vp, bt, pos0, seq, window, ks=None, vs=None,
@@ -398,10 +407,10 @@ def test_tensor_core_prefill_model_matches_jax(pools, group, window):
 
 
 @pytest.mark.parametrize("window", [0, 21])
-@pytest.mark.parametrize("dh", [16, 112])
+@pytest.mark.parametrize("dh", [16, 112, 192])
 @pytest.mark.parametrize("pools", ["bfloat16", "int8"])
 def test_tensor_core_prefill_pads_head_dim(pools, dh, window):
-    """D = 16 and 112 through the launcher's padding: q and both pools
+    """D = 16, 112 and 192 through the launcher's padding: q and both pools
     zero-padded to the tiles' width, the scale of the true D, the output
     sliced back; against JAX's gather oracle and its Pallas kernel."""
     case = _prefill_case(61 + dh + window, batch=3, nblk=6, page=16,

@@ -224,3 +224,63 @@ def test_dense_configs_tokens_match_jax(dense_models, arch, kv_bits,
         if kv_bits:
             np.testing.assert_allclose(t.last_logits, j.last_logits,
                                        **DENSE_KV8_TOL)
+
+
+# ------------------------------------------------------------ moe family
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
+# int8 pages: both packages round q and ``p * s_v`` to bf16, so a last-bit
+# difference upstream (float32 sums in another order, XLA's exp against
+# PyTorch's) can move one rounding by a bf16 ulp; reduced llama4-scout's
+# final logits then differ by up to 2.7e-3 even at float32 weights (2e-6
+# for reduced qwen3-moe), the case DENSE_KV8_TOL states for
+# mistral-large-123b
+MOE_KV8_TOL = DENSE_KV8_TOL
+MOE_PROMPTS = PROMPTS + [[11, 12, 13, 14, 15, 16, 17], [3, 3, 3]]
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_model(request):
+    cfg = reduced_f32(request.param)
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = torch_cfg(cfg)
+    return cfg, params, tcfg, params_from_numpy(jax_params_to_numpy(params),
+                                                tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("weight_bits,kv_bits,attn_backend",
+                         [(0, 0, "gather"), (4, 0, "gather"),
+                          (0, 8, "gather"), (4, 8, "gather"),
+                          (4, 8, "cuda")])
+def test_moe_tokens_and_logits_match_jax(moe_model, weight_bits, kv_bits,
+                                         attn_backend):
+    """Reduced qwen3-moe and llama4-scout served paged: JAX's greedy tokens
+    (``gather`` serve path), final logits within rtol = atol = 1e-4 with
+    full-precision pages and MOE_KV8_TOL with int8 ones.  ``cuda`` on the
+    CPU runs the paged kernels' and the grouped GEMV's plain versions
+    behind their wrappers."""
+    (_, jreq), (eng, treq) = _serve_both(
+        moe_model, weight_bits=weight_bits, kv_bits=kv_bits, max_new=6,
+        prompts=MOE_PROMPTS, page_size=4, prefill_chunk=3,
+        port_attn=attn_backend)
+    tol = MOE_KV8_TOL if kv_bits else dict(rtol=1e-4, atol=1e-4)
+    for j, t in zip(jreq, treq):
+        assert j.output == t.output, (j.rid, j.output, t.output)
+        np.testing.assert_allclose(t.last_logits, np.asarray(j.last_logits),
+                                   **tol)
+    assert eng.expert_counts["decode"].shape == (eng.cfg.n_layers,
+                                                 eng.cfg.n_experts)
+    assert len(eng.experts_touched["decode"]) == len(eng.timings["decode"])
+
+
+def test_moe_preemption_tokens_match_jax(moe_model):
+    """A pool too small for every resident preempts and recomputes in both
+    engines at the same steps.  A recomputed prompt is chunked anew and
+    capacity is per row per chunk, so its tokens may differ from an
+    uninterrupted run's, in JAX as in the port: here they equal JAX's."""
+    (jeng, jreq), (teng, treq) = _serve_both(
+        moe_model, n_slots=3, max_len=48, max_new=16, page_size=4,
+        n_pages=14, prefill_chunk=4)
+    assert teng.preemptions > 0
+    assert teng.preemptions == jeng.sched.preemptions
+    for j, t in zip(jreq, treq):
+        assert j.output == t.output, (j.rid, j.output, t.output)

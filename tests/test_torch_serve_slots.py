@@ -277,3 +277,23 @@ def test_unported_families_are_refused():
     for mode in ("slots", "auto"):
         with pytest.raises(NotImplementedError, match="'audio'"):
             ServeEngine(audio, tparams, mode=mode, device="cpu")
+
+
+# ------------------------------------------------------------ moe family
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.parametrize("weight_bits", [0, 4])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_tokens_match_jax_in_slots_mode(arch, weight_bits):
+    """Reduced qwen3-moe and llama4-scout in slots mode, more requests
+    than slots: JAX's greedy tokens and final logits (each lane routes its
+    own token, so a frozen slot's garbage token changes no other lane)."""
+    prompts = PROMPTS + [[11, 12, 13, 14, 15]]
+    jreqs = _serve(_jax_engine(arch, weight_bits=weight_bits, max_new=5),
+                   prompts)
+    eng = _port_engine(arch, weight_bits=weight_bits, max_new=5)
+    assert eng.mode == "slots"
+    treqs = _serve(eng, prompts)
+    assert all(r.done and len(r.output) == 5 for r in treqs)
+    _assert_same(jreqs, treqs)

@@ -444,3 +444,32 @@ def test_trace_valid_chaos_then_restore(model):
     if engB.retried or engB.quarantined:
         assert (telB.registry.counter(
             "serve_chaos_injected_total", site="step_fault").value >= 1)
+
+
+# ------------------------------------------------------------ moe family
+@pytest.fixture(scope="module",
+                params=["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"])
+def moe_model(request):
+    cfg = reduced_f32(request.param)
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = torch_cfg(cfg)
+    tparams = params_from_numpy(jax_params_to_numpy(params), tcfg,
+                                device="cpu")
+    return cfg, params, tcfg, tparams
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_moe_engine_disk_roundtrip(moe_model, kv_bits, tmp_path):
+    """A reduced MoE engine saved at step 3 and loaded by a fresh engine
+    runs to the uninterrupted run's tokens, which are JAX's."""
+    engA = _engine(moe_model, kv_bits=kv_bits, prefix_cache=True)
+    _submit_all(engA)
+    for _ in range(3):
+        engA.step()
+    engA.save_snapshot(str(tmp_path), 3)
+    ref = _drain(engA)
+    assert ref == _jax_tokens(moe_model, kv_bits=kv_bits, prefix_cache=True)
+    engB = _engine(moe_model, kv_bits=kv_bits, prefix_cache=True)
+    assert engB.load_snapshot(str(tmp_path)) == 3
+    engB.audit()
+    assert _drain(engB) == ref

@@ -170,3 +170,31 @@ def test_slots_lane_tables_have_no_paged_buffers():
     assert lanes.tokens.shape == (2, 1) and lanes.active.dtype == torch.bool
     assert not hasattr(lanes, "block_tables")
     assert not hasattr(lanes, "chunk_tokens")
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_holds_the_collector_off(counts, fails):
+    """A dead engine's graphs collected in the middle of a capture would
+    invalidate it on the card: the collector is off during the capture
+    and on again after it, a failed one too."""
+    import gc
+
+    during = []
+
+    def step():
+        if graph.calls > 1:                   # the capture
+            during.append(gc.isenabled())
+            if fails:
+                raise RuntimeError("capture failed")
+        return torch.zeros(1)
+
+    graph = StepGraph(step)
+    graph()                                   # eager
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            graph()
+    else:
+        graph()
+    assert during == [False]
+    assert gc.isenabled()
