@@ -26,10 +26,17 @@ exits non-zero:
                 expert at the bound; paged decode attention's splits over
                 a 4096-key table (G 1-12, Dh 64-128, pages 16 / 32, run
                 twice); flash attention (D up to 256, padded outside 32 /
-                64 / 128 / 256) and the chunked prefill through both of
-                their routes (``tensor_core`` bfloat16, ``cuda_core``
-                float32), the prefill's tensor-core route at D 192 and
-                256 too; the SSD
+                64 / 128 / 256; zamba2-7b's shared block, D 112 at G 1)
+                and the chunked prefill through both of their routes
+                (``tensor_core`` bfloat16, ``cuda_core`` float32), the
+                prefill's tensor-core route at D 192 and 256 too; past
+                D 256 flash on its ``wide`` route and the prefill on its
+                ``cuda_core`` route (flash at D 320 and 512 in bfloat16
+                and float32, windowed; the prefill at D 320 with bf16
+                queries over bf16 and int8 pools); the
+                bit-plane GEMV at the vlm, audio and hybrid configs'
+                linears (zamba2's in_proj / out_proj, llava's w_down,
+                musicgen's lm_head) through every route; the SSD
                 scan at 1, 16 and 32 chunks, N 64 and 128, bfloat16 and
                 float32 inputs, and chunks over 256 steps that the kernels
                 cut, with a shorter last chunk (``SSD_CASES``, every call
@@ -140,6 +147,25 @@ exits non-zero:
                 tokens); ``whole``'s check at 2 layers in
                 float32 with float32 pages (a router near-tie rerouted by
                 a bf16 rounding is no kernel fault).
+   ``families`` after ``moe``: llava-next-mistral-7b (32 layers) and
+                musicgen-medium (48 layers, 4 codebooks, each prompt id
+                broadcast over them) served paged with ``main``'s setup
+                and traffic: tok/s, step and chunk ms, init seconds, peak
+                memory, launches by route, the ledger's decode bytes
+                share; graphs against eager (identical tokens); at 2
+                layers against the plain backends; llava's full-sequence
+                path (2 prompts of 2880 seeded image positions and 1216
+                tokens: flash attention, then 16 decode steps) and at 2
+                layers against the plain path and ``forward``; zamba2-7b
+                (81 layers, one shared attention block applied at 13
+                sites) in slots mode (8 slots, max_len 1024, 8 prompts of
+                17-64 tokens, 16 new each), graphs against eager at 12
+                layers (two sites), its full-sequence path (2 x 4096
+                tokens: the SSD scan in every layer, flash attention at
+                each site, 16 decode steps) and at 6 layers (one site)
+                against the plain path and ``forward``; a
+                ``families_launches`` line with each path's launches by
+                kernel and route.
 5. ``second``   the same at ``weight_bits=8, kv_bits=0`` (bf16 KV pages),
                 cut to 4 layers: the full-precision attention variants.
 6. ``whole``    at 2 layers, full width: the kernel engine against an engine
@@ -235,6 +261,15 @@ GEMV_NAMES = {(2048, 2048): "wq/wo", (2048, 256): "wk/wv",
               (768, 3352): "in_proj", (1536, 768): "out_proj"}
 # mamba2-130m's linears (K, N): in_proj to [z, x, B, C, dt], out_proj
 SSM_GEMV_SHAPES = [(768, 3352), (1536, 768)]
+# the vlm, audio and hybrid configs' linears (K, N): zamba2-7b's in_proj
+# (N ragged: 2 x 7168 + 2 x 64 + 112) and out_proj, llava-next's w_down,
+# musicgen-medium's lm_head (2048 x 4 codebooks)
+FAMILY_GEMV_SHAPES = [(3584, 14576), (7168, 3584), (14336, 4096),
+                      (1536, 8192)]
+GEMV_NAMES.update({(3584, 14576): "zamba2 in_proj",
+                   (7168, 3584): "zamba2 out_proj",
+                   (14336, 4096): "llava w_down",
+                   (1536, 8192): "musicgen lm_head"})
 KERNELS = {
     "bitplane_gemv": dict(
         route="cuda", source="src/repro_torch/csrc/bitplane_gemv.cu",
@@ -486,6 +521,30 @@ def gemv_parity(torch, dev):
                         worst = max(worst, err)
                         worst_used = max(worst_used, used)
                         n_cases += 1
+    # the vlm, audio and hybrid configs' linears at 4 bits, through each
+    # route at its path's M: decode steps (8, twice for the same bits),
+    # float32 rows (100), a paged chunk (256) and zamba2's one-shot prefill
+    # (8192, in_proj / out_proj)
+    for (k, n) in FAMILY_GEMV_SHAPES:
+        for m, dt in ((8, torch.bfloat16), (8, torch.float32),
+                      (100, torch.float32), (256, torch.bfloat16),
+                      (8192, torch.bfloat16)):
+            if m == 8192 and (k, n) not in FAMILY_GEMV_SHAPES[:2]:
+                continue
+            packed, scale, x = gemv_case(torch, dev, gen, 4, k, n, m, dt)
+            y = bitplane_gemv(packed, scale, x, bits=4, out_dtype=dt)
+            r = bitplane_gemv_ref(packed, scale, x, bits=4, out_dtype=dt)
+            rtol, atol = gemv_tol(dt, r)
+            err, used = check_close("bitplane_gemv", y, r, rtol, atol,
+                                    bits=4, m=m, k=k, n=n, dtype=str(dt),
+                                    linear=GEMV_NAMES[k, n])
+            if m <= 8 and not torch.equal(y, bitplane_gemv(
+                    packed, scale, x, bits=4, out_dtype=dt)):
+                raise AssertionError(f"bitplane_gemv decode {k}x{n}: two "
+                                     "runs differ")
+            worst, worst_used = max(worst, err), max(worst_used, used)
+            n_cases += 1
+            del packed, scale, x, y, r
     torch.cuda.synchronize()
     routes = {r: n for r, n in route_counts("bitplane_gemv").items()
               if not r.startswith("grouped_")}
@@ -496,7 +555,10 @@ def gemv_parity(torch, dev):
                "shapes + K 2001-2004 x N 1003) x {float32,bfloat16} + "
                "M{100,8192} x (K,N){(520,300),(200,1983),(768,3352)} x "
                "bfloat16, float32 at M=100); decode M run twice, the same "
-               "bits",
+               "bits; 4 bits at the families' linears (zamba2 in_proj "
+               "3584x14576, out_proj 7168x3584, llava w_down 14336x4096, "
+               "musicgen lm_head 1536x8192) at M 8 (bf16, float32), 100 "
+               "(float32), 256 and 8192 (zamba2's, bf16)",
          tolerance="float32: rtol 1e-5, atol 1e-5*max|ref|; bfloat16 "
                    "output: rtol 2^-7 (one ulp), atol 1e-5*max|ref|",
          max_abs_err=worst, max_share_of_tol=worst_used, routes=routes)
@@ -851,8 +913,9 @@ def attn_parity(torch, dev):
 
 def prefill_head_dim_parity(torch, dev):
     """The chunked prefill's tensor-core route at head dims past 128 (256,
-    and 192 padded to it): bf16 and int8 pools, windows 0 and 37, pos0
-    past 256 tokens of context, a ragged and an idle lane."""
+    and 192 padded to it), and its CUDA-core route past the tiles (320,
+    bf16 queries): bf16 and int8 pools, windows 0 and 37, pos0 past 256
+    tokens of context, a ragged and an idle lane."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention.ops import (
         paged_prefill_attention,
@@ -864,7 +927,7 @@ def prefill_head_dim_parity(torch, dev):
     b, hkv, g, page, nblk, c = 8, 2, 8, 16, 24, 32
     worst, worst_used, n_cases = 0.0, 0.0, 0
     for kind in ("bfloat16", "int8"):
-        for dh in (192, 256):
+        for dh in (192, 256, 320):
             kp, vp, ks, vs = attn_pools(torch, dev, gen, kind, b * nblk + 1,
                                         page, hkv, dh)
             bt = (1 + torch.randperm(b * nblk, generator=gen, device=dev)
@@ -889,12 +952,13 @@ def prefill_head_dim_parity(torch, dev):
                 n_cases += 1
     torch.cuda.synchronize()
     routes = route_counts("paged_prefill_attention")
-    if routes != {"cuda_core": 0, "tensor_core": n_cases}:
-        raise AssertionError(f"prefill at D 192/256: routes {routes}")
+    if routes != {"cuda_core": n_cases // 3, "tensor_core": 2 * n_cases // 3}:
+        raise AssertionError(f"prefill at D 192/256/320: routes {routes}")
     emit("parity", kernel="paged_prefill_attention", cases=n_cases,
-         sweep="head dims {192 (padded), 256} x pools {bfloat16,int8} x "
-               "window {0,37}; G=8, page 16, pos0 0-300, a ragged and an "
-               "idle lane", tolerance="rtol=atol=2^-7", max_abs_err=worst,
+         sweep="head dims {192 (padded), 256: tensor_core; 320: "
+               "cuda_core} x pools {bfloat16,int8} x window {0,37}; bf16 "
+               "queries, G=8, page 16, pos0 0-300, a ragged and an idle "
+               "lane", tolerance="rtol=atol=2^-7", max_abs_err=worst,
          max_share_of_tol=worst_used, routes=routes)
 
 
@@ -968,9 +1032,10 @@ def _gathered(torch, kp, vp, ks, vs, bt):
             vg.to(dt).transpose(1, 2).contiguous())
 
 
-def attn_time(torch, dev, kind, mode):
+def attn_time(torch, dev, kind, mode, dh=128):
     """Kernel / plain / library times of one main-path attention call:
-    8 lanes, G=8, Dh=128, page 16, contexts of 33-332 tokens."""
+    8 lanes, G=8, Dh=128 (or ``dh``), page 16, contexts of 33-332
+    tokens."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.kernel import (
@@ -984,7 +1049,7 @@ def attn_time(torch, dev, kind, mode):
     )
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    b, hkv, g, dh, page, c = 8, 2, 8, 128, 16, 32
+    b, hkv, g, page, c = 8, 2, 8, 16, 32
     nblk = 1024 // page                  # the main path's max_len
     kp, vp, ks, vs = attn_pools(torch, dev, gen, kind, b * nblk + 1, page,
                                 hkv, dh)
@@ -1055,7 +1120,7 @@ def attn_time(torch, dev, kind, mode):
         q_lib, kk, vv, attn_mask=mask, enable_gqa=True), views, torch)
     del views
     rec = dict(kernel=f"paged_{mode}_attention", pools=kind, lanes=b,
-               chunk=c if mode == "prefill" else 1, keys=keys,
+               chunk=c if mode == "prefill" else 1, keys=keys, dh=dh,
                **({"route": prefill_route(qdt, kp.dtype, dh, g)}
                   if mode == "prefill" else {}),
                max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
@@ -1349,9 +1414,11 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
     # paged mode one at M = n_slots for each prefill chunk's last tokens
     head = int(not isinstance(eng.params.get("lm_head", {}), dict))
     family, n_layers = eng.cfg.family, eng.cfg.n_layers
-    flat = {"dense": 7, "ssm": 2,
-            "moe": 4 + 3 * bool(eng.cfg.n_shared_experts)}[family]
-    per_step = flat * n_layers + head
+    flat = {"ssm": 2, "hybrid": 2,
+            "moe": 4 + 3 * bool(eng.cfg.n_shared_experts)}.get(family, 7)
+    # the hybrid family's shared block: its seven linears at every site
+    sites = n_layers // eng.cfg.attn_every if family == "hybrid" else 0
+    per_step = flat * n_layers + 7 * sites + head
     per_grouped = 3 * n_layers if family == "moe" else 0
     gemv_launches = {"prefill": 0, "decode": 0}
     grouped_launches = {"prefill": 0, "decode": 0}
@@ -2538,6 +2605,165 @@ def moe_path(torch, dev):
     return out
 
 
+# phase families: the paged two (arch, image positions of the full-sequence
+# prompts or 0), each at its published depth
+FAMILY_PAGED = [("llava-next-mistral-7b", 2880), ("musicgen-medium", 0)]
+HYBRID = "zamba2-7b"
+# the vlm full-sequence prompts: image positions + text tokens = 4096
+VLM_TEXT_TOKENS = 1216
+
+
+def family_summary(eng, rec, init_s, **more):
+    """A served model's record: tok/s, step and chunk ms (mean and p50),
+    peak memory, init seconds and launches by route of every kernel."""
+    cfg = eng.cfg
+    return dict(
+        model=cfg.name, family=cfg.family, mode=eng.mode,
+        layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+        vocab=cfg.vocab_size, codebooks=cfg.n_codebooks, init_s=init_s,
+        **{k: rec[k] for k in (
+            "requests", "prompt_tokens", "tok_s", "decode_steps",
+            "decode_step_ms", "decode_step_ms_p50", "prefill_chunks",
+            "prefill_chunk_ms", "prefill_chunk_ms_p50", "prefill_tok_s",
+            "peak_mem_gib", "capture_s", "launches")},
+        routes={k: route_counts(k, rec["route_launches"])
+                for k in ("bitplane_gemv", "paged_prefill_attention",
+                          "flash_attention")},
+        **more)
+
+
+def sequence_summary(rec):
+    """A full-sequence run's prefill and decode figures and launches."""
+    return {f"sequence_{k}": rec[k] for k in (
+        "batch", "prompt_tokens", "image_positions", "prefill_s",
+        "prefill_tok_s", "decode_steps", "decode_step_ms",
+        "decode_step_ms_p50", "decode_tok_s", "peak_mem_gib",
+        "prefill_launches", "decode_launches", "prefill_gemv_routes",
+        "decode_gemv_routes", "prefill_flash_routes")}
+
+
+def families_path(torch, dev):
+    """Phase ``families``: the vlm, audio and hybrid configs at published
+    widths and depths, 4-bit weights, random weights from the seed.
+
+    * llava-next-mistral-7b (32 layers) and musicgen-medium (48 layers,
+      four codebooks, each prompt id broadcast over them) served paged at
+      ``kv_bits=8`` with ``main``'s setup (8 lanes, page 16, chunk 32, 16
+      text prompts of 33-300 tokens, 32 new tokens each): graphs, then
+      eager (identical tokens), the ledger's decode bytes share, then at 2
+      layers against the plain backends (``whole``'s check);
+    * llava's full-sequence path: ``prefill`` of 2 prompts of 2880 seeded
+      image positions and 1216 tokens (4096 positions: flash attention),
+      16 ``decode_step`` s; at 2 layers against the plain path and
+      ``forward`` (``long_whole``'s check);
+    * zamba2-7b (81 layers, 13 shared-attention sites) in slots mode at
+      ``kv_bits=0``: 8 slots, max_len 1024, 8 prompts of 17-64 tokens by
+      sequential decode, 16 new tokens each; graphs against eager at 12
+      layers (two sites); the full-sequence path, ``prefill`` of 2 x 4096
+      tokens (the SSD scan in every layer, flash attention at each site)
+      and 16 ``decode_step`` s; at 6 layers (one site) against the plain
+      path and ``forward``.
+
+    Each engine and each model's params are freed before the next.
+    Returns each model's record."""
+    from repro_torch.config import EngineConfig
+
+    out = {}
+    for arch, n_img in FAMILY_PAGED:
+        cfg = arch_config(arch)
+        prompts = prompts_for(cfg, 16, 33, 300, SEED + 70)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, params = build_engine(torch, dev, cfg, 4, 8)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        name = f"families_{arch}"
+        rec, tokens = serve(torch, name, eng, prompts, 32)
+        check_graphs(name, eng)
+        if min(rec["launches"][k] for k in PAGED_KERNELS) == 0:
+            raise AssertionError(f"{name}: launches {rec['launches']}")
+        out[arch] = family_summary(eng, rec, init_s,
+                                   **decode_bytes_share(eng, rec))
+        del eng
+        torch.cuda.empty_cache()
+        graphs_against_eager(torch, dev, name, cfg, 4, 8, prompts, 32,
+                             params=params, graph_rec=rec,
+                             graph_tokens=tokens)
+        if n_img:
+            tokens = seeded_tokens(torch, dev, cfg, 2, VLM_TEXT_TOKENS,
+                                   SEED + 74)
+            img = image_embeds(torch, dev, cfg, 2, n_img, SEED + 75)
+            # per prefill: one flash call a layer, seven GEMVs a layer
+            seq = run_sequence(torch, dev, f"{name}_sequence", cfg, params,
+                               tokens, 16, EngineConfig(weight_bits=4),
+                               {"flash_attention": cfg.n_layers,
+                                "bitplane_gemv": 7 * cfg.n_layers},
+                               extra={"img_embeds": img})
+            out[arch].update(sequence_summary(seq))
+            del tokens, img
+        emit(f"{name}_summary", **out[arch])
+        del params
+        torch.cuda.empty_cache()
+        two = arch_config(arch, 2)
+        whole_path_check(torch, dev, cfg=two,
+                         prompts=prompts_for(two, 8, 33, 300, SEED + 71),
+                         name=f"{name}_whole")
+        if n_img:
+            sequence_whole_check(torch, dev, f"{name}_sequence_whole", two,
+                                 VLM_TEXT_TOKENS, 32, n_img=n_img)
+        torch.cuda.empty_cache()
+
+    cfg = arch_config(HYBRID)
+    sites = cfg.n_layers // cfg.attn_every
+    prompts = prompts_for(cfg, 8, 17, 64, SEED + 72)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng, params = build_engine(torch, dev, cfg, 4, 0, mode="slots",
+                               max_new=16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    name = f"families_{HYBRID}"
+    rec, _ = serve(torch, name, eng, prompts, 16)
+    if eng.mode != "slots" or eng.cache["k"].shape[0] != sites:
+        raise AssertionError(f"{name}: mode {eng.mode}, sites "
+                             f"{eng.cache['k'].shape[0]}")
+    out[HYBRID] = family_summary(eng, rec, init_s, sites=sites,
+                                 attn_every=cfg.attn_every)
+    del eng
+    torch.cuda.empty_cache()
+    tokens = seeded_tokens(torch, dev, cfg, 2, 4096, SEED + 76)
+    # per prefill: one SSD scan a layer, flash attention at each site, the
+    # ssm layers' in_proj / out_proj and the shared block's seven GEMVs at
+    # each site
+    seq = run_sequence(torch, dev, f"{name}_sequence", cfg, params, tokens,
+                       16, EngineConfig(weight_bits=4),
+                       {"ssd_scan": cfg.n_layers, "flash_attention": sites,
+                        "bitplane_gemv": 2 * cfg.n_layers + 7 * sites})
+    out[HYBRID].update(sequence_summary(seq))
+    emit(f"{name}_summary", **out[HYBRID])
+    del params, tokens
+    torch.cuda.empty_cache()
+    cut = arch_config(HYBRID, 2 * cfg.attn_every)
+    graphs_against_eager(torch, dev, f"{name}_{cut.n_layers}", cut, 4, 0,
+                         prompts_for(cut, 8, 17, 64, SEED + 73), 16,
+                         mode="slots")
+    torch.cuda.empty_cache()
+    sequence_whole_check(torch, dev, f"{name}_sequence_whole",
+                         arch_config(HYBRID, cfg.attn_every), 3840, 256)
+    torch.cuda.empty_cache()
+    # every kernel of the three paths, launched by route
+    emit("families_launches", **{
+        arch: dict(routes=rec_["routes"], launches=rec_["launches"],
+                   **{k: rec_[k] for k in ("sequence_prefill_launches",
+                                           "sequence_prefill_gemv_routes",
+                                           "sequence_prefill_flash_routes",
+                                           "sequence_decode_gemv_routes")
+                      if k in rec_})
+        for arch, rec_ in out.items()})
+    return out
+
+
 def kernel_label(name: str) -> str:
     """A profiler kernel name without its namespace, return type and
     arguments: ``dec::decode_mma_kernel<4, 16>``."""
@@ -2775,7 +3001,9 @@ def whole_path_check(torch, dev, cfg=None, prompts=None, max_len=1024,
             identical += 1
             continue
         i = next(j for j in range(len(b)) if a[j] != b[j])
-        top2 = np.sort(log_p[rid][i])[-2:]
+        # the audio family's (K, V) logits: codebook 0 is sampled
+        top2 = np.sort(log_p[rid][i].reshape(-1, eng_p.cfg.vocab_size)[0]
+                       )[-2:]
         margin = float(top2[1] - top2[0])
         if margin > 2 * logit_tol:
             raise AssertionError(
@@ -2839,11 +3067,21 @@ FLASH_CASES = [("bfloat16", 4096, 0, {}), ("bfloat16", 4100, 0, {}),
                ("bfloat16", 2048, 0, dict(d=256)),
                ("bfloat16", 1000, 64, dict(hq=8, hkv=2, d=192)),
                ("float32", 1000, 0, dict(d=256)),
-               ("float32", 777, 37, dict(hq=8, hkv=2, d=192))]
+               ("float32", 777, 37, dict(hq=8, hkv=2, d=192)),
+               # zamba2-7b's shared block: D 112 padded, G 1 (32 heads)
+               ("bfloat16", 2048, 0, dict(hq=32, hkv=32, d=112)),
+               ("float32", 1000, 0, dict(hq=32, hkv=32, d=112)),
+               # head dims past the tiles: both dtypes on the wide route's
+               # streamed design
+               ("bfloat16", 1000, 0, dict(hq=8, hkv=2, d=320)),
+               ("bfloat16", 777, 100, dict(hq=8, hkv=2, d=512)),
+               ("float32", 1000, 100, dict(hq=8, hkv=2, d=320)),
+               ("float32", 777, 0, dict(hq=8, hkv=2, d=512))]
 
 
 def flash_parity(torch, dev):
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import route
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     _build.reset_launches()
@@ -2861,9 +3099,12 @@ def flash_parity(torch, dev):
         err, used = check_close("flash_attention", y, r, rtol, atol, s=s,
                                 window=window, dtype=dname, **shape)
         worst, worst_used = max(worst, err), max(worst_used, used)
-        want = "cuda_core" if dt == torch.float32 else "tensor_core"
-        if took != [want]:
-            raise AssertionError(f"flash_attention {dname}: routes {took}")
+        d = shape.get("d", FLASH_SHAPE["d"])
+        want = ("wide" if d > 256 else
+                "cuda_core" if dt == torch.float32 else "tensor_core")
+        if took != [want] or route(dt, d) != want:
+            raise AssertionError(f"flash_attention {dname} D {d}: routes "
+                                 f"{took}")
         cases.append(dict(s=s, window=window, dtype=dname, route=want,
                           **{**{k_: FLASH_SHAPE[k_] for k_ in
                                 ("hq", "hkv", "d")}, **shape},
@@ -2876,9 +3117,10 @@ def flash_parity(torch, dev):
          max_share_of_tol=worst_used, routes=route_counts("flash_attention"))
 
 
-def flash_time(torch, dev):
+def flash_time(torch, dev, **shape):
     """Kernel / plain / library times of one prefill attention call:
-    two 4096-token prompts, bf16, window 0."""
+    two 4096-token prompts, bf16, window 0 (``shape``: changes to
+    ``FLASH_SHAPE``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -2886,10 +3128,10 @@ def flash_time(torch, dev):
         route as flash_route,
     )
 
-    sh = FLASH_SHAPE
+    sh = {**FLASH_SHAPE, **shape}
     dt = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    q, k, v = flash_inputs(torch, dev, gen, dt)
+    q, k, v = flash_inputs(torch, dev, gen, dt, **shape)
     y = flash_attention_cuda(q, k, v)
     rtol, atol = flash_tol(torch, dt)
     err, _ = check_close("flash_attention", y, flash_plain(q, k, v, 0),
@@ -3046,23 +3288,41 @@ def seeded_tokens(torch, dev, cfg, b, s, seed):
         dev, torch.int32)
 
 
+def image_embeds(torch, dev, cfg, b, n, seed):
+    """Seeded stand-ins for a vision tower's patch embeddings ``(b, n,
+    D)``, at the token embeddings' scale (std 0.02)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, n, cfg.d_model), generator=gen, device=dev)
+            * 0.02).to(getattr(torch, cfg.dtype))
+
+
 def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
-                 expect):
+                 expect, extra=None):
     """``init_cache`` + one-shot ``prefill`` + greedy ``decode_step`` s,
     the decode steps as replays of one CUDA graph (``serve.StepGraph``;
     the step time leaves its capture out); checks finite logits and the
-    kernel launches, returns the record."""
+    kernel launches, returns the record.  ``extra``: more of the prefill
+    batch (a vlm's ``img_embeds``, whose positions the cache holds too)."""
     from repro_torch.kernels import _build
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.serve import StepGraph
 
+    extra = extra or {}
+    # ``expect`` counts the layers' kernels of one prefill; an untied
+    # ``lm_head`` is one more GEMV in the prefill (at M = B: the logits of
+    # the last position only) and in each decode step
+    head = 0 if cfg.tie_embeddings else 1
+    layer_gemvs = expect["bitplane_gemv"]
+    expect = {**expect, "bitplane_gemv": layer_gemvs + head}
     b, s = tokens.shape
-    cache = init_cache(cfg, b, s + n_decode + 32, device=dev)
+    n_img = extra["img_embeds"].shape[1] if "img_embeds" in extra else 0
+    cache = init_cache(cfg, b, n_img + s + n_decode + 32, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens}, cfg, cache, ecfg)
+    logits, cache = prefill(params, {"tokens": tokens, **extra}, cfg, cache,
+                            ecfg)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     pf_launches = dict(_build.LAUNCHES)
@@ -3075,13 +3335,21 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
     # the graph's token buffer, refilled on the device after every step
     nxt = torch.argmax(logits[:, -1].float(), -1)[:, None].int()
     step = StepGraph(lambda: decode_step(params, cache, nxt, cfg, ecfg)[0])
+    # each step's device span between CUDA events (the first two: the
+    # eager call and the capture), for the median step
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(n_decode + 1)]
     t0 = time.perf_counter()
-    for _ in range(n_decode):
+    for i in range(n_decode):
+        marks[i].record()
         out.append(nxt.clone())
         logits = step()
         nxt.copy_(torch.argmax(logits[:, -1].float(), -1)[:, None])
+    marks[-1].record()
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0 - step.capture_seconds
+    step_ms = sorted(marks[i].elapsed_time(marks[i + 1])
+                     for i in range(n_decode))
     dec_launches = dict(_build.LAUNCHES)
     dec_routes = route_counts("bitplane_gemv")
     if not bool(torch.isfinite(logits).all()):
@@ -3090,31 +3358,36 @@ def run_sequence(torch, dev, name, cfg, params, tokens, n_decode, ecfg,
     if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{name}: token outside the vocabulary")
     rec = dict(model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-               batch=b, prompt_tokens=s, weight_bits=ecfg.weight_bits,
-               prefill_s=t_prefill, prefill_tok_s=b * s / t_prefill,
+               batch=b, prompt_tokens=s, image_positions=n_img,
+               weight_bits=ecfg.weight_bits, prefill_s=t_prefill,
+               prefill_tok_s=b * (n_img + s) / t_prefill,
                decode_steps=n_decode, decode_step_ms=1e3 * t_decode / n_decode,
                decode_tok_s=b * n_decode / t_decode,
                decode_capture_s=step.capture_seconds,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                prefill_launches=pf_launches, decode_launches=dec_launches,
                prefill_gemv_routes=pf_routes, decode_gemv_routes=dec_routes,
-               prefill_flash_routes=pf_flash_routes)
+               prefill_flash_routes=pf_flash_routes,
+               decode_step_ms_p50=step_ms[n_decode // 2])
     emit(name, **rec)
     for kernel, want in expect.items():
         if pf_launches[kernel] != want:
             raise AssertionError(f"{name}: {kernel} launched "
                                  f"{pf_launches[kernel]} times in prefill, "
                                  f"expected {want}")
-    if pf_routes["tensor_core"] != expect["bitplane_gemv"]:
+    if pf_routes["tensor_core"] != layer_gemvs or pf_routes["decode"] != head:
         raise AssertionError(f"{name}: prefill GEMV routes {pf_routes}")
     # bf16 activations: every flash launch on the tensor-core route
     if pf_flash_routes != {"cuda_core": 0, "tensor_core":
-                           expect.get("flash_attention", 0)}:
+                           expect.get("flash_attention", 0), "wide": 0}:
         raise AssertionError(f"{name}: prefill flash attention routes "
                              f"{pf_flash_routes}")
-    if dec_launches["bitplane_gemv"] == 0 or (
-            dec_routes["decode"] != dec_launches["bitplane_gemv"]):
-        raise AssertionError(f"{name}: decode GEMV routes {dec_routes}")
+    # each decode step runs the prefill's GEMVs once, all at M = B
+    want_decode = n_decode * expect["bitplane_gemv"]
+    if dec_launches["bitplane_gemv"] != want_decode or (
+            dec_routes["decode"] != want_decode):
+        raise AssertionError(f"{name}: decode GEMV routes {dec_routes}, "
+                             f"expected {want_decode} on decode")
     return rec
 
 
@@ -3179,16 +3452,21 @@ def slots_path(torch, dev):
     return rec
 
 
-def greedy_run(torch, cfg, params, tokens, n_decode, ecfg, graphs=False):
+def greedy_run(torch, cfg, params, tokens, n_decode, ecfg, graphs=False,
+               extra=None):
     """Prefill + greedy decode, the decode steps eager or (``graphs``) as
     replays of one CUDA graph; returns (tokens (B, n), logits per step as
-    float32 (B, V) each)."""
+    float32 (B, V) each).  ``extra``: more of the prefill batch (a vlm's
+    ``img_embeds``)."""
     from repro_torch.models import decode_step, init_cache, prefill
     from repro_torch.serve import StepGraph
 
+    extra = extra or {}
     b, s = tokens.shape
-    cache = init_cache(cfg, b, s + n_decode, device=tokens.device)
-    logits, cache = prefill(params, {"tokens": tokens}, cfg, cache, ecfg)
+    n_img = extra["img_embeds"].shape[1] if "img_embeds" in extra else 0
+    cache = init_cache(cfg, b, n_img + s + n_decode, device=tokens.device)
+    logits, cache = prefill(params, {"tokens": tokens, **extra}, cfg, cache,
+                            ecfg)
     nxt = torch.empty((b, 1), dtype=torch.int32, device=tokens.device)
 
     def fn():
@@ -3227,7 +3505,17 @@ def check_tokens(name, tok_a, tok_b, steps_b, logit_tol):
 def long_whole_check(torch, dev):
     """At 2 layers, full width, for qwen2.5-3b (two 4096-token prompts) and
     mamba2-130m (two 3840-token prompts, so prompt and continuation fill
-    whole 256-step chunks):
+    whole 256-step chunks): :func:`sequence_whole_check`."""
+    for cfg, s, n_decode in ((full_config(n_layers=2), 4096, 32),
+                             (ssm_config(n_layers=2), 3840, 256)):
+        sequence_whole_check(torch, dev, "long_whole", cfg, s, n_decode)
+        torch.cuda.empty_cache()
+
+
+def sequence_whole_check(torch, dev, name, cfg, s, n_decode, n_img=0):
+    """The full-sequence path of ``cfg`` (cut in depth by the caller) on two
+    seeded ``s``-token prompts (after ``n_img`` seeded image positions for
+    a vlm):
 
     * kernel path (cuda GEMV, flash attention / SSD scan) against the plain
       path (``reference`` GEMV, ``gather``: plain ``attend_flash`` /
@@ -3247,52 +3535,49 @@ def long_whole_check(torch, dev):
     from repro_torch.models import forward, init_params
 
     logit_tol = 0.125
-    for cfg, s, n_decode in ((full_config(n_layers=2), 4096, 32),
-                             (ssm_config(n_layers=2), 3840, 256)):
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        params = init_params(cfg, gen, engine_bits=4)
-        tokens = seeded_tokens(torch, dev, cfg, 2, s, SEED + 9)
-        kern = EngineConfig(weight_bits=4)
-        plain = EngineConfig(weight_bits=4, backend="reference",
-                             attn_backend="gather")
-        tok_k, steps_k = greedy_run(torch, cfg, params, tokens, n_decode,
-                                    kern, graphs=True)
-        # the kernel path once more with every decode step eager: the
-        # graph replays the same kernels, so the tokens are identical
-        tok_e, steps_e = greedy_run(torch, cfg, params, tokens, n_decode,
-                                    kern)
-        if not torch.equal(tok_k, tok_e):
-            raise AssertionError(f"long_whole {cfg.name}: graph and eager "
-                                 "greedy tokens differ")
-        graph_err = max(float((a - b).abs().max())
-                        for a, b in zip(steps_k, steps_e))
-        tok_p, steps_p = greedy_run(torch, cfg, params, tokens, n_decode,
-                                    plain)
-        first_err = float((steps_k[0] - steps_p[0]).abs().max())
-        if first_err > logit_tol:
-            raise AssertionError(f"long_whole {cfg.name}: first-step logits "
-                                 f"differ by {first_err} > {logit_tol}")
-        identical, near_ties = check_tokens(f"long_whole {cfg.name}", tok_k,
-                                            tok_p, steps_p, logit_tol)
-        full_tokens = torch.cat([tokens, tok_k], 1)
-        logits, _ = forward(params, {"tokens": full_tokens}, cfg, kern)
-        tf = logits[:, s - 1:].float()
-        steps = torch.stack(steps_k, 1)
-        tf_err = float((tf - steps).abs().max())
-        if not bool(torch.isfinite(logits).all()) or tf_err > logit_tol:
-            raise AssertionError(f"long_whole {cfg.name}: forward vs "
-                                 f"prefill + decode logits differ by "
-                                 f"{tf_err} > {logit_tol}")
-        emit("long_whole", model=cfg.name, layers=cfg.n_layers,
-             prompt_tokens=s, decode_steps=n_decode,
-             identical_lanes=identical, near_tie_divergences=near_ties,
-             graph_vs_eager_tokens_identical=True,
-             graph_vs_eager_logit_max_abs_diff=graph_err,
-             first_step_logit_max_abs_err=first_err,
-             teacher_forcing_logit_max_abs_err=tf_err,
-             logit_tol=logit_tol)
-        del params, logits
-        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, engine_bits=4)
+    tokens = seeded_tokens(torch, dev, cfg, 2, s, SEED + 9)
+    extra = ({"img_embeds": image_embeds(torch, dev, cfg, 2, n_img,
+                                         SEED + 10)} if n_img else {})
+    kern = EngineConfig(weight_bits=4)
+    plain = EngineConfig(weight_bits=4, backend="reference",
+                         attn_backend="gather")
+    tok_k, steps_k = greedy_run(torch, cfg, params, tokens, n_decode, kern,
+                                graphs=True, extra=extra)
+    # the kernel path once more with every decode step eager: the graph
+    # replays the same kernels, so the tokens are identical
+    tok_e, steps_e = greedy_run(torch, cfg, params, tokens, n_decode, kern,
+                                extra=extra)
+    if not torch.equal(tok_k, tok_e):
+        raise AssertionError(f"{name} {cfg.name}: graph and eager greedy "
+                             "tokens differ")
+    graph_err = max(float((a - b).abs().max())
+                    for a, b in zip(steps_k, steps_e))
+    tok_p, steps_p = greedy_run(torch, cfg, params, tokens, n_decode, plain,
+                                extra=extra)
+    first_err = float((steps_k[0] - steps_p[0]).abs().max())
+    if first_err > logit_tol:
+        raise AssertionError(f"{name} {cfg.name}: first-step logits differ "
+                             f"by {first_err} > {logit_tol}")
+    identical, near_ties = check_tokens(f"{name} {cfg.name}", tok_k, tok_p,
+                                        steps_p, logit_tol)
+    full_tokens = torch.cat([tokens, tok_k], 1)
+    logits, _ = forward(params, {"tokens": full_tokens, **extra}, cfg, kern)
+    tf = logits[:, s - 1:].float()
+    steps = torch.stack(steps_k, 1)
+    tf_err = float((tf - steps).abs().max())
+    if not bool(torch.isfinite(logits).all()) or tf_err > logit_tol:
+        raise AssertionError(f"{name} {cfg.name}: forward vs prefill + "
+                             f"decode logits differ by {tf_err} > "
+                             f"{logit_tol}")
+    emit(name, model=cfg.name, layers=cfg.n_layers, prompt_tokens=s,
+         image_positions=n_img, decode_steps=n_decode,
+         identical_lanes=identical, near_tie_divergences=near_ties,
+         graph_vs_eager_tokens_identical=True,
+         graph_vs_eager_logit_max_abs_diff=graph_err,
+         first_step_logit_max_abs_err=first_err,
+         teacher_forcing_logit_max_abs_err=tf_err, logit_tol=logit_tol)
 
 
 # ----------------------------------------------------------------- main
@@ -3360,6 +3645,10 @@ def main() -> int:
         for (k, n) in SSM_GEMV_SHAPES:
             gemv_time(torch, dev, 16384, k, n)
         flash_rec = flash_time(torch, dev)
+        # past the tiles' head dims: flash attention's wide route (bf16,
+        # D 320) and the chunked prefill's CUDA-core route (int8 pools)
+        flash_time(torch, dev, d=320)
+        attn_time(torch, dev, "int8", "prefill", dh=320)
         ssd_rec = ssd_time(torch, dev)
         # bit-serial at 8 (radix 1, 2) and 2 bits against the bit-parallel
         # baseline, beside the 4-bit rows above
@@ -3411,6 +3700,9 @@ def main() -> int:
 
     with Phase("moe"):
         moe_rec = moe_path(torch, dev)
+
+    with Phase("families"):
+        families_path(torch, dev)
 
     with Phase("second"):
         cfg = full_config(n_layers=4)

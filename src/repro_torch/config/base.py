@@ -12,6 +12,13 @@ resolved (``EngineConfig(sharded=True)`` here, the serve options in
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Tuple
+
+# the six families the port runs; those whose every layer keeps attention
+# K/V, served paged (ssm / hybrid keep O(1) recurrent state and stay on
+# the fixed-slot engine), as the JAX package's PAGED_FAMILIES
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
+PAGED_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 @dataclass(frozen=True)
@@ -19,9 +26,9 @@ class ModelConfig:
     """A decoder-family model definition.
 
     Block kinds are derived from ``family`` (dense / vlm / audio: attention
-    + dense MLP every layer; moe; ssm; hybrid).  The port runs the dense
-    and ssm families; the other fields are kept so configs stay
-    interchangeable.
+    + dense MLP every layer; moe; ssm; hybrid: ssm layers with one shared
+    attention block applied every ``attn_every`` layers).  The port runs
+    all six families; every field is kept so configs stay interchangeable.
     """
 
     name: str
@@ -86,6 +93,38 @@ class ModelConfig:
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def uses_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """May this arch run the 500k-token long-context decode cell?
+
+        True for SSM / hybrid archs (O(1) state) and for mostly-local
+        attention stacks (gemma3's 5:1 local:global with a 1k window).
+        """
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0 and self.global_every > 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind, length ``n_layers``.
+
+        dense archs -> ("attn",) * L             (window/global split is a flag)
+        moe         -> ("moe",) * L
+        ssm         -> ("ssm",) * L
+        hybrid      -> ssm blocks, with a shared "attn" applied every
+                        ``attn_every`` layers *in addition to* the ssm block.
+        """
+        if self.family in ("dense", "vlm", "audio"):
+            return ("attn",) * self.n_layers
+        if self.family == "moe":
+            return ("moe",) * self.n_layers
+        if self.family in ("ssm", "hybrid"):
+            return ("ssm",) * self.n_layers
+        raise ValueError(f"unknown family {self.family!r}")
 
     def is_global_layer(self, i: int) -> bool:
         """Gemma3-style local:global pattern: layer i uses global attention."""

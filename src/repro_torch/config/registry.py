@@ -2,8 +2,8 @@
 
 Each module in ``repro_torch/configs/`` defines ``CONFIG`` (published
 dimensions) and ``reduced()`` (a tiny same-family config for CPU tests) and
-calls :func:`register_arch`; lookups import the module lazily.  Only the
-architectures the port serves are listed.
+calls :func:`register_arch`; lookups import the module lazily.  Every
+architecture of the JAX package is listed.
 """
 
 from __future__ import annotations
@@ -34,11 +34,14 @@ def register_arch(arch_id: str, config: ModelConfig,
 _ARCH_MODULES = {
     "gemma3-27b": "gemma3_27b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "mamba2-130m": "mamba2_130m",
     "mistral-large-123b": "mistral_large_123b",
+    "musicgen-medium": "musicgen_medium",
     "qwen2.5-3b": "qwen2_5_3b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "starcoder2-15b": "starcoder2_15b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -15,8 +15,8 @@
 // operations, not by bytes; the TPU kernel exists to keep the S x S scores
 // out of device memory, and so does this one.
 //
-// Two routes, picked in Python by dtype (`kernels/flash_attention/
-// kernel.py`, `route`), each its own entry point:
+// Three routes, picked in Python by dtype and head dim (`kernels/
+// flash_attention/kernel.py`, `route`), each its own entry point:
 //
 // tensor_core (bfloat16 q, k, v): `flash_tc_kernel`, on the pieces of
 // csrc/tc_attention.cuh.  The operations bound is met on the tensor cores:
@@ -51,8 +51,9 @@
 // reading all of K and V, as the paged prefill does) was a quarter slower
 // at the one-shot prefill's shape (PERF.md).
 //
-// cuda_core (float32 q, k, v): `flash_attention_kernel`, the first design,
-// kept for float32 because bf16 operands would round its inputs:
+// cuda_core (float32 q, k, v at D <= 256): `flash_attention_kernel`, the
+// first design, kept for float32 because bf16 operands would round its
+// inputs:
 //   * one block per (lane, query head, 64-row query tile) holds its query
 //     tile in shared memory as float32 and walks the key tiles in a loop,
 //     which replaces the TPU grid's sequential KV axis; the (m, l)
@@ -67,6 +68,31 @@
 //     of the softmax are warp shuffles over the 16 threads of a row;
 //   * the probabilities overwrite the key tile in shared memory once the
 //     scores are taken, so two blocks fit on an SM at D = 128.
+//
+// wide, the route past D 256 (float32 or bfloat16 q, k, v, any D):
+// `flash_wide_kernel`.  The tiles above hold whole rows of D, in registers
+// (the accumulator) and in shared memory (q, k, v); past 256 they no
+// longer fit, so this design streams D instead:
+//   * one block of 8 warps per (lane, query head, 32 query rows, 512
+//     output columns): warp w owns query rows q0 + 4w .. 4w + 3, their
+//     (m, l) and a 512-column slice of their output rows, 16 float32
+//     values a row a lane (columns lane + 32c); grid.z walks the slices,
+//     so any D takes the same registers, and D <= 512 takes one;
+//   * a step covers 32 keys, one a lane.  The scores stream over D in
+//     32-column slices: the block stages the 32 query rows' and the 32
+//     keys' slice in shared memory (rows padded by one word against bank
+//     conflicts), and each lane adds its key's 32 products to a running
+//     float32 score of each of its warp's rows, in column order, reading
+//     each key column once for the four rows;
+//   * the online softmax of each row is warp shuffles (max, then sum of
+//     p); the step's value rows over the block's 512 columns are staged
+//     in shared memory (72 KB in all), and each lane adds p_t * v for its
+//     columns below D, p_t broadcast from lane t;
+//   * past 512 columns, every block of a row recomputes the row's scores:
+//     the route exists for head dims no config uses, and holds the
+//     reference's function there; it is not built for speed.
+// Nothing is zero-padded: D is a run-time value, and columns past D are
+// read as zeros and never stored.
 //
 // Numerics follow the TPU kernel on both routes: scores are (q . k) *
 // D^-0.5 summed in float32 from exact products, masked scores are NEG_INF
@@ -270,6 +296,172 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, Hq, Hkv, window,
+      sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------ route wide, D > 256
+constexpr int WIDE_ROWS = 32;                // query rows a block
+constexpr int WIDE_RPW = WIDE_ROWS / 8;      // query rows a warp
+constexpr int WIDE_KEYS = 32;                // keys a step: one a lane
+constexpr int WIDE_COLS = 16;                // output columns a lane
+constexpr int WIDE_SLICE = 32 * WIDE_COLS;   // output columns a block
+// shared memory: the query rows' and the keys' 32-column slice (rows
+// padded by one word), the step's value rows over the block's columns
+constexpr int WIDE_SMEM =
+    (int)sizeof(float) * ((WIDE_ROWS + WIDE_KEYS) * 33 +
+                          WIDE_KEYS * WIDE_SLICE);
+static_assert(THREADS == 256 && WIDE_RPW * 8 == WIDE_ROWS, "8 warps");
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) flash_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, int S, int Hq, int Hkv,
+    int D, int window, float sm_scale) {
+  extern __shared__ __align__(16) float wide_smem[];
+  float(*sq)[33] = reinterpret_cast<float(*)[33]>(wide_smem);
+  float(*sk)[33] = reinterpret_cast<float(*)[33]>(wide_smem + WIDE_ROWS * 33);
+  float(*sv)[WIDE_SLICE] = reinterpret_cast<float(*)[WIDE_SLICE]>(
+      wide_smem + (WIDE_ROWS + WIDE_KEYS) * 33);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  const int b = blockIdx.y / Hq;
+  const int h = blockIdx.y % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int d0 = blockIdx.z * WIDE_SLICE;     // this block's output columns
+  const int cols = D - d0;                    // of them, those below D
+  const int q0 = qt * WIDE_ROWS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * WIDE_RPW;             // this warp's first row
+
+  float m[WIDE_RPW], l[WIDE_RPW], acc[WIDE_RPW][WIDE_COLS];
+#pragma unroll
+  for (int r = 0; r < WIDE_RPW; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < WIDE_COLS; ++c) acc[r][c] = 0.f;
+  }
+
+  const int q_last = min(q0 + WIDE_ROWS, S) - 1;
+  const int kt_hi = q_last / WIDE_KEYS;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / WIDE_KEYS : 0;
+
+  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
+    const int k0 = kt * WIDE_KEYS;
+    // the scores of key k0 + lane for the warp's rows, over D in 32-column
+    // slices, each key column read once for all of them
+    float s[WIDE_RPW];
+#pragma unroll
+    for (int r = 0; r < WIDE_RPW; ++r) s[r] = 0.f;
+    for (int dc = 0; dc < D; dc += 32) {
+      __syncthreads();  // the previous slice's (or step's) readers are done
+      for (int i = tid; i < WIDE_ROWS * 32; i += THREADS) {
+        const int r = i / 32, c = i % 32;
+        const int p = q0 + r, d = dc + c;
+        sq[r][c] = p < S && d < D
+            ? to_f32(q[(((size_t)b * S + p) * Hq + h) * D + d]) : 0.f;
+      }
+      for (int i = tid; i < WIDE_KEYS * 32; i += THREADS) {
+        const int t = i / 32, c = i % 32;
+        const int kp = k0 + t, d = dc + c;
+        sk[t][c] = kp < S && d < D
+            ? to_f32(k[(((size_t)b * S + kp) * Hkv + hk) * D + d]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const float kc = sk[lane][c];
+#pragma unroll
+        for (int r = 0; r < WIDE_RPW; ++r)
+          s[r] = fmaf(sq[r0 + r][c], kc, s[r]);
+      }
+    }
+
+    // the online softmax of each of the warp's rows
+    const int kp = k0 + lane;
+    float p[WIDE_RPW];
+#pragma unroll
+    for (int r = 0; r < WIDE_RPW; ++r) {
+      const int qp = q0 + r0 + r;
+      bool valid = kp <= qp && kp < S;
+      if (window > 0) valid = valid && kp > qp - window;
+      const float sc = valid ? s[r] * sm_scale : NEG_INF;
+      float mx = sc;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float corr = expf(m[r] - m_new);
+      p[r] = expf(sc - m_new);
+      float sum = p[r];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[r] = l[r] * corr + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < WIDE_COLS; ++c) acc[r][c] *= corr;
+    }
+
+    // this block's columns of the step's value rows (the score slices'
+    // barriers ordered every earlier reader of sv before these writes)
+    for (int i = tid; i < WIDE_KEYS * WIDE_SLICE; i += THREADS) {
+      const int t = i / WIDE_SLICE, c = i % WIDE_SLICE;
+      const int vp = k0 + t, d = d0 + c;
+      sv[t][c] = vp < S && d < D
+          ? to_f32(v[(((size_t)b * S + vp) * Hkv + hk) * D + d]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int t = 0; t < WIDE_KEYS; ++t) {
+      float vv[WIDE_COLS];
+#pragma unroll
+      for (int c = 0; c < WIDE_COLS; ++c)
+        vv[c] = 32 * c < cols ? sv[t][lane + 32 * c] : 0.f;
+#pragma unroll
+      for (int r = 0; r < WIDE_RPW; ++r) {
+        const float pt = __shfl_sync(0xffffffffu, p[r], t);
+#pragma unroll
+        for (int c = 0; c < WIDE_COLS; ++c)
+          if (32 * c < cols) acc[r][c] = fmaf(pt, vv[c], acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < WIDE_RPW; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* dst = out + (((size_t)b * S + qp) * Hq + h) * D;
+#pragma unroll
+    for (int c = 0; c < WIDE_COLS; ++c) {
+      const int d = d0 + lane + 32 * c;
+      if (d < D) store(dst + d, acc[r][c] / denom);
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                int B, int S, int Hq, int Hkv, int D, int window,
+                float sm_scale, cudaStream_t stream) {
+  if ((size_t)B * Hq > 65535) return (int)cudaErrorInvalidValue;
+  auto kernel = flash_wide_kernel<T>;
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid((S + WIDE_ROWS - 1) / WIDE_ROWS, B * Hq,
+                  (D + WIDE_SLICE - 1) / WIDE_SLICE);
+  kernel<<<grid, THREADS, WIDE_SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), S, Hq, Hkv, D, window,
       sm_scale);
   return (int)cudaGetLastError();
 }
@@ -495,8 +687,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
 
 // Route cuda_core.  q (B, S, Hq, D), k / v (B, S, Hkv, D) -> out (B, S, Hq,
 // D), all of one dtype (0 = float32, 1 = bfloat16); D in {32, 64, 128,
-// 256}; Hq
-// a multiple of Hkv; window 0 = full causal.  Returns a cudaError_t.
+// 256}; Hq a multiple of Hkv; window 0 = full causal.  Returns a
+// cudaError_t.
 extern "C" int imagine_flash_attention(const void* q, const void* k,
                                        const void* v, void* out, int B,
                                        int S, int Hq, int Hkv, int D,
@@ -513,6 +705,28 @@ extern "C" int imagine_flash_attention(const void* q, const void* k,
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, D, window,
                                      sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Route wide: as cuda_core with any D >= 1 on the design that streams D
+// (B * Hq at most 65535); the route takes it past D 256.  Returns a
+// cudaError_t.
+extern "C" int imagine_flash_attention_wide(const void* q, const void* k,
+                                            const void* v, void* out, int B,
+                                            int S, int Hq, int Hkv, int D,
+                                            int window, float sm_scale,
+                                            int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 ||
+      window < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_wide<float>(q, k, v, out, B, S, Hq, Hkv, D, window,
+                              sm_scale, s);
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, D, window,
+                                      sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

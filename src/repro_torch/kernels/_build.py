@@ -51,9 +51,9 @@ LAUNCHES: Dict[str, int] = {
 
 # the designs of the kernels that have more than one: the GEMVs' picked by
 # M and the type of x (_gemv.route, _gemv.grouped_route), flash and
-# chunked-prefill attention's
-# by dtype (flash_attention.kernel.route, paged_attention.kernel.
-# prefill_route)
+# chunked-prefill attention's by dtype (flash_attention.kernel.route,
+# paged_attention.kernel.prefill_route), and flash attention's past head
+# dim 256 (``wide``, the design that streams D)
 GEMV_ROUTES = ("decode", "rows", "tensor_core")
 # the bit-plane GEMV's expert-grouped launch (stacked MoE experts), the same
 # three designs picked by the static bound on an expert's rows
@@ -62,7 +62,7 @@ ATTENTION_ROUTES = ("cuda_core", "tensor_core")
 ROUTES: Dict[str, Tuple[str, ...]] = {
     "bitplane_gemv": GEMV_ROUTES + GROUPED_ROUTES,
     "int8_matvec": GEMV_ROUTES,
-    "flash_attention": ATTENTION_ROUTES,
+    "flash_attention": ATTENTION_ROUTES + ("wide",),
     "paged_prefill_attention": ATTENTION_ROUTES,
 }
 ROUTE_LAUNCHES: Dict[str, int] = {

@@ -1,12 +1,17 @@
 """Head-dim padding for the attention tiles that take a few widths only.
 
-Flash attention (both routes) and the chunked prefill's tensor-core route
+Flash attention's tile routes and the chunked prefill's tensor-core route
 are compiled for head dims of ``TILE_HEAD_DIMS``.  Their launchers take any
 D up to the widest: they zero-pad the head dim to the next width the tiles
 take, pass the softmax scale of the true D, and slice the output back.
 Zero columns add exact zeros to every score and give zero output columns,
 so the function is the reference's at the true D, and the same kernel runs
-(no other route, no fallback).
+(no other route, no fallback).  Above the widest, the route functions
+name a route that takes D as it is: flash attention's ``wide``, which
+streams D (``csrc/flash_attention.cu``), and the chunked prefill's
+``cuda_core``, which holds rows of any Dh in shared memory
+(``csrc/paged_attention.cu``): :func:`padded_head_dim` serves the tiles
+only.
 """
 
 from __future__ import annotations
@@ -15,11 +20,14 @@ import torch
 import torch.nn.functional as F
 
 TILE_HEAD_DIMS = (32, 64, 128, 256)
+WIDEST_TILE = TILE_HEAD_DIMS[-1]
 
 
 def padded_head_dim(d: int, what: str) -> int:
     """The narrowest width of ``TILE_HEAD_DIMS`` that holds ``d``; raises
-    for ``d`` above the widest (``what`` names the caller)."""
+    for ``d`` above the widest (``what`` names the caller), which no tile
+    takes and the route functions send to the ``wide`` / ``cuda_core``
+    routes."""
     for width in TILE_HEAD_DIMS:
         if d <= width:
             return width

@@ -3,12 +3,14 @@
 
 Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
 allocates the output with ``torch.empty``, launches on the current stream
-and raises if the launch reports an error.  ``route`` picks one of two
-designs by dtype, each its own C entry point: ``tensor_core`` for
-bfloat16 (wgmma tiles, P split into bf16 hi + lo) and ``cuda_core`` for
-float32.  No route ever gives way to the other or to the plain version.
-Both are compiled for the head dims of ``HEAD_DIMS``; any other D up to
-256 is zero-padded to the next of them (``_heads``).
+and raises if the launch reports an error.  ``route`` picks one of three
+routes, each its own C entry point, by dtype and head dim: up to 256,
+``tensor_core`` for bfloat16 (wgmma tiles, P split into bf16 hi + lo) and
+``cuda_core`` for float32; above 256, ``wide`` for both, the design that
+streams D (``csrc/flash_attention.cu``, ``flash_wide_kernel``).  No route
+ever gives way to another or to the plain version.  The tiles are compiled for the head dims of
+``HEAD_DIMS``; any other D up to 256 is zero-padded to the next of them
+(``_heads``), and a D above 256 runs as it is.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._heads import (
     TILE_HEAD_DIMS as HEAD_DIMS,
+    WIDEST_TILE,
     pad_head_dim,
     padded_head_dim,
 )
@@ -29,15 +32,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """The design that takes q, k, v of ``dtype`` and head dim ``d``:
-    ``tensor_core`` for bfloat16, ``cuda_core`` for float32 (bf16 operands
-    would round it).  Raises for any other dtype and for ``d`` above 256."""
-    padded_head_dim(d, "flash_attention_cuda")
-    if dtype == torch.bfloat16:
-        return "tensor_core"
-    if dtype == torch.float32:
-        return "cuda_core"
-    raise ValueError(f"flash_attention_cuda: dtype {dtype}")
+    """The design that takes q, k, v of ``dtype`` and head dim ``d``: up to
+    the tiles' widest head dim, ``tensor_core`` for bfloat16 and
+    ``cuda_core`` for float32 (bf16 operands would round it); above it,
+    ``wide`` for both (the streamed design takes any D).  Raises for any
+    other dtype and for ``d < 1``."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention_cuda: dtype {dtype}")
+    if d < 1:
+        raise ValueError(f"flash_attention_cuda: head dim {d}")
+    if d > WIDEST_TILE:
+        return "wide"
+    return "cuda_core" if dtype == torch.float32 else "tensor_core"
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,7 +53,8 @@ def _entry(path: str):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
     else:
-        fn = _build.library().imagine_flash_attention
+        fn = getattr(_build.library(), "imagine_flash_attention_wide"
+                     if path == "wide" else "imagine_flash_attention")
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -95,12 +102,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = int(window)
     path = _check(q, k, v, window)
     b, s, hq, d = q.shape
-    dp = padded_head_dim(d, "flash_attention_cuda")
+    dp = d if d > WIDEST_TILE else padded_head_dim(d, "flash_attention_cuda")
     q, k, v = (pad_head_dim(t, dp) for t in (q, k, v))
     out = torch.empty_like(q)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             hq, k.shape[2], dp, window, d ** -0.5]
-    if path == "cuda_core":
+    if path != "tensor_core":
         args.append(_DTYPE_CODES[q.dtype])
     err = _entry(path)(*args,
                        torch.cuda.current_stream(q.device).cuda_stream)

@@ -4,8 +4,9 @@ Takes the model's ``(B, S, H, D)`` layout, as the JAX package's
 ``kernels/flash_attention/ops.py`` does, and dispatches by the query's
 device: the CUDA kernel for CUDA tensors (it reads that layout directly
 and masks the ragged end of S itself, so nothing is transposed and S is
-not padded; a head dim outside 32 / 64 / 128 / 256 is zero-padded to the next
-of them), the plain version (``ref.py``, ``(B, H, S, D)``) for CPU tensors,
+not padded; a head dim up to 256 outside 32 / 64 / 128 / 256 is
+zero-padded to the next of them, one above 256 runs as it is on the
+``wide`` route, the design that streams D), the plain version (``ref.py``, ``(B, H, S, D)``) for CPU tensors,
 and an error for anything else.  There is no fallback from the kernel to
 the plain version.  The kernel picks its own tiles: the JAX wrapper's
 ``block_q`` / ``block_kv`` have no counterpart.

@@ -10,11 +10,14 @@ that the launcher allocates, combined in split order by a second kernel of
 the same C entry point; the split count follows from the block table's
 width (``decode_splits``), so no launch reads the positions back to the
 host.  Chunked prefill has two designs, each its own C entry point, picked
-by dtype (``prefill_route``): ``tensor_core`` (mma.sync tiles) for
-bfloat16 queries over bfloat16 or int8 pools, ``cuda_core`` when the
-queries or the pools are float32; the tensor-core tiles take head dims of
-``TC_HEAD_DIMS`` and any other up to 256 zero-padded (``_heads``).  No
-route ever gives way to the other or to the plain version.
+by dtype and head dim (``prefill_route``): ``tensor_core`` (mma.sync
+tiles) for bfloat16 queries over bfloat16 or int8 pools at head dims up to
+256, ``cuda_core`` when the queries or the pools are float32 and for every
+head dim above 256; the tensor-core tiles take head dims of
+``TC_HEAD_DIMS`` and any other up to 256 zero-padded (``_heads``), the
+CUDA-core design any Dh as it is, with fewer query rows a block past 256
+(``prefill_block_q``).  No route ever gives way to the other or to the
+plain version.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._heads import (
     TILE_HEAD_DIMS as TC_HEAD_DIMS,
+    WIDEST_TILE,
     pad_head_dim,
     padded_head_dim,
 )
@@ -88,22 +92,31 @@ def _prefill_entry(path: str):
 def prefill_route(q_dtype: torch.dtype, pool_dtype: torch.dtype, dh: int,
                   group: int) -> str:
     """The chunked-prefill design for bf16 / float32 queries over pools of
-    ``pool_dtype``: ``cuda_core`` when either is float32; ``tensor_core``
+    ``pool_dtype``: ``cuda_core`` when either is float32, and for every
+    head dim above the widest of ``TC_HEAD_DIMS`` (it keeps the TPU
+    kernel's casts for bf16 queries and int8 pools too); ``tensor_core``
     for bfloat16 queries over bfloat16 or int8 pools, whose products the
     TPU kernel already takes on bf16 values.  Raises for what neither
-    takes: other dtypes, and a tensor-core case whose head dim exceeds the
-    widest of ``TC_HEAD_DIMS`` or whose ``group`` query heads exceed a
-    block's ``PREFILL_ROWS`` rows."""
+    takes: other dtypes, and a tensor-core case whose ``group`` query heads
+    exceed a block's ``PREFILL_ROWS`` rows."""
     if q_dtype not in _Q_CODES or pool_dtype not in _POOL_CODES:
         raise ValueError(f"paged_prefill_attention_cuda: q {q_dtype}, "
                          f"pools {pool_dtype}")
-    if torch.float32 in (q_dtype, pool_dtype):
+    if torch.float32 in (q_dtype, pool_dtype) or dh > WIDEST_TILE:
         return "cuda_core"
-    padded_head_dim(dh, "paged_prefill_attention_cuda")
     if group > PREFILL_ROWS:
         raise ValueError(f"paged_prefill_attention_cuda: {group} query "
                          f"heads a KV head exceed {PREFILL_ROWS} rows")
     return "tensor_core"
+
+
+def prefill_block_q(c: int, g: int, dh: int) -> int:
+    """Chunk offsets a prefill block holds: ``PREFILL_ROWS`` query rows of
+    ``g`` heads each, fewer in proportion above the tiles' widest head dim
+    (the CUDA-core design keeps its rows' queries and outputs in shared
+    memory, ``2 * rows * Dh`` floats), at least one."""
+    rows = PREFILL_ROWS * WIDEST_TILE // max(dh, WIDEST_TILE)
+    return max(1, min(c, rows // g))
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -227,7 +240,7 @@ def paged_prefill_attention_cuda(
             if t.data_ptr() % 16:
                 raise ValueError(f"paged_prefill_attention_cuda: {tname} "
                                  "is not 16-byte aligned")
-    block_q = max(1, min(c, PREFILL_ROWS // g))
+    block_q = prefill_block_q(c, g, d)
     out = torch.empty((b, c, hkv, g, dp), dtype=torch.float32,
                       device=q.device)
     args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

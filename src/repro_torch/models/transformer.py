@@ -1,4 +1,5 @@
-"""Decoder LM of the dense, moe and ssm families.
+"""Decoder LM of the six families: dense, vlm, audio, moe, ssm and
+hybrid.
 
 Parameters are a plain dictionary::
 
@@ -6,25 +7,36 @@ Parameters are a plain dictionary::
      "layers": [{"ln1", "attn": {"wq", "wk", "wv", "wo"},
                  "ln2", "mlp": {"w_gate", "w_up", "w_down"}}, ...]}
 
-for the dense family, the same with ``"moe": {"router", "w_gate", "w_up",
-"w_down"[, "shared"]}`` (``models/moe.py``: stacked experts) in place of
-``"mlp"`` for the moe family, and ``"layers": [{"ln1", "ssm": {...}},
-...]`` for the ssm family (``models/ssm.py``), with one entry per layer (the JAX
-package stacks layers on a leading axis and scans; here the layer loop is
-a Python loop, so every layer's window is a Python ``int``).  A linear is
-``{"w": (K, N)[, "bias"]}`` (an expert stack a ``(E, K, N)`` tensor) or,
-after :func:`quantize_params`, an engine
+for the dense family and its two front-end variants: vlm (precomputed
+image embeddings ``img_embeds`` ``(B, S_img, D)`` prepended to the text
+stream by :func:`forward` and :func:`prefill`, and cut off their output),
+and audio (``embed`` ``(K, V, D)``, one table per codebook, tokens ``(B, S,
+K)`` whose K embeddings are summed, and an ``lm_head`` of ``V·K`` outputs
+read as ``(B, S, K, V)`` logits).  The moe family has ``"moe": {"router",
+"w_gate", "w_up", "w_down"[, "shared"]}`` (``models/moe.py``: stacked
+experts) in place of ``"mlp"``; the ssm family ``"layers": [{"ln1", "ssm":
+{...}}, ...]`` (``models/ssm.py``); the hybrid family (zamba2) ssm layers
+plus one ``"shared_attn": {"ln1", "attn", "ln2", "mlp"}`` block whose
+weights every ``attn_every``-th layer applies after its ssm block (``n_layers
+// attn_every`` sites, each with its own K/V).  There is one entry per
+layer (the JAX package stacks layers on a leading axis and scans; here the
+layer loop is a Python loop, so every layer's window and every site index
+is a Python ``int``).  A linear is ``{"w": (K, N)[, "bias"]}`` (an expert
+stack a ``(E, K, N)`` tensor) or, after :func:`quantize_params`, an engine
 :class:`~repro_torch.engine.PackedLinear`.
 
 Two paths:
 
 * the full-sequence path, :func:`forward` and the slots-layout cache path
   :func:`init_cache` / one-shot :func:`prefill` / :func:`decode_step`,
-  for the three families; at :data:`FLASH_THRESHOLD` tokens and more
-  attention runs flash attention, and the ssm family runs the SSD scan,
-  both as CUDA kernels on the ``cuda`` attention backend;
+  for the six families; at :data:`FLASH_THRESHOLD` tokens and more
+  attention runs flash attention, and the ssm and hybrid families' ssm
+  layers run the SSD scan, both as CUDA kernels on the ``cuda`` attention
+  backend;
 * paged serving, :func:`prefill_chunk` / :func:`decode_step_paged`, for
-  the dense and moe families.
+  the families with a pageable KV cache (dense, vlm, audio and moe, the
+  JAX package's ``PAGED_FAMILIES``); a vlm model serves text there, as in
+  the JAX package.
 
 The moe family's steps take ``expert_counts``, an ``(L, E)`` int32 tensor
 that each MoE layer fills in place with the rows each expert computed, so
@@ -43,7 +55,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import FAMILIES, PAGED_FAMILIES, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import EnginePlan, pack_linear, resolve_attn_backend
 from repro_torch.engine.plan import resolve_plan
@@ -75,16 +87,14 @@ from repro_torch.models.ssm import (
 Params = Dict[str, Any]
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-               "in_proj", "out_proj")
-_FULL_SEQUENCE = ("dense", "moe", "ssm")
-_PAGED = ("dense", "moe")
+               "in_proj", "out_proj", "lm_head")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_family(cfg: ModelConfig, families=_PAGED) -> None:
+def _check_family(cfg: ModelConfig, families=PAGED_FAMILIES) -> None:
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported on this path; it runs "
@@ -96,36 +106,45 @@ def _check_family(cfg: ModelConfig, families=_PAGED) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _init_attn(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": init_linear(gen, d, hq * dh, dtype, bias=cfg.qkv_bias),
+        "wk": init_linear(gen, d, hkv * dh, dtype, bias=cfg.qkv_bias),
+        "wv": init_linear(gen, d, hkv * dh, dtype, bias=cfg.qkv_bias),
+        "wo": init_linear(gen, hq * dh, d, dtype),
+    }
+
+
+def _init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    mlp = {"w_up": init_linear(gen, d, f, dtype),
+           "w_down": init_linear(gen, f, d, dtype)}
+    if cfg.mlp_gated:
+        mlp["w_gate"] = init_linear(gen, d, f, dtype)
+    return mlp
+
+
+def _norm(cfg: ModelConfig, gen: torch.Generator, dtype) -> torch.Tensor:
+    return torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)
+
+
 def init_layer(cfg: ModelConfig, gen: torch.Generator,
                engine_bits: int = 0) -> Params:
     """One layer's parameters, drawn on the generator's device; a moe
     layer's experts packed to ``engine_bits`` as each is drawn."""
     dtype = _dtype(cfg)
-    if cfg.family == "ssm":
-        return {"ln1": torch.zeros((cfg.d_model,), dtype=dtype,
-                                   device=gen.device),
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ln1": _norm(cfg, gen, dtype),
                 "ssm": init_ssm(cfg, gen, dtype)}
-    d, dh = cfg.d_model, cfg.resolved_head_dim
-    hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    zeros = torch.zeros((d,), dtype=dtype, device=gen.device)
-    layer = {
-        "ln1": zeros,
-        "attn": {
-            "wq": init_linear(gen, d, hq * dh, dtype, bias=cfg.qkv_bias),
-            "wk": init_linear(gen, d, hkv * dh, dtype, bias=cfg.qkv_bias),
-            "wv": init_linear(gen, d, hkv * dh, dtype, bias=cfg.qkv_bias),
-            "wo": init_linear(gen, hq * dh, d, dtype),
-        },
-        "ln2": zeros.clone(),
-    }
+    layer = {"ln1": _norm(cfg, gen, dtype),
+             "attn": _init_attn(cfg, gen, dtype),
+             "ln2": _norm(cfg, gen, dtype)}
     if cfg.family == "moe":
         layer["moe"] = init_moe(cfg, gen, dtype, engine_bits)
-        return layer
-    mlp = {"w_up": init_linear(gen, d, f, dtype),
-           "w_down": init_linear(gen, f, d, dtype)}
-    if cfg.mlp_gated:
-        mlp["w_gate"] = init_linear(gen, d, f, dtype)
-    layer["mlp"] = mlp
+    else:
+        layer["mlp"] = _init_mlp(cfg, gen, dtype)
     return layer
 
 
@@ -136,12 +155,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     distributions: ``N(0, 1/d_in)`` linears, ``N(0, 0.02²)`` embedding,
     zero biases and norm scales.
 
-    ``engine_bits`` packs each layer's linears as soon as the layer is
-    drawn, so a full-width model never holds its dense weights at once.
+    ``engine_bits`` packs each layer's linears, the hybrid family's
+    shared block and an untied ``lm_head`` as soon as they are drawn, so
+    a full-width model never holds its dense weights at once.  The audio family draws one
+    embedding table per codebook and an ``lm_head`` of ``V·K`` outputs.
     """
-    _check_family(cfg, _FULL_SEQUENCE)
+    _check_family(cfg, FAMILIES)
     dtype = _dtype(cfg)
-    embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
+    if cfg.family == "audio":
+        embed = torch.stack([
+            init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
+            for _ in range(cfg.n_codebooks)])
+    else:
+        embed = init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype)
     layers = []
     for _ in range(cfg.n_layers):
         layer = init_layer(cfg, gen, engine_bits)
@@ -151,12 +177,22 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     params: Params = {
         "embed": embed,
         "layers": layers,
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
-                                  device=gen.device),
+        "final_norm": _norm(cfg, gen, dtype),
     }
+    if cfg.family == "hybrid" and cfg.attn_every:
+        shared = {"ln1": _norm(cfg, gen, dtype),
+                  "attn": _init_attn(cfg, gen, dtype),
+                  "ln2": _norm(cfg, gen, dtype),
+                  "mlp": _init_mlp(cfg, gen, dtype)}
+        if engine_bits:
+            shared = _quantize_layer(shared, engine_bits)
+        params["shared_attn"] = shared
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
-                                        dtype)
+        head = init_linear(gen, cfg.d_model,
+                           cfg.vocab_size * cfg.n_codebooks, dtype)
+        if engine_bits:
+            head = pack_linear(head["w"], engine_bits, bias=head.get("bias"))
+        params["lm_head"] = head
     return params
 
 
@@ -195,16 +231,35 @@ def _layer_counts(expert_counts, layer):
     return None if expert_counts is None else expert_counts[layer]
 
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """``(B, S)`` token ids -> ``(B, S, D)`` embeddings."""
+def _embed(params: Params, tokens: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """``(B, S)`` token ids -> ``(B, S, D)`` embeddings; for the audio
+    family ``(B, S, K)`` ids, the K codebooks' embeddings summed in
+    codebook order, as the JAX package sums them."""
+    if cfg.family == "audio":
+        tokens = tokens.long()
+        return sum(params["embed"][k][tokens[..., k]]
+                   for k in range(cfg.n_codebooks))
     return params["embed"][tokens.long()]
 
 
-def embed_inputs(params: Params, batch: Dict[str, torch.Tensor]):
+def _image_tokens(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> int:
+    """Image positions prepended to the text stream (vlm with
+    ``img_embeds``), else 0."""
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        return batch["img_embeds"].shape[1]
+    return 0
+
+
+def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig):
     """Returns (x ``(B, S, D)``, positions ``(B, S)``): ``batch["tokens"]``
-    embedded, and ``batch["positions"]`` when given, else ``0..S-1`` in
-    every row."""
-    x = _embed(params, batch["tokens"])
+    embedded (for a vlm with ``batch["img_embeds"]`` ``(B, S_img, D)``,
+    those prepended, so S counts both), and ``batch["positions"]`` when
+    given, else ``0..S-1`` in every row."""
+    x = _embed(params, batch["tokens"], cfg)
+    if _image_tokens(batch, cfg):
+        x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -214,12 +269,18 @@ def embed_inputs(params: Params, batch: Dict[str, torch.Tensor]):
 
 
 def _lm_logits(params, x, cfg, plan):
+    """``(B, S, V)`` logits, ``(B, S, K, V)`` for the audio family."""
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         # a plain large product outside any kernel, as the JAX package
         # leaves it to XLA
-        return torch.matmul(h, params["embed"].to(h.dtype).t())
-    return dense(params["lm_head"], h, plan)
+        logits = torch.matmul(h, params["embed"].to(h.dtype).t())
+    else:
+        logits = dense(params["lm_head"], h, plan)
+    if cfg.family == "audio":
+        logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks,
+                                cfg.vocab_size)
+    return logits
 
 
 def _quantize_kv(val: torch.Tensor):
@@ -312,12 +373,21 @@ def _sequence_setup(params, batch, cfg, eng, attn_backend):
     """Embeddings, positions, the plan and the sequence mixers' settings of
     :func:`forward` and :func:`prefill`: flash attention from
     :data:`FLASH_THRESHOLD` tokens, the kernels on the ``cuda`` backend."""
-    _check_family(cfg, _FULL_SEQUENCE)
-    x, positions = embed_inputs(params, batch)
+    _check_family(cfg, FAMILIES)
+    x, positions = embed_inputs(params, batch, cfg)
     plan, abk = _resolve(eng, attn_backend, x.device)
     return x, positions, plan, dict(
         use_flash=x.shape[1] >= FLASH_THRESHOLD, attn_backend=abk,
         sequential=batch.get("positions") is None)
+
+
+def _site(cfg: ModelConfig, layer: int) -> Optional[int]:
+    """The hybrid family's shared-attention site after ``layer`` (its
+    index into the sites' K/V), or None where the block does not apply."""
+    every = cfg.attn_every
+    if cfg.family != "hybrid" or not every or (layer + 1) % every:
+        return None
+    return (layer + 1) // every - 1
 
 
 def forward(
@@ -329,10 +399,12 @@ def forward(
     attn_backend: Optional[str] = None,
     local_gather: bool = False,
 ):
-    """Full-sequence forward (scoring).  Returns (logits ``(B, S, V)``,
-    aux loss) — or (hidden ``(B, S, D)``, aux loss) with ``return_hidden``.
-    The aux loss is the moe family's router loss summed over layers (a
-    float32 zero for the others).
+    """Full-sequence forward (scoring).  Returns (logits ``(B, S, V)``, or
+    ``(B, S, K, V)`` for the audio family, aux loss) — or (hidden ``(B,
+    S, D)``, aux loss) with ``return_hidden``.  The aux loss is the moe
+    family's router loss summed over layers (a float32 zero for the
+    others).  A vlm batch with ``img_embeds`` runs them ahead of the text,
+    and the output covers the text positions only.
 
     At :data:`FLASH_THRESHOLD` tokens and more, attention runs
     :func:`attend_flash`; the ``cuda`` attention backend (the default on a
@@ -350,7 +422,7 @@ def forward(
     local_gather = (local_gather and cfg.sliding_window > 0
                     and cfg.global_every > 0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family != "ssm":
+    if cfg.family in PAGED_FAMILIES:
         for lp, win in zip(params["layers"], _layer_windows(cfg)):
             x, _ = _attn_apply(lp, x, positions, cfg, plan, win,
                                local_gather=local_gather, **mixers)
@@ -358,10 +430,16 @@ def forward(
             if a is not None:
                 aux = aux + a
     else:
-        for lp in params["layers"]:
+        shared = params.get("shared_attn")
+        for layer, lp in enumerate(params["layers"]):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             x = x + ssm_forward(lp["ssm"], h, cfg, plan,
                                 use_kernel=use_kernel)
+            if shared is not None and _site(cfg, layer) is not None:
+                x, _ = _attn_apply(shared, x, positions, cfg, plan, 0,
+                                   **mixers)
+                x = _mlp_apply(shared, x, cfg, plan)
+    x = x[:, _image_tokens(batch, cfg):]
     if return_hidden:
         return x, aux
     return _lm_logits(params, x, cfg, plan), aux
@@ -372,14 +450,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                kv_bits: int = 0, device: DeviceLike = None) -> Params:
     """Decode cache in the slots layout, on ``device`` (None means the GPU).
 
-    dense and moe: ``k``/``v`` ``(L, B, max_len, Hkv, Dh)`` at full
-    precision;
+    dense, vlm, audio and moe: ``k``/``v`` ``(L, B, max_len, Hkv, Dh)`` at
+    full precision (a vlm prompt's image positions count towards
+    max_len);
     ssm: ``conv`` ``(L, B, cw - 1, d_inner + 2N)`` and ``h`` ``(L, B, H, P,
-    N)`` float32; both with ``pos`` ``(B,)`` int32.  The JAX package's int8
-    (``kv_bits=8``), unstacked and ``split_local`` layouts are not ported
-    and raise.
+    N)`` float32; hybrid: those, and ``k``/``v`` ``(n_layers // attn_every,
+    B, max_len, Hkv, Dh)`` for the shared block's sites; all with ``pos``
+    ``(B,)`` int32.  The JAX package's int8 (``kv_bits=8``), unstacked and
+    ``split_local`` layouts are not ported and raise.
     """
-    _check_family(cfg, _FULL_SEQUENCE)
+    _check_family(cfg, FAMILIES)
     if kv_bits:
         raise NotImplementedError("init_cache(kv_bits=8): the int8 slots "
                                   "cache is not ported")
@@ -393,12 +473,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     dtype = dtype or _dtype(cfg)
     cache: Params = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                         device=device)}
-    if cfg.family != "ssm":
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+    kv_sets = (cfg.n_layers if cfg.family in PAGED_FAMILIES
+               else cfg.n_layers // cfg.attn_every
+               if cfg.family == "hybrid" and cfg.attn_every else 0)
+    if kv_sets:
+        shape = (kv_sets, batch, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
-    else:
+    if cfg.family in ("ssm", "hybrid"):
         conv_ch = cfg.d_inner + 2 * cfg.ssm_state
         cache["conv"] = torch.zeros(
             (cfg.n_layers, batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
@@ -420,29 +503,36 @@ def prefill(
 ):
     """Run the prompt through the model in one pass, filling the cache.
 
-    Returns (last-token logits ``(B, 1, V)``, cache).  The cache's tensors
-    are written **in place** (K/V rows ``[0, S)`` set and the rest zeroed,
-    as the JAX package's padded copy has them; conv and h states
-    replaced; ``pos`` set to S); the returned dictionary holds the same
-    tensors.
+    Returns (last-token logits ``(B, 1, V)``, ``(B, 1, K, V)`` for the
+    audio family, cache).  The cache's tensors are written **in place**
+    (K/V rows ``[0, S)`` set and the rest zeroed, as the JAX package's
+    padded copy has them — for the hybrid family at each shared-attention
+    site; conv and h states replaced; ``pos`` set to S); the returned
+    dictionary holds the same tensors.  A vlm batch with ``img_embeds``
+    counts its image positions in S and fills their K/V too.
     """
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
                                                  attn_backend)
     s = x.shape[1]
-    if cfg.family != "ssm":
-        if s > cache["k"].shape[2]:
-            raise ValueError(f"prefill: {s} prompt tokens exceed the cache's "
-                             f"{cache['k'].shape[2]} slots")
+    if "k" in cache and s > cache["k"].shape[2]:
+        raise ValueError(f"prefill: {s} prompt tokens exceed the cache's "
+                         f"{cache['k'].shape[2]} slots")
+
+    def put_kv(index, k, v):
+        for name, val in (("k", k), ("v", v)):
+            cache[name][index, :, :s] = val.to(cache[name].dtype)
+            cache[name][index, :, s:] = 0
+
+    if cfg.family in PAGED_FAMILIES:
         for layer, (lp, win) in enumerate(zip(params["layers"],
                                               _layer_windows(cfg))):
             x, (k, v) = _attn_apply(lp, x, positions, cfg, plan, win,
                                     **mixers)
             x, _ = _ffn_apply(lp, x, cfg, plan)
-            for name, val in (("k", k), ("v", v)):
-                cache[name][layer, :, :s] = val.to(cache[name].dtype)
-                cache[name][layer, :, s:] = 0
+            put_kv(layer, k, v)
     else:
         use_kernel = mixers["attn_backend"] == "cuda"
+        shared = params.get("shared_attn")
         for layer, lp in enumerate(params["layers"]):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             y, conv, h_state = _ssm_run(lp["ssm"], h, cfg, plan, None, None,
@@ -450,6 +540,13 @@ def prefill(
             x = x + y
             cache["conv"][layer] = conv.to(cache["conv"].dtype)
             cache["h"][layer] = h_state
+            site = _site(cfg, layer)
+            if shared is not None and site is not None:
+                x, (k, v) = _attn_apply(shared, x, positions, cfg, plan, 0,
+                                        **mixers)
+                x = _mlp_apply(shared, x, cfg, plan)
+                put_kv(site, k, v)
+    x = x[:, _image_tokens(batch, cfg):]
     cache["pos"].fill_(s)
     return _lm_logits(params, x[:, -1:], cfg, plan), dict(cache)
 
@@ -485,7 +582,7 @@ def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
 def decode_step(
     params: Params,
     cache: Params,
-    tokens: torch.Tensor,                # (B, 1)
+    tokens: torch.Tensor,                # (B, 1) or (B, 1, K) for audio
     cfg: ModelConfig,
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
@@ -493,7 +590,8 @@ def decode_step(
     expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
 ):
     """One token of autoregressive decode over the slots cache.  Returns
-    (logits ``(B, 1, V)``, cache): the cache's tensors, ``pos`` included,
+    (logits ``(B, 1, V)``, ``(B, 1, K, V)`` for the audio family, cache):
+    the cache's tensors, ``pos`` included,
     are updated **in place** (so a captured CUDA graph of this step
     replays against the same storage) and the returned dictionary holds
     them.
@@ -503,12 +601,14 @@ def decode_step(
     is left bit-identical, as the JAX serving engine's ``_merge_cache``
     leaves a frozen slot, and their logits are meaningless.  The lanes
     are selected where the step writes: the K/V rows it overwrites, and
-    the conv and h states, which it writes whole anyway."""
-    _check_family(cfg, _FULL_SEQUENCE)
+    the conv and h states, which it writes whole anyway.  The hybrid
+    family's shared block attends its site's cache with the plain
+    :func:`attend_decode`, as the JAX package does."""
+    _check_family(cfg, FAMILIES)
     plan, _ = _resolve(eng, attn_backend, tokens.device)
     pos = cache["pos"]
-    x = _embed(params, tokens)
-    if cfg.family != "ssm":
+    x = _embed(params, tokens, cfg)
+    if cfg.family in PAGED_FAMILIES:
         for layer, (lp, win) in enumerate(zip(params["layers"],
                                               _layer_windows(cfg))):
             x = _attn_decode_apply(lp, x, cache["k"][layer],
@@ -517,6 +617,7 @@ def decode_step(
             x, _ = _ffn_apply(lp, x, cfg, plan,
                               _layer_counts(expert_counts, layer))
     else:
+        shared = params.get("shared_attn")
         for layer, lp in enumerate(params["layers"]):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             y, conv, h_state = ssm_decode_step(
@@ -531,6 +632,12 @@ def decode_step(
                                       cache["h"][layer])
             cache["conv"][layer] = conv
             cache["h"][layer] = h_state
+            site = _site(cfg, layer)
+            if shared is not None and site is not None:
+                x = _attn_decode_apply(shared, x, cache["k"][site],
+                                       cache["v"][site], pos, cfg, plan, 0,
+                                       active)
+                x = _mlp_apply(shared, x, cfg, plan)
     logits = _lm_logits(params, x, cfg, plan)
     pos.add_(1 if active is None else active.to(pos.dtype))
     return logits, dict(cache)
@@ -548,22 +655,22 @@ def decode_step_paged(
     block_tables: torch.Tensor,         # (B, n_blocks) int32
     pos: torch.Tensor,                  # (B,) logical token count per lane
     active: torch.Tensor,               # (B,) bool — lanes decoding now
-    tokens: torch.Tensor,               # (B, 1)
+    tokens: torch.Tensor,               # (B, 1) or (B, 1, K) for audio
     cfg: ModelConfig,
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
     expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
 ) -> torch.Tensor:
     """One token of greedy decode over paged KV; returns logits
-    ``(B, 1, V)``.  Inactive lanes write their K/V into the null page and
-    their logits are meaningless (in a moe layer each lane routes its own
-    token: a lane's capacity is its own).  ``pages`` is updated in
-    place."""
+    ``(B, 1, V)`` (``(B, 1, K, V)`` for the audio family).  Inactive lanes
+    write their K/V into the null page and their logits are meaningless
+    (in a moe layer each lane routes its own token: a lane's capacity is
+    its own).  ``pages`` is updated in place."""
     _check_family(cfg)
     plan, abk = _resolve(eng, attn_backend, tokens.device)
     b = tokens.shape[0]
     dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg)
     pos = pos.long()
     pidx, poff = _scatter_targets(block_tables, pos, active, pages.page_size)
     pos2 = pos[:, None]
@@ -590,7 +697,7 @@ def prefill_chunk(
     params: Params,
     pages,                              # KVPages
     block_tables: torch.Tensor,         # (B, n_blocks) int32
-    tokens: torch.Tensor,               # (B, C)
+    tokens: torch.Tensor,               # (B, C) or (B, C, K) for audio
     pos0: torch.Tensor,                 # (B,) tokens already prefilled
     seq_lens: torch.Tensor,             # (B,) total valid after this chunk
     cfg: ModelConfig,
@@ -604,18 +711,19 @@ def prefill_chunk(
     chunk padding and idle lanes (``seq_lens == pos0``) write into the null
     page and their queries are ignored.  Attention sees the lane's whole
     resident prefix plus this chunk.  Returns the last valid token's
-    logits ``(B, 1, V)``; ``pages`` is updated in place.  In a moe layer
+    logits ``(B, 1, V)`` (``(B, 1, K, V)`` for the audio family);
+    ``pages`` is updated in place.  In a moe layer
     every position of a lane's chunk routes, the padding too, and takes
     capacity from the lane's tokens, as in the JAX package.
     """
     _check_family(cfg)
     plan, abk = _resolve(eng, attn_backend, tokens.device)
-    b, c = tokens.shape
+    b, c = tokens.shape[:2]
     dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     pos0, seq_lens = pos0.long(), seq_lens.long()
     positions = pos0[:, None] + torch.arange(c, device=tokens.device)[None]
     valid_q = positions < seq_lens[:, None]
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, cfg)
     pidx, poff = _scatter_targets(block_tables, positions, valid_q,
                                   pages.page_size)
     for layer, (lp, win) in enumerate(zip(params["layers"],
@@ -661,14 +769,14 @@ def _quantize_layer(layer: Params, bits: int) -> Params:
 @torch.no_grad()
 def quantize_params(params: Params, cfg: ModelConfig, bits: int = 8
                     ) -> Params:
-    """Every linear of every layer becomes a :class:`PackedLinear`, a moe
-    layer's stacked experts one ``(E, Kp, N)`` linear each; embeddings,
-    norms and the router stay dense.  Already-packed linears pass
-    through.  Packing runs layer by layer."""
-    _check_family(cfg, _FULL_SEQUENCE)
-    out = dict(params)
+    """Every linear of the tree becomes a :class:`PackedLinear` — each
+    layer's, the hybrid family's shared block's and the ``lm_head`` — a
+    moe layer's stacked experts one ``(E, Kp, N)`` linear each, as the JAX
+    package's walk of the whole tree packs them; embeddings, norms and the
+    router stay dense.  Already-packed linears pass through.  Packing runs
+    layer by layer."""
+    _check_family(cfg, FAMILIES)
+    out = _quantize_layer({k: v for k, v in params.items()
+                           if k != "layers"}, bits)
     out["layers"] = [_quantize_layer(lp, bits) for lp in params["layers"]]
-    head = params.get("lm_head")
-    if isinstance(head, dict) and "w" in head:
-        out["lm_head"] = pack_linear(head["w"], bits, bias=head.get("bias"))
     return out

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over a paged KV cache (the default
-for the dense and moe families) or a fixed-slot cache (the ssm family's
-mode).
+for the dense, vlm, audio and moe families) or a fixed-slot cache (the
+ssm and hybrid families' mode).
 
 **Paged mode** (``mode="paged"``): KV state lives in a shared page pool
 (:mod:`repro_torch.serve.pages`) addressed through per-request block
@@ -18,14 +18,16 @@ after every step (and phase).  :mod:`repro_torch.serve.frontend` streams
 tokens over this engine.
 
 **Fixed-slot mode** (``mode="slots"``, and what ``mode="auto"`` falls
-back to, with a warning, for the ssm family, whose O(1) recurrent state
-has nothing to page): a fixed ``(n_slots, max_len)`` cache rectangle,
+back to, with a warning, for the ssm and hybrid families, whose O(1)
+recurrent state has nothing to page; ``mode="paged"`` refuses them): a
+fixed ``(n_slots, max_len)`` cache rectangle,
 prompts entering by sequential decode one slot at a time, and one
 full-sequence ``decode_step`` per token across the active slots.  A slot
 that does not advance keeps every cache entry bit-identical, as the JAX
 package's ``_merge_cache`` leaves it: ``decode_step``'s ``active`` lanes
-select where the step writes (the K/V row of each lane, the conv and h
-states it writes whole anyway, ``pos``), never the whole cache.
+select where the step writes (the K/V row of each lane — for the hybrid
+family at each shared-attention site — the conv and h states it writes
+whole anyway, ``pos``), never the whole cache.
 
 Every linear runs through one :class:`~repro_torch.engine.EnginePlan`
 resolved at construction; with ``EngineConfig.kv_bits = 8`` the pools are
@@ -82,10 +84,16 @@ summed over layers, in ``experts_touched["decode" | "prefill"]``: the
 expert codes a grouped launch actually read (``obs.routed_costs`` prices
 a step on them beside the ledger's all-experts price).
 
-Not ported yet: the families other than dense, moe and ssm (the audio
-family's token layout among them), which are refused at construction.  In
-slots mode the paged-pool options (prefix cache, budget scheduler, audits)
-are refused or warned about as the JAX package does.
+**The audio family** (musicgen) keeps the JAX package's token layout:
+every prompt id and every sampled token is broadcast over the K
+codebooks (step tokens ``(n_slots, 1, K)``, chunk tokens ``(n_slots,
+chunk, K)``), a request's ``last_logits`` are ``(K, V)``, and the next
+token is sampled from codebook 0.  The prefix cache keys on the single
+id.  **The vlm family** serves text prompts: images enter through
+``forward`` / ``prefill``'s ``img_embeds`` only, as in the JAX package.
+
+In slots mode the paged-pool options (prefix cache, budget scheduler,
+audits) are refused or warned about as the JAX package does.
 """
 
 from __future__ import annotations
@@ -101,7 +109,12 @@ import torch
 
 import repro_torch.obs as obs
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.config.base import ModelConfig, ServeConfig
+from repro_torch.config.base import (
+    FAMILIES,
+    PAGED_FAMILIES,
+    ModelConfig,
+    ServeConfig,
+)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine import resolve_attn_backend, resolve_plan
 from repro_torch.ft.failures import RestartPolicy
@@ -132,10 +145,6 @@ from repro_torch.serve.scheduler import (
 from repro_torch.serve.step_graph import StepGraph
 
 logger = logging.getLogger(__name__)
-
-SERVE_FAMILIES = ("dense", "moe", "ssm")
-PAGED_FAMILIES = ("dense", "moe")
-
 
 class AdmissionRejected(RuntimeError):
     """Load shedding: ``submit`` refused the request (``reason`` is
@@ -293,9 +302,8 @@ class ServeEngine:
     ):
         self.cfg = cfg
         self.scfg = scfg or ServeConfig()
-        if cfg.family not in SERVE_FAMILIES:
-            raise NotImplementedError(
-                f"serving family {cfg.family!r} is not ported yet")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown model family {cfg.family!r}")
         self.mode, auto_fallback = _resolve_mode(mode or self.scfg.mode,
                                                  cfg.family)
         if prefix_cache is None:
@@ -352,6 +360,9 @@ class ServeEngine:
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.cuda_graphs else None)
         self._graphs: List[StepGraph] = []
+        # the audio family's codebooks, over which every token id is
+        # broadcast (0 for the other families)
+        self._codebooks = cfg.n_codebooks if cfg.family == "audio" else 0
         self.prefix_cache: Optional[PrefixCache] = None
         # the moe family's rows per expert of the latest step of each kind
         self.expert_counts: Optional[Dict[str, torch.Tensor]] = None
@@ -395,7 +406,8 @@ class ServeEngine:
         self.queue, self.slot_req = self.sched.queue, self.sched.slot_req
         self.lanes = LaneTables(self.n_slots, self.device,
                                 max_blocks=self._max_blocks,
-                                chunk=self.prefill_chunk)
+                                chunk=self.prefill_chunk,
+                                codebooks=self._codebooks)
         params, pages, lanes = self.params, self.pages, self.lanes
         cfg, plan, abk = self.cfg, self.plan, self.attn_backend
         counts = {"decode": None, "prefill": None}
@@ -426,7 +438,8 @@ class ServeEngine:
                                 device=self.device)
         self.queue: Deque[Request] = collections.deque()
         self.slot_req: List[Optional[Request]] = [None] * self.n_slots
-        self.lanes = LaneTables(self.n_slots, self.device)
+        self.lanes = LaneTables(self.n_slots, self.device,
+                                codebooks=self._codebooks)
         params, cache, lanes = self.params, self.cache, self.lanes
         cfg, plan, abk = self.cfg, self.plan, self.attn_backend
         self._slots_step = self._step_fn(lambda: decode_step(
@@ -1027,7 +1040,7 @@ class ServeEngine:
         """Advance every pending prompt by one batched chunk; a prompt
         whose prefill completes publishes its full pages to the prefix
         cache."""
-        batch = self.sched.prefill_batch()
+        batch = self.sched.prefill_batch(audio_codebooks=self._codebooks)
         if batch is None:
             return
         tokens, pos0, seq_lens, lanes = batch
@@ -1083,10 +1096,9 @@ class ServeEngine:
         if not ready:
             return
         self.sched.charge_decode(ready)
-        tokens = np.zeros((self.n_slots, 1), np.int32)
         tnow = self._clock()
-        for slot, req in ready:
-            tokens[slot, 0] = self._emit(req, tnow)
+        tokens = self._lane_tokens({slot: self._emit(req, tnow)
+                                    for slot, req in ready})
         t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
         with self.obs.annotate("serve.decode_step"):
@@ -1222,7 +1234,7 @@ class ServeEngine:
         with self.obs.annotate("serve.prefill_slot"):
             prompt = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(
                 self.device)
-            self.lanes.load(tokens=np.zeros((self.n_slots, 1), np.int32),
+            self.lanes.load(tokens=self._lane_tokens({}),
                             active=self._lane_mask([slot]))
             logits = None
             for i in range(len(req.prompt)):
@@ -1243,9 +1255,7 @@ class ServeEngine:
             updates[slot] = self._emit(req, tnow)
         if not updates:
             return
-        tokens = np.zeros((self.n_slots, 1), np.int32)
-        for slot, tok in updates.items():
-            tokens[slot, 0] = tok
+        tokens = self._lane_tokens(updates)
         t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
         with self.obs.annotate("serve.decode_step"):
@@ -1258,6 +1268,15 @@ class ServeEngine:
             self.slot_req[slot].last_logits = lg[slot, -1]
 
     # ------------------------------------------------------------- shared
+    def _lane_tokens(self, updates: Dict[int, int]) -> np.ndarray:
+        """A step's tokens, ``(n_slots, 1)`` (``(n_slots, 1, K)`` for the
+        audio family, each id broadcast over the codebooks): ``updates``
+        maps a lane to its token, the other lanes hold 0."""
+        tokens = np.zeros(tuple(self.lanes.tokens.shape), np.int32)
+        for slot, tok in updates.items():
+            tokens[slot, 0] = tok
+        return tokens
+
     def _lane_mask(self, slots: Iterable[int]) -> np.ndarray:
         mask = np.zeros((self.n_slots,), bool)
         mask[list(slots)] = True
@@ -1281,7 +1300,13 @@ class ServeEngine:
         return done
 
     def _sample_next(self, req: Request) -> int:
-        last = torch.from_numpy(np.asarray(req.last_logits))[None]
+        """The next token from a request's last logits: ``(V,)``, or ``(K,
+        V)`` for the audio family, whose token stream carries one id
+        broadcast over the codebooks, so codebook 0 is sampled (as in the
+        JAX package)."""
+        last = torch.from_numpy(np.asarray(req.last_logits))
+        if last.ndim == 1:
+            last = last[None]
         return int(sample(last, self.generator, self.scfg.temperature,
                           self.scfg.top_k)[0])
 

@@ -39,7 +39,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import PAGED_FAMILIES, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.telemetry import NULL_TELEMETRY
 
@@ -76,9 +76,10 @@ def init_kv_pages(cfg: ModelConfig, n_pages: int, page_size: int,
                   device: DeviceLike = None) -> KVPages:
     """An all-zeros page pool for ``cfg`` on ``device`` (None: the GPU)."""
     device = resolve_device(device)
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"paged KV for family {cfg.family!r} is not ported yet")
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(
+            f"paged KV serves attention-KV families only; {cfg.family!r} "
+            "keeps O(1) state and stays on the fixed-slot engine")
     if kv_bits not in (0, 8):
         raise ValueError(f"kv_bits must be 0/8, got {kv_bits}")
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -409,22 +410,25 @@ class LaneTables:
     bool for a decode step; with ``max_blocks`` the paged step's
     ``block_tables`` ``(n_slots, max_blocks)`` and ``pos``; with
     ``chunk`` the prefill chunk's ``chunk_tokens`` ``(n_slots, chunk)``,
-    ``pos0`` and ``seq_lens``.  All int32 but ``active``.  ``load`` copies
+    ``pos0`` and ``seq_lens``.  With ``codebooks`` (the audio family's K)
+    the token buffers carry a last axis of K: ``(n_slots, 1, K)`` and
+    ``(n_slots, chunk, K)``.  All int32 but ``active``.  ``load`` copies
     host arrays into them in place: their storage never changes, as a
     captured CUDA graph needs."""
 
     def __init__(self, n_slots: int, device, *, max_blocks: int = 0,
-                 chunk: int = 0):
+                 chunk: int = 0, codebooks: int = 0):
         def buf(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        self.tokens = buf(n_slots, 1)
+        per_token = (codebooks,) if codebooks else ()
+        self.tokens = buf(n_slots, 1, *per_token)
         self.active = buf(n_slots, dtype=torch.bool)
         if max_blocks:
             self.block_tables = buf(n_slots, max_blocks)
             self.pos = buf(n_slots)
         if chunk:
-            self.chunk_tokens = buf(n_slots, chunk)
+            self.chunk_tokens = buf(n_slots, chunk, *per_token)
             self.pos0 = buf(n_slots)
             self.seq_lens = buf(n_slots)
 

@@ -192,10 +192,14 @@ class PagedScheduler:
         engine calls it right before the decode step).  FCFS keeps no
         accounts; the budget scheduler charges fair-share virtual time."""
 
-    def prefill_batch(self) -> Optional[PrefillBatch]:
+    def prefill_batch(self, audio_codebooks: int = 0
+                      ) -> Optional[PrefillBatch]:
         """The next chunked prefill batch: ``(tokens (n_slots, chunk),
         pos0, seq_lens, [(slot, n_real), ...])``, or None when nothing is
-        pending.  Lanes and token counts come from ``_pick_prefill``."""
+        pending.  Lanes and token counts come from ``_pick_prefill``.
+        With ``audio_codebooks`` K > 1 the tokens are ``(n_slots, chunk,
+        K)``: each prompt id broadcast over the K codebooks, as the JAX
+        package feeds the audio family."""
         c = self.chunk
         tokens = np.zeros((self.n_slots, c), np.int32)
         pos0 = np.zeros((self.n_slots,), np.int32)
@@ -211,6 +215,10 @@ class PagedScheduler:
             self.prefill_computed += n_real
         if not lanes:
             return None
+        if audio_codebooks > 1:
+            tokens = np.broadcast_to(
+                tokens[..., None],
+                tokens.shape + (audio_codebooks,)).copy()
         return tokens, pos0, seq_lens, lanes
 
     def decode_lanes(self) -> List[Tuple[int, object]]:

@@ -274,3 +274,78 @@ def test_numpy_templates_and_scalars(tmp_path):
     np.testing.assert_array_equal(out["a"], tree["a"])
     assert float(out["s"]) == 2.5
     np.testing.assert_array_equal(out["b"], tree["b"].float().numpy())
+
+
+# ------------------------------------- the audio and hybrid families' trees
+def _family_trees(arch):
+    """A reduced ``arch`` (bf16, 4-bit linears) as both packages hold it:
+    every top-level leaf (musicgen's ``(K, V, D)`` embedding and ``V·K``
+    head, zamba2's ``shared_attn`` block) and the first layer, plus a
+    step counter."""
+    import dataclasses
+
+    from repro.config import get_reduced
+    from repro.models import init_params
+    from repro.models.transformer import quantize_params
+
+    from repro_torch.weights import params_from_numpy
+    from test_torch_model import jax_params_to_numpy, torch_cfg
+
+    cfg = get_reduced(arch)
+    jp = quantize_params(init_params(cfg, jax.random.PRNGKey(0)), cfg, 4)
+    tp = params_from_numpy(jax_params_to_numpy(jp), torch_cfg(cfg),
+                           device="cpu")
+    jtree = {k: v for k, v in jp.items() if k != "layers"}
+    jtree["layer0"] = jax.tree.map(lambda a: a[0], jp["layers"])
+    jtree["step"] = jnp.asarray(11, jnp.int32)
+    ttree = {k: v for k, v in tp.items() if k != "layers"}
+    ttree["layer0"] = tp["layers"][0]
+    ttree["step"] = torch.tensor(11, dtype=torch.int32)
+
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        if dataclasses.is_dataclass(node):
+            return dataclasses.replace(
+                node, packed=torch.zeros_like(node.packed),
+                scale=torch.zeros_like(node.scale),
+                bias=None if node.bias is None else torch.zeros_like(
+                    node.bias))
+        return torch.zeros_like(node)
+
+    return jtree, ttree, zeros(ttree)
+
+
+def _assert_port_trees_equal(a, b):
+    pa, la = tckpt._leaf_paths(a)
+    pb, lb = tckpt._leaf_paths(b)
+    assert pa == pb
+    for p, x, y in zip(pa, la, lb):
+        assert x.dtype == y.dtype and torch.equal(x, y), p
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "musicgen-medium"])
+def test_family_tree_jax_writes_port_reads(tmp_path, codec, arch):
+    """A reduced zamba2 tree (the shared block's packed linears) and a
+    reduced musicgen tree (the per-codebook embedding, the ``V·K`` head)
+    saved by JAX load byte-equal into the port, on the same leaf paths."""
+    jtree, ttree, template = _family_trees(arch)
+    assert tckpt._leaf_paths(ttree)[0] == jckpt._leaf_paths(jtree)[0]
+    j_save(str(tmp_path), 3, jtree)
+    out, _ = load_checkpoint(str(tmp_path), template)
+    _assert_port_trees_equal(out, ttree)
+    if arch == "musicgen-medium":
+        assert out["embed"].ndim == 3 and out["embed"].dtype == torch.bfloat16
+    else:
+        assert out["shared_attn"]["attn"]["wq"].bits == 4
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "musicgen-medium"])
+def test_family_tree_port_writes_jax_reads(tmp_path, codec, arch):
+    """The same trees saved by the port load byte-equal into JAX."""
+    jtree, ttree, _ = _family_trees(arch)
+    save_checkpoint(str(tmp_path), 4, ttree)
+    out, _ = j_load(str(tmp_path), jax.tree.map(jnp.zeros_like, jtree))
+    for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(out)):
+        assert str(a.dtype) == str(b.dtype)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

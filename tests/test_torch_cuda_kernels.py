@@ -81,7 +81,17 @@ steps as graphs (``-k graph_moe``): reduced qwen3-moe and llama4-scout
 calls, with the routed experts' counts, and an engine's tokens with graphs
 equal to eager.  Head dims past 128 (``-k head_dim_256``): flash attention
 (both routes) and the chunked prefill's tensor-core route at D 192
-(padded) and 256.
+(padded) and 256.  Head dims past 256 (``-k wide_head_dim``): flash
+attention at D 300, 320 and 512 in bfloat16 and float32, causal and
+windowed, and the chunked prefill at D 320 and 512 over float32, bf16 and
+int8 pools, all on their CUDA-core routes.
+
+The vlm, audio and hybrid families (``-k "family or hybrid"``): the
+bit-plane GEMV through every route at zamba2-7b's in_proj (ragged N
+14576) and out_proj, llava-next's w_down and musicgen's lm_head; flash
+attention at zamba2's shared block (D 112 padded, G 1); and reduced
+llava, musicgen (paged) and zamba2 (slots) engines with graphs against
+eager.
 """
 
 import dataclasses
@@ -1252,3 +1262,159 @@ def test_prefill_attention_head_dim_256(cuda_device, kind, d, window):
     torch.testing.assert_close(y[:3].float(), r[:3].float(),
                                **_attn_tol(kind))
     assert bool(torch.isfinite(y[3]).all())
+
+
+# --------------------------- head dims past the tiles, the families' shapes
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 320, 512])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_flash_attention_wide_head_dim(cuda_device, xdt, window, d):
+    """Head dims past the tiles' 256 (300: not a multiple of the 32-column
+    slices): both dtypes on the ``wide`` route's streamed design, D as it
+    is, the true-D softmax scale, a window, ragged S and GQA."""
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(d + window + 7)
+    s, hq, hkv = 333, 8, 2
+    q = torch.randn((2, s, hq, d), generator=gen, device=cuda_device).to(dt)
+    k = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
+    v = torch.randn((2, s, hkv, d), generator=gen, device=cuda_device).to(dt)
+    assert flash_route(dt, d) == "wide"
+    before = _build.ROUTE_LAUNCHES["flash_attention/wide"]
+    y = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES["flash_attention/wide"] == before + 1
+    r = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), window=window).transpose(1, 2)
+    assert y.shape == q.shape and y.dtype == dt
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("window", [0, 37])
+def test_prefill_attention_wide_head_dim(cuda_device, kind, d, window):
+    """The chunked prefill past the tiles' 256: bf16 queries over bf16 and
+    int8 pools (and float32 over float32) on the CUDA-core route, with
+    fewer query rows a block, over contexts past one step, a ragged and an
+    idle lane."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + window + 3)
+    b, hkv, g, page, c, nblk = 4, 2, 4, 16, 32, 14
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, d,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    qdt = torch.float32 if kind == "float32" else torch.bfloat16
+    q = torch.randn((b, c, hkv * g, d), generator=gen,
+                    device=cuda_device).to(qdt)
+    pos0 = torch.tensor([0, 45, 150, 60], dtype=torch.int32,
+                        device=cuda_device)
+    seq = pos0 + c
+    seq[2] -= 7
+    seq[3] = pos0[3]
+    assert prefill_route(qdt, kp.dtype, d, g) == "cuda_core"
+    before = _build.ROUTE_LAUNCHES["paged_prefill_attention/cuda_core"]
+    y = paged_prefill_attention(q, kp, vp, bt, pos0, seq, window, ks, vs)
+    torch.cuda.synchronize()
+    assert (_build.ROUTE_LAUNCHES["paged_prefill_attention/cuda_core"]
+            == before + 1)
+    r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, window, ks, vs)
+    assert y.shape == r.shape
+    torch.testing.assert_close(y[:3].float(), r[:3].float(),
+                               **_attn_tol(kind))
+    assert bool(torch.isfinite(y[3]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_flash_attention_hybrid_shared_block(cuda_device, xdt):
+    """zamba2's shared block: D 112 (zero-padded to the tiles' 128) with
+    one query head a KV head (32 of each), past one query tile."""
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(112)
+    s, h, d = 600, 32, 112
+    q, k, v = (torch.randn((2, s, h, d), generator=gen,
+                           device=cuda_device).to(dt) for _ in range(3))
+    path = f"flash_attention/{flash_route(dt, d)}"
+    before = _build.ROUTE_LAUNCHES[path]
+    y = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    r = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2)).transpose(1, 2)
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol, atol=1e-5)
+
+
+# the last three configs' linears (K, N): zamba2-7b's in_proj (N ragged:
+# 2 x 7168 + 2 x 64 + 112) and out_proj, llava-next's w_down (K 14336),
+# musicgen-medium's lm_head (2048 x 4 codebooks)
+FAMILY_GEMV_SHAPES = [(3584, 14576), (7168, 3584), (14336, 4096),
+                      (1536, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAMILY_GEMV_SHAPES)
+@pytest.mark.parametrize("m,xdt", [(1, "bfloat16"), (8, "bfloat16"),
+                                   (8, "float32"), (64, "float32"),
+                                   (256, "bfloat16")])
+def test_gemv_family_shapes(cuda_device, m, xdt, shape):
+    """The bit-plane GEMV at 4 bits through each route (decode at M 1 and
+    8, rows at 64 float32 rows, the tensor-core tile at a chunk's 256)
+    at the vlm, audio and hybrid configs' shapes; the decode route twice
+    for the same bits."""
+    k, n = shape
+    dt = getattr(torch, xdt)
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n + m)
+    w = torch.randn((k, n), generator=gen, device=cuda_device)
+    q, scale = quantize_symmetric(w, 4)
+    packed = pack_weights(q, 4)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+    path = f"bitplane_gemv/{route(m, dt)}"
+    before = _build.ROUTE_LAUNCHES[path]
+    y = bitplane_gemv(packed, scale, x, bits=4, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    if route(m, dt) == "decode":
+        again = bitplane_gemv(packed, scale, x, bits=4, out_dtype=dt)
+        assert torch.equal(y, again)
+    r = bitplane_gemv_ref(packed, scale, x, bits=4, out_dtype=dt)
+    assert y.shape == (m, n) and y.dtype == dt
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol,
+                               atol=1e-5 * r.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mode,layers", [
+    ("llava-next-mistral-7b", "paged", 2), ("musicgen-medium", "paged", 2),
+    ("zamba2-7b", "slots", 6)])
+def test_graph_family_engine_tokens_match_eager(cuda_device, arch, mode,
+                                                layers):
+    """The vlm (text prompts) and audio (``(n, 1, K)`` / ``(n, C, K)`` lane
+    buffers) families served paged on int8 pages, and the hybrid (two
+    shared-attention sites) in slots mode: the same greedy tokens and
+    launch counts with graphs as eagerly."""
+    cfg = dataclasses.replace(get_reduced(arch), n_layers=layers)
+    params = init_params(cfg, torch.Generator(device=cuda_device
+                                              ).manual_seed(0),
+                         engine_bits=4)
+    kv_bits = 8 if mode == "paged" else 0
+    scfg = ServeConfig(max_new_tokens=6, page_size=4, prefill_chunk=5,
+                       engine=EngineConfig(weight_bits=4, kv_bits=kv_bits))
+    prompts = [list(range(1 + i, 4 + 3 * i)) for i in range(5)]
+    out = {}
+    for graphs in (True, False):
+        eng = ServeEngine(cfg, params, scfg, n_slots=3, max_len=48,
+                          mode=mode, cuda_graphs=graphs, device=cuda_device)
+        before = _launch_counts()
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        out[graphs] = ([r.output for r in reqs], _moved(before))
+    assert out[True][0] == out[False][0]
+    assert all(len(o) == 6 for o in out[True][0])
+    assert out[True][1] == out[False][1]
+    assert out[True][1]["bitplane_gemv/decode"] > 0

@@ -16,8 +16,9 @@ Tolerance: rtol = atol = 1e-5, the one ``tests/test_flash_kernel.py``
 holds the Pallas kernel to against dense attention (float32 sums in
 another order; online vs one-shot softmax).
 
-The CUDA kernel's two routes (``kernel.route``: ``tensor_core`` for
-bfloat16, ``cuda_core`` for float32) run only on the card
+The CUDA kernel's routes (``kernel.route``: ``tensor_core`` for
+bfloat16, ``cuda_core`` for float32, ``wide`` past head dim 256) run only
+on the card
 (``tests/test_torch_cuda_kernels.py``).  Here the tensor-core route's
 arithmetic is modelled in plain torch (``_tc_model``: 64-row query tiles,
 64-key online-softmax steps, bf16 products summed in float32, p split into
@@ -29,7 +30,10 @@ head dims 32 / 64 / 128 / 256; the launcher zero-pads any other D up to
 256 to the next of them and passes the scale of the true D
 (``kernels/_heads.py``): D = 16, 112 and 192 go through that padding into the tensor-core model (bf16)
 and into plain float32 attention (the CUDA-core route's function), against
-JAX at the tolerances above.
+JAX at the tolerances above.  Past 256 both dtypes take the ``wide``
+route, whose streamed design takes D as it is; its function, the port's
+``ops.flash_attention`` on CPU tensors at D 300, 320 and 512, is held
+against JAX's interpret-mode kernel at the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -140,8 +144,14 @@ def test_route_by_dtype(dtype, want, d):
                                      (torch.float32, 320),
                                      (torch.float16, 128)])
 def test_route_refuses_what_no_design_takes(dtype, d):
-    with pytest.raises(ValueError):
-        route(dtype, d)
+    """float16 is refused; head dims past the tiles' 256 are not: bf16 and
+    float32 alike take the ``wide`` route, whose streamed design takes any
+    D."""
+    if dtype == torch.float16:
+        with pytest.raises(ValueError):
+            route(dtype, d)
+        return
+    assert d > 256 and route(dtype, d) == "wide"
 
 
 @pytest.mark.parametrize("d,width", [(1, 32), (16, 32), (33, 64),
@@ -159,7 +169,8 @@ def test_route_takes_every_head_dim_up_to_128(dtype, want, d, width):
                                         (torch.float32, "cuda_core")])
 def test_route_takes_head_dims_up_to_256(dtype, want, d, width):
     """Head dims in (128, 256] take both routes, zero-padded to the tiles'
-    256; above 256 the launcher raises (the case above)."""
+    256; above 256 both dtypes take the CUDA-core route (the case
+    above)."""
     assert route(dtype, d) == want
     assert padded_head_dim(d, "flash_attention_cuda") == width
 
@@ -286,3 +297,27 @@ def test_float32_padding_matches_jax_interpret(d, window):
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                      window=window, block_q=64, block_kv=64, interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ------------------------------------------------------ head dims past 256
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("d", [300, 320, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_head_dims_match_jax_interpret(dtype, d, window):
+    """Head dims past 256 take the ``wide`` route in both dtypes, and the
+    port's ``ops.flash_attention`` takes them: on CPU tensors its plain
+    version, D as it is with the true-D scale, against JAX's Pallas kernel
+    in interpret mode (which carries the whole D in its blocks) at the
+    route's tolerances, TOL in float32 and BF16_TOL for bf16 outputs.  The
+    kernel itself is held against the plain version on the card."""
+    assert route(getattr(torch, dtype), d) == "wide"
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in _qkv(1, 90, 4, 2, d, seed=d + window))
+    jx = [jnp.asarray(t.float().numpy()).astype(dtype) for t in (q, k, v)]
+    got = flash_attention(q, k, v, window=window)
+    want = jax_flash(*jx, window=window, block_q=64, block_kv=64,
+                     interpret=True)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               **(TOL if dtype == "float32" else BF16_TOL))

@@ -213,11 +213,18 @@ def test_unported_cache_layouts_and_families_raise():
     for kw in (dict(kv_bits=8), dict(stacked=False), dict(split_local=True)):
         with pytest.raises(NotImplementedError):
             tmodels.init_cache(tcfg, 1, 8, device="cpu", **kw)
-    hybrid = tconfig.ModelConfig(**{**tcfg.__dict__, "family": "hybrid"})
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        tmodels.forward(tparams, {"tokens": torch.zeros((1, 4),
-                                                        dtype=torch.int32)},
-                        hybrid)
+    # every family runs the full-sequence path now: the hybrid family
+    # (reduced zamba2, the port's own init) among them
+    hybrid = tconfig.ModelConfig(**{**tconfig.get_reduced(
+        "zamba2-7b").__dict__, "dtype": "float32"})
+    hparams = tmodels.init_params(hybrid, torch.Generator().manual_seed(0))
+    logits, _ = tmodels.forward(hparams, {"tokens": torch.zeros(
+        (1, 16), dtype=torch.int32)}, hybrid)
+    assert logits.shape == (1, 16, hybrid.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    for kw in (dict(kv_bits=8), dict(stacked=False), dict(split_local=True)):
+        with pytest.raises(NotImplementedError):
+            tmodels.init_cache(hybrid, 1, 8, device="cpu", **kw)
     cache = tmodels.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="exceed"):
         tmodels.prefill(tparams, {"tokens": torch.zeros((1, 9),

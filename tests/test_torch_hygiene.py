@@ -387,15 +387,15 @@ def test_launch_counts_by_kernel_and_route(monkeypatch):
     assert _build.ROUTE_LAUNCHES == {
         f"{k}/{r}": int((k, r) in counted)
         for k, routes in _build.ROUTES.items() for r in routes}
-    assert set(_build.ROUTES["flash_attention"]) == {"cuda_core",
-                                                     "tensor_core"}
+    assert _build.ROUTES["flash_attention"] == ("cuda_core", "tensor_core",
+                                                "wide")
     # the bit-plane GEMV's expert-grouped launch: the same three designs
     assert _build.ROUTES["bitplane_gemv"] == (
         "decode", "rows", "tensor_core", "grouped_decode", "grouped_rows",
         "grouped_tensor_core")
     assert _build.ROUTES["int8_matvec"] == ("decode", "rows", "tensor_core")
-    assert (_build.ROUTES["paged_prefill_attention"]
-            == _build.ROUTES["flash_attention"])
+    assert _build.ROUTES["paged_prefill_attention"] == ("cuda_core",
+                                                        "tensor_core")
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
     assert not any(_build.ROUTE_LAUNCHES.values())

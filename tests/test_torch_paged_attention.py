@@ -280,6 +280,13 @@ def test_prefill_route_by_dtype(q_dtype, pool_dtype, want, dh):
     (torch.bfloat16, torch.float16, 128, 8)])
 def test_prefill_route_refuses_what_no_design_takes(q_dtype, pool_dtype, dh,
                                                     group):
+    """Other dtypes and more query heads a KV head than a tile's rows are
+    refused; a head dim past the tiles is no longer: the CUDA-core design
+    takes it as it is."""
+    if dh > padded_head_dim(256, "t"):
+        assert pa_kernel.prefill_route(q_dtype, pool_dtype, dh,
+                                       group) == "cuda_core"
+        return
     with pytest.raises(ValueError):
         pa_kernel.prefill_route(q_dtype, pool_dtype, dh, group)
 

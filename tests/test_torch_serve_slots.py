@@ -272,11 +272,21 @@ def test_auto_fallback_ignores_paged_options(option, caplog):
 
 
 def test_unported_families_are_refused():
-    _, _, tcfg, tparams = _model("qwen2.5-3b")
-    audio = tconfig.ModelConfig(**{**tcfg.__dict__, "family": "audio"})
+    """Every family serves now: the audio family (musicgen) in slots mode
+    and paged (``auto``), with JAX's tokens in slots mode; only paged
+    serving of the hybrid family is refused, with JAX's ``ValueError``."""
     for mode in ("slots", "auto"):
-        with pytest.raises(NotImplementedError, match="'audio'"):
-            ServeEngine(audio, tparams, mode=mode, device="cpu")
+        eng = _port_engine("musicgen-medium", mode=mode)
+        assert eng.mode == ("paged" if mode == "auto" else "slots")
+        treqs = _serve(eng, [[1, 2, 3], [4]])
+    jreqs = _serve(_jax_engine("musicgen-medium", mode="slots"),
+                   [[1, 2, 3], [4]])
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    with pytest.raises(ValueError) as jerr:
+        _jax_engine("zamba2-7b", mode="paged")
+    with pytest.raises(ValueError, match="'hybrid'") as terr:
+        _port_engine("zamba2-7b", mode="paged")
+    assert str(terr.value) == str(jerr.value)
 
 
 # ------------------------------------------------------------ moe family

@@ -473,3 +473,43 @@ def test_moe_engine_disk_roundtrip(moe_model, kv_bits, tmp_path):
     assert engB.load_snapshot(str(tmp_path)) == 3
     engB.audit()
     assert _drain(engB) == ref
+
+
+# ---------------------------------------------------------- audio family
+@pytest.fixture(scope="module")
+def audio_model():
+    cfg = reduced_f32("musicgen-medium")
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = torch_cfg(cfg)
+    tparams = params_from_numpy(jax_params_to_numpy(params), tcfg,
+                                device="cpu")
+    return cfg, params, tcfg, tparams
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_audio_engine_snapshot_restores_tokens(audio_model, kv_bits,
+                                               tmp_path):
+    """A reduced musicgen engine (``(K, V)`` last logits in the snapshot's
+    ``logits/<rid>`` arrays) snapshotted at step 3 and restored in place
+    and, through disk, into a fresh engine runs to the uninterrupted
+    run's tokens, which are JAX's."""
+    kw = dict(kv_bits=kv_bits, prefix_cache=True)
+    engA = _engine(audio_model, **kw)
+    _submit_all(engA)
+    for _ in range(3):
+        engA.step()
+    snap = engA.snapshot()
+    logits = [a for name, a in snap["arrays"].items()
+              if name.startswith("logits/")]
+    assert logits and all(a.shape == (audio_model[2].n_codebooks,
+                                      audio_model[2].vocab_size)
+                          for a in logits)
+    engA.save_snapshot(str(tmp_path), 3)
+    ref = _drain(engA)
+    assert ref == _jax_tokens(audio_model, **kw)
+    engA.restore(snap)
+    assert _drain(engA) == ref
+    engB = _engine(audio_model, **kw)
+    assert engB.load_snapshot(str(tmp_path)) == 3
+    engB.audit()
+    assert _drain(engB) == ref
