@@ -193,6 +193,29 @@ exits non-zero:
                 full-sequence ``decode_step``; then graph against eager
                 (identical greedy tokens) at 2 layers, and for qwen2.5-3b
                 (``kv_bits=0``) cut to 4 layers.
+   ``train``    training: full-width qwen2.5-3b (36 layers, bf16, tied
+                151,936 vocabulary) through ``make_train_step`` (AdamW,
+                ``remat="block"``, two microbatches, the loss through
+                ``chunked_ce`` on the plain ``gather`` mixers, no kernel),
+                5 steps of 2 x 1024 tokens from ``DataPipeline``'s memmap
+                source over a seeded Zipfian token file: each step's
+                loss, grad norm, lr and ms, peak memory, the loss finite
+                and lower at the last step than at the first; at 2 layers
+                in float32, one step on the card against the same step
+                on the CPU (loss within rtol 1e-4, grad norm 1e-3), and
+                the restart drill (a ``Trainer`` checkpointing every 2
+                steps, a node failure at step 3: the uninterrupted run's
+                losses within 1e-5).
+   ``layouts``  the decode-only slots-cache layouts, eager and greedy from
+                empty caches at ``weight_bits=4``: qwen2.5-3b (36 layers,
+                8 lanes, 64 steps) unstacked against stacked (identical
+                tokens), int8 stacked against unstacked (logits within
+                1e-3) and against full precision (near ties only);
+                gemma3-27b cut to 6 layers (5 local, 1 global) in float32,
+                2 lanes, 1,100 steps past its 1,024 window: the split
+                local/global cache against the uniform one (logits within
+                2e-3); zamba2-7b unstacked against stacked (identical
+                tokens).
 10. ``engine``   the paper's GEMV engine path: ``repro_torch.paper_demo``
                 at dim 96 on the card, then at d = 2048 (qwen2.5-3b's wq)
                 and d = 1983 (the largest 8-bit GEMV the U55 holds) the
@@ -254,6 +277,7 @@ PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2 ** 20
 SEED = 0
 DEVICE = "cuda"
+CARD = None    # the card's nvidia-smi name and power limit, set by ``env``
 
 GEMV_SHAPES = [(2048, 2048), (2048, 256), (2048, 11008), (11008, 2048)]
 GEMV_NAMES = {(2048, 2048): "wq/wo", (2048, 256): "wk/wv",
@@ -3563,7 +3587,9 @@ def sequence_whole_check(torch, dev, name, cfg, s, n_decode, n_img=0):
     identical, near_ties = check_tokens(f"{name} {cfg.name}", tok_k, tok_p,
                                         steps_p, logit_tol)
     full_tokens = torch.cat([tokens, tok_k], 1)
-    logits, _ = forward(params, {"tokens": full_tokens, **extra}, cfg, kern)
+    with torch.no_grad():   # scoring: the kernels refuse to run under autograd
+        logits, _ = forward(params, {"tokens": full_tokens, **extra}, cfg,
+                            kern)
     tf = logits[:, s - 1:].float()
     steps = torch.stack(steps_k, 1)
     tf_err = float((tf - steps).abs().max())
@@ -3578,6 +3604,362 @@ def sequence_whole_check(torch, dev, name, cfg, s, n_decode, n_img=0):
          graph_vs_eager_logit_max_abs_diff=graph_err,
          first_step_logit_max_abs_err=first_err,
          teacher_forcing_logit_max_abs_err=tf_err, logit_tol=logit_tol)
+
+
+# ---------------------------------------------------------------- train
+TRAIN_TOKENS = ROOT / "build" / "train_tokens.bin"
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# full width: AdamW, lr 3e-5 after one warmup step, cosine over 5 steps,
+# two microbatches of one 1024-token sequence, every layer rematerialized
+# (at 1e-3 and 1e-4 the full-width loss swung up to 13.30 and 14.42 by
+# step 2 or 3: PERF.md, PR 24)
+TRAIN_KW = dict(lr=3e-5, warmup_steps=1, total_steps=5, microbatches=2,
+                remat="block")
+TRAIN_STEPS = 5
+TRAIN_SHAPE = (2, 1024)            # DataPipeline batch x seq
+# the 2-layer cut at full width, float32: one step on the card against
+# the CPU, and the restart drill
+CUT_SHAPE = (2, 128)
+CUT_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 4, 2, 3
+DRILL_TOL = 1e-5
+
+
+def zipf_tokens(cfg, n=1 << 20, seed=SEED):
+    """A seeded int32 token file for ``DataPipeline(source="memmap")``:
+    ids with natural text's Zipfian frequencies (exponent 1.1, ranks
+    assigned to the vocabulary in a seeded order), a stream a model learns
+    from within a few steps; the synthetic source's uniform ids leave a
+    randomly initialised model nothing to learn but ``ln V``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ranks = np.minimum(rng.zipf(1.1, n) - 1, cfg.vocab_size - 1)
+    ids = rng.permutation(cfg.vocab_size).astype(np.int32)[ranks]
+    TRAIN_TOKENS.parent.mkdir(parents=True, exist_ok=True)
+    ids.tofile(TRAIN_TOKENS)
+    return str(TRAIN_TOKENS)
+
+
+def train_pipeline(cfg, shape):
+    from repro_torch.data import DataPipeline
+
+    return DataPipeline(cfg, batch=shape[0], seq_len=shape[1], seed=SEED,
+                        source="memmap", path=zipf_tokens(cfg))
+
+
+def train_path(torch, dev):
+    """Training at full width: qwen2.5-3b (36 layers, bf16, tied 151,936
+    vocabulary), ``make_train_step`` with AdamW, ``remat="block"``, two
+    microbatches and the loss through ``chunked_ce``, 5 steps of 2 x 1024
+    tokens: each step's loss, grad norm, lr and ms, peak memory; the loss
+    finite and lower at the last step than at the first.  Then
+    :func:`train_cut_checks` at 2 layers."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import stack_layers
+
+    cfg = full_config()
+    tcfg = TrainConfig(**TRAIN_KW)
+    params = stack_layers(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, tcfg)
+    pipe = train_pipeline(cfg, TRAIN_SHAPE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, _, m = step(params, opt, {}, pipe.batch_at(i))
+        torch.cuda.synchronize()
+        rec = dict(step=i, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                   ms=1e3 * (time.perf_counter() - t0))
+        steps.append(rec)
+        emit("train_step", model=cfg.name, card=CARD, **rec)
+    losses = [r["loss"] for r in steps]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train: losses {losses} are not finite and "
+                             "falling")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profile = train_profile(torch, lambda: step(params, opt, {},
+                                                pipe.batch_at(TRAIN_STEPS)))
+    tokens = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+    # steady steps only: the first one allocates the state's buffers
+    ms = sorted(r["ms"] for r in steps[1:])
+    emit("train", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab_size, dtype=cfg.dtype, params=n_params,
+         optimizer=tcfg.optimizer, remat=tcfg.remat,
+         microbatches=tcfg.microbatches, batch=TRAIN_SHAPE[0],
+         seq=TRAIN_SHAPE[1], steps=TRAIN_STEPS, losses=losses,
+         step_ms_p50=ms[len(ms) // 2], first_step_ms=steps[0]["ms"],
+         tokens_per_s=tokens / (ms[len(ms) // 2] / 1e3), peak_mem_gib=peak,
+         kernel_launches=sum(_build.LAUNCHES.values()), card=CARD)
+    emit("train_profile", model=cfg.name, **profile, card=CARD)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    train_cut_checks(torch, dev)
+
+
+def train_profile(torch, run_step, top=12):
+    """One more train step under ``torch.profiler``: the device ms of its
+    kernels and their number, the top ``top`` PyTorch operators by the
+    device time of the kernels they launched, and the step's host ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = prof.key_averages()
+    # a kernel's time appears twice: as its own entry and as the self
+    # device time of the operator that launched it
+    kernels = [e for e in events if "CUDA" in str(e.device_type)]
+    ops = sorted((e for e in events if e.key.startswith("aten::")),
+                 key=dev_us, reverse=True)
+    return dict(host_ms=host_ms,
+                device_ms=sum(dev_us(e) for e in kernels) / 1e3,
+                kernels=sum(e.count for e in kernels),
+                top_ops=[dict(op=e.key, device_ms=dev_us(e) / 1e3,
+                              calls=e.count) for e in ops[:top]])
+
+
+def _trees_to(torch, tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+
+def train_cut_checks(torch, dev):
+    """At qwen2.5-3b's full width cut to 2 layers, in float32, from seeded
+    weights drawn on the CPU and one seeded batch (2 x 128 tokens, two
+    microbatches): one ``make_train_step`` on the card against the same
+    step on the CPU (loss within rtol 1e-4, grad norm within rtol 1e-3);
+    then the restart drill: a ``Trainer`` checkpointing every 2 steps with
+    a node failure injected at step 3 ends with the losses of an
+    uninterrupted run, within 1e-5."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.config import TrainConfig
+    from repro_torch.ft import FailureInjector
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Trainer, make_train_step
+    from repro_torch.weights import stack_layers
+
+    cfg = full_config(n_layers=2, dtype="float32")
+    tcfg = TrainConfig(**TRAIN_KW)
+    host = stack_layers(init_params(cfg, torch.Generator().manual_seed(SEED)))
+    batch = train_pipeline(cfg, CUT_SHAPE).batch_at(0)
+    got = {}
+    for where in ("cuda", "cpu"):
+        params = _trees_to(torch, host, dev if where == "cuda" else "cpu")
+        t0 = time.perf_counter()
+        _, _, _, m = make_train_step(cfg, tcfg)(params, adamw_init(params),
+                                                {}, batch)
+        got[where] = {k: float(m[k]) for k in ("loss", "grad_norm", "lr")}
+        got[where]["s"] = time.perf_counter() - t0
+        del params
+    rel = {k: abs(got["cuda"][k] - got["cpu"][k]) / abs(got["cpu"][k])
+           for k in CUT_RTOL}
+    emit("train_vs_cpu", model=cfg.name, layers=cfg.n_layers,
+         dtype=cfg.dtype, batch=CUT_SHAPE[0], seq=CUT_SHAPE[1],
+         on_card=got["cuda"], on_cpu=got["cpu"], rel_err=rel,
+         rtol=CUT_RTOL, card=CARD)
+    for k, tol in CUT_RTOL.items():
+        if not rel[k] <= tol:
+            raise AssertionError(f"train_vs_cpu: {k} on the card "
+                                 f"{got['cuda'][k]} vs the CPU "
+                                 f"{got['cpu'][k]}: {rel[k]} > {tol}")
+    torch.cuda.empty_cache()
+
+    def run(drill: bool):
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+        tr = Trainer(cfg, tcfg, _trees_to(torch, host, dev),
+                     train_pipeline(cfg, CUT_SHAPE),
+                     ckpt_manager=(CheckpointManager(str(TRAIN_CKPT), keep=2)
+                                   if drill else None),
+                     ckpt_every=DRILL_EVERY,
+                     failure_injector=(FailureInjector(
+                         schedule={DRILL_FAIL: 0}) if drill else None))
+        t0 = time.perf_counter()
+        hist = tr.run(DRILL_STEPS)["loss"]
+        return tr, hist, time.perf_counter() - t0
+
+    _, plain, plain_s = run(False)
+    tr, drill, drill_s = run(True)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    # the drill's history: steps 0..f-1, then from its checkpoint's step
+    # (the failure restores the last one) to the end, each against the
+    # uninterrupted run's loss at the same step
+    redo = DRILL_FAIL // DRILL_EVERY * DRILL_EVERY
+    at_step = list(range(DRILL_FAIL)) + list(range(redo, DRILL_STEPS))
+    err = max(abs(loss - plain[i]) for loss, i in zip(drill, at_step))
+    emit("train_restart", model=cfg.name, layers=cfg.n_layers,
+         steps=DRILL_STEPS, ckpt_every=DRILL_EVERY, failure_at=DRILL_FAIL,
+         restarts=tr.restarts, uninterrupted=plain, drill=drill,
+         max_abs_loss_diff=err, tol=DRILL_TOL, uninterrupted_s=plain_s,
+         drill_s=drill_s, card=CARD)
+    if tr.restarts != 1 or len(drill) != len(at_step) or err > DRILL_TOL:
+        raise AssertionError(f"train_restart: {drill} after "
+                             f"{tr.restarts} restarts against {plain}")
+    del tr
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- slots-cache layouts
+LAYOUT_LANES, LAYOUT_STEPS = 8, 64
+LAYOUT_KV8_TOL = 1e-3
+SPLIT_LAYERS, SPLIT_LANES, SPLIT_STEPS, SPLIT_TOL = 6, 2, 1100, 2e-3
+HYBRID_LANES, HYBRID_STEPS = 2, 32
+
+
+def layout_greedy(torch, dev, cfg, params, ecfg, first, n_steps, **layout):
+    """Greedy ``decode_step`` s, eager, from an empty slots cache of the
+    given layout, the first token ``first`` ``(B, 1)``: (tokens ``(B,
+    n_steps)``, float32 logits of each step)."""
+    from repro_torch.models import decode_step, init_cache
+
+    cache = init_cache(cfg, first.shape[0], n_steps, device=dev, **layout)
+    nxt, toks, steps = first, [], []
+    for _ in range(n_steps):
+        logits, cache = decode_step(params, cache, nxt, cfg, ecfg)
+        steps.append(logits[:, -1].float())
+        nxt = torch.argmax(steps[-1], -1)[:, None].int()
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1), steps
+
+
+def layouts_path(torch, dev):
+    """The three decode-only slots-cache layouts on the card, eager and
+    greedy from empty caches at ``weight_bits=4`` (the GEMV kernels run):
+
+    * qwen2.5-3b (36 layers, 8 lanes, 64 steps): unstacked gives the
+      stacked cache's tokens exactly, at full precision and int8; the
+      int8 layouts give each other's logits within 1e-3 and the
+      full-precision tokens up to near ties (``check_tokens``, the 0.125
+      logit tolerance of the card's other bf16 comparisons);
+    * gemma3-27b at full width cut to 6 layers (5 local, 1 global), in
+      float32, 2 lanes, 1,100 steps (past the 1,024 window): the
+      ``split_local`` cache, fed the uniform cache's greedy tokens, gives
+      its logits within 2e-3 at every step;
+    * zamba2-7b (81 layers, 13 shared-attention sites, 2 lanes, 32
+      steps): unstacked gives the stacked cache's tokens exactly.
+    """
+    import numpy as np
+
+    from repro_torch.config import EngineConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    ecfg = EngineConfig(weight_bits=4)
+    rng = np.random.default_rng(SEED + 40)
+
+    def first_tokens(cfg, b):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1))).to(
+            dev, torch.int32)
+
+    def init(cfg):
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           engine_bits=4)
+
+    out = {}
+    _build.reset_launches()
+    cfg = full_config()
+    params = init(cfg)
+    first = first_tokens(cfg, LAYOUT_LANES)
+    t0 = time.perf_counter()
+    runs = {name: layout_greedy(torch, dev, cfg, params, ecfg, first,
+                                LAYOUT_STEPS, **kw)
+            for name, kw in (("stacked", {}), ("unstacked",
+                                              dict(stacked=False)),
+                             ("kv8", dict(kv_bits=8)),
+                             ("kv8_unstacked", dict(kv_bits=8,
+                                                    stacked=False)))}
+    qwen_s = time.perf_counter() - t0
+    for a, b in (("stacked", "unstacked"), ("kv8", "kv8_unstacked")):
+        if not torch.equal(runs[a][0], runs[b][0]):
+            raise AssertionError(f"layouts {cfg.name}: {b} tokens differ "
+                                 f"from {a}'s")
+    kv8_err = max(float((x - y).abs().max()) for x, y in
+                  zip(runs["kv8"][1], runs["kv8_unstacked"][1]))
+    if kv8_err > LAYOUT_KV8_TOL:
+        raise AssertionError(f"layouts {cfg.name}: int8 stacked and "
+                             f"unstacked logits differ by {kv8_err}")
+    identical, ties = check_tokens(f"layouts {cfg.name} int8",
+                                   runs["stacked"][0], runs["kv8"][0],
+                                   runs["kv8"][1], 0.125)
+    out[cfg.name] = dict(layers=cfg.n_layers, lanes=LAYOUT_LANES,
+                         steps=LAYOUT_STEPS, seconds=qwen_s,
+                         kv8_stacked_vs_unstacked_max_abs=kv8_err,
+                         kv8_vs_full_identical_lanes=identical,
+                         kv8_vs_full_near_ties=ties)
+    del params, runs
+    torch.cuda.empty_cache()
+
+    # gemma3: the uniform cache greedy, the split cache fed its tokens
+    cfg = arch_config("gemma3-27b", SPLIT_LAYERS, dtype="float32")
+    params = init(cfg)
+    b = SPLIT_LANES
+    caches = {"uniform": init_cache(cfg, b, SPLIT_STEPS, device=dev),
+              "split": init_cache(cfg, b, SPLIT_STEPS, split_local=True,
+                                  device=dev)}
+    if caches["split"]["k_local"].shape[2] != cfg.sliding_window:
+        raise AssertionError("layouts: the split cache's ring is not "
+                             "window-sized")
+    nxt, err, t0 = first_tokens(cfg, b), 0.0, time.perf_counter()
+    for _ in range(SPLIT_STEPS):
+        lu, _ = decode_step(params, caches["uniform"], nxt, cfg, ecfg)
+        ls, _ = decode_step(params, caches["split"], nxt, cfg, ecfg)
+        err = max(err, float((lu - ls).abs().max()))
+        nxt = torch.argmax(lu[:, -1], -1)[:, None].int()
+    gemma_s = time.perf_counter() - t0
+    if not err <= SPLIT_TOL:
+        raise AssertionError(f"layouts {cfg.name}: split_local logits "
+                             f"differ from the uniform cache's by {err}")
+    out[cfg.name] = dict(layers=cfg.n_layers, dtype=cfg.dtype, lanes=b,
+                         steps=SPLIT_STEPS, window=cfg.sliding_window,
+                         split_vs_uniform_max_abs=err, tol=SPLIT_TOL,
+                         seconds=gemma_s)
+    del params, caches
+    torch.cuda.empty_cache()
+
+    cfg = arch_config(HYBRID)
+    params = init(cfg)
+    first = first_tokens(cfg, HYBRID_LANES)
+    t0 = time.perf_counter()
+    tok_s, _ = layout_greedy(torch, dev, cfg, params, ecfg, first,
+                             HYBRID_STEPS)
+    tok_u, _ = layout_greedy(torch, dev, cfg, params, ecfg, first,
+                             HYBRID_STEPS, stacked=False)
+    if not torch.equal(tok_s, tok_u):
+        raise AssertionError(f"layouts {cfg.name}: unstacked tokens differ "
+                             "from stacked")
+    out[cfg.name] = dict(layers=cfg.n_layers, lanes=HYBRID_LANES,
+                         steps=HYBRID_STEPS,
+                         seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+    launches = dict(_build.LAUNCHES)
+    if not launches["bitplane_gemv"]:
+        raise AssertionError("layouts: no bit-plane GEMV launched")
+    emit("layouts", **out, launches=launches,
+         gemv_routes=route_counts("bitplane_gemv"), card=CARD)
 
 
 # ----------------------------------------------------------------- main
@@ -3597,11 +3979,13 @@ def main() -> int:
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
 
+    global CARD
     with Phase("env"):
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0]
+        CARD = smi
         emit("env", python=sys.version.split()[0], torch=torch.__version__,
              cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
              count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -3728,6 +4112,12 @@ def main() -> int:
 
     with Phase("slots"):
         slots_path(torch, dev)
+
+    with Phase("train"):
+        train_path(torch, dev)
+
+    with Phase("layouts"):
+        layouts_path(torch, dev)
 
     with Phase("engine"):
         engine_rec = engine_path(torch, dev)

@@ -21,7 +21,9 @@ A tree is nested dicts, lists, tuples and engine ``PackedLinear`` s whose
 leaves are tensors, numpy arrays or Python scalars; ``None`` is an empty
 subtree.  Leaf paths are the JAX package's
 (``jax.tree_util.tree_flatten_with_path``): dict keys in sorted order and
-sequence indices, joined by ``/``; a ``PackedLinear`` is JAX's registered
+sequence indices, joined by ``/``; a named tuple's fields (the training
+loop's ``OptState``) as ``.<field>`` in field order, as JAX names an
+attribute; a ``PackedLinear`` is JAX's registered
 dataclass, its ``.packed``, ``.scale`` and ``.bias`` in that order (a
 stacked expert linear's ``(E, Kp, N)`` codes and ``(E, 1, N)`` scales are
 two leaves, as in JAX).  A bfloat16
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine.packed import PackedLinear
+from repro_torch.tree import is_namedtuple
 
 try:
     import zstandard
@@ -103,6 +106,9 @@ def _leaf_paths(tree: Tree) -> Tuple[List[str], List[Any]]:
         if isinstance(node, dict):
             for k in sorted(node):
                 walk(node[k], prefix + [str(k)])
+        elif is_namedtuple(node):
+            for name, v in zip(node._fields, node):
+                walk(v, prefix + ["." + name])
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, prefix + [str(i)])
@@ -126,6 +132,8 @@ def _unflatten(template: Tree, leaves: List[Any]) -> Tree:
             for k in sorted(node):
                 out[k] = build(node[k])
             return out
+        if is_namedtuple(node):
+            return type(node)(*(build(v) for v in node))
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
         if isinstance(node, PackedLinear):

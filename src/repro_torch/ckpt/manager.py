@@ -15,6 +15,7 @@ from repro_torch.ckpt.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from repro_torch.tree import is_namedtuple
 
 
 def _host_copy(tree):
@@ -23,6 +24,8 @@ def _host_copy(tree):
     later in-place update of the live tree cannot reach the save."""
     if isinstance(tree, dict):
         return {k: _host_copy(v) for k, v in tree.items()}
+    if is_namedtuple(tree):
+        return type(tree)(*(_host_copy(v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host_copy(v) for v in tree)
     if isinstance(tree, torch.Tensor):

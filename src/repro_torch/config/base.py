@@ -1,9 +1,11 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port keeps its own copy of the three dataclasses its serving path
-reads — :class:`ModelConfig`, :class:`EngineConfig` and
-:class:`ServeConfig` — with every field and default of the JAX package's
-``repro.config.base``, so the same keyword arguments construct both.
+The port keeps its own copy of the JAX package's ``repro.config.base``
+dataclasses — :class:`ModelConfig`, :class:`EngineConfig`,
+:class:`ServeConfig`, the training loop's :class:`TrainConfig` and the
+run cell's :class:`ShapeConfig`, :class:`MeshConfig` and
+:class:`RunConfig` — with every field and default, so the same keyword
+arguments construct both.
 Options whose machinery is not ported yet are refused where they are
 resolved (``EngineConfig(sharded=True)`` here, the serve options in
 ``repro_torch.serve.engine``), never ignored.
@@ -11,6 +13,8 @@ resolved (``EngineConfig(sharded=True)`` here, the serve options in
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -232,3 +236,87 @@ class ServeConfig:
             raise ValueError(
                 f"retry_reset_steps must be >= 0, "
                 f"got {self.retry_reset_steps}")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    kind: str        # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Mesh geometry of the JAX package's production cells (a 16x16 pod,
+    or 2x16x16 with a ``pod`` axis of data or pipeline parallelism).  The
+    port runs on one card; the mesh is kept for parity of construction."""
+
+    multi_pod: bool = False
+    pod_axis_mode: str = "data"  # "data" | "pipeline"
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        return int(math.prod(self.shape))
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """Mesh axes over which the batch is sharded."""
+        if self.multi_pod and self.pod_axis_mode == "data":
+            return ("pod", "data")
+        return ("data",)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The training loop's knobs (``repro_torch.train``)."""
+
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"          # adamw | adafactor | sgd
+    microbatches: int = 1             # gradient accumulation factor
+    remat: str = "block"              # none | block | full
+    grad_compress_bits: int = 0       # 0 = off; 8 = int8 error feedback
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Everything needed to describe one (arch x shape x mesh) cell."""
+
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

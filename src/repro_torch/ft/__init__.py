@@ -1,7 +1,7 @@
-"""Fault tolerance on the serving path: deterministic chaos injection
-(``chaos``) and the restart policy that bounds each request's retries
-(``failures``).  Elastic meshes and straggler detection are not ported
-yet."""
+"""Fault tolerance: deterministic chaos injection on the serving path
+(``chaos``), the restart policy that bounds each request's retries and
+the training loop's checkpoint/restart drill (``failures``), and straggler
+detection (``straggler``).  Elastic meshes are not ported yet."""
 
 from repro_torch.ft.chaos import SITES, ChaosInjector, SimulatedStepFailure
 from repro_torch.ft.failures import (
@@ -10,6 +10,7 @@ from repro_torch.ft.failures import (
     SimulatedNodeFailure,
     run_with_restarts,
 )
+from repro_torch.ft.straggler import StragglerEvent, StragglerMonitor
 
 __all__ = [
     "SITES",
@@ -18,5 +19,7 @@ __all__ = [
     "RestartPolicy",
     "SimulatedNodeFailure",
     "SimulatedStepFailure",
+    "StragglerEvent",
+    "StragglerMonitor",
     "run_with_restarts",
 ]

@@ -34,6 +34,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterator, Optional, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libimagine_kernels.so"
@@ -110,6 +112,20 @@ def add_launches(delta: Dict[str, int]) -> None:
     dictionary)."""
     for name, n in delta.items():
         (ROUTE_LAUNCHES if "/" in name else LAUNCHES)[name] += n
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would record a launch: grad mode is on and an
+    input requires grad.  The kernels write their outputs through raw
+    pointers and have no backward pass, so a tensor they return has no
+    history; training runs the plain paths (``attn_backend="gather"``,
+    float weights).  The caller neither detaches nor falls back."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the CUDA kernel has no "
+            "backward pass; run it under torch.no_grad(), or train on the "
+            "plain path (attn_backend='gather', float weights)")
 
 
 def _sources():

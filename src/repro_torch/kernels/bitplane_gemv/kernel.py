@@ -86,6 +86,7 @@ def bitplane_gemv_cuda(packed: torch.Tensor, scale: torch.Tensor,
                        x: torch.Tensor, *, bits: int, radix: int,
                        out_dtype=torch.float32) -> torch.Tensor:
     """``(x @ unpack(packed)) * scale`` on the card; x is ``(M, K)``."""
+    _build.refuse_grad("bitplane_gemv_cuda", packed, scale, x)
     _check(packed, scale, x, bits, radix, out_dtype)
     m, k = x.shape
     n = packed.shape[1]
@@ -126,6 +127,7 @@ def bitplane_gemv_grouped_cuda(packed: torch.Tensor, scale: torch.Tensor,
     on any expert's rows fixed by the caller's shapes, picks the route and
     sizes the launch; nothing is read back from the card.  Rows past
     ``offsets[E]`` are left unwritten."""
+    _build.refuse_grad("bitplane_gemv_grouped_cuda", packed, scale, x)
     _check(packed, scale, x, bits, radix, out_dtype, stacked=True)
     e, _, n = packed.shape
     r, k = x.shape

@@ -99,6 +99,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, window: int = 0) -> torch.Tensor:
     """Causal (+ window) GQA attention on the card; q ``(B, S, Hq, D)``,
     k/v ``(B, S, Hkv, D)`` -> ``(B, S, Hq, D)`` in q's dtype."""
+    _build.refuse_grad("flash_attention_cuda", q, k, v)
     window = int(window)
     path = _check(q, k, v, window)
     b, s, hq, d = q.shape

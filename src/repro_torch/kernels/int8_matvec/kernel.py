@@ -67,6 +67,7 @@ def _check(q, scale, x, out_dtype):
 def int8_matvec_cuda(q: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
                      *, out_dtype=torch.float32) -> torch.Tensor:
     """``(x @ q) * scale`` on the card; q is ``(K, N)`` int8, x ``(M, K)``."""
+    _build.refuse_grad("int8_matvec_cuda", q, scale, x)
     _check(q, scale, x, out_dtype)
     m, k = x.shape
     n = q.shape[1]

@@ -178,6 +178,8 @@ def paged_decode_attention_cuda(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused paged decode attention; ``(B, Hkv, G, Dh)`` float32."""
+    _build.refuse_grad("paged_decode_attention_cuda", q, k_pages, v_pages,
+                       k_scale, v_scale)
     _check("paged_decode_attention_cuda", q, k_pages, v_pages, block_tables,
            [("cur_pos", cur_pos)], k_scale, v_scale)
     b, hkv, g, d = q.shape
@@ -219,6 +221,8 @@ def paged_prefill_attention_cuda(
 ) -> torch.Tensor:
     """Fused paged chunked-prefill attention; ``(B, C, Hkv, G, Dh)``
     float32.  The chunk's K/V must already be in the pool."""
+    _build.refuse_grad("paged_prefill_attention_cuda", q, k_pages, v_pages,
+                       k_scale, v_scale)
     _check("paged_prefill_attention_cuda", q, k_pages, v_pages, block_tables,
            [("pos0", pos0), ("seq_lens", seq_lens)], k_scale, v_scale)
     b, c, hkv, g, d = q.shape

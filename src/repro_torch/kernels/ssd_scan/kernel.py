@@ -90,6 +90,7 @@ def ssd_scan_cuda(xdt: torch.Tensor, la: torch.Tensor, b_in: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked SSD scan on the card: (y ``(B, S, H, P)``, final state
     ``(B, H, P, N)``), both float32."""
+    _build.refuse_grad("ssd_scan_cuda", xdt, la, b_in, c_in)
     _check(xdt, la, b_in, c_in, chunk)
     bsz, s, nh, p = xdt.shape
     n = b_in.shape[2]

@@ -257,6 +257,30 @@ def attend_decode_quant(
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
+def attend_decode_ring(
+    q: torch.Tensor,             # (B, 1, Hq, D)
+    k_ring: torch.Tensor,        # (B, W, Hkv, D)
+    v_ring: torch.Tensor,
+    cur_pos: torch.Tensor,       # (B,) position of the newest token
+) -> torch.Tensor:
+    """Single-token decode over a window-sized ring buffer (slot
+    ``t % W`` holds position t): every slot whose position is not negative
+    lies in the window.  Scores, softmax and ``p·v`` in float32 (q and p
+    not rounded to the cache dtype), as the JAX package's
+    ``_attn_decode_apply_ring``."""
+    b, w, n_kv, d = k_ring.shape
+    hq = q.shape[2]
+    pos = cur_pos.long()
+    age = (pos[:, None] - torch.arange(w, device=q.device)) % w  # 0 = newest
+    valid = pos[:, None] - age >= 0
+    qg = q.reshape(b, n_kv, hq // n_kv, d).float()
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg, k_ring.float()) * d ** -0.5
+    sc = torch.where(valid[:, None, None, :], sc, _neg_inf(q.device))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_ring.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
 def gather_kv_pages(pages: torch.Tensor,
                     block_tables: torch.Tensor) -> torch.Tensor:
     """Each lane's logical KV view from the pool: ``(P, page, ...)`` ->

@@ -32,7 +32,10 @@ Two paths:
   for the six families; at :data:`FLASH_THRESHOLD` tokens and more
   attention runs flash attention, and the ssm and hybrid families' ssm
   layers run the SSD scan, both as CUDA kernels on the ``cuda`` attention
-  backend;
+  backend.  The training loss is :func:`forward` (``remat``, the plain
+  ``gather`` mixers: the kernels have no backward pass) and
+  :func:`chunked_ce`; the JAX package's decode-only cache layouts (int8,
+  unstacked, split local/global) run :func:`decode_step`;
 * paged serving, :func:`prefill_chunk` / :func:`decode_step_paged`, for
   the families with a pageable KV cache (dense, vlm, audio and moe, the
   JAX package's ``PAGED_FAMILIES``); a vlm model serves text there, as in
@@ -51,9 +54,11 @@ arrays from donated functional updates.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import FAMILIES, PAGED_FAMILIES, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -62,6 +67,8 @@ from repro_torch.engine.plan import resolve_plan
 from repro_torch.models.attention import (
     FLASH_THRESHOLD,
     attend_decode,
+    attend_decode_quant,
+    attend_decode_ring,
     attend_dense,
     attend_flash,
     attend_local_gather,
@@ -390,6 +397,15 @@ def _site(cfg: ModelConfig, layer: int) -> Optional[int]:
     return (layer + 1) // every - 1
 
 
+def _remat(fn, remat: str):
+    """``fn`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) unless ``remat == "none"``
+    or no gradient is being recorded, where it would change nothing."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def forward(
     params: Params,
     batch: Dict[str, torch.Tensor],
@@ -398,6 +414,7 @@ def forward(
     return_hidden: bool = False,
     attn_backend: Optional[str] = None,
     local_gather: bool = False,
+    remat: str = "block",
 ):
     """Full-sequence forward (scoring).  Returns (logits ``(B, S, V)``, or
     ``(B, S, K, V)`` for the audio family, aux loss) — or (hidden ``(B,
@@ -413,8 +430,14 @@ def forward(
     global layers (``sliding_window`` and ``global_every``, gemma3), every
     local layer runs :func:`attend_local_gather` (S a multiple of the
     window), as the JAX package's unscanned layer loop does; other configs
-    ignore it, as JAX's scan does.  The JAX package's ``remat`` belongs to
-    training, which is not ported.
+    ignore it, as JAX's scan does.
+
+    ``remat`` (training): unless ``"none"``, each layer's body is
+    checkpointed (``torch.utils.checkpoint``, non-reentrant), its
+    activations recomputed in the backward pass, as the JAX package wraps
+    its scanned body in ``jax.checkpoint``.  Without autograd recording it
+    changes nothing.  The kernels refuse inputs that require grad: a
+    training loss runs ``attn_backend="gather"``.
     """
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
                                                  attn_backend)
@@ -423,15 +446,20 @@ def forward(
                     and cfg.global_every > 0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in PAGED_FAMILIES:
-        for lp, win in zip(params["layers"], _layer_windows(cfg)):
+        def body(x, lp, win):
             x, _ = _attn_apply(lp, x, positions, cfg, plan, win,
                                local_gather=local_gather, **mixers)
-            x, a = _ffn_apply(lp, x, cfg, plan)
+            return _ffn_apply(lp, x, cfg, plan)
+
+        step = _remat(body, remat)
+        for lp, win in zip(params["layers"], _layer_windows(cfg)):
+            x, a = step(x, lp, win)
             if a is not None:
                 aux = aux + a
     else:
         shared = params.get("shared_attn")
-        for layer, lp in enumerate(params["layers"]):
+
+        def body(x, lp, layer):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             x = x + ssm_forward(lp["ssm"], h, cfg, plan,
                                 use_kernel=use_kernel)
@@ -439,10 +467,59 @@ def forward(
                 x, _ = _attn_apply(shared, x, positions, cfg, plan, 0,
                                    **mixers)
                 x = _mlp_apply(shared, x, cfg, plan)
+            return x
+
+        step = _remat(body, remat)
+        for layer, lp in enumerate(params["layers"]):
+            x = step(x, lp, layer)
     x = x[:, _image_tokens(batch, cfg):]
     if return_hidden:
         return x, aux
     return _lm_logits(params, x, cfg, plan), aux
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
+            aux=0.0) -> torch.Tensor:
+    """Token-mean cross entropy (+ router aux).  ``labels``: int, the
+    logits' shape without the vocab axis."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(nll) + aux
+
+
+def chunked_ce(params: Params, hidden: torch.Tensor, labels: torch.Tensor,
+               cfg: ModelConfig, eng: Optional[EnginePlan] = None,
+               chunk: int = 512, aux=0.0) -> torch.Tensor:
+    """Cross entropy with the LM head applied per sequence chunk of
+    ``chunk`` positions: live logits are ``(B, chunk, V)`` instead of
+    ``(B, S, V)``, and each chunk's head and softmax run under
+    ``torch.utils.checkpoint`` (recomputed in the backward pass), as the
+    JAX package's ``jax.checkpoint`` scan body.  Equal to
+    ``loss_fn(_lm_logits(hidden))``, which it runs instead when S is not a
+    multiple of the chunk."""
+    plan = resolve_plan(eng, device=hidden.device)
+    b, s = hidden.shape[:2]
+    chunk = min(chunk, s)
+    if s % chunk:
+        return loss_fn(_lm_logits(params, hidden, cfg, plan), labels, aux)
+
+    def body(hc, lc):
+        logits = _lm_logits(params, hc, cfg, plan)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        return -torch.gather(logp, -1, lc.long()[..., None]).sum()
+
+    step = _remat(body, "block")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        total = total + step(hidden[:, c0:c0 + chunk],
+                             labels[:, c0:c0 + chunk])
+    return total / labels.numel() + aux
+
+
+def _split_local(cfg: ModelConfig, split_local: bool) -> bool:
+    """Whether a cache asked for ``split_local`` gets the local/global
+    split: only a config with both windowed and global layers."""
+    return split_local and cfg.sliding_window > 0 and cfg.global_every > 0
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -450,46 +527,93 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                kv_bits: int = 0, device: DeviceLike = None) -> Params:
     """Decode cache in the slots layout, on ``device`` (None means the GPU).
 
-    dense, vlm, audio and moe: ``k``/``v`` ``(L, B, max_len, Hkv, Dh)`` at
-    full precision (a vlm prompt's image positions count towards
-    max_len);
+    dense, vlm, audio and moe: ``k``/``v`` ``(L, B, max_len, Hkv, Dh)`` (a
+    vlm prompt's image positions count towards max_len);
     ssm: ``conv`` ``(L, B, cw - 1, d_inner + 2N)`` and ``h`` ``(L, B, H, P,
     N)`` float32; hybrid: those, and ``k``/``v`` ``(n_layers // attn_every,
     B, max_len, Hkv, Dh)`` for the shared block's sites; all with ``pos``
-    ``(B,)`` int32.  The JAX package's int8 (``kv_bits=8``), unstacked and
-    ``split_local`` layouts are not ported and raise.
+    ``(B,)`` int32.
+
+    The JAX package's three other layouts, decode-only
+    (:func:`prefill` refuses them):
+
+    * ``kv_bits=8`` (dense, vlm, audio, moe): ``k``/``v`` int8 with
+      bfloat16 per-(token, head) ``k_scale``/``v_scale`` ``(L, B, max_len,
+      Hkv)``; :func:`decode_step` quantizes each new token's K/V;
+    * ``stacked=False``: every per-layer (per-site) entry is a tuple of
+      ``L`` separate tensors instead of one ``(L, ...)`` tensor;
+    * ``split_local=True`` for a config with both windowed and global
+      layers (``sliding_window`` and ``global_every``, gemma3): full-length
+      ``k_global``/``v_global`` for the global layers and window-sized ring
+      buffers ``k_local``/``v_local`` ``(n_local, B, sliding_window, Hkv,
+      Dh)`` for the others (other configs get the uniform cache, as in
+      JAX).
+
+    ``kv_bits=8`` applies to the attention families' uniform cache; with
+    ``split_local`` or on the ssm / hybrid families (where the JAX
+    package would cast the conv state and the split cache to int8 with no
+    scales) it raises.
     """
     _check_family(cfg, FAMILIES)
-    if kv_bits:
-        raise NotImplementedError("init_cache(kv_bits=8): the int8 slots "
-                                  "cache is not ported")
-    if not stacked:
-        raise NotImplementedError("init_cache(stacked=False): the unstacked "
-                                  "layout is not ported")
-    if split_local:
-        raise NotImplementedError("init_cache(split_local=True): the "
-                                  "window-capped local layout is not ported")
+    split = _split_local(cfg, split_local)
+    if kv_bits and (split or cfg.family not in PAGED_FAMILIES):
+        raise ValueError(
+            "init_cache(kv_bits=8) quantizes the uniform K/V cache of the "
+            f"{', '.join(PAGED_FAMILIES)} families; family {cfg.family!r}"
+            f"{' with split_local' if split else ''} has no int8 layout")
+    if kv_bits not in (0, 8):
+        raise ValueError(f"kv_bits must be 0/8, got {kv_bits}")
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
+    kv_dtype = torch.int8 if kv_bits else dtype
     cache: Params = {"pos": torch.zeros((batch,), dtype=torch.int32,
                                         device=device)}
+
+    def per_layer(n, shape, dt):
+        if stacked:
+            return torch.zeros((n,) + shape, dtype=dt, device=device)
+        return tuple(torch.zeros(shape, dtype=dt, device=device)
+                     for _ in range(n))
+
+    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    if split:
+        n_glob = sum(cfg.is_global_layer(i) for i in range(cfg.n_layers))
+        n_loc = cfg.n_layers - n_glob
+        for name, n, t in (("global", n_glob, max_len),
+                           ("local", n_loc, cfg.sliding_window)):
+            cache[f"k_{name}"] = per_layer(n, (batch, t) + kv, dtype)
+            cache[f"v_{name}"] = per_layer(n, (batch, t) + kv, dtype)
+        return cache
     kv_sets = (cfg.n_layers if cfg.family in PAGED_FAMILIES
                else cfg.n_layers // cfg.attn_every
                if cfg.family == "hybrid" and cfg.attn_every else 0)
     if kv_sets:
-        shape = (kv_sets, batch, max_len, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["k"] = per_layer(kv_sets, (batch, max_len) + kv, kv_dtype)
+        cache["v"] = per_layer(kv_sets, (batch, max_len) + kv, kv_dtype)
+        if kv_bits:
+            for name in ("k_scale", "v_scale"):
+                cache[name] = per_layer(kv_sets, (batch, max_len, kv[0]),
+                                        torch.bfloat16)
     if cfg.family in ("ssm", "hybrid"):
         conv_ch = cfg.d_inner + 2 * cfg.ssm_state
-        cache["conv"] = torch.zeros(
-            (cfg.n_layers, batch, cfg.conv_width - 1, conv_ch), dtype=dtype,
-            device=device)
-        cache["h"] = torch.zeros(
-            (cfg.n_layers, batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
-             cfg.ssm_state), dtype=torch.float32, device=device)
+        cache["conv"] = per_layer(
+            cfg.n_layers, (batch, cfg.conv_width - 1, conv_ch), dtype)
+        cache["h"] = per_layer(
+            cfg.n_layers, (batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), torch.float32)
     return cache
+
+
+def _decode_only_layout(cache: Params) -> Optional[str]:
+    """The name of a decode-only cache layout, or None for the stacked
+    full-precision one."""
+    if "k_global" in cache:
+        return "split_local=True"
+    if "k_scale" in cache:
+        return "kv_bits=8"
+    if isinstance(cache.get("k", cache.get("conv")), tuple):
+        return "stacked=False"
+    return None
 
 
 @torch.no_grad()
@@ -511,6 +635,13 @@ def prefill(
     dictionary holds the same tensors.  A vlm batch with ``img_embeds``
     counts its image positions in S and fills their K/V too.
     """
+    layout = _decode_only_layout(cache)
+    if layout is not None:
+        raise NotImplementedError(
+            f"prefill: the {layout} cache is decode-only, as in the JAX "
+            "package (its prefill reads one stacked full-precision K/V and "
+            "would cast to int8 without scales); decode the prompt from an "
+            "empty cache with decode_step")
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
                                                  attn_backend)
     s = x.shape[1]
@@ -551,13 +682,9 @@ def prefill(
     return _lm_logits(params, x[:, -1:], cfg, plan), dict(cache)
 
 
-def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
-                       active=None):
-    """One cached-attention sub-block for a single new token; writes the
-    token's K/V into ``cache_k``/``cache_v`` ``(B, T, Hkv, Dh)`` in place
-    at slot ``min(pos, T - 1)`` (lanes outside ``active`` rewrite the row
-    they had) and attends the cache (the plain :func:`attend_decode`, as
-    the JAX package leaves it to XLA)."""
+def _decode_qkv(p, x, pos, cfg, plan):
+    """The new token's rotated q ``(B, 1, Hq, Dh)`` and k, v ``(B, Hkv,
+    Dh)``."""
     b = x.shape[0]
     dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -565,17 +692,72 @@ def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
     k = dense(p["attn"]["wk"], h, plan).reshape(b, 1, hkv, dh)
     v = dense(p["attn"]["wv"], h, plan).reshape(b, 1, hkv, dh)
     pos2 = pos[:, None]
-    q = apply_rope(q, pos2, cfg.rope_theta)
-    k = apply_rope(k, pos2, cfg.rope_theta)
+    return (apply_rope(q, pos2, cfg.rope_theta),
+            apply_rope(k, pos2, cfg.rope_theta)[:, 0], v[:, 0])
+
+
+def _write_rows(cache_t, slot, row, active):
+    """``cache_t[b, slot[b]] = row[b]`` in place (lanes outside ``active``
+    rewrite the row they had)."""
+    bidx = torch.arange(row.shape[0], device=row.device)
+    row = row.to(cache_t.dtype)
+    if active is not None:
+        shape = (-1,) + (1,) * (row.ndim - 1)
+        row = torch.where(active.reshape(shape), row, cache_t[bidx, slot])
+    cache_t[bidx, slot] = row
+
+
+def _attn_out(p, x, o, cfg, plan):
+    b = x.shape[0]
+    return x + dense(p["attn"]["wo"],
+                     o.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim),
+                     plan)
+
+
+def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
+                       active=None, scales=None):
+    """One cached-attention sub-block for a single new token; writes the
+    token's K/V into ``cache_k``/``cache_v`` ``(B, T, Hkv, Dh)`` in place
+    at slot ``min(pos, T - 1)`` and attends the cache (the plain
+    :func:`attend_decode`, as the JAX package leaves it to XLA).
+
+    ``scales``: the int8 cache's ``(k_scale, v_scale)`` ``(B, T, Hkv)``
+    bfloat16: the token's K/V are quantized per (token, head) and the
+    cache read through :func:`attend_decode_quant`."""
+    q, k, v = _decode_qkv(p, x, pos, cfg, plan)
     slot = torch.clamp(pos.long(), max=cache_k.shape[1] - 1)
-    bidx = torch.arange(b, device=x.device)
-    for cache_t, new in ((cache_k, k), (cache_v, v)):
-        row = new[:, 0].to(cache_t.dtype)
-        if active is not None:
-            row = torch.where(active[:, None, None], row, cache_t[bidx, slot])
-        cache_t[bidx, slot] = row
-    o = attend_decode(q, cache_k, cache_v, pos, window)
-    return x + dense(p["attn"]["wo"], o.reshape(b, 1, hq * dh), plan)
+    if scales is None:
+        _write_rows(cache_k, slot, k, active)
+        _write_rows(cache_v, slot, v, active)
+        o = attend_decode(q, cache_k, cache_v, pos, window)
+    else:
+        for cache_t, scale_t, val in ((cache_k, scales[0], k),
+                                      (cache_v, scales[1], v)):
+            codes, scale = _quantize_kv(val)
+            _write_rows(cache_t, slot, codes, active)
+            _write_rows(scale_t, slot, scale, active)
+        o = attend_decode_quant(q, cache_k, cache_v, scales[0], scales[1],
+                                pos, window)
+    return _attn_out(p, x, o, cfg, plan)
+
+
+def _attn_decode_apply_ring(p, x, ring_k, ring_v, pos, cfg, plan,
+                            active=None):
+    """The window-capped local layer of a ``split_local`` cache: the
+    token's K/V go to ring slot ``pos % W`` and the ring is attended by
+    :func:`attend_decode_ring`."""
+    q, k, v = _decode_qkv(p, x, pos, cfg, plan)
+    slot = pos.long() % ring_k.shape[1]
+    _write_rows(ring_k, slot, k, active)
+    _write_rows(ring_v, slot, v, active)
+    return _attn_out(p, x, attend_decode_ring(q, ring_k, ring_v, pos), cfg,
+                     plan)
+
+
+def _layer_scales(cache, layer):
+    if "k_scale" not in cache:
+        return None
+    return cache["k_scale"][layer], cache["v_scale"][layer]
 
 
 @torch.no_grad()
@@ -589,12 +771,15 @@ def decode_step(
     active: Optional[torch.Tensor] = None,   # (B,) bool
     expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
 ):
-    """One token of autoregressive decode over the slots cache.  Returns
-    (logits ``(B, 1, V)``, ``(B, 1, K, V)`` for the audio family, cache):
-    the cache's tensors, ``pos`` included,
-    are updated **in place** (so a captured CUDA graph of this step
-    replays against the same storage) and the returned dictionary holds
-    them.
+    """One token of autoregressive decode over the slots cache, in any of
+    :func:`init_cache`'s layouts.  Returns (logits ``(B, 1, V)``, ``(B, 1,
+    K, V)`` for the audio family, cache): the cache's tensors, ``pos``
+    included, are updated **in place** (so a captured CUDA graph of this
+    step replays against the same storage) and the returned dictionary
+    holds them.  A stacked and an unstacked cache run the same layer loop
+    (``cache[name][layer]`` is a view of the one, an element of the
+    other), an int8 cache's scales included — the JAX package's stacked
+    int8 branch, which drops them, is not followed.
 
     ``active``, when given, names the lanes that advance.  Every cache
     entry of the other lanes (their K/V row, conv and h states, ``pos``)
@@ -608,30 +793,44 @@ def decode_step(
     plan, _ = _resolve(eng, attn_backend, tokens.device)
     pos = cache["pos"]
     x = _embed(params, tokens, cfg)
-    if cfg.family in PAGED_FAMILIES:
+    if "k_global" in cache:
+        gi = li = 0
+        for layer, lp in enumerate(params["layers"]):
+            if cfg.is_global_layer(layer):
+                x = _attn_decode_apply(lp, x, cache["k_global"][gi],
+                                       cache["v_global"][gi], pos, cfg,
+                                       plan, 0, active)
+                gi += 1
+            else:
+                x = _attn_decode_apply_ring(lp, x, cache["k_local"][li],
+                                            cache["v_local"][li], pos, cfg,
+                                            plan, active)
+                li += 1
+            x, _ = _ffn_apply(lp, x, cfg, plan,
+                              _layer_counts(expert_counts, layer))
+    elif cfg.family in PAGED_FAMILIES:
         for layer, (lp, win) in enumerate(zip(params["layers"],
                                               _layer_windows(cfg))):
             x = _attn_decode_apply(lp, x, cache["k"][layer],
                                    cache["v"][layer], pos, cfg, plan, win,
-                                   active)
+                                   active, _layer_scales(cache, layer))
             x, _ = _ffn_apply(lp, x, cfg, plan,
                               _layer_counts(expert_counts, layer))
     else:
         shared = params.get("shared_attn")
         for layer, lp in enumerate(params["layers"]):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            y, conv, h_state = ssm_decode_step(
-                lp["ssm"], h, cfg, cache["conv"][layer], cache["h"][layer],
-                plan)
+            conv_t, h_t = cache["conv"][layer], cache["h"][layer]
+            y, conv, h_state = ssm_decode_step(lp["ssm"], h, cfg, conv_t,
+                                               h_t, plan)
             x = x + y
-            conv = conv.to(cache["conv"].dtype)
+            conv = conv.to(conv_t.dtype)
             if active is not None:
-                conv = torch.where(active[:, None, None], conv,
-                                   cache["conv"][layer])
+                conv = torch.where(active[:, None, None], conv, conv_t)
                 h_state = torch.where(active[:, None, None, None], h_state,
-                                      cache["h"][layer])
-            cache["conv"][layer] = conv
-            cache["h"][layer] = h_state
+                                      h_t)
+            conv_t.copy_(conv)
+            h_t.copy_(h_state)
             site = _site(cfg, layer)
             if shared is not None and site is not None:
                 x = _attn_decode_apply(shared, x, cache["k"][site],

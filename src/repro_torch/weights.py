@@ -8,6 +8,8 @@ layers); the port keeps one dictionary per layer, so every leaf under
 :class:`~repro_torch.engine.PackedLinear` whose bytes are the JAX bytes.
 The ssm family's per-head parameters (``a_log``, ``dt_bias``, ``d_skip``)
 are float32 in every model dtype, as the JAX package keeps them.
+:func:`stack_layers` / :func:`unstack_layers` move the port's own
+parameters between the two layouts.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.packed import PackedLinear, validate_bits
+from repro_torch.tree import tree_leaves, tree_map
 
 _FLOAT32_LEAVES = ("a_log", "dt_bias", "d_skip")
 
@@ -67,4 +70,27 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *,
            for k, v in tree.items() if k != "layers"}
     out["layers"] = [_convert(tree["layers"], i, device, dtype)
                      for i in range(cfg.n_layers)]
+    return out
+
+
+def stack_layers(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's parameters in the JAX package's layout: ``"layers"``
+    one tree whose every leaf stacks the layers' leaves on axis 0 (a new
+    tensor; the other entries are shared).  The training loop keeps its
+    params, optimizer state and checkpoints in this layout, so the
+    optimizer sees the leaves JAX's sees."""
+    layers = params["layers"]
+    out = dict(params)
+    out["layers"] = tree_map(lambda *leaves: torch.stack(leaves), layers[0],
+                             *layers[1:])
+    return out
+
+
+def unstack_layers(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`stack_layers`: one dictionary per layer, whose
+    leaves are views of the stacked leaves (no copy)."""
+    stacked = params["layers"]
+    n = tree_leaves(stacked)[0].shape[0]
+    out = dict(params)
+    out["layers"] = [tree_map(lambda a, i=i: a[i], stacked) for i in range(n)]
     return out

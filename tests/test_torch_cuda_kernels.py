@@ -86,6 +86,11 @@ attention at D 300, 320 and 512 in bfloat16 and float32, causal and
 windowed, and the chunked prefill at D 320 and 512 over float32, bf16 and
 int8 pools, all on their CUDA-core routes.
 
+Training (``-k "grad or train_step"``): every kernel wrapper, the grouped
+launch too, raises under grad mode on an input that requires grad and
+launches nothing; one train step of a reduced config on the card equals
+the same step on the CPU (no kernel runs: the loss takes the plain paths).
+
 The vlm, audio and hybrid families (``-k "family or hybrid"``): the
 bit-plane GEMV through every route at zamba2-7b's in_proj (ragged N
 14576) and out_proj, llava-next's w_down and musicgen's lm_head; flash
@@ -1418,3 +1423,116 @@ def test_graph_family_engine_tokens_match_eager(cuda_device, arch, mode,
     assert all(len(o) == 6 for o in out[True][0])
     assert out[True][1] == out[False][1]
     assert out[True][1]["bitplane_gemv/decode"] > 0
+
+
+# ----------------------------------------------- kernels under autograd
+def grad_cases(device):
+    """Each kernel's ``ops`` wrapper with small valid inputs on ``device``
+    (drawn on the CPU from a seed): ``{name: (fn, args, kwargs,
+    index of the float input that will require grad)}``; the bit-plane
+    GEMV's expert-grouped launch among them."""
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+
+    q4, s4 = quantize_symmetric(rnd(64, 48), 4)
+    p4 = pack_weights(q4, 4)
+    qe, se = zip(*(quantize_symmetric(rnd(64, 48), 4) for _ in range(2)))
+    pe = torch.stack([pack_weights(q, 4) for q in qe])
+    q8, s8 = quantize_symmetric(rnd(64, 48), 8)
+    pools = [rnd(3, 4, 1, 64) for _ in range(2)]
+    bt = torch.tensor([[1, 2]], dtype=torch.int32)
+    cases = {
+        "bitplane_gemv": (bitplane_gemv, [p4, s4, rnd(3, 64)],
+                          dict(bits=4, radix=1), 2),
+        "bitplane_gemv_grouped": (
+            bitplane_gemv_grouped,
+            [pe, torch.stack(se), rnd(4, 64),
+             torch.tensor([0, 2, 4], dtype=torch.int32)],
+            dict(max_rows=4, bits=4, radix=1), 2),
+        "int8_matvec": (int8_matvec, [q8, s8, rnd(3, 64)], {}, 2),
+        "paged_decode_attention": (
+            paged_attention, [rnd(1, 1, 2, 64), *pools, bt,
+                              torch.tensor([5], dtype=torch.int32)], {}, 0),
+        "paged_prefill_attention": (
+            paged_prefill_attention,
+            [rnd(1, 2, 2, 64), *pools, bt,
+             torch.tensor([0], dtype=torch.int32),
+             torch.tensor([2], dtype=torch.int32)], {}, 0),
+        "flash_attention": (flash_attention,
+                            [rnd(1, 8, 2, 64), rnd(1, 8, 1, 64),
+                             rnd(1, 8, 1, 64)], {}, 0),
+        "ssd_scan": (ssd_scan, [0.1 * rnd(1, 16, 1, 64),
+                                -0.2 * torch.rand((1, 16, 1), generator=gen),
+                                rnd(1, 16, 64), rnd(1, 16, 64)],
+                     dict(chunk=16), 0),
+    }
+    return {name: (fn, [a.to(device) for a in args], kw, i)
+            for name, (fn, args, kw, i) in cases.items()}
+
+
+GRAD_KERNELS = ("bitplane_gemv", "bitplane_gemv_grouped", "int8_matvec",
+                "paged_decode_attention", "paged_prefill_attention",
+                "flash_attention", "ssd_scan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAD_KERNELS)
+def test_kernel_refuses_inputs_that_require_grad(cuda_device, name):
+    """A kernel has no backward pass: under grad mode, an input that
+    requires grad makes the wrapper raise before it launches (no launch
+    counted, nothing detached, no plain version run); under
+    ``torch.no_grad()`` the same call launches."""
+    fn, args, kw, i = grad_cases(cuda_device)[name]
+    args[i].requires_grad_(True)
+    before = _launch_counts()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fn(*args, **kw)
+    assert _moved(before) == {}
+    with torch.no_grad():
+        out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    kernel = "bitplane_gemv" if name == "bitplane_gemv_grouped" else name
+    assert _moved(before)[kernel] == 1
+    assert not any(t.requires_grad for t in
+                   (out if isinstance(out, tuple) else (out,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-130m"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch):
+    """One ``make_train_step`` (AdamW, two microbatches, remat) of a
+    reduced config cut to 2 layers in float32, on the card against the
+    CPU from the same weights and batch: loss within rtol 1e-4, grad norm
+    within rtol 1e-3, params after the update within 2 * lr (Adam's first
+    step moves a parameter by about lr whatever its gradient's size, so a
+    gradient at float32 noise may take either sign).  No kernel runs."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.weights import stack_layers
+
+    cfg = dataclasses.replace(get_reduced(arch), n_layers=2,
+                              dtype="float32")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=1, microbatches=2)
+    host = stack_layers(init_params(cfg, torch.Generator().manual_seed(0)))
+    batch = DataPipeline(cfg, batch=4, seq_len=32, seed=0).batch_at(0)
+    out = {}
+    before = _launch_counts()
+    for dev in (cuda_device, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev, copy=True), host)
+        params, _, _, m = make_train_step(cfg, tcfg)(
+            params, adamw_init(params), {}, batch)
+        out[dev.type] = (m, params)
+    torch.cuda.synchronize()
+    assert _moved(before) == {}
+    (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(mc["loss"].cpu(), mh["loss"], rtol=1e-4,
+                               atol=0)
+    torch.testing.assert_close(mc["grad_norm"].cpu(), mh["grad_norm"],
+                               rtol=1e-3, atol=0)
+    for a, b in zip(tree_leaves(pc), tree_leaves(ph)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2 * tcfg.lr)

@@ -209,10 +209,18 @@ def test_prefill_matches_sequential_decode(arch):
 
 
 def test_unported_cache_layouts_and_families_raise():
+    """The int8 and unstacked slots layouts are decode-only, as in JAX:
+    ``prefill`` refuses them (``tests/test_torch_cache_layouts.py`` decodes
+    them); ``split_local`` on a config without windows is the uniform
+    cache; the hybrid family has no int8 layout."""
     tcfg, tparams = _port_f32("qwen2.5-3b")
-    for kw in (dict(kv_bits=8), dict(stacked=False), dict(split_local=True)):
-        with pytest.raises(NotImplementedError):
-            tmodels.init_cache(tcfg, 1, 8, device="cpu", **kw)
+    prompt = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    for kw in (dict(kv_bits=8), dict(stacked=False)):
+        cache = tmodels.init_cache(tcfg, 1, 8, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="decode-only"):
+            tmodels.prefill(tparams, prompt, tcfg, cache)
+    cache = tmodels.init_cache(tcfg, 1, 8, device="cpu", split_local=True)
+    assert "k_global" not in cache and cache["k"].shape[2] == 8
     # every family runs the full-sequence path now: the hybrid family
     # (reduced zamba2, the port's own init) among them
     hybrid = tconfig.ModelConfig(**{**tconfig.get_reduced(
@@ -222,9 +230,12 @@ def test_unported_cache_layouts_and_families_raise():
         (1, 16), dtype=torch.int32)}, hybrid)
     assert logits.shape == (1, 16, hybrid.vocab_size)
     assert bool(torch.isfinite(logits).all())
-    for kw in (dict(kv_bits=8), dict(stacked=False), dict(split_local=True)):
-        with pytest.raises(NotImplementedError):
-            tmodels.init_cache(hybrid, 1, 8, device="cpu", **kw)
+    with pytest.raises(ValueError, match="no int8 layout"):
+        tmodels.init_cache(hybrid, 1, 8, device="cpu", kv_bits=8)
+    for kw in (dict(stacked=False), dict(stacked=False, split_local=True)):
+        cache = tmodels.init_cache(hybrid, 1, 8, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="decode-only"):
+            tmodels.prefill(hparams, prompt, hybrid, cache)
     cache = tmodels.init_cache(tcfg, 1, 8, device="cpu")
     with pytest.raises(ValueError, match="exceed"):
         tmodels.prefill(tparams, {"tokens": torch.zeros((1, 9),

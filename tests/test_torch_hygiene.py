@@ -475,11 +475,20 @@ OBS_FT = ("obs/registry.py", "obs/spans.py", "obs/trace.py", "obs/costs.py",
           "ft/chaos.py", "ft/failures.py", "ft/__init__.py")
 
 
-@pytest.mark.parametrize("name", OBS_FT)
+# training: the optimizers, the data pipeline (a numpy copy of JAX's, not
+# an import of it), the trainer and its driver, the straggler monitor
+TRAINING = ("optim/__init__.py", "optim/optimizers.py", "optim/schedule.py",
+            "optim/grad_compress.py", "data/__init__.py", "data/pipeline.py",
+            "train/__init__.py", "train/trainer.py", "train/train_lm.py",
+            "ft/straggler.py", "tree.py")
+
+
+@pytest.mark.parametrize("name", OBS_FT + TRAINING)
 def test_obs_and_ft_import_no_jax_or_repro(name):
-    """``obs/`` and ``ft/`` keep their own copies of the JAX package's
-    modules and import neither package (the per-file check above covers
-    them too; this one fails if a module goes missing)."""
+    """``obs/``, ``ft/`` and the training modules (``optim/``, ``data/``,
+    ``train/``, ``ft/straggler.py``) keep their own copies of the JAX
+    package's modules and import neither package (the per-file check
+    above covers them too; this one fails if a module goes missing)."""
     path = PORT / name
     assert path in _port_files()
     bad = [(mod, line) for mod, line in _imported_roots(path)
