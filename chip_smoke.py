@@ -5,6 +5,10 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --mesh`` runs ``env``, ``build`` and phase
+``mesh`` alone; ``--mesh-rank R --mesh-shape DxM --mesh-dir DIR`` is one
+of that phase's rank processes, which it starts itself.)
+
 It builds the hand-written CUDA kernels of ``src/repro_torch/csrc`` and runs
 these phases, each printing JSON lines; any failure raises and the script
 exits non-zero:
@@ -122,6 +126,29 @@ exits non-zero:
                 A restore recomputes nothing: ``main``'s / ``prefix_hot``'s
                 tokens, exactly or (reported by request) up to a near tie.
                 Snapshot bytes, codec, save / load / restore seconds.
+   ``mesh``     after ``snapshot``, on ``main``'s params: the kernels at a
+                mesh rank's shapes (``mesh_parity``: the bit-plane GEMV at
+                the local linears of a (1, 2) rank at M 4 / 8 / 128 / 256,
+                4 and 8 bits; paged decode and prefill attention at one
+                KV head, G 8); the single-device eager engine on
+                ``main``'s first 8 prompts, 16 new tokens; then the same
+                traffic on a ``(data, model)`` mesh of ``(1, 2)`` (heads,
+                MLP features and vocabulary split over two ranks) and of
+                ``(2, 1)`` (lanes and pages over two data shards): two
+                rank processes, each ``chip_smoke.py --mesh-rank R
+                --mesh-shape DxM --mesh-dir DIR`` (``gloo`` through host
+                memory on one card; NCCL, one rank a device, on two or
+                more), ``EngineConfig(weight_bits=4, kv_bits=8,
+                sharded=True)``, eager (a CUDA graph cannot capture the
+                collectives): the transport, every rank's tokens equal
+                and equal to the single-device engine's up to near ties,
+                each rank's launches by route (the GEMV's decode and
+                tensor-core routes and both attention kernels above 0),
+                tok/s, step and chunk ms, host ms in collectives a step,
+                peak memory and pool shape; at ``(1, 2)``,
+                ``psum_bits=8`` at layer 0's row-parallel w_down within
+                ``n·scale/2`` of the exact sum.  A rank that fails or
+                outlives ``MESH_TIMEOUT`` fails the phase.
    ``dense``    starcoder2-15b (40 layers), gemma3-27b (62 layers, window
                 1024 on 5 of 6 layers, 8 prompts of 1,100-1,900 tokens,
                 max_len 2048) and mistral-large-123b cut to 8 of its 88
@@ -1375,7 +1402,7 @@ def prompts_for(cfg, n, lo, hi, seed):
 def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
                  max_len=1024, max_new=32, params=None, mode="auto",
                  cuda_graphs=True, serve_kw=None, clock=None, chaos=None,
-                 **engine_kw):
+                 mesh=None, **engine_kw):
     from repro_torch.config import EngineConfig, ServeConfig
     from repro_torch.models import init_params
     from repro_torch.serve import ServeEngine
@@ -1391,7 +1418,7 @@ def build_engine(torch, dev, cfg, weight_bits, kv_bits, *, n_slots=8,
                        page_size=16, prefill_chunk=32, **(serve_kw or {}))
     eng = ServeEngine(cfg, params, scfg, n_slots=n_slots, max_len=max_len,
                       seed=SEED, mode=mode, cuda_graphs=cuda_graphs,
-                      clock=clock, device=dev, chaos=chaos)
+                      clock=clock, device=dev, chaos=chaos, mesh=mesh)
     return eng, params
 
 
@@ -3963,6 +3990,302 @@ def layouts_path(torch, dev):
 
 
 # ----------------------------------------------------------------- main
+# ----------------------------------------------------------- mesh phase
+MESH_SHAPES = ((1, 2), (2, 1))     # (data, model)
+MESH_REQUESTS = 8                  # main's first 8 prompts
+MESH_NEW = 16
+MESH_TIMEOUT = 240                 # seconds for a mesh's ranks, build of
+#                                    params and serving included
+# the linears of a (1, 2) rank of full-width qwen2.5-3b: wq, wk/wv, wo,
+# w_gate/w_up, w_down (K, N); the tied head is a plain product
+MESH_GEMV_SHAPES = [(2048, 1024), (2048, 128), (1024, 2048), (2048, 5504),
+                    (5504, 2048)]
+# how a rank process is started: this script with ``--mesh-rank``
+MESH_RANK_CMD = [sys.executable, str(Path(__file__).resolve())]
+
+
+def mesh_parity(torch, dev):
+    """The kernels at the shapes a rank of the mesh gives them: the
+    bit-plane GEMV at the local linears (decode M 4 and 8, tensor_core
+    M 128 and 256, bf16, 4 and 8 bits) and both paged-attention kernels
+    at one KV head with G 8 (a (1, 2) rank of qwen2.5-3b), against the
+    plain versions."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
+    from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention,
+        paged_prefill_attention,
+    )
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref,
+        paged_prefill_ref,
+    )
+
+    _build.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    worst = {"gemv": [0.0, 0.0], "decode": [0.0, 0.0], "prefill": [0.0, 0.0]}
+    for bits in (4, 8):
+        for (k, n) in MESH_GEMV_SHAPES:
+            for m in (4, 8, 128, 256):
+                packed, scale, x = gemv_case(torch, dev, gen, bits, k, n, m,
+                                             torch.bfloat16)
+                y = bitplane_gemv(packed, scale, x, bits=bits,
+                                  out_dtype=torch.bfloat16)
+                r = bitplane_gemv_ref(packed, scale, x, bits=bits,
+                                      out_dtype=torch.bfloat16)
+                rtol, atol = gemv_tol(torch.bfloat16, r)
+                res = check_close("bitplane_gemv", y, r, rtol, atol,
+                                  bits=bits, m=m, k=k, n=n, mesh=True)
+                worst["gemv"] = [max(a, b) for a, b in zip(worst["gemv"],
+                                                           res)]
+    b, hkv, g, dh, page, nblk, c = 8, 1, 8, 128, 16, 24, 32
+    for kind in ("int8", "bfloat16"):
+        kp, vp, ks, vs = attn_pools(torch, dev, gen, kind, b * nblk + 1,
+                                    page, hkv, dh)
+        bt = (1 + torch.randperm(b * nblk, generator=gen, device=dev)
+              ).reshape(b, nblk).int()
+        rtol, atol = attn_tol(kind)
+        cur = torch.tensor([0, 15, 16, 33, 129, 250, 301, page * nblk - 1],
+                           dtype=torch.int32, device=dev)
+        q = torch.randn((b, 1, hkv * g, dh), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y = paged_attention(q, kp, vp, bt, cur, 0, ks, vs)
+        r = paged_attention_ref(q, kp, vp, bt, cur, 0, ks, vs)
+        res = check_close("paged_decode_attention", y, r, rtol, atol,
+                          kind=kind, hkv=hkv, mesh=True)
+        worst["decode"] = [max(a, b) for a, b in zip(worst["decode"], res)]
+        pos0 = torch.tensor([0, 7, 16, 45, 100, 201, 300, 120],
+                            dtype=torch.int32, device=dev)
+        seq = pos0 + c
+        seq[6] = pos0[6] + 5
+        qp = torch.randn((b, c, hkv * g, dh), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        y = paged_prefill_attention(qp, kp, vp, bt, pos0, seq, 0, ks, vs)
+        r = paged_prefill_ref(qp, kp, vp, bt, pos0, seq, 0, ks, vs)
+        res = check_close("paged_prefill_attention", y, r, rtol, atol,
+                          kind=kind, hkv=hkv, mesh=True)
+        worst["prefill"] = [max(a, b) for a, b in zip(worst["prefill"], res)]
+    torch.cuda.synchronize()
+    routes = {k: route_counts(k) for k in ("bitplane_gemv",
+                                           "paged_prefill_attention")}
+    if not (routes["bitplane_gemv"]["decode"]
+            and routes["bitplane_gemv"]["tensor_core"]
+            and routes["paged_prefill_attention"]["tensor_core"]
+            and _build.LAUNCHES["paged_decode_attention"]):
+        raise AssertionError(f"mesh_parity: routes {routes}")
+    emit("mesh_parity", gemv_shapes=MESH_GEMV_SHAPES, gemv_m=[4, 8, 128, 256],
+         bits=[4, 8], attention="Hkv 1, G 8, Dh 128, page 16, int8 and "
+                                "bf16 pools, decode and chunk 32",
+         tolerance="bf16 GEMV: rtol 2^-7, atol 1e-5*max|ref|; attention: "
+                   "rtol=atol=2^-7",
+         max_abs_err={k: v[0] for k, v in worst.items()},
+         max_share_of_tol={k: v[1] for k, v in worst.items()},
+         routes=routes)
+
+
+def mesh_psum_check(torch, eng, mesh, rank):
+    """``psum_bits=8`` against the exact sum of a row-parallel GEMV on
+    the card: this rank's slice of layer 0's w_down (K 5504 of 11008) at
+    M 8 in float32, ``|compressed - exact| <= n * scale / 2`` with the
+    shared scale of the ranks' partials."""
+    from repro_torch.dist.collectives import all_reduce
+    from repro_torch.engine import EnginePlan
+    from repro_torch.engine.backends import get_backend
+
+    lin = eng.params["layers"][0]["mlp"]["w_down"]
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60 + rank)
+    x = torch.randn((8, lin.in_features), generator=gen, device=dev)
+    plans = {bits: EnginePlan(backend="sharded", bits=lin.bits, mesh=mesh,
+                              inner_backend="cuda", psum_bits=bits)
+             for bits in (0, 8)}
+    exact, comp = (plans[b].apply(lin, x) for b in (0, 8))
+    part = get_backend("cuda")(plans[0], lin, x, torch.float32)
+    group, n = mesh.group("model"), mesh.count("model")
+    absmax = float(all_reduce(part.abs().amax(), group, op="max"))
+    bound = n * (absmax / 127.0) / 2.0
+    err = float((comp - exact).abs().max())
+    if not err <= bound * 1.0001:
+        raise AssertionError(f"mesh psum_bits=8: error {err} > {bound}")
+    return dict(k_local=lin.in_features, n=lin.out_features, ranks=n,
+                max_abs_err=err, bound=bound)
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of phase ``mesh``: ``chip_smoke.py --mesh-rank R
+    --mesh-shape DxM --mesh-dir DIR`` (started by :func:`mesh_path`).
+    Serves ``main``'s first prompts on its shards and writes its record
+    to ``DIR/rank{R}.json``."""
+    import torch
+
+    args = dict(zip(argv[1::2], argv[2::2]))
+    rank = int(args["--mesh-rank"])
+    label = args["--mesh-shape"]
+    shape = tuple(int(v) for v in label.split("x"))
+    out = Path(args["--mesh-dir"])
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import close_rank, init_rank, make_mesh, transport
+
+    backend = init_rank(rank, math.prod(shape), str(out / "store"))
+    mesh = make_mesh(shape, ("data", "model"))
+    torch.cuda.set_device(mesh.device)
+    cfg = full_config()
+    prompts = prompts_for(cfg, 16, 33, 300, SEED)[:MESH_REQUESTS]
+    t0 = time.perf_counter()
+    eng, params = build_engine(torch, mesh.device, cfg, 4, 8,
+                               max_new=MESH_NEW, cuda_graphs=False,
+                               mesh=mesh, sharded=True)
+    del params
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    top = _recording_top(eng)
+    rec, tokens = serve(torch, f"mesh_{label}_rank{rank}", eng, prompts,
+                        MESH_NEW)
+    coll, wait = eng.timings["collectives"], eng.timings["collective_wait"]
+    res = dict(
+        rank=rank, coord=mesh.coord, device=str(mesh.device),
+        backend=backend, transport=transport(mesh), init_s=init_s,
+        layout=eng.mesh_layout, pool=list(eng.pages.k.shape),
+        lanes=eng.lanes.tokens.shape[0],
+        tokens=tokens, tok_s=rec["tok_s"], seconds=rec["seconds"],
+        decode_steps=rec["decode_steps"],
+        decode_step_ms=rec["decode_step_ms"],
+        prefill_chunks=rec["prefill_chunks"],
+        prefill_chunk_ms=rec["prefill_chunk_ms"],
+        collective_ms_per_step=1e3 * sum(coll) / max(len(coll), 1),
+        collective_wait_ms_per_step=1e3 * sum(wait) / max(len(wait), 1),
+        collective_share=sum(coll) / max(sum(eng.timings["decode"])
+                                         + sum(eng.timings["prefill"]),
+                                         1e-12),
+        peak_mem_gib=rec["peak_mem_gib"], launches=rec["launches"],
+        route_launches=rec["route_launches"],
+        gemv_decode_launches=rec["gemv_decode_launches"],
+        gemv_tensor_core_launches=rec["gemv_tensor_core_launches"],
+        top={f"{rid}:{i}": cand for (rid, i), cand in top.items()})
+    if mesh.shape["model"] > 1:
+        res["psum8"] = mesh_psum_check(torch, eng, mesh, rank)
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    close_rank()
+    return 0
+
+
+def run_mesh_ranks(shape):
+    """Start one rank process per mesh position (rendezvous through a
+    file store under ``build/mesh``), wait for all of them, and return
+    their records; a rank that fails or outlives ``MESH_TIMEOUT`` fails
+    the phase, and every process is stopped either way."""
+    label = "x".join(map(str, shape))
+    work = ROOT / "build" / "mesh" / label
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    procs = []
+    try:
+        for r in range(math.prod(shape)):
+            log = open(logs / f"mesh_{label}_rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                MESH_RANK_CMD + [
+                 "--mesh-rank", str(r), "--mesh-shape", label,
+                 "--mesh-dir", str(work)], stdout=log,
+                stderr=subprocess.STDOUT, cwd=ROOT), log))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        for r, (p, log) in enumerate(procs):
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if rc:
+                log.flush()
+                tail = (logs / f"mesh_{label}_rank{r}.log").read_text()
+                raise AssertionError(f"mesh {label}: rank {r} exited {rc}:"
+                                     f"\n{tail[-3000:]}")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(len(procs))]
+
+
+def mesh_path(torch, dev, cfg, params, prompts):
+    """Phase ``mesh``: the kernels at a rank's shapes, the single-device
+    eager engine on ``main``'s first prompts, then the same traffic on
+    each mesh of ``MESH_SHAPES``, two rank processes on the one card
+    (``gloo`` through host memory; one rank a device, NCCL, where two or
+    more are visible).  Every rank must launch the bit-plane GEMV on its
+    decode and tensor-core routes and both paged-attention kernels, and
+    return the same tokens, equal to the single-device engine's up to
+    near ties."""
+    mesh_parity(torch, dev)
+    prompts = prompts[:MESH_REQUESTS]
+    eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
+                          max_new=MESH_NEW, cuda_graphs=False)
+    single, want = serve(torch, "mesh_single", eng, prompts, MESH_NEW)
+    del eng
+    torch.cuda.empty_cache()
+    want = dict(enumerate(want))
+    summary = {}
+    for shape in MESH_SHAPES:
+        label = "x".join(map(str, shape))
+        t0 = time.perf_counter()
+        ranks = run_mesh_ranks(shape)
+        wall = time.perf_counter() - t0
+        got = dict(enumerate(ranks[0]["tokens"]))
+        for r in ranks:
+            if r["tokens"] != ranks[0]["tokens"]:
+                raise AssertionError(f"mesh {label}: rank {r['rank']}'s "
+                                     "tokens differ from rank 0's")
+            routes = route_counts("bitplane_gemv", r["route_launches"])
+            if not (routes["decode"] and routes["tensor_core"]
+                    and all(r["launches"][k] for k in PAGED_KERNELS)):
+                raise AssertionError(f"mesh {label}: rank {r['rank']} "
+                                     f"launches {r['launches']} {routes}")
+        top = {}
+        for key, cand in ranks[0]["top"].items():
+            rid, i = map(int, key.split(":"))
+            top[rid, i] = {int(t): v for t, v in cand.items()}
+        ties = near_ties(f"mesh_{label}", want, got, top)
+        per_rank = [{k: r[k] for k in (
+            "rank", "coord", "device", "pool", "lanes", "init_s", "tok_s",
+            "decode_steps", "decode_step_ms", "prefill_chunks",
+            "prefill_chunk_ms", "collective_ms_per_step",
+            "collective_wait_ms_per_step", "collective_share",
+            "peak_mem_gib", "launches", "route_launches",
+            "gemv_decode_launches", "gemv_tensor_core_launches")}
+            for r in ranks]
+        summary[label] = dict(
+            transport=ranks[0]["transport"], layout=ranks[0]["layout"],
+            ranks=per_rank, near_ties=ties,
+            exact=sum(got[rid] == w for rid, w in want.items()),
+            requests=len(want), wall_s=wall,
+            **({"psum8": [r["psum8"] for r in ranks]}
+               if "psum8" in ranks[0] else {}))
+        emit(f"mesh_{label}", **summary[label],
+             single_tok_s=single["tok_s"],
+             single_decode_step_ms=single["decode_step_ms"],
+             single_prefill_chunk_ms=single["prefill_chunk_ms"], card=CARD)
+    return summary
+
+
+def mesh_only(torch, dev, t_start) -> int:
+    """``chip_smoke.py --mesh``: phase ``mesh`` alone after ``env`` and
+    ``build``, on params drawn as ``main`` draws them."""
+    from repro_torch.models import init_params
+
+    with Phase("mesh"):
+        cfg = full_config()
+        prompts = prompts_for(cfg, 16, 33, 300, SEED)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, engine_bits=4)
+        mesh_path(torch, dev, cfg, params, prompts)
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(CARD, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4001,6 +4324,9 @@ def main() -> int:
                                          and "0 bytes spill stores" not in ln)]
         emit("build", seconds=info["seconds"], library=str(info["path"]),
              log=str(_build.BUILD_DIR / "build.log"), ptxas=regs)
+
+    if sys.argv[1:] == ["--mesh"]:
+        return mesh_only(torch, dev, t_start)
 
     with Phase("parity"):
         gemv_parity(torch, dev)
@@ -4076,6 +4402,10 @@ def main() -> int:
     with Phase("snapshot"):
         snapshot_path(torch, dev, cfg, params, prompts, main_tokens,
                       hot_rec, hot_tok)
+        torch.cuda.empty_cache()
+
+    with Phase("mesh"):
+        mesh_rec = mesh_path(torch, dev, cfg, params, prompts)
         del params
         torch.cuda.empty_cache()
 
@@ -4211,6 +4541,10 @@ def main() -> int:
                if name in profile_rec.get("port_kernels_ms_per_step", {})
                else {}),
             **({"prefill": prefill[name]} if name in prefill else {}),
+            **({"mesh_launches": {
+                label: [r["launches"][name] for r in rec["ranks"]]
+                for label, rec in mesh_rec.items()}}
+               if name in PAGED_KERNELS else {}),
             **({"grouped": [{k: r[k] for k in (
                 "linear", "mode", "k", "n", "experts", "touched", "rows",
                 "gemv_route", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4226,4 +4560,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-rank" in sys.argv:
+        sys.exit(mesh_rank_main(sys.argv))
     sys.exit(main())

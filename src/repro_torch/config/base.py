@@ -7,8 +7,8 @@ run cell's :class:`ShapeConfig`, :class:`MeshConfig` and
 :class:`RunConfig` — with every field and default, so the same keyword
 arguments construct both.
 Options whose machinery is not ported yet are refused where they are
-resolved (``EngineConfig(sharded=True)`` here, the serve options in
-``repro_torch.serve.engine``), never ignored.
+resolved (the serve options in ``repro_torch.serve.engine``), never
+ignored.
 """
 
 from __future__ import annotations
@@ -147,8 +147,9 @@ class EngineConfig:
     ``attn_backend`` registry names ("auto" resolves by device when the
     config becomes an ``EnginePlan``).  ``tile_m``/``tile_k`` are the JAX
     kernel's tile sizes, kept for parity of construction; the CUDA kernel
-    picks its own tiles.  ``sharded`` / ``psum_bits`` belong to the
-    multi-device backend, which is not ported yet."""
+    picks its own tiles.  ``sharded`` wraps ``backend`` in the mesh's
+    ``sharded`` backend (``engine/sharded.py``); ``psum_bits`` is the
+    precision of its row-parallel sums (0 exact, 4/8 compressed)."""
 
     weight_bits: int = 0
     radix: int = 1
@@ -177,10 +178,6 @@ class EngineConfig:
         if not isinstance(self.attn_backend, str) or not self.attn_backend:
             raise ValueError(f"attn_backend must be a backend name, got "
                              f"{self.attn_backend!r}")
-        if self.sharded:
-            raise NotImplementedError(
-                "EngineConfig(sharded=True): the mesh-sharded backend is not "
-                "ported yet")
 
     @property
     def enabled(self) -> bool:

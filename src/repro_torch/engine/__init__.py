@@ -1,6 +1,7 @@
 """The GEMV engine's front door: :class:`PackedLinear`, the backend
 registry (``reference`` / ``bit_serial`` / ``cuda``, each with its grouped
-form for stacked experts) and
+form for stacked experts, and ``sharded``, which wraps one of them on a
+mesh of ranks) and
 :class:`EnginePlan`, resolved once from an ``EngineConfig`` and a device.
 
 Typical use::
@@ -24,9 +25,11 @@ from repro_torch.engine.packed import (
     as_packed,
     is_packed,
     pack_linear,
+    partition_kind,
     validate_bits,
 )
 from repro_torch.engine.plan import EnginePlan, plan_for_bits, resolve_plan
+from repro_torch.engine import sharded  # noqa: F401  registers "sharded"
 
 __all__ = [
     "ATTN_BACKENDS",
@@ -37,6 +40,7 @@ __all__ = [
     "get_grouped_backend",
     "is_packed",
     "pack_linear",
+    "partition_kind",
     "plan_for_bits",
     "register_backend",
     "register_grouped_backend",

@@ -14,7 +14,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.bitplane import pack_weights
+from repro_torch.core.bitplane import pack_weights, unpack_weights
 from repro_torch.core.quantize import quantize_symmetric
 
 VALID_BITS = (2, 4, 8)
@@ -29,6 +29,13 @@ class PackedLinear:
     ``bias``: optional ``(out_features,)``.
     A leading axis, if any, stacks experts (``(E, Kp, N)`` with ``(E, 1,
     N)`` scales, the MoE layer's ``w_gate`` / ``w_up`` / ``w_down``).
+    ``partition``: the preferred mesh partitioning, ``"col"`` / ``"row"``
+    / None (auto), stamped by ``quantize_params`` from the weight's name
+    as the JAX package stamps it.  ``shard``: how this object was cut
+    from a whole weight for one rank (``dist.sharding.local_shard``):
+    ``"col"`` (an N/m slice of codes, scales and bias), ``"row"`` (K/m
+    packed rows, whole scales and bias) or None (the whole weight); the
+    feature counts are then the local ones.
     """
 
     packed: torch.Tensor
@@ -37,6 +44,17 @@ class PackedLinear:
     bits: int = 8
     in_features: int = 0
     out_features: int = 0
+    partition: Optional[str] = None
+    shard: Optional[str] = None
+
+    @property
+    def per_byte(self) -> int:
+        return 8 // self.bits
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        """The float weight matrix (K axis unpacked)."""
+        q = unpack_weights(self.packed, self.bits, axis=-2)
+        return (q.to(torch.float32) * self.scale).to(dtype)
 
     def nbytes(self) -> int:
         """Device bytes of the codes, scales and bias, every expert."""
@@ -57,11 +75,17 @@ def validate_bits(bits: Any) -> int:
 
 
 def pack_linear(w: torch.Tensor, bits: int = 8, *,
-                bias: Optional[torch.Tensor] = None) -> PackedLinear:
+                bias: Optional[torch.Tensor] = None,
+                partition: Optional[str] = None) -> PackedLinear:
     """Quantize and bit-pack a float ``(K, N)`` weight, or a stack of
     experts ``(E, K, N)``, along K into engine form: one scale per output
-    channel (per expert), as the JAX package's ``pack_linear`` does."""
+    channel (per expert), as the JAX package's ``pack_linear`` does.
+    ``partition``: ``"col"`` / ``"row"`` preference of the sharded
+    backend (see :class:`PackedLinear`)."""
     bits = validate_bits(bits)
+    if partition not in (None, "col", "row"):
+        raise ValueError(
+            f"partition must be 'col', 'row' or None, got {partition!r}")
     if w.ndim not in (2, 3):
         raise ValueError("weight must be (K, N) or stacked (E, K, N), got "
                          f"{tuple(w.shape)}")
@@ -71,7 +95,35 @@ def pack_linear(w: torch.Tensor, bits: int = 8, *,
             f"in_features {k} * bits {bits} must pack into whole int8 words")
     q, scale = quantize_symmetric(w, bits, axis=-2)
     return PackedLinear(pack_weights(q, bits, axis=-2), scale, bias, bits, k,
-                        n)
+                        n, partition)
+
+
+def partition_kind(lin: PackedLinear, msize: int) -> str:
+    """How one packed weight shards over a model axis of size ``msize``
+    (the JAX package's rule).
+
+    ``lin.partition`` states a preference and wins whenever its axis
+    divides.  Otherwise ``"col"`` is preferred over ``"row"`` (no
+    collective).  ``"row"`` requires both the packed int8 rows *and* the
+    unpacked feature count to divide, so every shard unpacks whole
+    features.  ``"replicate"``: stacked-expert weights, trivial meshes, or
+    nothing divisible; never an error.
+    """
+    if lin.packed.ndim != 2 or msize <= 1:
+        return "replicate"
+    col_ok = lin.out_features > 0 and lin.out_features % msize == 0
+    kp = lin.packed.shape[-2]
+    row_ok = (kp % msize == 0 and lin.in_features > 0
+              and lin.in_features % msize == 0)
+    if lin.partition == "row" and row_ok:
+        return "row"
+    if lin.partition == "col" and col_ok:
+        return "col"
+    if col_ok:
+        return "col"
+    if row_ok:
+        return "row"
+    return "replicate"
 
 
 def as_packed(p: Any, *, bits_hint: Optional[int] = None) -> PackedLinear:

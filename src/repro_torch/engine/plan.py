@@ -9,7 +9,7 @@ path are pinned here.  Names are concrete, never ``"auto"``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -28,13 +28,24 @@ class EnginePlan:
     packing (0 = dense weights on a kv-only plan); ``radix``: bits retired
     per bit-serial pass; ``kv_bits``: 0 or 8 (int8 KV pages);
     ``attn_backend``: ``gather`` or ``cuda``.  Outputs take the activation
-    dtype."""
+    dtype.
+
+    The ``sharded`` backend's fields (``engine/sharded.py``): ``mesh``,
+    this rank's :class:`~repro_torch.dist.hints.Mesh` (None: the wrapped
+    backend runs the whole weight); ``model_axis``, the axis the weights'
+    bit-planes shard over; ``inner_backend``, the single-device backend
+    each rank runs on its shard; ``psum_bits``, the row-parallel sum's
+    precision (0 exact float32, 4/8 the compressed codes)."""
 
     backend: str
     bits: int
     radix: int = 1
     kv_bits: int = 0
     attn_backend: str = "gather"
+    mesh: Any = None
+    model_axis: str = "model"
+    inner_backend: Optional[str] = None
+    psum_bits: int = 0
 
     def __post_init__(self):
         if self.kv_bits not in (0, 8):
@@ -46,9 +57,23 @@ class EnginePlan:
         if self.bits % self.radix != 0:
             raise ValueError(
                 f"radix {self.radix} must divide bits {self.bits}")
+        if self.psum_bits not in (0, 4, 8):
+            raise ValueError(
+                f"psum_bits must be 0/4/8, got {self.psum_bits}")
         get_backend(self.backend)  # a typo fails here, not mid-step
         if self.attn_backend not in ("gather", "cuda"):
             raise KeyError(f"unknown attention backend {self.attn_backend!r}")
+        if self.backend == "sharded":
+            get_backend(self.inner_backend)
+            if self.inner_backend == "sharded":
+                raise ValueError(
+                    "the sharded backend cannot wrap itself; pick a "
+                    "single-device inner_backend")
+            if (self.mesh is not None
+                    and self.model_axis not in self.mesh.axis_names):
+                raise ValueError(
+                    f"model_axis {self.model_axis!r} not in mesh axes "
+                    f"{tuple(self.mesh.axis_names)}")
 
     def apply(self, lin, x: torch.Tensor) -> torch.Tensor:
         """``y = x @ W [+ bias]`` for ``x`` of shape ``(..., in_features)``.
@@ -86,23 +111,32 @@ class EnginePlan:
                                                  max_rows, x.dtype)
 
 
-def resolve_plan(cfg, *, device) -> Optional[EnginePlan]:
+def resolve_plan(cfg, *, device, mesh=None) -> Optional[EnginePlan]:
     """``EngineConfig`` (or None) -> ``EnginePlan`` (or None).
 
     None, or a config with ``weight_bits == 0`` and ``kv_bits == 0``,
     resolves to None: the plain dense path.  ``auto`` names resolve by
-    ``device``.  A resolved plan is returned unchanged.
+    ``device``.  With ``EngineConfig(sharded=True)`` the plan's backend is
+    ``sharded`` and the configured backend becomes its ``inner_backend``;
+    ``mesh`` (this rank's mesh, or None) rides in the plan.  A resolved
+    plan is returned unchanged.
     """
     if cfg is None or isinstance(cfg, EnginePlan):
         return cfg
     if not cfg.enabled and not cfg.kv_bits:
         return None
+    name, inner = resolve_backend_name(cfg.backend, device), None
+    if cfg.sharded and name != "sharded":
+        name, inner = "sharded", name
     return EnginePlan(
-        backend=resolve_backend_name(cfg.backend, device),
+        backend=name,
         bits=cfg.weight_bits,
         radix=cfg.radix,
         kv_bits=cfg.kv_bits,
         attn_backend=resolve_attn_backend(cfg.attn_backend, device),
+        mesh=mesh,
+        inner_backend=inner,
+        psum_bits=cfg.psum_bits,
     )
 
 

@@ -8,7 +8,7 @@ plain ``{"w", "bias"?}`` weight to ``torch.matmul`` and an engine
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -49,15 +49,21 @@ def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return rms_norm(x, scale, eps) * F.silu(z.to(torch.float32)).to(x.dtype)
 
 
-def swiglu(p: dict, x: torch.Tensor, plan: Optional[EnginePlan] = None
-           ) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, plan: Optional[EnginePlan] = None,
+           down: Optional[Callable] = None) -> torch.Tensor:
+    """The gated (SiLU) MLP, or the plain GELU one without ``w_gate``.
+    ``down(w, h)``: how ``w_down`` is applied (default :func:`dense`; a
+    rank of a mesh passes its row-parallel sum)."""
+    if down is None:
+        def down(w, h):
+            return dense(w, h, plan)
     if "w_gate" not in p:
         # plain GELU MLP, in the tanh form: ``jax.nn.gelu``'s default
-        return dense(p["w_down"], F.gelu(dense(p["w_up"], x, plan),
-                                         approximate="tanh"), plan)
+        return down(p["w_down"], F.gelu(dense(p["w_up"], x, plan),
+                                        approximate="tanh"))
     gate = dense(p["w_gate"], x, plan)
     up = dense(p["w_up"], x, plan)
-    return dense(p["w_down"], F.silu(gate) * up, plan)
+    return down(p["w_down"], F.silu(gate) * up)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -55,15 +55,24 @@ arrays from donated functional updates.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import FAMILIES, PAGED_FAMILIES, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.engine import EnginePlan, pack_linear, resolve_attn_backend
+from repro_torch.dist.collectives import all_gather, all_reduce, psum_partial
+from repro_torch.dist.sharding import _ROW
+from repro_torch.engine import (
+    EnginePlan,
+    as_packed,
+    is_packed,
+    pack_linear,
+    resolve_attn_backend,
+)
 from repro_torch.engine.plan import resolve_plan
+from repro_torch.engine.sharded import sharded_paged_attention
 from repro_torch.models.attention import (
     FLASH_THRESHOLD,
     attend_decode,
@@ -72,8 +81,6 @@ from repro_torch.models.attention import (
     attend_dense,
     attend_flash,
     attend_local_gather,
-    attend_paged_decode,
-    attend_paged_prefill,
 )
 from repro_torch.models.layers import (
     apply_rope,
@@ -198,7 +205,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         head = init_linear(gen, cfg.d_model,
                            cfg.vocab_size * cfg.n_codebooks, dtype)
         if engine_bits:
-            head = pack_linear(head["w"], engine_bits, bias=head.get("bias"))
+            head = pack_linear(head["w"], engine_bits, bias=head.get("bias"),
+                               partition=_partition("lm_head"))
         params["lm_head"] = head
     return params
 
@@ -214,9 +222,11 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 # ---------------------------------------------------------------------------
 
 
-def _mlp_apply(lp, x, cfg, plan):
+def _mlp_apply(lp, x, cfg, plan, view=None):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(lp["mlp"], h, plan)
+    down = functools.partial(_row_dense, plan=plan,
+                             group=view.mlp_group if view else None)
+    return x + swiglu(lp["mlp"], h, plan, down)
 
 
 def _moe_apply(lp, x, cfg, plan, counts=None):
@@ -225,13 +235,14 @@ def _moe_apply(lp, x, cfg, plan, counts=None):
     return x + y, aux
 
 
-def _ffn_apply(lp, x, cfg, plan, counts=None):
+def _ffn_apply(lp, x, cfg, plan, counts=None, view=None):
     """A layer's second sub-block: the MoE block (with its aux loss) in a
     moe layer, the MLP (aux None) otherwise.  ``counts``: the MoE block's
-    ``(E,)`` rows-per-expert output."""
+    ``(E,)`` rows-per-expert output; ``view``: a mesh rank's
+    :class:`RankView`."""
     if "moe" in lp:
         return _moe_apply(lp, x, cfg, plan, counts)
-    return _mlp_apply(lp, x, cfg, plan), None
+    return _mlp_apply(lp, x, cfg, plan, view), None
 
 
 def _layer_counts(expert_counts, layer):
@@ -239,10 +250,21 @@ def _layer_counts(expert_counts, layer):
 
 
 def _embed(params: Params, tokens: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+           cfg: ModelConfig, view=None) -> torch.Tensor:
     """``(B, S)`` token ids -> ``(B, S, D)`` embeddings; for the audio
     family ``(B, S, K)`` ids, the K codebooks' embeddings summed in
-    codebook order, as the JAX package sums them."""
+    codebook order, as the JAX package sums them.  On a mesh rank whose
+    table holds a slice of the vocabulary rows, each rank looks up the
+    ids it holds, zeroes the rest, and the model group sums them."""
+    if view is not None and view.vocab_group is not None:
+        table = params["embed"]
+        ids = tokens.long() - view.vocab_lo
+        held = (ids >= 0) & (ids < table.shape[0])
+        x = torch.where(held[..., None],
+                        table[torch.clamp(ids, 0, table.shape[0] - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        return all_reduce(x, view.vocab_group)
     if cfg.family == "audio":
         tokens = tokens.long()
         return sum(params["embed"][k][tokens[..., k]]
@@ -275,8 +297,12 @@ def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     return x, positions
 
 
-def _lm_logits(params, x, cfg, plan):
-    """``(B, S, V)`` logits, ``(B, S, K, V)`` for the audio family."""
+def _lm_logits(params, x, cfg, plan, view=None):
+    """``(B, S, V)`` logits, ``(B, S, K, V)`` for the audio family.  On a
+    mesh rank whose head holds a slice of the vocabulary (the tied
+    embedding's rows, or an untied head's column-parallel slice), the
+    model group gathers the slices to full width before anything reads
+    them."""
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         # a plain large product outside any kernel, as the JAX package
@@ -284,6 +310,8 @@ def _lm_logits(params, x, cfg, plan):
         logits = torch.matmul(h, params["embed"].to(h.dtype).t())
     else:
         logits = dense(params["lm_head"], h, plan)
+    if view is not None and view.head_group is not None:
+        logits = all_gather(logits, view.head_group, dim=-1)
     if cfg.family == "audio":
         logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks,
                                 cfg.vocab_size)
@@ -843,6 +871,86 @@ def decode_step(
 
 
 # ---------------------------------------------------------------------------
+# a mesh rank's view of the model
+# ---------------------------------------------------------------------------
+
+
+class RankView(NamedTuple):
+    """What one rank of a mesh holds, read from its shards' widths in one
+    place (:func:`rank_view`): its query and KV heads, and the model
+    group over which each sharded block sums or gathers (None where the
+    block is whole on the rank)."""
+
+    hq: int
+    hkv: int
+    attn_group: Any       # wo row-parallel: sum its partials
+    mlp_group: Any        # w_down row-parallel: sum its partials
+    vocab_group: Any      # embedding rows sharded: sum the lookups
+    vocab_lo: int         # first vocabulary row this rank holds
+    head_group: Any       # head's logits sharded: gather them
+
+
+def _width(p) -> int:
+    """Output features of a dense or packed linear."""
+    return as_packed(p).out_features if is_packed(p) else p["w"].shape[-1]
+
+
+def rank_view(params: Params, cfg: ModelConfig, mesh,
+              model_axis: str = "model") -> RankView:
+    """This rank's :class:`RankView` (every layer of the dense family is
+    cut alike, so layer 0 speaks for all).  Without a mesh: the whole
+    model, no group."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if mesh is None:
+        return RankView(hq, hkv, None, None, None, 0, None)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family} family does not run on a mesh yet; only "
+            "the dense family serves paged on a mesh (ROADMAP.md queue 1 "
+            "item 8 (a), (b))")
+    group = mesh.group(model_axis)
+    dh = cfg.resolved_head_dim
+    attn = params["layers"][0]["attn"]
+    hq_l, hkv_l = _width(attn["wq"]) // dh, _width(attn["wk"]) // dh
+    mlp = params["layers"][0]["mlp"]
+    vocab = params["embed"].shape[0]
+    if cfg.tie_embeddings:
+        head_sharded = vocab < cfg.vocab_size
+    else:
+        head_sharded = _width(params["lm_head"]) < cfg.vocab_size
+    return RankView(
+        hq_l, hkv_l,
+        attn_group=group if hq_l < hq else None,
+        mlp_group=group if _width(mlp["w_up"]) < cfg.d_ff else None,
+        vocab_group=group if vocab < cfg.vocab_size else None,
+        vocab_lo=mesh.index(model_axis) * vocab,
+        head_group=group if head_sharded else None)
+
+
+def _row_dense(p, x, plan, group):
+    """A row-parallel linear on this rank's slice of the input features,
+    summed over ``group`` (None: the whole linear, :func:`dense`).  A
+    packed one runs the ``sharded`` backend, which sums its float32
+    partials itself; a dense one is multiplied in float32 and summed
+    here.  The bias, whole on every rank, is added once, after the sum."""
+    if group is None:
+        return dense(p, x, plan)
+    if is_packed(p):
+        if (plan is None or plan.backend != "sharded"
+                or as_packed(p).shard != "row"):
+            raise ValueError(
+                "a row-parallel packed linear on a mesh runs through the "
+                "sharded backend (EngineConfig(sharded=True))")
+        return dense(p, x, plan)
+    y = psum_partial(torch.matmul(x.to(torch.float32),
+                                  p["w"].to(torch.float32)), group)
+    y = y.to(x.dtype)
+    if p.get("bias") is not None:
+        y = y + p["bias"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
 # paged-KV serving: decode + chunked prefill against a page-table cache
 # ---------------------------------------------------------------------------
 
@@ -859,17 +967,26 @@ def decode_step_paged(
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
     expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
+    mesh=None,
 ) -> torch.Tensor:
     """One token of greedy decode over paged KV; returns logits
     ``(B, 1, V)`` (``(B, 1, K, V)`` for the audio family).  Inactive lanes
     write their K/V into the null page and their logits are meaningless
     (in a moe layer each lane routes its own token: a lane's capacity is
-    its own).  ``pages`` is updated in place."""
+    its own).  ``pages`` is updated in place.
+
+    ``mesh``: this rank's mesh.  ``params`` and ``pages`` are then the
+    rank's shards (``dist.sharding.serve_param_specs`` /
+    ``local_shard``): the heads it holds run on its KV-head slice of the
+    pool, the row-parallel ``wo`` / ``w_down`` sums and the vocabulary's
+    lookups and logits cross the model group, and the returned logits
+    are full width (the dense family only)."""
     _check_family(cfg)
     plan, abk = _resolve(eng, attn_backend, tokens.device)
+    view = rank_view(params, cfg, mesh)
     b = tokens.shape[0]
-    dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    x = _embed(params, tokens, cfg)
+    dh, hq, hkv = cfg.resolved_head_dim, view.hq, view.hkv
+    x = _embed(params, tokens, cfg, view)
     pos = pos.long()
     pidx, poff = _scatter_targets(block_tables, pos, active, pages.page_size)
     pos2 = pos[:, None]
@@ -883,12 +1000,13 @@ def decode_step_paged(
         k = apply_rope(k, pos2, cfg.rope_theta)
         _write_kv(pages, layer, pidx, poff, k[:, 0], v[:, 0])
         kp, vp, ks, vs = _layer_pools(pages, layer)
-        o = attend_paged_decode(q, kp, vp, block_tables, pos, win,
-                                k_scale=ks, v_scale=vs, attn_backend=abk)
-        x = x + dense(lp["attn"]["wo"], o.reshape(b, 1, hq * dh), plan)
+        o = sharded_paged_attention(q, kp, vp, block_tables, pos, win, ks,
+                                    vs, attn_backend=abk)
+        x = x + _row_dense(lp["attn"]["wo"], o.reshape(b, 1, hq * dh), plan,
+                           view.attn_group)
         x, _ = _ffn_apply(lp, x, cfg, plan,
-                          _layer_counts(expert_counts, layer))
-    return _lm_logits(params, x, cfg, plan)
+                          _layer_counts(expert_counts, layer), view)
+    return _lm_logits(params, x, cfg, plan, view)
 
 
 @torch.no_grad()
@@ -903,6 +1021,7 @@ def prefill_chunk(
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
     expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
+    mesh=None,
 ) -> torch.Tensor:
     """One batched chunk of prompt prefill against paged KV.
 
@@ -913,18 +1032,21 @@ def prefill_chunk(
     logits ``(B, 1, V)`` (``(B, 1, K, V)`` for the audio family);
     ``pages`` is updated in place.  In a moe layer
     every position of a lane's chunk routes, the padding too, and takes
-    capacity from the lane's tokens, as in the JAX package.
+    capacity from the lane's tokens, as in the JAX package.  ``mesh``: as
+    in :func:`decode_step_paged`.
     """
     _check_family(cfg)
     plan, abk = _resolve(eng, attn_backend, tokens.device)
+    view = rank_view(params, cfg, mesh)
     b, c = tokens.shape[:2]
-    dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    dh, hq, hkv = cfg.resolved_head_dim, view.hq, view.hkv
     pos0, seq_lens = pos0.long(), seq_lens.long()
     positions = pos0[:, None] + torch.arange(c, device=tokens.device)[None]
     valid_q = positions < seq_lens[:, None]
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, view)
     pidx, poff = _scatter_targets(block_tables, positions, valid_q,
                                   pages.page_size)
+    bounds = dict(positions=positions, pos0=pos0, seq_lens=seq_lens)
     for layer, (lp, win) in enumerate(zip(params["layers"],
                                           _layer_windows(cfg))):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
@@ -935,15 +1057,15 @@ def prefill_chunk(
         k = apply_rope(k, positions, cfg.rope_theta)
         _write_kv(pages, layer, pidx, poff, k, v)
         kp, vp, ks, vs = _layer_pools(pages, layer)
-        o = attend_paged_prefill(q, kp, vp, block_tables, positions, pos0,
-                                 seq_lens, win, k_scale=ks, v_scale=vs,
-                                 attn_backend=abk)
-        x = x + dense(lp["attn"]["wo"], o.reshape(b, c, hq * dh), plan)
+        o = sharded_paged_attention(q, kp, vp, block_tables, pos0, win, ks,
+                                    vs, attn_backend=abk, prefill=bounds)
+        x = x + _row_dense(lp["attn"]["wo"], o.reshape(b, c, hq * dh), plan,
+                           view.attn_group)
         x, _ = _ffn_apply(lp, x, cfg, plan,
-                          _layer_counts(expert_counts, layer))
+                          _layer_counts(expert_counts, layer), view)
     last = torch.clamp(seq_lens - pos0 - 1, 0, c - 1)
     h_last = x[torch.arange(b, device=x.device), last][:, None]
-    return _lm_logits(params, h_last, cfg, plan)
+    return _lm_logits(params, h_last, cfg, plan, view)
 
 
 # ---------------------------------------------------------------------------
@@ -951,11 +1073,18 @@ def prefill_chunk(
 # ---------------------------------------------------------------------------
 
 
+def _partition(key: str) -> str:
+    """The mesh partition preference stamped on a packed linear, from its
+    name: row-parallel for the sharding rules' row set, else column."""
+    return "row" if key in _ROW else "col"
+
+
 def _quantize_layer(layer: Params, bits: int) -> Params:
     out: Params = {}
     for key, val in layer.items():
         if key in _QUANT_KEYS and isinstance(val, dict) and "w" in val:
-            out[key] = pack_linear(val["w"], bits, bias=val.get("bias"))
+            out[key] = pack_linear(val["w"], bits, bias=val.get("bias"),
+                                   partition=_partition(key))
         elif key in _QUANT_KEYS and torch.is_tensor(val) and val.ndim == 3:
             out[key] = pack_linear(val, bits)             # stacked experts
         elif isinstance(val, dict):

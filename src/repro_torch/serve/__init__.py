@@ -9,6 +9,7 @@ from repro_torch.serve.pages import (
     KVPages,
     LaneTables,
     PageAllocator,
+    ShardedPageAllocator,
     fork_tail_page,
     init_kv_pages,
     pages_for,
@@ -36,6 +37,7 @@ __all__ = [
     "Request",
     "ServeEngine",
     "ServeFrontend",
+    "ShardedPageAllocator",
     "StepGraph",
     "TokenStream",
     "fork_tail_page",

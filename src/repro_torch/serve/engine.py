@@ -94,6 +94,34 @@ id.  **The vlm family** serves text prompts: images enter through
 
 In slots mode the paged-pool options (prefix cache, budget scheduler,
 audits) are refused or warned about as the JAX package does.
+
+**On a mesh** (``mesh=``, this process's rank of a ``(data, model)``
+:class:`~repro_torch.dist.hints.Mesh`; the dense family, paged mode):
+every rank constructs the same engine from the same params and receives
+the same submissions, and holds only its shards.  The params are placed
+by ``dist.sharding.serve_param_specs`` (JAX's ``param_shardings`` with
+whole heads) and cut by ``local_shard``; packed weights then run the
+``sharded`` backend (``EngineConfig(sharded=True)``).  The pool holds the
+rank's KV heads.  The host schedule (scheduler, allocator, prefix cache,
+preemption, sampling) runs identically on every rank, and every step's
+logits are gathered to full width and over all lanes before sampling, so
+every rank samples the same tokens and ``run()`` returns the same
+requests everywhere.
+
+Lanes and pages shard over the data axes together: where the lanes
+divide over them, data shard r runs only its lanes, which draw pages only
+from its own range of the pool (``ShardedPageAllocator``), and its ranks
+hold that range alone and read it through local page ids.  The JAX
+package keeps the pool sharded over data but all-gathers it before every
+kernel; at ``main``'s size that is ≈151 MB a step, which the port does
+not move.  Lanes and pages stay whole over the data axes (every data
+shard computes every lane) where the lanes do not divide, where a shard's
+range could not hold one ``max_len`` request, or with the prefix cache
+(a cached page may serve any lane).  ``mesh_layout`` says which.
+
+A step on a mesh runs host collectives (``gloo`` cannot be captured), so
+``cuda_graphs`` must be False there.  The other families, slots mode,
+snapshots and chaos injection raise ``NotImplementedError`` on a mesh.
 """
 
 from __future__ import annotations
@@ -116,7 +144,15 @@ from repro_torch.config.base import (
     ServeConfig,
 )
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import collectives
+from repro_torch.dist.collectives import all_gather
+from repro_torch.dist.sharding import (
+    local_shard,
+    pool_pages_for_mesh,
+    serve_param_specs,
+)
 from repro_torch.engine import resolve_attn_backend, resolve_plan
+from repro_torch.engine.sharded import lane_partition
 from repro_torch.ft.failures import RestartPolicy
 from repro_torch.models.transformer import (
     decode_step,
@@ -124,12 +160,14 @@ from repro_torch.models.transformer import (
     init_cache,
     prefill_chunk as _prefill_chunk_fn,
     quantize_params,
+    rank_view,
 )
 from repro_torch.serve.pages import (
     NULL_PAGE,
     AuditError,
     LaneTables,
     PageAllocator,
+    ShardedPageAllocator,
     fork_tail_page,
     init_kv_pages,
     pages_for,
@@ -234,6 +272,26 @@ def _check_slots_options(scfg: ServeConfig, prefix_cache: bool,
                        "(no page pool)")
 
 
+def _check_mesh_options(cfg: ModelConfig, mode: str, cuda_graphs: bool,
+                        chaos) -> None:
+    """What a mesh does not serve yet raises, naming where it is queued."""
+    if cfg.family != "dense" or mode != "paged":
+        raise NotImplementedError(
+            f"on a mesh only the dense family serves, in paged mode (got "
+            f"{cfg.family!r}, {mode!r}); the other families and slots mode "
+            "are ROADMAP.md queue 1 item 8 (a) and (b)")
+    if cuda_graphs:
+        raise ValueError(
+            "cuda_graphs=True on a mesh: a step runs torch.distributed "
+            "collectives, which a CUDA graph cannot capture over gloo (the "
+            "transport of ranks sharing one card); pass cuda_graphs=False. "
+            "Graphs on a mesh wait for NCCL over two or more cards "
+            "(ROADMAP.md queue 1 item 8 (e))")
+    if chaos is not None:
+        raise NotImplementedError(
+            "chaos injection on a mesh is ROADMAP.md queue 1 item 8 (c)")
+
+
 def _host_tensor(a) -> torch.Tensor:
     """A snapshot array as a CPU tensor: a tensor as it is, a numpy array
     without a copy (a bfloat16 one, from the JAX package, through its
@@ -271,12 +329,16 @@ class ServeEngine:
 
     ``cuda_graphs``: on a CUDA device, run each step as a replayed CUDA
     graph (the default) or eagerly (False); the params and the pool or
-    cache are captured by address and must not be rebound.  ``timings``
-    records the host-clock seconds of every prefill chunk (in slots mode,
-    every prompt's sequential prefill) and decode step, each measured up
-    to the host sync that reads its logits, and apart from them the
-    seconds of each graph capture (``"capture"``) and of each audit
-    (``"audit"``).
+    cache are captured by address and must not be rebound.  ``mesh``:
+    serve as this rank of a mesh (see the module docstring); its
+    ``device`` is the default device, and ``cuda_graphs`` must be False.
+    ``timings`` records the host-clock seconds of every prefill chunk (in
+    slots mode, every prompt's sequential prefill) and decode step, each
+    measured up to the host sync that reads its logits, and apart from
+    them the seconds of each graph capture (``"capture"``) and of each
+    audit (``"audit"``); on a mesh, each step's seconds inside
+    collectives (``"collectives"``) and waiting for the device before
+    them (``"collective_wait"``).
     """
 
     def __init__(
@@ -299,8 +361,10 @@ class ServeEngine:
         device: DeviceLike = None,
         telemetry=None,
         chaos=None,
+        mesh=None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
         self.scfg = scfg or ServeConfig()
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown model family {cfg.family!r}")
@@ -325,9 +389,14 @@ class ServeEngine:
             # every fired fault reports through the engine's telemetry,
             # the allocator's page_grant site included
             chaos.obs = self.obs
+        if mesh is not None:
+            _check_mesh_options(cfg, self.mode, cuda_graphs, chaos)
+            if device is None:
+                device = mesh.device
         self.device = resolve_device(device)
         # the EngineConfig is resolved into an EnginePlan exactly once
-        self.plan = resolve_plan(self.scfg.engine, device=self.device)
+        self.plan = resolve_plan(self.scfg.engine, device=self.device,
+                                 mesh=mesh)
         self.kv_bits = self.plan.kv_bits if self.plan is not None else 0
         if self.kv_bits and self.mode == "slots":
             raise ValueError(
@@ -335,6 +404,8 @@ class ServeEngine:
                 "mode='slots' serves the full-precision cache only")
         if self.plan is not None and self.plan.bits:
             params = quantize_params(params, cfg, self.plan.bits)
+        if mesh is not None:
+            params = self._shard_params(params)
         self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
@@ -355,7 +426,9 @@ class ServeEngine:
         self._errored_step: List[Request] = []
         self.obs.attach_engine(n_slots, self.mode)
         self.timings: Dict[str, List[float]] = {"prefill": [], "decode": [],
-                                                "capture": [], "audit": []}
+                                                "capture": [], "audit": [],
+                                                "collectives": [],
+                                                "collective_wait": []}
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.cuda_graphs else None)
@@ -382,10 +455,18 @@ class ServeEngine:
             n_pages = self.scfg.n_pages
         if not n_pages:  # full rectangle + null page: never preempts
             n_pages = self.n_slots * self._max_blocks + 1
-        self.pages = init_kv_pages(self.cfg, n_pages, self.page_size,
-                                   kv_bits=self.kv_bits, device=self.device)
-        self.alloc = PageAllocator(n_pages, self.page_size, self.n_slots,
-                                   self.max_len, obs=self.obs)
+        n_pages, lanes_local, pool_pages = self._mesh_layout(n_pages,
+                                                              prefix_cache)
+        self.pages = init_kv_pages(self.cfg, pool_pages, self.page_size,
+                                   kv_bits=self.kv_bits, device=self.device,
+                                   n_kv_heads=self._kv_heads)
+        if self._lane_shard is not None:
+            self.alloc = ShardedPageAllocator(
+                n_pages, self.page_size, self.n_slots, self.max_len,
+                self.mesh_layout["data_shards"], obs=self.obs)
+        else:
+            self.alloc = PageAllocator(n_pages, self.page_size, self.n_slots,
+                                       self.max_len, obs=self.obs)
         self.alloc.chaos = self.chaos  # page_grant fault site
         if prefix_cache:  # attaches itself to the allocator
             self.prefix_cache = PrefixCache(self.alloc, obs=self.obs)
@@ -404,12 +485,13 @@ class ServeEngine:
         # the scheduler's own queue and lane table, under the names slots
         # mode gives its own
         self.queue, self.slot_req = self.sched.queue, self.sched.slot_req
-        self.lanes = LaneTables(self.n_slots, self.device,
+        self.lanes = LaneTables(lanes_local, self.device,
                                 max_blocks=self._max_blocks,
                                 chunk=self.prefill_chunk,
                                 codebooks=self._codebooks)
         params, pages, lanes = self.params, self.pages, self.lanes
         cfg, plan, abk = self.cfg, self.plan, self.attn_backend
+        mesh = self.mesh
         counts = {"decode": None, "prefill": None}
         if cfg.family == "moe":
             counts = self.expert_counts = {
@@ -419,11 +501,11 @@ class ServeEngine:
         self._decode_paged = self._step_fn(lambda: decode_step_paged(
             params, pages, lanes.block_tables, lanes.pos, lanes.active,
             lanes.tokens, cfg, plan, attn_backend=abk,
-            expert_counts=counts["decode"]))
+            expert_counts=counts["decode"], mesh=mesh))
         self._prefill_paged = self._step_fn(lambda: _prefill_chunk_fn(
             params, pages, lanes.block_tables, lanes.chunk_tokens,
             lanes.pos0, lanes.seq_lens, cfg, plan, attn_backend=abk,
-            expert_counts=counts["prefill"]))
+            expert_counts=counts["prefill"], mesh=mesh))
         # the cost ledger's tables: the steps' shapes are fixed at
         # construction, so one table per step kind prices every step.
         # Built at the first charged step; with obs off they never exist.
@@ -448,12 +530,80 @@ class ServeEngine:
 
     def _step_fn(self, fn):
         """``fn`` as the engine runs it: a :class:`StepGraph` when graphs
-        are on, else ``fn`` itself."""
+        are on, else ``fn`` itself (on a mesh, with the collectives' host
+        seconds counted from its start)."""
+        if self.mesh is not None:
+            def step():
+                collectives.reset_seconds()
+                return fn()
+            return step
         if not self.cuda_graphs:
             return fn
         graph = StepGraph(fn, pool=self._graph_pool)
         self._graphs.append(graph)
         return graph
+
+    # ----------------------------------------------------------------- mesh
+    def _shard_params(self, params):
+        """This rank's shards of ``params`` (whole on every rank until
+        now), placed by ``serve_param_specs``; packed weights need the
+        ``sharded`` backend, which sums the row-parallel partials."""
+        if (self.plan is not None and self.plan.bits
+                and self.plan.backend != "sharded"):
+            raise ValueError(
+                "packed weights on a mesh run through the sharded backend: "
+                "pass EngineConfig(sharded=True)")
+        self.param_specs = serve_param_specs(self.mesh, params, self.cfg)
+        return local_shard(params, self.param_specs, self.mesh)
+
+    def _mesh_layout(self, n_pages: int, prefix_cache: bool):
+        """``(n_pages, lanes this rank runs, pages this rank holds)``, and
+        ``mesh_layout`` / ``_lane_shard`` / ``_kv_heads`` set: KV heads
+        over ``model`` when they divide, lanes and pages over the data
+        axes when the module docstring's conditions hold."""
+        self._lane_shard = self._lane_group = None
+        self._kv_heads = self.mesh_layout = None
+        if self.mesh is None:
+            return n_pages, self.n_slots, n_pages
+        mesh = self.mesh
+        self._kv_heads = rank_view(self.params, self.cfg, mesh).hkv
+        _, shards = lane_partition(mesh, "model", self.cfg.n_kv_heads,
+                                   self.n_slots)
+        padded = pool_pages_for_mesh(n_pages, mesh)
+        why = None
+        if shards > 1 and prefix_cache:
+            why = "the prefix cache may share a page with any lane"
+        elif shards > 1 and padded // shards < self._max_blocks + 1:
+            why = (f"a shard's {padded // shards} pages cannot hold one "
+                   f"max_len request")
+        elif shards == 1 and mesh.count(mesh.data_axes()) > 1:
+            why = "lanes do not divide over the data axes"
+        if why:
+            shards = 1
+        self.mesh_layout = {"mesh": dict(mesh.shape),
+                            "kv_heads": self._kv_heads,
+                            "data_shards": shards,
+                            "whole_over_data": why}
+        if shards == 1:
+            return n_pages, self.n_slots, n_pages
+        daxes = mesh.data_axes()
+        self._lane_shard = mesh.index(daxes)
+        self._lane_group = mesh.group(daxes)
+        return padded, self.n_slots // shards, padded // shards
+
+    def _load_lanes(self, **arrays) -> None:
+        """Refill the lane buffers; on a lane-sharded mesh with this data
+        shard's rows, its block tables in local page ids."""
+        if self._lane_shard is not None:
+            arrays = {k: self.alloc.local_rows(
+                v, self._lane_shard, pages=(k == "block_tables"))
+                for k, v in arrays.items()}
+        self.lanes.load(**arrays)
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh is ROADMAP.md queue 1 item 8 (c)")
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt: List[int],
@@ -490,7 +640,7 @@ class ServeEngine:
             raise AdmissionRejected("queue_full")
         if (self.mode == "paged"
                 and pages_for(len(prompt) + 1, self.page_size)
-                > self.alloc.n_pages - 1):
+                > self.alloc.capacity):
             self.shed_count += 1
             self.obs.on_shed("pool_too_small")
             raise AdmissionRejected("pool_too_small")
@@ -783,6 +933,7 @@ class ServeEngine:
         caller's, not the engine's, and are left out; telemetry state
         restarts fresh.  Persist it with :meth:`save_snapshot`.
         """
+        self._no_mesh("snapshot")
         if self.mode != "paged":
             raise ValueError("snapshot() covers the paged engine only")
         arrays: Dict = {name: t.detach().to("cpu", copy=True)
@@ -865,6 +1016,7 @@ class ServeEngine:
         generator, whose draws differ from JAX's anyway, and greedy
         decoding reads none.
         """
+        self._no_mesh("restore")
         if self.mode != "paged":
             raise ValueError("restore() covers the paged engine only")
         host = snap["host"]
@@ -991,7 +1143,16 @@ class ServeEngine:
 
     # ============================================================ internals
     def _host_logits(self, logits: torch.Tensor) -> np.ndarray:
-        return logits.float().cpu().numpy()  # host sync: the step landed
+        if self.mesh is None:
+            return logits.float().cpu().numpy()  # host sync: the step landed
+        # on a mesh, every data shard's lanes first (and the step's host
+        # seconds in collectives noted)
+        if self._lane_group is not None:
+            logits = all_gather(logits, self._lane_group, dim=0)
+        out = logits.float().cpu().numpy()
+        self.timings["collectives"].append(collectives.SECONDS[0])
+        self.timings["collective_wait"].append(collectives.WAIT[0])
+        return out
 
     def _timed(self, part: str, t0: float, captured: float) -> None:
         """Record a step that started at ``t0``, when the engine's captures
@@ -1047,9 +1208,9 @@ class ServeEngine:
         t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
         with self.obs.annotate("serve.prefill_chunk"):
-            self.lanes.load(block_tables=self.alloc.block_tables,
-                            chunk_tokens=tokens, pos0=pos0,
-                            seq_lens=seq_lens)
+            self._load_lanes(block_tables=self.alloc.block_tables,
+                             chunk_tokens=tokens, pos0=pos0,
+                             seq_lens=seq_lens)
             lg = self._host_logits(self._prefill_paged())
         self._timed("prefill", t0, captured)
         self._note_experts("prefill")
@@ -1102,8 +1263,8 @@ class ServeEngine:
         t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
         with self.obs.annotate("serve.decode_step"):
-            self.lanes.load_tables(self.alloc)
-            self.lanes.load(
+            self._load_lanes(
+                block_tables=self.alloc.block_tables, pos=self.alloc.pos,
                 active=self.sched.lane_mask(s for s, _ in ready),
                 tokens=tokens)
             lg = self._host_logits(self._decode_paged())
@@ -1272,7 +1433,8 @@ class ServeEngine:
         """A step's tokens, ``(n_slots, 1)`` (``(n_slots, 1, K)`` for the
         audio family, each id broadcast over the codebooks): ``updates``
         maps a lane to its token, the other lanes hold 0."""
-        tokens = np.zeros(tuple(self.lanes.tokens.shape), np.int32)
+        tokens = np.zeros((self.n_slots,) + tuple(self.lanes.tokens.shape[1:]),
+                          np.int32)
         for slot, tok in updates.items():
             tokens[slot, 0] = tok
         return tokens

@@ -19,6 +19,9 @@ allocation.
   free list; ``_take_page`` evicts such pages when the free list runs dry.
   An attached ``ChaosInjector`` fails page grants at its ``page_grant``
   site, and the allocator reports pool occupancy to its telemetry.
+* :class:`ShardedPageAllocator` — the allocator of a mesh whose lanes
+  and pages are split over its data shards: each shard's lanes take
+  pages from the shard's own range of the pool.
 * :func:`fork_tail_page` — the copy-on-write step of a mid-page cache
   hit: the donor's partly filled page is copied, in place, into the
   request's own page.
@@ -73,8 +76,11 @@ class KVPages:
 
 def init_kv_pages(cfg: ModelConfig, n_pages: int, page_size: int,
                   dtype=None, kv_bits: int = 0, *,
-                  device: DeviceLike = None) -> KVPages:
-    """An all-zeros page pool for ``cfg`` on ``device`` (None: the GPU)."""
+                  device: DeviceLike = None,
+                  n_kv_heads: Optional[int] = None) -> KVPages:
+    """An all-zeros page pool for ``cfg`` on ``device`` (None: the GPU).
+    ``n_kv_heads``: the KV heads the pool holds (default
+    ``cfg.n_kv_heads``; a mesh rank's pool holds its slice)."""
     device = resolve_device(device)
     if cfg.family not in PAGED_FAMILIES:
         raise ValueError(
@@ -85,7 +91,8 @@ def init_kv_pages(cfg: ModelConfig, n_pages: int, page_size: int,
     dtype = dtype or getattr(torch, cfg.dtype)
     if kv_bits:
         dtype = torch.int8
-    dh, hkv, nl = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_layers
+    dh, nl = cfg.resolved_head_dim, cfg.n_layers
+    hkv = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
     shape = (nl, n_pages, page_size, hkv, dh)
     k = torch.zeros(shape, dtype=dtype, device=device)
     v = torch.zeros(shape, dtype=dtype, device=device)
@@ -166,16 +173,35 @@ class PageAllocator:
 
     @property
     def used_pages(self) -> int:
-        return (self.n_pages - 1) - len(self.free)
+        return (self.n_pages - len(self._reserved())) - len(self.free)
 
-    def can_allocate(self, n_pages: int) -> bool:
-        """Could ``n_pages`` fresh pages be produced now, from the free
-        list and then from evictable cached pages?"""
+    @property
+    def capacity(self) -> int:
+        """The most pages one request can hold."""
+        return self.n_pages - 1
+
+    def _reserved(self) -> set:
+        """Pages that are never allocated (the null page)."""
+        return {NULL_PAGE}
+
+    def shares_pool(self, slot_a: int, slot_b: int) -> bool:
+        """Do the two lanes draw pages from one pool (so preempting one
+        frees pages for the other)?"""
+        return True
+
+    def can_allocate(self, n_pages: int, slot: Optional[int] = None
+                     ) -> bool:
+        """Could ``n_pages`` fresh pages be produced now (for ``slot``),
+        from the free list and then from evictable cached pages?"""
         if n_pages <= len(self.free):
             return True
         return n_pages <= len(self.free) + self.evictable_pages
 
     # --------------------------------------------------------- allocation
+    def _take_for(self, slot: int) -> Optional[int]:
+        """A page for ``slot`` (:meth:`_take_page`: any slot's will do)."""
+        return self._take_page()
+
     def _take_page(self) -> Optional[int]:
         """Pop a free page, evicting a cached refcount-0 page first when
         the free list is dry; None when neither has one.  The chaos hook
@@ -193,7 +219,7 @@ class PageAllocator:
     def alloc_page(self, slot: int) -> Optional[int]:
         """Allocate one private page as ``slot``'s next block (refcount
         1): the copy-on-write target of a mid-page cache hit."""
-        page = self._take_page()
+        page = self._take_for(slot)
         if page is None:
             return None
         self.refcount[page] = 1
@@ -235,11 +261,11 @@ class PageAllocator:
         have = len(self._mapped[slot])
         if need <= have:
             return True
-        if not self.can_allocate(need - have):
+        if not self.can_allocate(need - have, slot):
             return False
         granted: List[int] = []
         for blk in range(have, need):
-            page = self._take_page()
+            page = self._take_for(slot)
             if page is None:
                 for g in reversed(granted):
                     self._mapped[slot].pop()
@@ -305,13 +331,15 @@ class PageAllocator:
         def fail(msg: str) -> None:
             raise AuditError(f"PageAllocator.audit: {msg}")
 
-        if self.refcount[NULL_PAGE] != 0:
-            fail(f"null page has refcount {self.refcount[NULL_PAGE]}")
+        reserved = self._reserved()
+        for p in reserved:
+            if self.refcount[p] != 0:
+                fail(f"null page {p} has refcount {self.refcount[p]}")
         free_set = set(self.free)
         if len(free_set) != len(self.free):
             fail("free list holds duplicate pages")
         for p in self.free:
-            if not NULL_PAGE < p < self.n_pages:
+            if not 0 <= p < self.n_pages or p in reserved:
                 fail(f"free list holds out-of-range page {p}")
             if self.refcount[p]:
                 fail(f"free page {p} has refcount {self.refcount[p]}")
@@ -325,7 +353,7 @@ class PageAllocator:
             mapped, row = self._mapped[slot], self.block_tables[slot]
             n = len(mapped)
             for blk, page in enumerate(mapped):
-                if not NULL_PAGE < page < self.n_pages:
+                if not self._in_pool(slot, page):
                     fail(f"slot {slot} maps out-of-range page {page}")
                 if row[blk] != page:
                     fail(f"slot {slot} block {blk}: table says {row[blk]}, "
@@ -345,10 +373,14 @@ class PageAllocator:
                  f"{int(counts[p])} block-table references")
         if free_set & mapped_set:
             fail(f"page {min(free_set & mapped_set)} is free and mapped")
-        leaked = set(range(1, self.n_pages)) - free_set - mapped_set - cached
+        leaked = (set(range(self.n_pages)) - reserved - free_set - mapped_set
+                  - cached)
         if leaked:
             fail(f"pages leaked (not free, mapped or cached): "
                  f"{sorted(leaked)[:8]}")
+
+    def _in_pool(self, slot: int, page: int) -> bool:
+        return NULL_PAGE < page < self.n_pages
 
     def device_tables(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(block_tables, pos)`` as new int32 tensors on ``device`` (the
@@ -356,6 +388,94 @@ class PageAllocator:
         instead)."""
         return (torch.from_numpy(self.block_tables).to(device),
                 torch.from_numpy(self.pos).to(device))
+
+
+class ShardedPageAllocator(PageAllocator):
+    """A :class:`PageAllocator` whose lanes and pages are split over
+    ``shards`` data shards of a mesh: shard r's lanes ``[r·B/d, (r+1)·B/d)``
+    draw pages only from its range ``[r·P/d, (r+1)·P/d)`` of the pool, the
+    range a rank of that shard holds.  The first page of every range is
+    that shard's null page, never allocated (a rank's local page 0, where
+    its idle lanes write).  Block tables hold global page ids;
+    :meth:`local_rows` gives one shard's rows in its local ids.
+
+    Preemption frees pages only within a shard (:meth:`shares_pool`).  A
+    prefix cache is not attached: a cached page could serve a lane of
+    another shard, which does not hold it (the engine keeps lanes and
+    pages whole over the data axes when the prefix cache is on).
+    """
+
+    def __init__(self, n_pages: int, page_size: int, n_slots: int,
+                 max_len: int, shards: int, obs=None):
+        super().__init__(n_pages, page_size, n_slots, max_len, obs=obs)
+        if n_pages % shards or n_slots % shards:
+            raise ValueError(f"{n_pages} pages and {n_slots} lanes must "
+                             f"both divide over {shards} data shards")
+        self.shards = shards
+        self.shard_pages = n_pages // shards
+        self.shard_lanes = n_slots // shards
+        if self.shard_pages < self.max_blocks + 1:
+            raise ValueError(
+                f"a shard's {self.shard_pages} pages cannot hold one "
+                f"max_len={max_len} request (needs {self.max_blocks} pages "
+                "+ the shard's null page)")
+        self.free = [p for p in self.free if p % self.shard_pages]
+
+    def attach_cache(self, cache) -> None:
+        raise NotImplementedError(
+            "a prefix cache over pages sharded by data shard: serve with "
+            "lanes and pages whole over the data axes")
+
+    @property
+    def capacity(self) -> int:
+        return self.shard_pages - 1
+
+    def _reserved(self) -> set:
+        return set(range(0, self.n_pages, self.shard_pages))
+
+    def shard_of(self, slot: int) -> int:
+        return slot // self.shard_lanes
+
+    def shares_pool(self, slot_a: int, slot_b: int) -> bool:
+        return self.shard_of(slot_a) == self.shard_of(slot_b)
+
+    def _in_pool(self, slot: int, page: int) -> bool:
+        return (page // self.shard_pages == self.shard_of(slot)
+                and page % self.shard_pages != 0)
+
+    def _free_in(self, shard: int) -> List[int]:
+        return [i for i, p in enumerate(self.free)
+                if p // self.shard_pages == shard]
+
+    def can_allocate(self, n_pages: int, slot: Optional[int] = None
+                     ) -> bool:
+        if slot is None:
+            raise ValueError("a sharded pool allocates for a lane: pass "
+                             "slot")
+        return n_pages <= len(self._free_in(self.shard_of(slot)))
+
+    def _take_for(self, slot: int) -> Optional[int]:
+        if self.chaos is not None and self.chaos.fire("page_grant"):
+            return None
+        held = self._free_in(self.shard_of(slot))
+        return self.free.pop(held[-1]) if held else None
+
+    def _take_page(self) -> Optional[int]:
+        raise TypeError("a sharded pool grants pages for a lane: "
+                        "_take_for(slot)")
+
+    def local_rows(self, lanes: np.ndarray, shard: int, *,
+                   pages: bool = False) -> np.ndarray:
+        """Shard ``shard``'s rows of a per-lane array; with ``pages`` (a
+        block table) its page ids made local to the shard's range, the
+        unmapped entries left at the null page."""
+        rows = np.asarray(lanes)[shard * self.shard_lanes:
+                                 (shard + 1) * self.shard_lanes]
+        if pages:
+            rows = np.where(rows == NULL_PAGE, NULL_PAGE,
+                            rows - shard * self.shard_pages).astype(
+                                rows.dtype)
+        return rows
 
 
 @torch.no_grad()

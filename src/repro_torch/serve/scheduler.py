@@ -118,7 +118,7 @@ class PagedScheduler:
         # not even a best-case match (every full page shared) fits: skip
         # the tree walk and the pin / rollback
         if not self.alloc.can_allocate(
-                total - len(toks) // self.alloc.page_size):
+                total - len(toks) // self.alloc.page_size, slot):
             return False
         match = None
         if self.prefix_cache is not None:
@@ -130,7 +130,7 @@ class PagedScheduler:
             # page about to be shared must not be promised to eviction too
             self.alloc.map_shared(slot, match.full_pages)
         need = total - n_shared
-        if not self.alloc.can_allocate(need):
+        if not self.alloc.can_allocate(need, slot):
             if n_shared:
                 self.alloc.free_slot(slot)  # unpin; the pages stay cached
             return False
@@ -250,10 +250,12 @@ class PagedScheduler:
         return True
 
     def _pick_victim(self, exclude: int) -> Optional[int]:
-        """Longest-running resident request = earliest admission."""
+        """Longest-running resident request = earliest admission, among
+        the lanes that draw pages from ``exclude``'s pool."""
         best, best_seq = None, None
         for slot, req in enumerate(self.slot_req):
-            if req is None or slot == exclude:
+            if (req is None or slot == exclude
+                    or not self.alloc.shares_pool(slot, exclude)):
                 continue
             if best_seq is None or req.admit_seq < best_seq:
                 best, best_seq = slot, req.admit_seq

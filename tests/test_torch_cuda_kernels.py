@@ -91,6 +91,14 @@ launch too, raises under grad mode on an input that requires grad and
 launches nothing; one train step of a reduced config on the card equals
 the same step on the CPU (no kernel runs: the loss takes the plain paths).
 
+A rank of a mesh (``-k mesh``): the bit-plane GEMV at the local shapes
+of a ``(1, 2)`` rank of full-width qwen2.5-3b (wq N 1024, wk/wv N 128, wo
+K 1024, w_gate/w_up N 5504, w_down K 5504, an untied head's N 75,968) on
+its decode route (M 4, 8) and tensor-core route (M 128, 256) in bfloat16
+at 4 and 8 bits; both paged-attention kernels at one KV head with G 8;
+and two rank processes on the card (``gloo``) running the ``sharded``
+backend's column and row cuts against the unsharded GEMV.
+
 The vlm, audio and hybrid families (``-k "family or hybrid"``): the
 bit-plane GEMV through every route at zamba2-7b's in_proj (ragged N
 14576) and out_proj, llava-next's w_down and musicgen's lm_head; flash
@@ -100,7 +108,12 @@ eager.
 """
 
 import dataclasses
+import json
 import math
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import numpy as np
 
@@ -1536,3 +1549,165 @@ def test_train_step_on_card_matches_cpu(cuda_device, arch):
                                rtol=1e-3, atol=0)
     for a, b in zip(tree_leaves(pc), tree_leaves(ph)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2 * tcfg.lr)
+
+
+# ---------------------------------------------------------------- mesh
+# (K, N) of a (1, 2) rank of full-width qwen2.5-3b: wq, wk/wv, wo,
+# w_gate/w_up, w_down, and an untied head's vocabulary half
+MESH_GEMV_SHAPES = [(2048, 1024), (2048, 128), (1024, 2048), (2048, 5504),
+                    (5504, 2048), (2048, 75968)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MESH_GEMV_SHAPES)
+@pytest.mark.parametrize("m", [4, 8, 128, 256])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_mesh_gemv_local_shapes(cuda_device, bits, m, shape):
+    """The bit-plane GEMV at a mesh rank's local linears, bf16: the decode
+    route at M 4 / 8 (twice, the same bits), the tensor-core tile at a
+    chunk's M 128 / 256, within the plain version's tolerance."""
+    k, n = shape
+    dt = torch.bfloat16
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n + m + bits)
+    w = torch.randn((k, n), generator=gen, device=cuda_device)
+    q, scale = quantize_symmetric(w, bits)
+    packed = pack_weights(q, bits)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+    path = f"bitplane_gemv/{route(m, dt)}"
+    assert route(m, dt) == ("decode" if m <= 8 else "tensor_core")
+    before = _build.ROUTE_LAUNCHES[path]
+    y = bitplane_gemv(packed, scale, x, bits=bits, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    if m <= 8:
+        assert torch.equal(y, bitplane_gemv(packed, scale, x, bits=bits,
+                                            out_dtype=dt))
+    r = bitplane_gemv_ref(packed, scale, x, bits=bits, out_dtype=dt)
+    assert y.shape == (m, n) and y.dtype == dt
+    torch.testing.assert_close(y.float(), r.float(), rtol=2 ** -7,
+                               atol=1e-5 * r.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+def test_mesh_attention_one_kv_head(cuda_device, kind, mode):
+    """Both paged-attention kernels at a (1, 2) rank's heads: one KV head
+    of qwen2.5-3b's two, its 8 query heads (G 8), Dh 128, page 16; decode
+    with ragged last blocks, a 32-token chunk from mid-page starts."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    b, hkv, g, dh, page, nblk, c = 8, 1, 8, 128, 16, 24, 32
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, dh,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    if mode == "decode":
+        q = torch.randn((b, 1, hkv * g, dh), generator=gen,
+                        device=cuda_device).bfloat16()
+        pos = torch.tensor([0, 15, 16, 33, 129, 250, 301, page * nblk - 1],
+                           dtype=torch.int32, device=cuda_device)
+        before = _build.LAUNCHES["paged_decode_attention"]
+        y = paged_attention(q, kp, vp, bt, pos, 0, ks, vs)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["paged_decode_attention"] == before + 1
+        assert torch.equal(y, paged_attention(q, kp, vp, bt, pos, 0, ks,
+                                              vs))
+        r = paged_attention_ref(q, kp, vp, bt, pos, 0, ks, vs)
+    else:
+        q = torch.randn((b, c, hkv * g, dh), generator=gen,
+                        device=cuda_device).bfloat16()
+        pos0 = torch.tensor([0, 7, 16, 45, 100, 201, 300, 120],
+                            dtype=torch.int32, device=cuda_device)
+        seq = pos0 + c
+        seq[6] = pos0[6] + 5
+        path = "paged_prefill_attention/tensor_core"
+        before = _build.ROUTE_LAUNCHES[path]
+        y = paged_prefill_attention(q, kp, vp, bt, pos0, seq, 0, ks, vs)
+        torch.cuda.synchronize()
+        assert _build.ROUTE_LAUNCHES[path] == before + 1
+        r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, 0, ks, vs)
+    assert y.shape == r.shape and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
+
+
+MESH_RANK = """
+import json, os, sys
+sys.path.insert(0, {src!r})
+import torch
+from repro_torch.core import pack_weights, quantize_symmetric
+from repro_torch.dist import close_rank, init_rank, local_shard, make_mesh
+from repro_torch.dist.collectives import all_gather
+from repro_torch.dist.sharding import param_shardings
+from repro_torch.engine import EnginePlan, PackedLinear
+from repro_torch.kernels import _build
+
+rank, out = int(sys.argv[1]), sys.argv[2]
+init_rank(rank, 2, os.path.join(out, "store"), backend="gloo")
+mesh = make_mesh((1, 2), ("data", "model"))
+dev = mesh.device
+gen = torch.Generator(device=dev).manual_seed(5)
+res = {{}}
+for name, (k, n) in (("wq", (2048, 1024)), ("wo", (2048, 2048)),
+                     ("w_down", (11008, 2048))):
+    w = torch.randn((k, n), generator=gen, device=dev)
+    q, scale = quantize_symmetric(w, 4)
+    lin = PackedLinear(pack_weights(q, 4), scale, None, 4, k, n)
+    local = local_shard({{name: lin}}, param_shardings(mesh, {{name: lin}}),
+                        mesh)[name]
+    sharded = EnginePlan(backend="sharded", bits=4, mesh=mesh,
+                         inner_backend="cuda")
+    for m in (8, 256):
+        x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        whole = EnginePlan(backend="cuda", bits=4).apply(lin, x)
+        if local.shard == "row":
+            kl = local.in_features
+            y = sharded.apply(local, x[:, rank * kl:(rank + 1) * kl])
+        else:
+            y = all_gather(sharded.apply(local, x), mesh.group("model"),
+                           dim=-1)
+        torch.cuda.synchronize()
+        err = (y.float() - whole.float()).abs()
+        lim = 2 ** -7 * whole.float().abs() + 1e-5 * float(
+            whole.float().abs().max())
+        res[f"{{name}}/{{m}}"] = dict(shard=local.shard,
+                                    ok=bool((err <= lim).all()),
+                                    max_err=float(err.max()))
+res["routes"] = {{k: v for k, v in _build.ROUTE_LAUNCHES.items()
+                 if k.startswith("bitplane_gemv/") and v}}
+with open(os.path.join(out, f"rank{{rank}}.json"), "w") as f:
+    json.dump(res, f)
+close_rank()
+"""
+
+
+@pytest.mark.cuda
+def test_mesh_sharded_gemv_two_ranks(cuda_device, tmp_path):
+    """Two rank processes on the card (``gloo``): the ``sharded`` backend
+    on wq's column cut (output slices gathered) and on wo's and w_down's
+    row cuts (float32 partials summed) against the unsharded GEMV on the
+    whole weight, at a decode step's M 8 and a chunk's M 256 in bf16,
+    within one bf16 ulp plus 1e-5 of the largest output."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    prog = tmp_path / "rank.py"
+    prog.write_text(textwrap.dedent(MESH_RANK.format(src=src)))
+    procs = [subprocess.Popen([sys.executable, str(prog), str(r),
+                               str(tmp_path)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    for r in range(2):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        routes = res.pop("routes")
+        assert routes.get("bitplane_gemv/decode") and routes.get(
+            "bitplane_gemv/tensor_core"), routes
+        for case, rec in res.items():
+            want = "col" if case.startswith("wq") else "row"
+            assert rec["shard"] == want and rec["ok"], (r, case, rec)

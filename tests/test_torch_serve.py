@@ -157,8 +157,11 @@ def test_cancel_releases_pages(model):
 
 def test_unported_options_are_refused(model):
     """The prefix cache, the budget scheduler and audits are ported: each
-    constructs and serves the same tokens as the plain FCFS engine.  The
-    sharded engine is still refused."""
+    constructs and serves the same tokens as the plain FCFS engine.  So is
+    the sharded engine: ``EngineConfig(sharded=True)`` resolves to the
+    ``sharded`` backend around the configured one, which without a mesh
+    serves the wrapped backend's tokens (its mesh tests are in
+    ``test_torch_shard_engine.py``)."""
     _, _, tcfg, tparams = model
     outputs = []
     for kw in ({}, dict(prefix_cache=True), dict(sched="budget"),
@@ -173,8 +176,21 @@ def test_unported_options_are_refused(model):
         outputs.append([r.output for r in reqs])
     assert eng.scfg.audit == 1
     assert all(o == outputs[0] for o in outputs[1:])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tconfig.EngineConfig(sharded=True)
+    eng = ServeEngine(tcfg, tparams, tconfig.ServeConfig(
+        max_new_tokens=4, engine=tconfig.EngineConfig(
+            weight_bits=8, backend="reference", sharded=True)),
+        n_slots=2, max_len=32, page_size=4, prefill_chunk=3, device="cpu")
+    assert (eng.plan.backend, eng.plan.inner_backend) == ("sharded",
+                                                          "reference")
+    plain = ServeEngine(tcfg, tparams, tconfig.ServeConfig(
+        max_new_tokens=4, engine=tconfig.EngineConfig(
+            weight_bits=8, backend="reference")),
+        n_slots=2, max_len=32, page_size=4, prefill_chunk=3, device="cpu")
+    for e in (eng, plain):
+        for p in PROMPTS:
+            e.submit(p)
+    assert ([r.output for r in sorted(eng.run(), key=lambda r: r.rid)]
+            == [r.output for r in sorted(plain.run(), key=lambda r: r.rid)])
 
 
 # ----------------------------------------------- the dense configs
