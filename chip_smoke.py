@@ -147,8 +147,29 @@ exits non-zero:
                 tok/s, step and chunk ms, host ms in collectives a step,
                 peak memory and pool shape; at ``(1, 2)``,
                 ``psum_bits=8`` at layer 0's row-parallel w_down within
-                ``n·scale/2`` of the exact sum.  A rank that fails or
-                outlives ``MESH_TIMEOUT`` fails the phase.
+                ``n·scale/2`` of the exact sum.  Then, in the same
+                spawn, each rank serves the family cells of
+                ``MESH_CELLS`` in turn, eager at ``weight_bits=4``, each
+                held against its single-device eager engine on the same
+                params: paged at ``(1, 2)``, ``main``'s first 8 prompts,
+                16 new tokens, ``kv_bits=8``: llava-next (32 layers),
+                musicgen (48), llama4-scout (12 of 48: 8 of 16 experts a
+                rank), qwen3-moe (8 of 94: 64 of 128), and the two MoE
+                configs at 2 layers in float32 with float32 pages; slots
+                mode, 4 prompts of 8-16 tokens, 8 new, ``kv_bits=0``:
+                qwen2.5-3b (36) and mamba2-130m (24) at both meshes,
+                zamba2-7b (12 of 81, 2 sites) and gemma3-27b (6 of 62,
+                one prompt past the 1024-token window) at ``(1, 2)``.
+                The bf16 MoE ranks replay one device's routing, and each
+                choice of their own that differs from it must be at a
+                router near tie (``replay_routes``).  ``mesh_parity``
+                also holds every linear of each cell's rank (its untied
+                head included), the grouped launch at a rank's experts
+                and paged attention at each paged cell's rank heads,
+                all at the shapes the port's placement gives a rank
+                (``mesh_shapes``).  The checks and the
+                ``mesh_families`` line: ``mesh_family_checks``.  A rank
+                that fails or outlives ``MESH_TIMEOUT`` fails the phase.
    ``dense``    starcoder2-15b (40 layers), gemma3-27b (62 layers, window
                 1024 on 5 of 6 layers, 8 prompts of 1,100-1,900 tokens,
                 max_len 2048) and mistral-large-123b cut to 8 of its 88
@@ -286,6 +307,8 @@ with an error and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import itertools
 import json
 import math
 import shutil
@@ -293,6 +316,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -1459,8 +1483,15 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
     # families).  Slots mode: every prompt token admitted and every decode
     # step is one full-sequence decode step, so the decode routes launch
     # a full step's GEMVs for each, and no other route or attention kernel
-    # ever launches
+    # ever launches.  A float32 model's chunks take the GEMVs' rows routes
+    # and the prefill attention's CUDA-core route in the same places, and
+    # the tensor-core routes never
     slots = eng.mode == "slots"
+    f32 = eng.cfg.dtype == "float32"
+    chunk, unused = ("rows", "tensor_core") if f32 else ("tensor_core",
+                                                          "rows")
+    attn_chunk, attn_unused = (("cuda_core", "tensor_core") if f32
+                               else ("tensor_core", "cuda_core"))
     # an untied lm_head is packed too: one more GEMV a decode step, and in
     # paged mode one at M = n_slots for each prefill chunk's last tokens
     head = int(not isinstance(eng.params.get("lm_head", {}), dict))
@@ -1505,27 +1536,27 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
                                      f"prompt tokens: wanted {want}")
             want_attn = 0
         else:
-            want_grouped = {"decode": per_grouped * ran["decode"], "rows": 0,
-                            "tensor_core": per_grouped * ran["prefill"]}
+            want_grouped = {"decode": per_grouped * ran["decode"],
+                            chunk: per_grouped * ran["prefill"], unused: 0}
             lm_head = head * ran["prefill"]
-            if ((moved["tensor_core"] > 0) != ran["prefill"]
+            if ((moved[chunk] > 0) != ran["prefill"]
                     or (moved["decode"] - lm_head > 0) != ran["decode"]
-                    or moved["decode"] < lm_head or moved["rows"]):
+                    or moved["decode"] < lm_head or moved[unused]):
                 raise AssertionError(f"{name}: GEMV routes {moved} in a "
                                      f"step that ran {ran}")
             want_attn = eng.cfg.n_layers * ran["prefill"]
-        if moved_attn != {"cuda_core": 0, "tensor_core": want_attn}:
+        if moved_attn != {attn_unused: 0, attn_chunk: want_attn}:
             raise AssertionError(f"{name}: prefill attention routes "
                                  f"{moved_attn} in a step that ran {ran}")
         if grouped != want_grouped:
             raise AssertionError(f"{name}: grouped GEMV routes {grouped} in "
                                  f"a step that ran {ran}: wanted "
                                  f"{want_grouped}")
-        gemv_launches["prefill"] += moved["tensor_core"]
+        gemv_launches["prefill"] += moved[chunk]
         gemv_launches["decode"] += moved["decode"]
-        grouped_launches["prefill"] += grouped["tensor_core"]
+        grouped_launches["prefill"] += grouped[chunk]
         grouped_launches["decode"] += grouped["decode"]
-        attn_launches += moved_attn["tensor_core"]
+        attn_launches += moved_attn[attn_chunk]
         if check_step is not None:
             check_step(eng, reqs)
     torch.cuda.synchronize()
@@ -3994,25 +4025,111 @@ def layouts_path(torch, dev):
 MESH_SHAPES = ((1, 2), (2, 1))     # (data, model)
 MESH_REQUESTS = 8                  # main's first 8 prompts
 MESH_NEW = 16
-MESH_TIMEOUT = 240                 # seconds for a mesh's ranks, build of
+MESH_TIMEOUT = 600                 # seconds for a mesh's ranks, build of
 #                                    params and serving included
-# the linears of a (1, 2) rank of full-width qwen2.5-3b: wq, wk/wv, wo,
-# w_gate/w_up, w_down (K, N); the tied head is a plain product
-MESH_GEMV_SHAPES = [(2048, 1024), (2048, 128), (1024, 2048), (2048, 5504),
-                    (5504, 2048)]
+# one device's routing of each ``replay`` cell, saved for the ranks
+MESH_ROUTES = ROOT / "build" / "mesh" / "routes"
 # how a rank process is started: this script with ``--mesh-rank``
 MESH_RANK_CMD = [sys.executable, str(Path(__file__).resolve())]
 
 
+class MeshCell(NamedTuple):
+    """A family cell of phase ``mesh``: a config at published width
+    (``layers``: its depth cut, None for all), served paged (``main``'s
+    first prompts, ``kv_bits=8``; ``kv_bits=0`` in float32) or in slots
+    mode (``MESH_SLOT_REQUESTS`` short prompts, ``kv_bits=0``), on each
+    mesh of ``shapes``, in ``dtype``.  ``replay``: the ranks route as the
+    single-device run did (:func:`replay_routes`)."""
+
+    name: str
+    arch: str
+    layers: Optional[int]
+    mode: str
+    shapes: Tuple[Tuple[int, int], ...]
+    dtype: str = "bfloat16"
+    replay: bool = False
+
+
+MESH_CELLS = [
+    MeshCell("paged_llava", "llava-next-mistral-7b", None, "paged",
+             ((1, 2),)),
+    MeshCell("paged_musicgen", "musicgen-medium", None, "paged", ((1, 2),)),
+    # in bf16 a rank's activations differ from one device's in the last
+    # bits (the row-parallel partials add in another order, and a K split
+    # depends on a linear's local N), enough to flip a router choice at a
+    # near tie and send a token to another expert, after which the two
+    # runs part; so the ranks replay one device's routing, and at every
+    # choice of their own that differs, the router logits must be at a
+    # near tie (``replay_routes``)
+    MeshCell("paged_llama4", "llama4-scout-17b-a16e", 12, "paged",
+             ((1, 2),), replay=True),
+    MeshCell("paged_qwen3_moe", "qwen3-moe-235b-a22b", 8, "paged",
+             ((1, 2),), replay=True),
+    # the two MoE configs at 2 layers in float32, with float32 pages: the
+    # routing agrees with one device's, and these hold the ranks' own
+    # routing, tokens and touched experts to one device's
+    MeshCell("paged_llama4_f32", "llama4-scout-17b-a16e", 2, "paged",
+             ((1, 2),), "float32"),
+    MeshCell("paged_qwen3_moe_f32", "qwen3-moe-235b-a22b", 2, "paged",
+             ((1, 2),), "float32"),
+    MeshCell("slots_qwen2.5", "qwen2.5-3b", None, "slots", ((1, 2), (2, 1))),
+    MeshCell("slots_mamba2", "mamba2-130m", None, "slots", ((1, 2), (2, 1))),
+    MeshCell("slots_zamba2", "zamba2-7b", 12, "slots", ((1, 2),)),
+    MeshCell("slots_gemma3", "gemma3-27b", 6, "slots", ((1, 2),)),
+]
+MESH_SLOT_REQUESTS = 4             # prompts of 8-16 tokens in slots mode
+MESH_SLOT_NEW = 8
+MESH_SLOT_MAX_LEN = 64
+# gemma3's cell adds one prompt past its 1024-token window (5 local
+# layers, 1 global): one token a step in slots mode
+MESH_GEMMA3_LONG = 1040
+def mesh_shapes():
+    """The kernels' shapes on the mesh ranks of this phase, read from the
+    port's serving placement (``rank_shapes``), so that they follow the
+    cells: ``gemv``, the ``(K, N)`` of a ``(1, 2)`` rank of full-width
+    qwen2.5-3b (``main``'s mesh; its tied head is a plain product);
+    ``family_gemv``, those of every family cell's rank on each of its
+    meshes that ``gemv`` lacks (an untied head included: llava-next,
+    musicgen, llama4-scout, qwen3-moe and zamba2 cut theirs over the
+    model axis); ``grouped``, ``(K, N, E_local, top_k)`` of a rank's
+    stacked experts; ``heads``, the ``(Hkv, G, Dh)`` of the paged cells'
+    ranks (slots mode runs the plain attention), ``main``'s first."""
+    from repro_torch.dist.sharding import rank_shapes
+
+    main = rank_shapes(full_config(), (1, 2))
+    family, grouped, heads = {}, {}, {main.heads: None}
+    for cell in MESH_CELLS:
+        cfg = arch_config(cell.arch, cell.layers)
+        for shape in cell.shapes:
+            got = rank_shapes(cfg, shape)
+            family.update(dict.fromkeys(s for s in got.linears
+                                        if s not in main.linears))
+            grouped.update(dict.fromkeys(e + (cfg.top_k,)
+                                         for e in got.experts))
+            if cell.mode == "paged" and got.heads:
+                heads[got.heads] = None
+    return dict(gemv=list(main.linears), family_gemv=list(family),
+                grouped=list(grouped), heads=list(heads))
+
+
 def mesh_parity(torch, dev):
-    """The kernels at the shapes a rank of the mesh gives them: the
-    bit-plane GEMV at the local linears (decode M 4 and 8, tensor_core
-    M 128 and 256, bf16, 4 and 8 bits) and both paged-attention kernels
-    at one KV head with G 8 (a (1, 2) rank of qwen2.5-3b), against the
-    plain versions."""
+    """The kernels at the shapes a rank of the mesh gives them
+    (:func:`mesh_shapes`), against the plain versions: the bit-plane GEMV
+    at ``main``'s rank linears (decode M 4 and 8, tensor_core M 128 and
+    256, bf16, 4 and 8 bits) and at every family cell's (M 2, 4, 8 and
+    256, 4 bits), the grouped launch at a rank's experts (decode and
+    chunk bounds, routed counts), and both paged-attention kernels at a
+    rank's KV heads."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
-    from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
+    from repro_torch.kernels._gemv import grouped_route
+    from repro_torch.kernels.bitplane_gemv.ops import (
+        bitplane_gemv,
+        bitplane_gemv_grouped,
+    )
+    from repro_torch.kernels.bitplane_gemv.ref import (
+        bitplane_gemv_grouped_ref,
+        bitplane_gemv_ref,
+    )
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention,
         paged_prefill_attention,
@@ -4022,25 +4139,51 @@ def mesh_parity(torch, dev):
         paged_prefill_ref,
     )
 
+    shapes = mesh_shapes()
     _build.reset_launches()
     gen = torch.Generator(device=dev).manual_seed(SEED + 50)
-    worst = {"gemv": [0.0, 0.0], "decode": [0.0, 0.0], "prefill": [0.0, 0.0]}
-    for bits in (4, 8):
-        for (k, n) in MESH_GEMV_SHAPES:
-            for m in (4, 8, 128, 256):
-                packed, scale, x = gemv_case(torch, dev, gen, bits, k, n, m,
-                                             torch.bfloat16)
-                y = bitplane_gemv(packed, scale, x, bits=bits,
-                                  out_dtype=torch.bfloat16)
-                r = bitplane_gemv_ref(packed, scale, x, bits=bits,
+    worst = {"gemv": [0.0, 0.0], "grouped": [0.0, 0.0], "decode": [0.0, 0.0],
+             "prefill": [0.0, 0.0]}
+    gemv_cases = [(bits, k, n, m) for bits in (4, 8)
+                  for (k, n) in shapes["gemv"] for m in (4, 8, 128, 256)]
+    gemv_cases += [(4, k, n, m) for (k, n) in shapes["family_gemv"]
+                   for m in (2, 4, 8, 256)]
+    for bits, k, n, m in gemv_cases:
+        packed, scale, x = gemv_case(torch, dev, gen, bits, k, n, m,
+                                     torch.bfloat16)
+        y = bitplane_gemv(packed, scale, x, bits=bits,
+                          out_dtype=torch.bfloat16)
+        r = bitplane_gemv_ref(packed, scale, x, bits=bits,
+                              out_dtype=torch.bfloat16)
+        rtol, atol = gemv_tol(torch.bfloat16, r)
+        res = check_close("bitplane_gemv", y, r, rtol, atol,
+                          bits=bits, m=m, k=k, n=n, mesh=True)
+        worst["gemv"] = [max(a, b) for a, b in zip(worst["gemv"],
+                                                   res)]
+    for k, n, experts, top_k in shapes["grouped"]:
+        for mode, bound in GROUPED_BOUNDS.items():
+            tokens = 1 if mode == "decode" else 32
+            counts = routed_counts(torch, dev, gen, experts, top_k, 8,
+                                   tokens, bound // 8)
+            packed, scale, x, offsets, rows = grouped_case(
+                torch, dev, gen, 4, k, n, counts, torch.bfloat16)
+            y = bitplane_gemv_grouped(packed, scale, x, offsets,
+                                      max_rows=bound, bits=4,
                                       out_dtype=torch.bfloat16)
-                rtol, atol = gemv_tol(torch.bfloat16, r)
-                res = check_close("bitplane_gemv", y, r, rtol, atol,
-                                  bits=bits, m=m, k=k, n=n, mesh=True)
-                worst["gemv"] = [max(a, b) for a, b in zip(worst["gemv"],
-                                                           res)]
-    b, hkv, g, dh, page, nblk, c = 8, 1, 8, 128, 16, 24, 32
-    for kind in ("int8", "bfloat16"):
+            r = bitplane_gemv_grouped_ref(packed, scale, x, offsets,
+                                          max_rows=bound, bits=4,
+                                          out_dtype=torch.bfloat16)
+            rtol, atol = gemv_tol(torch.bfloat16, r)
+            res = check_close("bitplane_gemv_grouped", y[:rows], r[:rows],
+                              rtol, atol, k=k, n=n, experts=experts,
+                              route=grouped_route(bound, torch.bfloat16),
+                              mesh=True)
+            worst["grouped"] = [max(a, b_) for a, b_ in
+                                zip(worst["grouped"], res)]
+            del packed, scale, x, y, r
+    b, page, nblk, c = 8, 16, 24, 32
+    for (hkv, g, dh), kind in itertools.product(shapes["heads"],
+                                                ("int8", "bfloat16")):
         kp, vp, ks, vs = attn_pools(torch, dev, gen, kind, b * nblk + 1,
                                     page, hkv, dh)
         bt = (1 + torch.randperm(b * nblk, generator=gen, device=dev)
@@ -4053,7 +4196,7 @@ def mesh_parity(torch, dev):
         y = paged_attention(q, kp, vp, bt, cur, 0, ks, vs)
         r = paged_attention_ref(q, kp, vp, bt, cur, 0, ks, vs)
         res = check_close("paged_decode_attention", y, r, rtol, atol,
-                          kind=kind, hkv=hkv, mesh=True)
+                          kind=kind, hkv=hkv, g=g, dh=dh, mesh=True)
         worst["decode"] = [max(a, b) for a, b in zip(worst["decode"], res)]
         pos0 = torch.tensor([0, 7, 16, 45, 100, 201, 300, 120],
                             dtype=torch.int32, device=dev)
@@ -4064,19 +4207,24 @@ def mesh_parity(torch, dev):
         y = paged_prefill_attention(qp, kp, vp, bt, pos0, seq, 0, ks, vs)
         r = paged_prefill_ref(qp, kp, vp, bt, pos0, seq, 0, ks, vs)
         res = check_close("paged_prefill_attention", y, r, rtol, atol,
-                          kind=kind, hkv=hkv, mesh=True)
+                          kind=kind, hkv=hkv, g=g, dh=dh, mesh=True)
         worst["prefill"] = [max(a, b) for a, b in zip(worst["prefill"], res)]
     torch.cuda.synchronize()
     routes = {k: route_counts(k) for k in ("bitplane_gemv",
                                            "paged_prefill_attention")}
     if not (routes["bitplane_gemv"]["decode"]
             and routes["bitplane_gemv"]["tensor_core"]
+            and routes["bitplane_gemv"]["grouped_decode"]
+            and routes["bitplane_gemv"]["grouped_tensor_core"]
             and routes["paged_prefill_attention"]["tensor_core"]
             and _build.LAUNCHES["paged_decode_attention"]):
         raise AssertionError(f"mesh_parity: routes {routes}")
-    emit("mesh_parity", gemv_shapes=MESH_GEMV_SHAPES, gemv_m=[4, 8, 128, 256],
-         bits=[4, 8], attention="Hkv 1, G 8, Dh 128, page 16, int8 and "
-                                "bf16 pools, decode and chunk 32",
+    emit("mesh_parity", gemv_shapes=shapes["gemv"], gemv_m=[4, 8, 128, 256],
+         bits=[4, 8], family_gemv_shapes=shapes["family_gemv"],
+         family_gemv_m=[2, 4, 8, 256], grouped_shapes=shapes["grouped"],
+         grouped_bounds=GROUPED_BOUNDS,
+         attention=f"(Hkv, G, Dh) {shapes['heads']}, page 16, int8 and "
+                   "bf16 pools, decode and chunk 32",
          tolerance="bf16 GEMV: rtol 2^-7, atol 1e-5*max|ref|; attention: "
                    "rtol=atol=2^-7",
          max_abs_err={k: v[0] for k, v in worst.items()},
@@ -4112,11 +4260,206 @@ def mesh_psum_check(torch, eng, mesh, rank):
                 max_abs_err=err, bound=bound)
 
 
+def mesh_cell_setup(cell):
+    """``(cfg, prompts, max_new, build_engine keywords)`` of a family
+    cell: paged, ``main``'s first ``MESH_REQUESTS`` prompts at 8 lanes,
+    max_len 1024, ``kv_bits=8``; slots, ``MESH_SLOT_REQUESTS`` prompts of
+    8-16 tokens (gemma3's last one past its window) at as many lanes,
+    ``kv_bits=0``."""
+    cfg = arch_config(cell.arch, cell.layers, dtype=cell.dtype)
+    if cell.mode == "paged":
+        return (cfg, prompts_for(cfg, 16, 33, 300, SEED)[:MESH_REQUESTS],
+                MESH_NEW, dict(kv_bits=8 if cell.dtype == "bfloat16" else 0,
+                               n_slots=8, max_len=1024))
+    prompts = prompts_for(cfg, MESH_SLOT_REQUESTS, 8, 16, SEED + 80)
+    max_len = MESH_SLOT_MAX_LEN
+    if cfg.sliding_window:
+        prompts[-1] = prompts_for(cfg, 1, MESH_GEMMA3_LONG,
+                                  MESH_GEMMA3_LONG, SEED + 81)[0]
+        max_len = MESH_GEMMA3_LONG + MESH_SLOT_MAX_LEN
+    return cfg, prompts, MESH_SLOT_NEW, dict(
+        kv_bits=0, n_slots=MESH_SLOT_REQUESTS, max_len=max_len,
+        mode="slots")
+
+
+def record_routes(torch):
+    """Record every routing of the MoE blocks from now on (``moe.route``'s
+    gates, experts and kept mask, as device copies).  Returns ``stop()``,
+    which puts the router back and returns the records in call order."""
+    from repro_torch.models import moe
+
+    tape, route = [], moe.route
+
+    def recording(params, x, cfg):
+        out = route(params, x, cfg)
+        tape.append(tuple(t.clone() for t in out[:3]))
+        return out
+
+    moe.route = recording
+
+    def stop():
+        moe.route = route
+        return tape
+    return stop
+
+
+def replay_routes(torch, eng, path):
+    """Make ``eng``'s MoE blocks route as the single-device run saved at
+    ``path`` did (its gates, experts and kept mask, call by call), while
+    each call still routes on its own as the witness: at the tokens a
+    step runs (a decode step's active lanes, a chunk's prompt tokens; a
+    padded position routes on whatever its row holds), where its experts
+    differ from the replayed ones, the largest gap between the two
+    choices' float32 router logits is that call's margin.  The sampler
+    notes the call at which a token first parts from the single-device
+    run's; from there on the inputs differ by more than rounding.
+    Returns ``finish(check=True)``, which puts the router back and (with
+    ``check``) returns the route calls, and the reroutes and their
+    largest margin before the first parted token and after it."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import dense
+
+    saved = torch.load(path)
+    tape = [tuple(t.to(eng.device) for t in call) for call in saved["routes"]]
+    want = saved["tokens"]
+    route, sample = moe.route, eng._sample_next
+    calls, parted = [], []
+
+    def replaying(params, x, cfg):
+        own = route(params, x, cfg)
+        i = len(calls)
+        if i >= len(tape) or tape[i][1].shape != own[1].shape:
+            raise AssertionError(
+                f"route call {i} of experts {tuple(own[1].shape)}: one "
+                f"device made {len(tape)} calls")
+        gates, experts, keep = tape[i]
+        logits = dense(params["router"], x).to(torch.float32)
+        lanes = eng.lanes
+        if x.shape[1] == 1:
+            runs = lanes.active[:, None]
+        else:
+            runs = (torch.arange(x.shape[1], device=x.device)
+                    < (lanes.seq_lens - lanes.pos0)[:, None])
+        differ = (own[1] != experts).any(-1) & runs
+        gap = (logits.gather(-1, own[1])
+               - logits.gather(-1, experts)).abs().amax(-1)
+        calls.append((differ.sum(), torch.where(differ, gap, 0.0).amax()))
+        return gates, experts, keep, own[3]
+
+    def watching(req):
+        tok = sample(req)
+        if not parted and tok != want[req.rid][len(req.output)]:
+            parted.append(len(calls))
+        return tok
+
+    moe.route, eng._sample_next = replaying, watching
+
+    def finish(check=True):
+        moe.route = route
+        if not check:
+            return None
+        if len(calls) != len(tape):
+            raise AssertionError(f"{len(calls)} route calls; one device "
+                                 f"made {len(tape)}")
+        n = parted[0] if parted else len(calls)
+        counts = [int(c) for c, _ in calls]
+        margins = [float(m) for _, m in calls]
+        return dict(route_calls=len(calls),
+                    parted_at_call=parted[0] if parted else None,
+                    reroutes=sum(counts[:n]),
+                    max_margin=max(margins[:n], default=0.0),
+                    reroutes_after_parting=sum(counts[n:]),
+                    max_margin_after_parting=max(margins[n:], default=0.0))
+    return finish
+
+
+def mesh_cell_engine(torch, dev, cell, *, mesh=None, params=None):
+    """A family cell's eager engine at ``weight_bits=4``: on this rank's
+    shards with ``mesh`` (the ``sharded`` backend), else on one device;
+    ``params`` drawn from the seed unless given.  Returns ``(eng,
+    params, prompts, max_new)``."""
+    cfg, prompts, max_new, kw = mesh_cell_setup(cell)
+    eng, params = build_engine(torch, dev, cfg, 4, kw.pop("kv_bits"),
+                               max_new=max_new, params=params,
+                               cuda_graphs=False, mesh=mesh,
+                               sharded=mesh is not None, **kw)
+    return eng, params, prompts, max_new
+
+
+def mesh_cell_record(torch, eng, rec, tokens, init_s, top=None):
+    """A family cell's record of one run (a rank's or the single
+    device's): tokens, tok/s, step and chunk ms, host ms in collectives a
+    step (slots mode: every prompt token is a step), peak memory,
+    launches by route; for moe, the experts this run holds and touched."""
+    steps = rec["decode_steps"] + (rec["prompt_tokens"]
+                                   if eng.mode == "slots"
+                                   else rec["prefill_chunks"])
+    coll, wait = eng.timings["collectives"], eng.timings["collective_wait"]
+    out = dict(
+        tokens=tokens, init_s=init_s, steps=steps,
+        **{k: rec[k] for k in (
+            "requests", "prompt_tokens", "tok_s", "seconds", "decode_steps",
+            "decode_step_ms", "prefill_chunks", "prefill_chunk_ms",
+            "peak_mem_gib", "launches", "route_launches",
+            "gemv_decode_launches", "gemv_tensor_core_launches",
+            "gemv_grouped_decode_launches",
+            "gemv_grouped_tensor_core_launches")},
+        collective_ms_per_step=1e3 * sum(coll) / max(steps, 1),
+        collective_wait_ms_per_step=1e3 * sum(wait) / max(steps, 1),
+        collective_calls=len(coll), layout=eng.mesh_layout,
+        lanes=eng.lanes.tokens.shape[0])
+    if eng.cfg.family == "moe":
+        w_gate = eng.params["layers"][0]["moe"]["w_gate"]
+        out.update(experts_held=w_gate.packed.shape[0],
+                   experts_touched=dict(eng.experts_touched))
+    if top is not None:
+        out["top"] = {f"{rid}:{i}": cand for (rid, i), cand in top.items()}
+    return out
+
+
+def mesh_cell_run(torch, mesh, cell, label, rank):
+    """One rank's run of a family cell (its engine freed after).  The
+    ranks build their engines one at a time: a rank draws the whole model
+    before it cuts its shards, and the ranks share the card."""
+    import torch.distributed as dist
+
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            t0 = time.perf_counter()
+            eng, params, prompts, max_new = mesh_cell_engine(
+                torch, mesh.device, cell, mesh=mesh)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            init_s = time.perf_counter() - t0
+        dist.barrier()
+    top = _recording_top(eng)
+    finish = (replay_routes(torch, eng, MESH_ROUTES / f"{cell.name}.pt")
+              if cell.replay else None)
+    try:
+        rec, tokens = serve(torch, f"mesh_{label}_{cell.name}_rank{rank}",
+                            eng, prompts, max_new)
+    except BaseException:
+        if finish:
+            finish(check=False)
+        raise
+    replay = finish() if finish else None
+    out = mesh_cell_record(torch, eng, rec, tokens, init_s, top)
+    if replay:
+        out["replay"] = replay
+    # the recording wrapper and the engine refer to each other
+    del eng, top
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def mesh_rank_main(argv) -> int:
     """One rank of phase ``mesh``: ``chip_smoke.py --mesh-rank R
     --mesh-shape DxM --mesh-dir DIR`` (started by :func:`mesh_path`).
-    Serves ``main``'s first prompts on its shards and writes its record
-    to ``DIR/rank{R}.json``."""
+    Serves ``main``'s first prompts on its shards, then each family cell
+    of ``MESH_CELLS`` on this mesh in turn, and writes its record to
+    ``DIR/rank{R}.json``."""
     import torch
 
     args = dict(zip(argv[1::2], argv[2::2]))
@@ -4167,6 +4510,11 @@ def mesh_rank_main(argv) -> int:
         top={f"{rid}:{i}": cand for (rid, i), cand in top.items()})
     if mesh.shape["model"] > 1:
         res["psum8"] = mesh_psum_check(torch, eng, mesh, rank)
+    del eng, top
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cells"] = {cell.name: mesh_cell_run(torch, mesh, cell, label, rank)
+                    for cell in MESH_CELLS if shape in cell.shapes}
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     close_rank()
     return 0
@@ -4210,15 +4558,143 @@ def run_mesh_ranks(shape):
             for r in range(len(procs))]
 
 
+def mesh_references(torch, dev, params):
+    """The single-device eager engine of every family cell, each freed
+    before the next (qwen2.5-3b on ``main``'s params); their records.  A
+    ``replay`` cell's routing and tokens go to ``MESH_ROUTES``, for its
+    ranks to replay."""
+    refs = {}
+    for cell in MESH_CELLS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, cell_params, prompts, max_new = mesh_cell_engine(
+            torch, dev, cell,
+            params=params if cell.arch == "qwen2.5-3b" else None)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        stop = record_routes(torch) if cell.replay else None
+        try:
+            rec, tokens = serve(torch, f"mesh_single_{cell.name}", eng,
+                                prompts, max_new)
+        finally:
+            tape = stop() if stop else None
+        if tape is not None:
+            MESH_ROUTES.mkdir(parents=True, exist_ok=True)
+            torch.save({"routes": [tuple(t.cpu() for t in call)
+                                   for call in tape], "tokens": tokens},
+                       MESH_ROUTES / f"{cell.name}.pt")
+        refs[cell.name] = mesh_cell_record(torch, eng, rec, tokens, init_s)
+        del eng, cell_params
+        torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_family_checks(label, shape, ranks, refs):
+    """The family cells of one mesh against their single-device runs:
+    every rank's tokens the same and equal to one device's up to near
+    ties; every rank launched the GEMV's decode route, a paged cell also
+    its chunk route (tensor-core, rows in float32) and both attention
+    kernels, a moe cell both grouped routes over its own ``E / model``
+    experts, whose touched counts, summed over the ranks, equal one
+    device's (every prefill chunk; every decode step too when no token
+    parted at a near tie, or when the ranks replayed one device's
+    routing).  A ``replay`` cell's ranks route as one device did, and
+    every choice of their own that differs from it must be at a router
+    near tie (logits within ``2 * CHAOS_LOGIT_TOL``) up to the first
+    parted token.  Returns each cell's summary."""
+    out = {}
+    n_model = shape[1]
+    for cell in MESH_CELLS:
+        if shape not in cell.shapes:
+            continue
+        name = f"mesh_{label}_{cell.name}"
+        recs = [r["cells"][cell.name] for r in ranks]
+        ref = refs[cell.name]
+        cfg = arch_config(cell.arch, cell.layers, dtype=cell.dtype)
+        chunk = "tensor_core" if cell.dtype == "bfloat16" else "rows"
+        routes = []
+        for r, rec in enumerate(recs):
+            if rec["tokens"] != recs[0]["tokens"]:
+                raise AssertionError(f"{name}: rank {r}'s tokens differ "
+                                     "from rank 0's")
+            gemv = route_counts("bitplane_gemv", rec["route_launches"])
+            ok = gemv["decode"] > 0
+            if cell.mode == "paged":
+                ok = ok and gemv[chunk] > 0 and all(
+                    rec["launches"][k] for k in PAGED_KERNELS)
+            if cfg.family == "moe":
+                ok = ok and gemv["grouped_decode"] > 0 and (
+                    gemv[f"grouped_{chunk}"] > 0) and (
+                    rec["experts_held"] == cfg.n_experts // n_model)
+            if not ok:
+                raise AssertionError(f"{name}: rank {r} launches "
+                                     f"{rec['launches']} {gemv}, experts "
+                                     f"{rec.get('experts_held')}")
+            if cell.replay and (rec["replay"]["max_margin"]
+                                > 2 * CHAOS_LOGIT_TOL):
+                raise AssertionError(f"{name}: rank {r} routes otherwise "
+                                     "than one device past a near tie: "
+                                     f"{rec['replay']}")
+            routes.append(gemv)
+        top = {}
+        for key, cand in recs[0]["top"].items():
+            rid, i = map(int, key.split(":"))
+            top[rid, i] = {int(t): v for t, v in cand.items()}
+        want = dict(enumerate(ref["tokens"]))
+        got = dict(enumerate(recs[0]["tokens"]))
+        ties = near_ties(name, want, got, top)
+        touched = same_touched = None
+        if cfg.family == "moe":
+            touched = {kind: [sum(v) for v in zip(
+                *(rec["experts_touched"][kind] for rec in recs))]
+                for kind in ("decode", "prefill")}
+            single = ref["experts_touched"]
+            same_touched = {kind: sum(a == b for a, b in zip(
+                touched[kind], single[kind])) for kind in touched}
+            if touched["prefill"] != single["prefill"] or (
+                    (cell.replay or not ties)
+                    and touched["decode"] != single["decode"]):
+                raise AssertionError(f"{name}: experts touched, summed over "
+                                     f"the ranks, {touched}; one device "
+                                     f"{single}")
+        per_rank = [{k: rec[k] for k in (
+            "init_s", "tok_s", "seconds", "steps", "decode_steps",
+            "decode_step_ms", "prefill_chunks", "prefill_chunk_ms",
+            "collective_ms_per_step", "collective_wait_ms_per_step",
+            "collective_calls", "peak_mem_gib", "launches", "lanes",
+            "layout")} | {"gemv_routes": g}
+            | {k: rec[k] for k in ("experts_held", "replay") if k in rec}
+            for rec, g in zip(recs, routes)]
+        out[cell.name] = dict(
+            model=cfg.name, family=cfg.family, mode=cell.mode,
+            layers=cfg.n_layers,
+            layers_published=arch_config(cell.arch).n_layers,
+            requests=recs[0]["requests"],
+            prompt_tokens=recs[0]["prompt_tokens"], ranks=per_rank,
+            exact=sum(recs[0]["tokens"][rid] == w
+                      for rid, w in want.items()),
+            dtype=cell.dtype, replayed_routing=cell.replay, near_ties=ties,
+            experts_touched_summed=touched,
+            steps_touching_as_one_device=same_touched,
+            single={k: ref[k] for k in (
+                "init_s", "tok_s", "decode_step_ms", "prefill_chunk_ms",
+                "peak_mem_gib")})
+    return out
+
+
 def mesh_path(torch, dev, cfg, params, prompts):
     """Phase ``mesh``: the kernels at a rank's shapes, the single-device
-    eager engine on ``main``'s first prompts, then the same traffic on
-    each mesh of ``MESH_SHAPES``, two rank processes on the one card
-    (``gloo`` through host memory; one rank a device, NCCL, where two or
-    more are visible).  Every rank must launch the bit-plane GEMV on its
-    decode and tensor-core routes and both paged-attention kernels, and
-    return the same tokens, equal to the single-device engine's up to
-    near ties."""
+    eager engine on ``main``'s first prompts and on every family cell of
+    ``MESH_CELLS``, then the same traffic on each mesh of
+    ``MESH_SHAPES``, two rank processes on the one card (``gloo`` through
+    host memory; one rank a device, NCCL, where two or more are
+    visible), one spawn a mesh in which each rank serves ``main`` and
+    then its family cells in turn.  Every rank must launch the bit-plane
+    GEMV on its decode and tensor-core routes and both paged-attention
+    kernels, and return the same tokens, equal to the single-device
+    engine's up to near ties; the family cells as
+    :func:`mesh_family_checks` says.  Returns ``main``'s records by mesh
+    and the family cells' by mesh."""
     mesh_parity(torch, dev)
     prompts = prompts[:MESH_REQUESTS]
     eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
@@ -4226,8 +4702,9 @@ def mesh_path(torch, dev, cfg, params, prompts):
     single, want = serve(torch, "mesh_single", eng, prompts, MESH_NEW)
     del eng
     torch.cuda.empty_cache()
+    refs = mesh_references(torch, dev, params)
     want = dict(enumerate(want))
-    summary = {}
+    summary, families = {}, {}
     for shape in MESH_SHAPES:
         label = "x".join(map(str, shape))
         t0 = time.perf_counter()
@@ -4267,7 +4744,29 @@ def mesh_path(torch, dev, cfg, params, prompts):
              single_tok_s=single["tok_s"],
              single_decode_step_ms=single["decode_step_ms"],
              single_prefill_chunk_ms=single["prefill_chunk_ms"], card=CARD)
-    return summary
+        families[label] = mesh_family_checks(label, shape, ranks, refs)
+    emit("mesh_families", cells=families, card=CARD)
+    return summary, families
+
+
+def mesh_family_launches(families, name):
+    """A kernel's launches on every rank of each family cell that runs it
+    (by route for the GEMV and its grouped launch), by ``mesh/cell``."""
+    out = {}
+    for label, cells in families.items():
+        for cell, rec in cells.items():
+            runs = []
+            for r in rec["ranks"]:
+                if name.startswith("bitplane_gemv"):
+                    grouped = name.endswith("grouped")
+                    runs.append({k: v for k, v in r["gemv_routes"].items()
+                                 if k.startswith("grouped_") == grouped})
+                else:
+                    runs.append(r["launches"][name])
+            if any(v if isinstance(v, int) else any(v.values())
+                   for v in runs):
+                out[f"{label}/{cell}"] = runs
+    return out
 
 
 def mesh_only(torch, dev, t_start) -> int:
@@ -4405,7 +4904,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with Phase("mesh"):
-        mesh_rec = mesh_path(torch, dev, cfg, params, prompts)
+        mesh_rec, mesh_fam = mesh_path(torch, dev, cfg, params, prompts)
         del params
         torch.cuda.empty_cache()
 
@@ -4545,6 +5044,10 @@ def main() -> int:
                 label: [r["launches"][name] for r in rec["ranks"]]
                 for label, rec in mesh_rec.items()}}
                if name in PAGED_KERNELS else {}),
+            **({"mesh_family_launches": mesh_family_launches(mesh_fam,
+                                                             name)}
+               if name in PAGED_KERNELS + ("bitplane_gemv_grouped",)
+               else {}),
             **({"grouped": [{k: r[k] for k in (
                 "linear", "mode", "k", "n", "experts", "touched", "rows",
                 "gemv_route", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -23,13 +23,17 @@ each rank slices every leaf to its block.  :func:`gather_shards` is its
 ``jax.device_get``: the blocks reassembled (a collective, every rank
 calls it).  :func:`serve_param_specs` is the placement the paged engine
 serves by; it differs from :func:`param_shardings` only where a head
-count does not divide the model axis (see there).
+count does not divide the model axis (see there).  :func:`rank_shapes`
+reads, from that placement, the shapes a rank's kernels run at.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+import functools
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
 
 Pytree = Any
 
@@ -334,43 +338,67 @@ def _replicated(spec_tree: Pytree) -> Pytree:
 
 def serve_param_specs(mesh, params: Pytree, cfg,
                       model_axis: str = "model") -> Pytree:
-    """The placement the paged engine serves by: :func:`param_shardings`
+    """The placement the serving engine runs by: :func:`param_shardings`
     (tp), with each block's shards kept whole-head and consistent.
 
     JAX's rule is by name and shape alone, so it splits ``wq``'s columns
     whenever ``Hq·Dh`` divides the model axis, heads or no heads, and XLA
     then moves data between the shards.  A rank here runs its kernels on
-    whole heads with no resharding, so an attention block shards only
-    when ``n_kv_heads`` divides the model axis (then ``n_heads`` does
-    too) and every one of its linears shards by its rule; an MLP block
-    only when all of its linears do.  A block that fails this is
-    replicated on the mesh (its linears' specs all None).  Everything
-    else (the embedding's vocabulary rows, an untied head's columns) is
-    :func:`param_shardings`' spec as it is.
+    its own shards with no resharding, so, block by block:
+
+    * an attention block (a layer's, or the hybrid's ``shared_attn``)
+      shards only when ``n_kv_heads`` divides the model axis (then
+      ``n_heads`` does too) and every one of its linears shards by its
+      rule; an MLP block (a layer's, a MoE layer's shared expert, the
+      hybrid's shared one) only when all of its linears do;
+    * a MoE layer's stacked experts shard their expert axis (codes and
+      scales) only when all three of them do, by JAX's stacked-expert
+      rule; the router stays whole;
+    * an SSM block stays whole: ``in_proj``'s columns are the segments
+      ``[z, x, B, C, dt]``, which a contiguous column slice cuts across,
+      and the gated norm normalises over all of ``d_inner``;
+
+    a block that fails its test is replicated on the mesh (all its specs
+    None).  The embedding's vocabulary rows (axis −2: ``(V, D)``, or the
+    audio family's ``(K, V, D)``) and an untied head's columns keep
+    :func:`param_shardings`' spec.
     """
     specs = param_shardings(mesh, params)
     msize = _mesh_sizes(mesh).get(model_axis, 1)
     if msize <= 1:
         return specs
 
-    def cut(lin_spec) -> bool:
-        """Is the linear's weight (its codes, when packed) sharded?"""
+    def cut(lin_spec, axis) -> bool:
+        """Is the linear's weight (its codes, when packed) sharded, along
+        ``axis`` when one is named?"""
         main = lin_spec.packed if hasattr(lin_spec, "packed") \
-            else lin_spec["w"]
-        return model_axis in main
+            else lin_spec["w"] if isinstance(lin_spec, dict) else lin_spec
+        if axis is None:
+            return model_axis in main
+        return main[axis] == model_axis
 
-    def fix(block: dict, keys, heads_ok: bool) -> None:
+    def fix(block: dict, keys, ok: bool, axis=None) -> None:
         present = [k for k in keys if k in block]
-        if not (heads_ok and all(cut(block[k]) for k in present)):
+        if not (ok and all(cut(block[k], axis) for k in present)):
             for k in present:
                 block[k] = _replicated(block[k])
 
-    heads_ok = cfg.n_kv_heads % msize == 0
+    heads_ok = cfg.n_kv_heads > 0 and cfg.n_kv_heads % msize == 0
     for lspec in specs["layers"]:
         if "attn" in lspec:
             fix(lspec["attn"], _ATTN_KEYS, heads_ok)
         if "mlp" in lspec:
             fix(lspec["mlp"], _MLP_KEYS, True)
+        if "moe" in lspec:
+            moe = lspec["moe"]
+            fix(moe, _MLP_KEYS, True, axis=0)
+            if "shared" in moe:
+                fix(moe["shared"], _MLP_KEYS, True)
+        if "ssm" in lspec:
+            lspec["ssm"] = _replicated(lspec["ssm"])
+    if "shared_attn" in specs:
+        fix(specs["shared_attn"]["attn"], _ATTN_KEYS, heads_ok)
+        fix(specs["shared_attn"]["mlp"], _MLP_KEYS, True)
     return specs
 
 
@@ -393,8 +421,11 @@ def local_shard(tree: Pytree, specs: Pytree, mesh) -> Pytree:
     A ``PackedLinear`` comes back with its local feature counts and
     ``shard`` set to how it was split: ``"col"`` (output features over
     the model axis), ``"row"`` (packed rows, i.e. ``K·bits/8``, over the
-    model axis) or None (whole on every rank).  A bias of a row-parallel
-    linear spans the output and stays whole.
+    model axis), ``"expert"`` (a stacked ``(E, Kp, N)`` linear's
+    contiguous slice of ``E/m`` experts, codes and scales; the rank's
+    first expert is ``E/m`` times its model index) or None (whole on
+    every rank).  A bias of a row-parallel linear spans the output and
+    stays whole.
     """
     def one(path, leaf, spec):
         out = leaf
@@ -403,32 +434,39 @@ def local_shard(tree: Pytree, specs: Pytree, mesh) -> Pytree:
             if n > 1:
                 size = leaf.shape[ax] // n
                 out = out.narrow(ax, idx * size, size)
-        return out.contiguous() if out is not leaf else leaf
+        # a copy even where the block is already contiguous (a slice of
+        # the leading axis is a view that would keep the whole leaf alive)
+        return (out.clone(memory_format=torch.contiguous_format)
+                if out is not leaf else leaf)
 
     out = tree_map_with_path(one, tree, specs)
-    return _stamp(out, specs)
+    return _stamp(out, specs, mesh)
 
 
-def _stamp(tree: Pytree, specs: Pytree = None) -> Pytree:
+def _stamp(tree: Pytree, specs: Pytree = None, mesh=None) -> Pytree:
     """Every PackedLinear with the feature counts of the codes it holds,
-    and ``shard`` from its packed leaf's spec (None without ``specs``: a
-    whole weight)."""
+    and ``shard`` from its packed leaf's spec on ``mesh`` (None without
+    ``specs``, or where every axis it names has size 1: a whole
+    weight)."""
     from repro_torch.engine.packed import PackedLinear
 
     if isinstance(tree, PackedLinear):
         kind = None
-        if specs is not None and tree.packed.ndim == 2:
-            k_cut, n_cut = (e is not None for e in specs.packed[-2:])
-            kind = "row" if k_cut else ("col" if n_cut else None)
+        if specs is not None:
+            cut = [_blocks(e, mesh)[1] > 1 for e in specs.packed]
+            if tree.packed.ndim == 2:
+                kind = "row" if cut[0] else ("col" if cut[1] else None)
+            elif cut[0]:
+                kind = "expert"     # stacked experts, a contiguous E slice
         return dataclasses.replace(
             tree, shard=kind,
             in_features=tree.packed.shape[-2] * (8 // tree.bits),
             out_features=tree.packed.shape[-1])
     if isinstance(tree, dict):
-        return {k: _stamp(v, None if specs is None else specs[k])
+        return {k: _stamp(v, None if specs is None else specs[k], mesh)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        out = [_stamp(v, None if specs is None else specs[i])
+        out = [_stamp(v, None if specs is None else specs[i], mesh)
                for i, v in enumerate(tree)]
         return type(tree)(out) if isinstance(tree, list) else tuple(out)
     return tree
@@ -450,3 +488,73 @@ def gather_shards(tree: Pytree, specs: Pytree, mesh) -> Pytree:
 
     out = tree_map_with_path(one, tree, specs)
     return _stamp(out)
+
+
+# ---------------------------------------------------------------------------
+# a rank's kernel shapes
+# ---------------------------------------------------------------------------
+
+
+class RankShapes(NamedTuple):
+    """The shapes one rank of a mesh gives the kernels: ``linears``, the
+    ``(K, N)`` of every packed 2-D linear it holds (an untied head
+    included); ``experts``, the ``(K, N, E_local)`` of every stacked
+    expert linear; ``heads``, the ``(Hkv, G, Dh)`` of its attention
+    blocks (None without one).  Each in the tree's order, without
+    repeats."""
+
+    linears: Tuple[Tuple[int, int], ...]
+    experts: Tuple[Tuple[int, int, int], ...]
+    heads: Optional[Tuple[int, int, int]]
+
+
+def rank_shapes(cfg, shape: Tuple[int, ...],
+                axis_names: Tuple[str, ...] = ("data", "model"),
+                rank: int = 0, bits: int = 4) -> RankShapes:
+    """The :class:`RankShapes` of ``rank`` of a ``shape`` mesh serving
+    ``cfg`` with ``bits``-bit packed weights, read from the serving
+    placement itself (:func:`serve_param_specs`, :func:`local_shard`) on
+    a one-layer tree of ``cfg`` built under ``FakeTensorMode``: shapes
+    only, no weight drawn and no memory taken.  Every layer of a family
+    is cut alike, so one layer speaks for all."""
+    return _rank_shapes(dataclasses.replace(cfg, n_layers=1),
+                        tuple(shape), tuple(axis_names), rank, bits)
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_shapes(one, shape, axis_names, rank, bits) -> RankShapes:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist.hints import Mesh
+    from repro_torch.engine.packed import PackedLinear
+    from repro_torch.models import init_params
+
+    mesh = Mesh(shape, axis_names, rank, torch.device("cpu"), {})
+    with FakeTensorMode():
+        params = init_params(one, torch.Generator(), engine_bits=bits)
+        local = local_shard(params, serve_param_specs(mesh, params, one),
+                            mesh)
+    linears, experts, widths = {}, {}, {}
+
+    def walk(node, path):
+        if isinstance(node, PackedLinear):
+            k, n = node.in_features, node.out_features
+            if node.packed.ndim == 2:
+                linears[k, n] = None
+            else:
+                experts[k, n, node.packed.shape[0]] = None
+            widths.setdefault(path[-2:], n)
+        elif isinstance(node, dict):
+            for key, v in node.items():
+                walk(v, path + (key,))
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, path)
+
+    walk(local, ())
+    heads = None
+    if ("attn", "wq") in widths:
+        dh = one.resolved_head_dim
+        hq, hkv = widths["attn", "wq"] // dh, widths["attn", "wk"] // dh
+        heads = (hkv, hq // hkv, dh)
+    return RankShapes(tuple(linears), tuple(experts), heads)

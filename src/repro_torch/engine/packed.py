@@ -34,8 +34,9 @@ class PackedLinear:
     as the JAX package stamps it.  ``shard``: how this object was cut
     from a whole weight for one rank (``dist.sharding.local_shard``):
     ``"col"`` (an N/m slice of codes, scales and bias), ``"row"`` (K/m
-    packed rows, whole scales and bias) or None (the whole weight); the
-    feature counts are then the local ones.
+    packed rows, whole scales and bias), ``"expert"`` (stacked experts:
+    a contiguous slice of the expert axis) or None (the whole weight);
+    the feature counts are then the local ones.
     """
 
     packed: torch.Tensor

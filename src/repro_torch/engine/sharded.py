@@ -26,6 +26,12 @@ for bit whenever the float32 partials are exact (integer activation and
 weight grids: ``tests/test_torch_shard_engine.py`` holds this on 8
 ``gloo`` ranks).
 
+* **expert** (a stacked ``(E, Kp, N)`` linear's contiguous slice of
+  ``E/m`` experts): the grouped twin runs the wrapped grouped backend on
+  the rank's experts only, over rows the MoE block sorted for them, and
+  no collective runs here: ``models/moe.py`` sums each token's routed
+  contributions over the model axis, exactly, after its combine.
+
 Lanes over the data axes are the serving engine's business: a data
 shard's rank runs only its own lanes (:func:`lane_partition`), so the
 activations a backend sees are already the rank's rows.
@@ -39,7 +45,12 @@ import torch
 
 from repro_torch.dist.collectives import psum_partial
 from repro_torch.dist.sharding import paged_attn_partition
-from repro_torch.engine.backends import get_backend, register_backend
+from repro_torch.engine.backends import (
+    get_backend,
+    get_grouped_backend,
+    register_backend,
+    register_grouped_backend,
+)
 from repro_torch.engine.packed import PackedLinear
 
 
@@ -57,6 +68,23 @@ def _sharded(plan, lin: PackedLinear, x: torch.Tensor, out_dtype):
     part = inner(plan, lin, x, torch.float32)
     return psum_partial(part, plan.mesh.group(plan.model_axis),
                         bits=plan.psum_bits).to(out_dtype)
+
+
+@register_grouped_backend("sharded")
+def _sharded_grouped(plan, lin: PackedLinear, x: torch.Tensor,
+                     offsets: torch.Tensor, max_rows: int, out_dtype):
+    """Stacked experts, whole or this rank's slice of them: the wrapped
+    backend's grouped form on the experts the rank holds (``offsets``
+    counts those only), with no collective."""
+    inner = get_grouped_backend(plan.inner_backend or "reference")
+    if lin.shard not in (None, "expert"):
+        raise ValueError(f"stacked experts cut as {lin.shard!r}; the mesh "
+                         "splits them along the expert axis only")
+    if offsets.shape[0] != lin.packed.shape[0] + 1:
+        raise ValueError(
+            f"{offsets.shape[0] - 1} expert groups for the "
+            f"{lin.packed.shape[0]} experts this rank holds")
+    return inner(plan, lin, x, offsets, max_rows, out_dtype)
 
 
 def lane_partition(mesh, model_axis: str, n_kv_heads: int,

@@ -13,6 +13,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.collectives import psum_partial
 from repro_torch.engine import EnginePlan, as_packed, is_packed, plan_for_bits
 
 
@@ -47,6 +48,30 @@ def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     """Mamba2's gated RMSNorm: ``norm(x) * silu(z)``, the gate taken in
     float32 and rounded to x's dtype."""
     return rms_norm(x, scale, eps) * F.silu(z.to(torch.float32)).to(x.dtype)
+
+
+def row_dense(p, x: torch.Tensor, plan: Optional[EnginePlan],
+              group) -> torch.Tensor:
+    """A row-parallel linear on this rank's slice of the input features,
+    summed over ``group`` (None: the whole linear, :func:`dense`).  A
+    packed one runs the ``sharded`` backend, which sums its float32
+    partials itself; a dense one is multiplied in float32 and summed
+    here.  The bias, whole on every rank, is added once, after the sum."""
+    if group is None:
+        return dense(p, x, plan)
+    if is_packed(p):
+        if (plan is None or plan.backend != "sharded"
+                or as_packed(p).shard != "row"):
+            raise ValueError(
+                "a row-parallel packed linear on a mesh runs through the "
+                "sharded backend (EngineConfig(sharded=True))")
+        return dense(p, x, plan)
+    y = psum_partial(torch.matmul(x.to(torch.float32),
+                                  p["w"].to(torch.float32)), group)
+    y = y.to(x.dtype)
+    if p.get("bias") is not None:
+        y = y + p["bias"].to(y.dtype)
+    return y
 
 
 def swiglu(p: dict, x: torch.Tensor, plan: Optional[EnginePlan] = None,

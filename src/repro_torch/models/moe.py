@@ -25,10 +25,22 @@ every run, in a captured graph as eagerly.
 
 Nothing here reads device data on the host, so the serving steps capture
 it in their CUDA graphs.
+
+**Expert-parallel on a mesh** (``view``, a rank's ``RankView`` whose
+experts are a contiguous slice ``[lo, lo + E_local)``): routing runs
+whole on every rank (x and the router are replicated over the model axis,
+so gates, choices and the kept mask agree everywhere); each rank sorts
+and computes only the kept pairs of its own experts, the others sorting
+last, and builds the ``(B, S, k, D)`` float32 contributions with zeros
+in the other ranks' pairs.  The model group sums them exactly (each
+element is non-zero on one rank at most), and the k slots are then added
+in slot order as on one device, so the combine matches one device bit
+for bit whenever the expert outputs do.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -36,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.dist.collectives import psum_partial
 from repro_torch.engine import (
     EnginePlan,
     PackedLinear,
@@ -49,7 +62,7 @@ from repro_torch.kernels._gemv import (
     gather_slots,
     scatter_slots,
 )
-from repro_torch.models.layers import dense, init_linear, swiglu
+from repro_torch.models.layers import dense, init_linear, row_dense, swiglu
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype,
@@ -169,29 +182,44 @@ def moe_block(
     cfg: ModelConfig,
     plan: Optional[EnginePlan] = None,
     counts: Optional[torch.Tensor] = None,
+    view=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(y, aux_loss)``, y of x's shape and dtype.
 
     ``counts``, when given, an ``(E,)`` int32 tensor, receives the rows
     each expert computed (in place, so a captured graph's replays refill
-    it): a step's touched experts are read from it afterwards."""
+    it): a step's touched experts are read from it afterwards.  ``view``:
+    a mesh rank's ``RankView``; with its experts sharded the rank computes
+    its own (``counts`` gets their rows, zeros elsewhere) and the model
+    group sums the contributions (module docstring); the shared expert's
+    ``w_down`` sums over ``view.mlp_group``."""
     squeeze = x.ndim == 2
     if squeeze:
         x = x[None]
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     gates, experts, keep, aux = route(params, x, cfg)
+    lo, e_local = 0, e
+    if view is not None and view.expert_group is not None:
+        lo, e_local = view.expert_lo, view.n_experts
+        experts = experts - lo
+        keep = keep & (experts >= 0) & (experts < e_local)
 
     # every kept pair of every row, sorted by expert (stable: by row, then
-    # rank); dropped pairs sort last under the key E and are never computed
+    # rank); dropped pairs (and another rank's) sort last under the key
+    # E_local and are never computed
     n_pairs = b * s * k
-    key = torch.where(keep, experts, torch.full_like(experts, e)).reshape(-1)
+    key = torch.where(keep, experts, torch.full_like(experts, e_local)
+                      ).reshape(-1)
     order = torch.argsort(key, stable=True)
     offsets = torch.searchsorted(
-        key[order], torch.arange(e + 1, device=x.device, dtype=key.dtype)
+        key[order], torch.arange(e_local + 1, device=x.device,
+                                 dtype=key.dtype)
     ).to(torch.int32)
     if counts is not None:
-        counts.copy_(offsets[1:] - offsets[:-1])
+        if e_local < e:
+            counts.zero_()
+        counts[lo:lo + e_local].copy_(offsets[1:] - offsets[:-1])
     xs = x.reshape(b * s, d)[order // k]                       # (P, D)
     max_rows = max_expert_rows(b, s, cfg)
     gate = grouped_dense(params["w_gate"], xs, offsets, max_rows, plan)
@@ -207,13 +235,17 @@ def moe_block(
     g = gates.to(x.dtype).to(torch.float32)[..., None]
     contrib = torch.where(keep[..., None], contrib * g,
                           torch.zeros((), device=x.device))
+    if e_local < e:
+        contrib = psum_partial(contrib, view.expert_group)
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
     y = y.to(x.dtype)
 
     if "shared" in params:
-        y = y + swiglu(params["shared"], x, plan)
+        down = functools.partial(row_dense, plan=plan,
+                                 group=view.mlp_group if view else None)
+        y = y + swiglu(params["shared"], x, plan, down)
     if squeeze:
         y = y[0]
     return y, aux

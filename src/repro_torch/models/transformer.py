@@ -62,7 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import FAMILIES, PAGED_FAMILIES, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.collectives import all_gather, all_reduce, psum_partial
+from repro_torch.dist.collectives import all_gather, all_reduce
 from repro_torch.dist.sharding import _ROW
 from repro_torch.engine import (
     EnginePlan,
@@ -88,6 +88,7 @@ from repro_torch.models.layers import (
     init_embedding,
     init_linear,
     rms_norm,
+    row_dense,
     swiglu,
 )
 from repro_torch.models.moe import init_moe, moe_block
@@ -224,14 +225,14 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 def _mlp_apply(lp, x, cfg, plan, view=None):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    down = functools.partial(_row_dense, plan=plan,
+    down = functools.partial(row_dense, plan=plan,
                              group=view.mlp_group if view else None)
     return x + swiglu(lp["mlp"], h, plan, down)
 
 
-def _moe_apply(lp, x, cfg, plan, counts=None):
+def _moe_apply(lp, x, cfg, plan, counts=None, view=None):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y, aux = moe_block(lp["moe"], h, cfg, plan, counts)
+    y, aux = moe_block(lp["moe"], h, cfg, plan, counts, view)
     return x + y, aux
 
 
@@ -241,7 +242,7 @@ def _ffn_apply(lp, x, cfg, plan, counts=None, view=None):
     ``(E,)`` rows-per-expert output; ``view``: a mesh rank's
     :class:`RankView`."""
     if "moe" in lp:
-        return _moe_apply(lp, x, cfg, plan, counts)
+        return _moe_apply(lp, x, cfg, plan, counts, view)
     return _mlp_apply(lp, x, cfg, plan, view), None
 
 
@@ -254,22 +255,41 @@ def _embed(params: Params, tokens: torch.Tensor,
     """``(B, S)`` token ids -> ``(B, S, D)`` embeddings; for the audio
     family ``(B, S, K)`` ids, the K codebooks' embeddings summed in
     codebook order, as the JAX package sums them.  On a mesh rank whose
-    table holds a slice of the vocabulary rows, each rank looks up the
-    ids it holds, zeroes the rest, and the model group sums them."""
+    table holds a slice of the vocabulary rows (axis −2), each rank looks
+    up the ids it holds, zeroes the rest, and the model group sums them:
+    exactly, since each row is held by one rank; the audio family's K
+    lookups are summed over the group one codebook apiece and then over
+    the codebooks in codebook order, so the sum is one device's bit for
+    bit."""
     if view is not None and view.vocab_group is not None:
-        table = params["embed"]
-        ids = tokens.long() - view.vocab_lo
-        held = (ids >= 0) & (ids < table.shape[0])
-        x = torch.where(held[..., None],
-                        table[torch.clamp(ids, 0, table.shape[0] - 1)],
-                        torch.zeros((), dtype=table.dtype,
-                                    device=table.device))
-        return all_reduce(x, view.vocab_group)
+        return _embed_sharded(params["embed"], tokens, cfg, view)
     if cfg.family == "audio":
         tokens = tokens.long()
         return sum(params["embed"][k][tokens[..., k]]
                    for k in range(cfg.n_codebooks))
     return params["embed"][tokens.long()]
+
+
+def _embed_sharded(table, tokens, cfg, view):
+    """:func:`_embed` on a rank holding rows ``[vocab_lo, vocab_lo +
+    rows)`` of each table."""
+    audio = cfg.family == "audio"
+    tables = table if audio else table[None]
+    ids = tokens.long() - view.vocab_lo
+    if not audio:
+        ids = ids[..., None]
+    rows = tables.shape[1]
+    held = (ids >= 0) & (ids < rows)
+    ids = torch.clamp(ids, 0, rows - 1)
+    x = torch.stack([tables[k][ids[..., k]] for k in range(ids.shape[-1])],
+                    dim=-2)                                 # (..., K, D)
+    x = all_reduce(torch.where(held[..., None], x,
+                               torch.zeros((), dtype=x.dtype,
+                                           device=x.device)),
+                   view.vocab_group)
+    if not audio:
+        return x[..., 0, :]
+    return sum(x[..., k, :] for k in range(cfg.n_codebooks))
 
 
 def _image_tokens(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> int:
@@ -552,8 +572,11 @@ def _split_local(cfg: ModelConfig, split_local: bool) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                split_local: bool = False, stacked: bool = True,
-               kv_bits: int = 0, device: DeviceLike = None) -> Params:
+               kv_bits: int = 0, device: DeviceLike = None,
+               n_kv_heads: Optional[int] = None) -> Params:
     """Decode cache in the slots layout, on ``device`` (None means the GPU).
+    ``n_kv_heads``: the KV heads a mesh rank holds (default all of
+    ``cfg.n_kv_heads``); ``batch`` is then the rank's lanes.
 
     dense, vlm, audio and moe: ``k``/``v`` ``(L, B, max_len, Hkv, Dh)`` (a
     vlm prompt's image positions count towards max_len);
@@ -603,7 +626,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         return tuple(torch.zeros(shape, dtype=dt, device=device)
                      for _ in range(n))
 
-    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    kv = (cfg.n_kv_heads if n_kv_heads is None else n_kv_heads,
+          cfg.resolved_head_dim)
     if split:
         n_glob = sum(cfg.is_global_layer(i) for i in range(cfg.n_layers))
         n_loc = cfg.n_layers - n_glob
@@ -710,11 +734,11 @@ def prefill(
     return _lm_logits(params, x[:, -1:], cfg, plan), dict(cache)
 
 
-def _decode_qkv(p, x, pos, cfg, plan):
+def _decode_qkv(p, x, pos, cfg, plan, view):
     """The new token's rotated q ``(B, 1, Hq, Dh)`` and k, v ``(B, Hkv,
-    Dh)``."""
+    Dh)``, at the rank's head counts (``view``)."""
     b = x.shape[0]
-    dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    dh, hq, hkv = cfg.resolved_head_dim, view.hq, view.hkv
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q = dense(p["attn"]["wq"], h, plan).reshape(b, 1, hq, dh)
     k = dense(p["attn"]["wk"], h, plan).reshape(b, 1, hkv, dh)
@@ -735,15 +759,17 @@ def _write_rows(cache_t, slot, row, active):
     cache_t[bidx, slot] = row
 
 
-def _attn_out(p, x, o, cfg, plan):
+def _attn_out(p, x, o, cfg, plan, view):
+    """``x`` plus ``wo`` of the rank's heads, summed over the model group
+    when ``wo`` is row-parallel."""
     b = x.shape[0]
-    return x + dense(p["attn"]["wo"],
-                     o.reshape(b, 1, cfg.n_heads * cfg.resolved_head_dim),
-                     plan)
+    return x + row_dense(p["attn"]["wo"],
+                         o.reshape(b, 1, view.hq * cfg.resolved_head_dim),
+                         plan, view.attn_group)
 
 
 def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
-                       active=None, scales=None):
+                       view, active=None, scales=None):
     """One cached-attention sub-block for a single new token; writes the
     token's K/V into ``cache_k``/``cache_v`` ``(B, T, Hkv, Dh)`` in place
     at slot ``min(pos, T - 1)`` and attends the cache (the plain
@@ -751,8 +777,9 @@ def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
 
     ``scales``: the int8 cache's ``(k_scale, v_scale)`` ``(B, T, Hkv)``
     bfloat16: the token's K/V are quantized per (token, head) and the
-    cache read through :func:`attend_decode_quant`."""
-    q, k, v = _decode_qkv(p, x, pos, cfg, plan)
+    cache read through :func:`attend_decode_quant`.  ``view``: the
+    rank's heads and groups (:func:`rank_view`)."""
+    q, k, v = _decode_qkv(p, x, pos, cfg, plan, view)
     slot = torch.clamp(pos.long(), max=cache_k.shape[1] - 1)
     if scales is None:
         _write_rows(cache_k, slot, k, active)
@@ -766,20 +793,20 @@ def _attn_decode_apply(p, x, cache_k, cache_v, pos, cfg, plan, window,
             _write_rows(scale_t, slot, scale, active)
         o = attend_decode_quant(q, cache_k, cache_v, scales[0], scales[1],
                                 pos, window)
-    return _attn_out(p, x, o, cfg, plan)
+    return _attn_out(p, x, o, cfg, plan, view)
 
 
-def _attn_decode_apply_ring(p, x, ring_k, ring_v, pos, cfg, plan,
+def _attn_decode_apply_ring(p, x, ring_k, ring_v, pos, cfg, plan, view,
                             active=None):
     """The window-capped local layer of a ``split_local`` cache: the
     token's K/V go to ring slot ``pos % W`` and the ring is attended by
     :func:`attend_decode_ring`."""
-    q, k, v = _decode_qkv(p, x, pos, cfg, plan)
+    q, k, v = _decode_qkv(p, x, pos, cfg, plan, view)
     slot = pos.long() % ring_k.shape[1]
     _write_rows(ring_k, slot, k, active)
     _write_rows(ring_v, slot, v, active)
     return _attn_out(p, x, attend_decode_ring(q, ring_k, ring_v, pos), cfg,
-                     plan)
+                     plan, view)
 
 
 def _layer_scales(cache, layer):
@@ -798,6 +825,7 @@ def decode_step(
     attn_backend: Optional[str] = None,
     active: Optional[torch.Tensor] = None,   # (B,) bool
     expert_counts: Optional[torch.Tensor] = None,   # (L, E) int32, moe
+    mesh=None,
 ):
     """One token of autoregressive decode over the slots cache, in any of
     :func:`init_cache`'s layouts.  Returns (logits ``(B, 1, V)``, ``(B, 1,
@@ -816,34 +844,44 @@ def decode_step(
     are selected where the step writes: the K/V rows it overwrites, and
     the conv and h states, which it writes whole anyway.  The hybrid
     family's shared block attends its site's cache with the plain
-    :func:`attend_decode`, as the JAX package does."""
+    :func:`attend_decode`, as the JAX package does.
+
+    ``mesh``: this rank's mesh.  ``params`` and ``cache`` are then the
+    rank's shards (``dist.sharding.serve_param_specs`` / ``local_shard``;
+    the cache at the rank's lanes and KV heads, ``init_cache(
+    n_kv_heads=)``), and the step runs the paged steps' collectives: the
+    row-parallel ``wo`` / ``w_down`` sums, the vocabulary's lookups and
+    logits, and the MoE combine over the model group.  SSM blocks are
+    whole on every rank.  The returned logits are full width over the
+    rank's lanes."""
     _check_family(cfg, FAMILIES)
     plan, _ = _resolve(eng, attn_backend, tokens.device)
+    view = rank_view(params, cfg, mesh)
     pos = cache["pos"]
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, view)
     if "k_global" in cache:
         gi = li = 0
         for layer, lp in enumerate(params["layers"]):
             if cfg.is_global_layer(layer):
                 x = _attn_decode_apply(lp, x, cache["k_global"][gi],
                                        cache["v_global"][gi], pos, cfg,
-                                       plan, 0, active)
+                                       plan, 0, view, active)
                 gi += 1
             else:
                 x = _attn_decode_apply_ring(lp, x, cache["k_local"][li],
                                             cache["v_local"][li], pos, cfg,
-                                            plan, active)
+                                            plan, view, active)
                 li += 1
             x, _ = _ffn_apply(lp, x, cfg, plan,
-                              _layer_counts(expert_counts, layer))
+                              _layer_counts(expert_counts, layer), view)
     elif cfg.family in PAGED_FAMILIES:
         for layer, (lp, win) in enumerate(zip(params["layers"],
                                               _layer_windows(cfg))):
             x = _attn_decode_apply(lp, x, cache["k"][layer],
                                    cache["v"][layer], pos, cfg, plan, win,
-                                   active, _layer_scales(cache, layer))
+                                   view, active, _layer_scales(cache, layer))
             x, _ = _ffn_apply(lp, x, cfg, plan,
-                              _layer_counts(expert_counts, layer))
+                              _layer_counts(expert_counts, layer), view)
     else:
         shared = params.get("shared_attn")
         for layer, lp in enumerate(params["layers"]):
@@ -863,9 +901,9 @@ def decode_step(
             if shared is not None and site is not None:
                 x = _attn_decode_apply(shared, x, cache["k"][site],
                                        cache["v"][site], pos, cfg, plan, 0,
-                                       active)
-                x = _mlp_apply(shared, x, cfg, plan)
-    logits = _lm_logits(params, x, cfg, plan)
+                                       view, active)
+                x = _mlp_apply(shared, x, cfg, plan, view)
+    logits = _lm_logits(params, x, cfg, plan, view)
     pos.add_(1 if active is None else active.to(pos.dtype))
     return logits, dict(cache)
 
@@ -877,9 +915,9 @@ def decode_step(
 
 class RankView(NamedTuple):
     """What one rank of a mesh holds, read from its shards' widths in one
-    place (:func:`rank_view`): its query and KV heads, and the model
-    group over which each sharded block sums or gathers (None where the
-    block is whole on the rank)."""
+    place (:func:`rank_view`): its query and KV heads, the model group
+    over which each sharded block sums or gathers (None where the block
+    is whole on the rank), and its slice of a MoE layer's experts."""
 
     hq: int
     hkv: int
@@ -888,6 +926,9 @@ class RankView(NamedTuple):
     vocab_group: Any      # embedding rows sharded: sum the lookups
     vocab_lo: int         # first vocabulary row this rank holds
     head_group: Any       # head's logits sharded: gather them
+    expert_group: Any = None    # experts sharded: sum the contributions
+    expert_lo: int = 0          # first expert this rank holds
+    n_experts: Optional[int] = None   # experts this rank holds (None: all)
 
 
 def _width(p) -> int:
@@ -895,59 +936,62 @@ def _width(p) -> int:
     return as_packed(p).out_features if is_packed(p) else p["w"].shape[-1]
 
 
+def _first_block(params: Params, *names: str) -> Optional[Params]:
+    """The first block found under one of ``names`` (a ``/`` path) in a
+    layer, else in the hybrid's ``shared_attn``; None when none is."""
+    for where in list(params["layers"][:1]) + [params.get("shared_attn")]:
+        for name in names:
+            node = where
+            for key in name.split("/"):
+                node = node.get(key) if isinstance(node, dict) else None
+            if node is not None:
+                return node
+    return None
+
+
 def rank_view(params: Params, cfg: ModelConfig, mesh,
               model_axis: str = "model") -> RankView:
-    """This rank's :class:`RankView` (every layer of the dense family is
-    cut alike, so layer 0 speaks for all).  Without a mesh: the whole
-    model, no group."""
+    """This rank's :class:`RankView`, for every family: the heads from the
+    first attention block present (a layer's, or the hybrid's
+    ``shared_attn``), the MLP's cut from the first MLP (a layer's, a MoE
+    layer's shared expert, the hybrid's shared one), the experts from the
+    first MoE layer's stacked ``w_gate``, the vocabulary from the
+    embedding's axis −2 (``(V, D)``, or the audio family's ``(K, V,
+    D)``).  Every layer is cut alike, so the first speaks for all; SSM
+    blocks are whole.  Without a mesh: the whole model, no group."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     if mesh is None:
         return RankView(hq, hkv, None, None, None, 0, None)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family} family does not run on a mesh yet; only "
-            "the dense family serves paged on a mesh (ROADMAP.md queue 1 "
-            "item 8 (a), (b))")
     group = mesh.group(model_axis)
+    index = mesh.index(model_axis)
     dh = cfg.resolved_head_dim
-    attn = params["layers"][0]["attn"]
-    hq_l, hkv_l = _width(attn["wq"]) // dh, _width(attn["wk"]) // dh
-    mlp = params["layers"][0]["mlp"]
-    vocab = params["embed"].shape[0]
+    attn = _first_block(params, "attn")
+    hq_l, hkv_l = ((_width(attn["wq"]) // dh, _width(attn["wk"]) // dh)
+                   if attn is not None else (hq, hkv))
+    mlp = _first_block(params, "mlp", "moe/shared")
+    mlp_cut = mlp is not None and _width(mlp["w_up"]) < cfg.d_ff
+    experts = _first_block(params, "moe/w_gate")
+    e_local = None
+    if experts is not None:
+        e_local = (as_packed(experts).packed if is_packed(experts)
+                   else experts).shape[0]
+    expert_cut = e_local is not None and e_local < cfg.n_experts
+    vocab = params["embed"].shape[-2]
+    head_width = cfg.vocab_size * cfg.n_codebooks
     if cfg.tie_embeddings:
         head_sharded = vocab < cfg.vocab_size
     else:
-        head_sharded = _width(params["lm_head"]) < cfg.vocab_size
+        head_sharded = _width(params["lm_head"]) < head_width
     return RankView(
         hq_l, hkv_l,
         attn_group=group if hq_l < hq else None,
-        mlp_group=group if _width(mlp["w_up"]) < cfg.d_ff else None,
+        mlp_group=group if mlp_cut else None,
         vocab_group=group if vocab < cfg.vocab_size else None,
-        vocab_lo=mesh.index(model_axis) * vocab,
-        head_group=group if head_sharded else None)
-
-
-def _row_dense(p, x, plan, group):
-    """A row-parallel linear on this rank's slice of the input features,
-    summed over ``group`` (None: the whole linear, :func:`dense`).  A
-    packed one runs the ``sharded`` backend, which sums its float32
-    partials itself; a dense one is multiplied in float32 and summed
-    here.  The bias, whole on every rank, is added once, after the sum."""
-    if group is None:
-        return dense(p, x, plan)
-    if is_packed(p):
-        if (plan is None or plan.backend != "sharded"
-                or as_packed(p).shard != "row"):
-            raise ValueError(
-                "a row-parallel packed linear on a mesh runs through the "
-                "sharded backend (EngineConfig(sharded=True))")
-        return dense(p, x, plan)
-    y = psum_partial(torch.matmul(x.to(torch.float32),
-                                  p["w"].to(torch.float32)), group)
-    y = y.to(x.dtype)
-    if p.get("bias") is not None:
-        y = y + p["bias"].to(y.dtype)
-    return y
+        vocab_lo=index * vocab,
+        head_group=group if head_sharded else None,
+        expert_group=group if expert_cut else None,
+        expert_lo=index * e_local if expert_cut else 0,
+        n_experts=e_local if expert_cut else None)
 
 
 # ---------------------------------------------------------------------------
@@ -979,8 +1023,8 @@ def decode_step_paged(
     rank's shards (``dist.sharding.serve_param_specs`` /
     ``local_shard``): the heads it holds run on its KV-head slice of the
     pool, the row-parallel ``wo`` / ``w_down`` sums and the vocabulary's
-    lookups and logits cross the model group, and the returned logits
-    are full width (the dense family only)."""
+    lookups and logits and a MoE layer's combine cross the model group,
+    and the returned logits are full width."""
     _check_family(cfg)
     plan, abk = _resolve(eng, attn_backend, tokens.device)
     view = rank_view(params, cfg, mesh)
@@ -1002,7 +1046,7 @@ def decode_step_paged(
         kp, vp, ks, vs = _layer_pools(pages, layer)
         o = sharded_paged_attention(q, kp, vp, block_tables, pos, win, ks,
                                     vs, attn_backend=abk)
-        x = x + _row_dense(lp["attn"]["wo"], o.reshape(b, 1, hq * dh), plan,
+        x = x + row_dense(lp["attn"]["wo"], o.reshape(b, 1, hq * dh), plan,
                            view.attn_group)
         x, _ = _ffn_apply(lp, x, cfg, plan,
                           _layer_counts(expert_counts, layer), view)
@@ -1059,7 +1103,7 @@ def prefill_chunk(
         kp, vp, ks, vs = _layer_pools(pages, layer)
         o = sharded_paged_attention(q, kp, vp, block_tables, pos0, win, ks,
                                     vs, attn_backend=abk, prefill=bounds)
-        x = x + _row_dense(lp["attn"]["wo"], o.reshape(b, c, hq * dh), plan,
+        x = x + row_dense(lp["attn"]["wo"], o.reshape(b, c, hq * dh), plan,
                            view.attn_group)
         x, _ = _ffn_apply(lp, x, cfg, plan,
                           _layer_counts(expert_counts, layer), view)

@@ -96,20 +96,23 @@ In slots mode the paged-pool options (prefix cache, budget scheduler,
 audits) are refused or warned about as the JAX package does.
 
 **On a mesh** (``mesh=``, this process's rank of a ``(data, model)``
-:class:`~repro_torch.dist.hints.Mesh`; the dense family, paged mode):
-every rank constructs the same engine from the same params and receives
-the same submissions, and holds only its shards.  The params are placed
-by ``dist.sharding.serve_param_specs`` (JAX's ``param_shardings`` with
-whole heads) and cut by ``local_shard``; packed weights then run the
-``sharded`` backend (``EngineConfig(sharded=True)``).  The pool holds the
-rank's KV heads.  The host schedule (scheduler, allocator, prefix cache,
-preemption, sampling) runs identically on every rank, and every step's
-logits are gathered to full width and over all lanes before sampling, so
-every rank samples the same tokens and ``run()`` returns the same
-requests everywhere.
+:class:`~repro_torch.dist.hints.Mesh`; every family, in each mode it
+serves): every rank constructs the same engine from the same params and
+receives the same submissions, and holds only its shards.  The params
+are placed by ``dist.sharding.serve_param_specs`` (JAX's
+``param_shardings`` with whole heads, MoE experts over ``model``, SSM
+blocks whole) and cut by ``local_shard``; packed weights then run the
+``sharded`` backend (``EngineConfig(sharded=True)``).  The pool, or the
+slots cache, holds the rank's KV heads.  The host schedule (scheduler,
+allocator, prefix cache, preemption, sampling; in slots mode the
+one-token prompt steps, which every rank runs, a data shard that does
+not own the prompt's lane with none active) runs identically on every
+rank, and every step's logits are gathered to full width and over all
+lanes before sampling, so every rank samples the same tokens and
+``run()`` returns the same requests everywhere.
 
-Lanes and pages shard over the data axes together: where the lanes
-divide over them, data shard r runs only its lanes, which draw pages only
+Lanes shard over the data axes where they divide over them, in both
+modes; in paged mode pages with them: data shard r runs only its lanes, which draw pages only
 from its own range of the pool (``ShardedPageAllocator``), and its ranks
 hold that range alone and read it through local page ids.  The JAX
 package keeps the pool sharded over data but all-gathers it before every
@@ -120,8 +123,8 @@ range could not hold one ``max_len`` request, or with the prefix cache
 (a cached page may serve any lane).  ``mesh_layout`` says which.
 
 A step on a mesh runs host collectives (``gloo`` cannot be captured), so
-``cuda_graphs`` must be False there.  The other families, slots mode,
-snapshots and chaos injection raise ``NotImplementedError`` on a mesh.
+``cuda_graphs`` must be False there.  Snapshots and chaos injection
+raise ``NotImplementedError`` on a mesh.
 """
 
 from __future__ import annotations
@@ -272,14 +275,8 @@ def _check_slots_options(scfg: ServeConfig, prefix_cache: bool,
                        "(no page pool)")
 
 
-def _check_mesh_options(cfg: ModelConfig, mode: str, cuda_graphs: bool,
-                        chaos) -> None:
+def _check_mesh_options(cuda_graphs: bool, chaos) -> None:
     """What a mesh does not serve yet raises, naming where it is queued."""
-    if cfg.family != "dense" or mode != "paged":
-        raise NotImplementedError(
-            f"on a mesh only the dense family serves, in paged mode (got "
-            f"{cfg.family!r}, {mode!r}); the other families and slots mode "
-            "are ROADMAP.md queue 1 item 8 (a) and (b)")
     if cuda_graphs:
         raise ValueError(
             "cuda_graphs=True on a mesh: a step runs torch.distributed "
@@ -336,9 +333,10 @@ class ServeEngine:
     slots mode, every prompt's sequential prefill) and decode step, each
     measured up to the host sync that reads its logits, and apart from
     them the seconds of each graph capture (``"capture"``) and of each
-    audit (``"audit"``); on a mesh, each step's seconds inside
-    collectives (``"collectives"``) and waiting for the device before
-    them (``"collective_wait"``).
+    audit (``"audit"``); on a mesh, the seconds inside collectives
+    (``"collectives"``) and waiting for the device before them
+    (``"collective_wait"``) up to each logits read (a step; in slots
+    mode, a prompt's sequential prefill too).
     """
 
     def __init__(
@@ -390,7 +388,7 @@ class ServeEngine:
             # the allocator's page_grant site included
             chaos.obs = self.obs
         if mesh is not None:
-            _check_mesh_options(cfg, self.mode, cuda_graphs, chaos)
+            _check_mesh_options(cuda_graphs, chaos)
             if device is None:
                 device = mesh.device
         self.device = resolve_device(device)
@@ -516,27 +514,24 @@ class ServeEngine:
         self._fork_cost_table = None
 
     def _init_slots(self) -> None:
-        self.cache = init_cache(self.cfg, self.n_slots, self.max_len,
-                                device=self.device)
+        lanes_local = self._slots_layout()
+        self.cache = init_cache(self.cfg, lanes_local, self.max_len,
+                                device=self.device,
+                                n_kv_heads=self._kv_heads)
         self.queue: Deque[Request] = collections.deque()
         self.slot_req: List[Optional[Request]] = [None] * self.n_slots
-        self.lanes = LaneTables(self.n_slots, self.device,
+        self.lanes = LaneTables(lanes_local, self.device,
                                 codebooks=self._codebooks)
         params, cache, lanes = self.params, self.cache, self.lanes
-        cfg, plan, abk = self.cfg, self.plan, self.attn_backend
+        cfg, plan, abk, mesh = self.cfg, self.plan, self.attn_backend, \
+            self.mesh
         self._slots_step = self._step_fn(lambda: decode_step(
             params, cache, lanes.tokens, cfg, plan, attn_backend=abk,
-            active=lanes.active)[0])
+            active=lanes.active, mesh=mesh)[0])
 
     def _step_fn(self, fn):
         """``fn`` as the engine runs it: a :class:`StepGraph` when graphs
-        are on, else ``fn`` itself (on a mesh, with the collectives' host
-        seconds counted from its start)."""
-        if self.mesh is not None:
-            def step():
-                collectives.reset_seconds()
-                return fn()
-            return step
+        are on, else ``fn`` itself."""
         if not self.cuda_graphs:
             return fn
         graph = StepGraph(fn, pool=self._graph_pool)
@@ -556,48 +551,92 @@ class ServeEngine:
         self.param_specs = serve_param_specs(self.mesh, params, self.cfg)
         return local_shard(params, self.param_specs, self.mesh)
 
-    def _mesh_layout(self, n_pages: int, prefix_cache: bool):
-        """``(n_pages, lanes this rank runs, pages this rank holds)``, and
-        ``mesh_layout`` / ``_lane_shard`` / ``_kv_heads`` set: KV heads
-        over ``model`` when they divide, lanes and pages over the data
-        axes when the module docstring's conditions hold."""
-        self._lane_shard = self._lane_group = None
-        self._kv_heads = self.mesh_layout = None
-        if self.mesh is None:
-            return n_pages, self.n_slots, n_pages
+    def _lane_shards(self) -> Tuple[int, Optional[str]]:
+        """``(data shards the lanes split into, why they stay whole)``,
+        with ``_kv_heads`` set to the KV heads this rank holds: lanes over
+        the data axes when ``n_slots`` divides them (``lane_partition``)."""
         mesh = self.mesh
         self._kv_heads = rank_view(self.params, self.cfg, mesh).hkv
         _, shards = lane_partition(mesh, "model", self.cfg.n_kv_heads,
                                    self.n_slots)
-        padded = pool_pages_for_mesh(n_pages, mesh)
         why = None
-        if shards > 1 and prefix_cache:
-            why = "the prefix cache may share a page with any lane"
-        elif shards > 1 and padded // shards < self._max_blocks + 1:
-            why = (f"a shard's {padded // shards} pages cannot hold one "
-                   f"max_len request")
-        elif shards == 1 and mesh.count(mesh.data_axes()) > 1:
+        if shards == 1 and mesh.count(mesh.data_axes()) > 1:
             why = "lanes do not divide over the data axes"
+        return shards, why
+
+    def _place_lanes(self, shards: int, why: Optional[str]) -> int:
+        """Record the mesh layout (``mesh_layout``; ``why``: the reason
+        lanes stay whole over data, which forces one shard) and return
+        the data shards the lanes split into; on a lane-sharded mesh, set
+        this rank's data shard and that shard's group (``_lane_shard`` /
+        ``_lane_group``)."""
+        mesh = self.mesh
         if why:
             shards = 1
         self.mesh_layout = {"mesh": dict(mesh.shape),
                             "kv_heads": self._kv_heads,
                             "data_shards": shards,
                             "whole_over_data": why}
+        # this engine's steps count their collectives' seconds from here
+        collectives.reset_seconds()
+        if shards > 1:
+            daxes = mesh.data_axes()
+            self._lane_shard = mesh.index(daxes)
+            self._lane_group = mesh.group(daxes)
+        return shards
+
+    def _mesh_layout(self, n_pages: int, prefix_cache: bool):
+        """``(n_pages, lanes this rank runs, pages this rank holds)`` of
+        paged mode: KV heads over ``model`` when they divide, lanes and
+        pages over the data axes when the module docstring's conditions
+        hold."""
+        self._lane_shard = self._lane_group = None
+        self._kv_heads = self.mesh_layout = None
+        if self.mesh is None:
+            return n_pages, self.n_slots, n_pages
+        shards, why = self._lane_shards()
+        padded = pool_pages_for_mesh(n_pages, self.mesh)
+        if shards > 1 and prefix_cache:
+            why = "the prefix cache may share a page with any lane"
+        elif shards > 1 and padded // shards < self._max_blocks + 1:
+            why = (f"a shard's {padded // shards} pages cannot hold one "
+                   f"max_len request")
+        shards = self._place_lanes(shards, why)
         if shards == 1:
             return n_pages, self.n_slots, n_pages
-        daxes = mesh.data_axes()
-        self._lane_shard = mesh.index(daxes)
-        self._lane_group = mesh.group(daxes)
         return padded, self.n_slots // shards, padded // shards
+
+    def _slots_layout(self) -> int:
+        """The lanes this rank runs in slots mode, and the KV heads of its
+        cache (``_kv_heads``; None: all): lanes over the data axes when
+        they divide, KV heads as the rank's attention shards hold them."""
+        self._lane_shard = self._lane_group = None
+        self._kv_heads = self.mesh_layout = None
+        if self.mesh is None:
+            return self.n_slots
+        return self.n_slots // self._place_lanes(*self._lane_shards())
+
+    def _lane_range(self) -> Tuple[int, int]:
+        """``(first, count)`` of the lanes this rank runs: all of them, or
+        on a lane-sharded mesh its data shard's contiguous block."""
+        n = self.lanes.active.shape[0]
+        return (0 if self._lane_shard is None else self._lane_shard * n), n
+
+    def _local_lane(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's lane buffers, or None where
+        another data shard runs it."""
+        lo, n = self._lane_range()
+        return slot - lo if lo <= slot < lo + n else None
 
     def _load_lanes(self, **arrays) -> None:
         """Refill the lane buffers; on a lane-sharded mesh with this data
         shard's rows, its block tables in local page ids."""
         if self._lane_shard is not None:
-            arrays = {k: self.alloc.local_rows(
-                v, self._lane_shard, pages=(k == "block_tables"))
-                for k, v in arrays.items()}
+            lo, n = self._lane_range()
+            arrays = {k: np.asarray(v)[lo:lo + n] for k, v in arrays.items()}
+            if "block_tables" in arrays:
+                arrays["block_tables"] = self.alloc.local_pages(
+                    arrays["block_tables"], self._lane_shard)
         self.lanes.load(**arrays)
 
     def _no_mesh(self, what: str) -> None:
@@ -1152,6 +1191,7 @@ class ServeEngine:
         out = logits.float().cpu().numpy()
         self.timings["collectives"].append(collectives.SECONDS[0])
         self.timings["collective_wait"].append(collectives.WAIT[0])
+        collectives.reset_seconds()
         return out
 
     def _timed(self, part: str, t0: float, captured: float) -> None:
@@ -1379,10 +1419,13 @@ class ServeEngine:
         read-modify-write recurrent states (``conv`` / ``h``).  Stale K/V
         at positions up to ``pos`` is always overwritten before it is
         read, and positions beyond it are masked."""
-        self.cache["pos"][slot] = 0
+        lane = self._local_lane(slot)
+        if lane is None:
+            return
+        self.cache["pos"][lane] = 0
         for name in ("conv", "h"):
             if name in self.cache:
-                self.cache[name][:, slot] = 0
+                self.cache[name][:, lane] = 0
 
     def _prefill_slot(self, slot: int, req: Request) -> None:
         """Prompt tokens enter the slot's cache by sequential decode, one
@@ -1395,11 +1438,13 @@ class ServeEngine:
         with self.obs.annotate("serve.prefill_slot"):
             prompt = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(
                 self.device)
-            self.lanes.load(tokens=self._lane_tokens({}),
-                            active=self._lane_mask([slot]))
+            self._load_lanes(tokens=self._lane_tokens({}),
+                             active=self._lane_mask([slot]))
+            lane = self._local_lane(slot)
             logits = None
             for i in range(len(req.prompt)):
-                self.lanes.tokens[slot].copy_(prompt[i:i + 1])
+                if lane is not None:
+                    self.lanes.tokens[lane].copy_(prompt[i:i + 1])
                 logits = self._slots_step()
             req.last_logits = self._host_logits(logits)[slot, -1]
         self._timed("prefill", t0, captured)
@@ -1420,7 +1465,7 @@ class ServeEngine:
         t_obs = self.obs.now()
         t0, captured = time.perf_counter(), self.capture_seconds
         with self.obs.annotate("serve.decode_step"):
-            self.lanes.load(tokens=tokens, active=self._lane_mask(updates))
+            self._load_lanes(tokens=tokens, active=self._lane_mask(updates))
             lg = self._host_logits(self._slots_step())
         self._timed("decode", t0, captured)
         self.obs.on_decode([(s, self.slot_req[s].rid) for s in updates],

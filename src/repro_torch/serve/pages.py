@@ -397,7 +397,7 @@ class ShardedPageAllocator(PageAllocator):
     range a rank of that shard holds.  The first page of every range is
     that shard's null page, never allocated (a rank's local page 0, where
     its idle lanes write).  Block tables hold global page ids;
-    :meth:`local_rows` gives one shard's rows in its local ids.
+    :meth:`local_pages` gives one shard's rows in its local ids.
 
     Preemption frees pages only within a shard (:meth:`shares_pool`).  A
     prefix cache is not attached: a cached page could serve a lane of
@@ -464,18 +464,13 @@ class ShardedPageAllocator(PageAllocator):
         raise TypeError("a sharded pool grants pages for a lane: "
                         "_take_for(slot)")
 
-    def local_rows(self, lanes: np.ndarray, shard: int, *,
-                   pages: bool = False) -> np.ndarray:
-        """Shard ``shard``'s rows of a per-lane array; with ``pages`` (a
-        block table) its page ids made local to the shard's range, the
-        unmapped entries left at the null page."""
-        rows = np.asarray(lanes)[shard * self.shard_lanes:
-                                 (shard + 1) * self.shard_lanes]
-        if pages:
-            rows = np.where(rows == NULL_PAGE, NULL_PAGE,
-                            rows - shard * self.shard_pages).astype(
-                                rows.dtype)
-        return rows
+    def local_pages(self, rows: np.ndarray, shard: int) -> np.ndarray:
+        """Block-table ``rows`` of shard ``shard``'s lanes in the page ids
+        local to its range, the unmapped entries left at the null
+        page."""
+        rows = np.asarray(rows)
+        return np.where(rows == NULL_PAGE, NULL_PAGE,
+                        rows - shard * self.shard_pages).astype(rows.dtype)
 
 
 @torch.no_grad()

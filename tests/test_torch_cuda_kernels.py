@@ -95,9 +95,15 @@ A rank of a mesh (``-k mesh``): the bit-plane GEMV at the local shapes
 of a ``(1, 2)`` rank of full-width qwen2.5-3b (wq N 1024, wk/wv N 128, wo
 K 1024, w_gate/w_up N 5504, w_down K 5504, an untied head's N 75,968) on
 its decode route (M 4, 8) and tensor-core route (M 128, 256) in bfloat16
-at 4 and 8 bits; both paged-attention kernels at one KV head with G 8;
-and two rank processes on the card (``gloo``) running the ``sharded``
-backend's column and row cuts against the unsharded GEMV.
+at 4 and 8 bits; every linear of a rank of each family config that
+serves on a mesh (an untied head included) at M 2, 8 and 256; both
+paged-attention kernels at one KV head with G 8, and at the KV heads of
+a rank of each paged family (llava-next, musicgen, llama4-scout,
+qwen3-moe); the grouped launch over a rank's experts (llama4-scout 8 of
+16, qwen3-moe 64 of 128) on its decode and tensor-core routes; and two
+rank processes on the card (``gloo``) running the ``sharded`` backend's
+column and row cuts against the unsharded GEMV.  The family shapes are
+read from the serving placement (``dist.sharding.rank_shapes``).
 
 The vlm, audio and hybrid families (``-k "family or hybrid"``): the
 bit-plane GEMV through every route at zamba2-7b's in_proj (ragged N
@@ -126,8 +132,14 @@ from repro_torch.core import (
     pack_weights,
     quantize_symmetric,
 )
-from repro_torch.config import EngineConfig, ServeConfig, get_reduced
+from repro_torch.config import (
+    EngineConfig,
+    ServeConfig,
+    get_arch,
+    get_reduced,
+)
 from repro_torch.core.controller import run_gemv
+from repro_torch.dist.sharding import rank_shapes
 from repro_torch.engine import resolve_plan
 from repro_torch.core.isa import MAX_ELEMS
 from repro_torch.kernels import _build
@@ -1627,6 +1639,128 @@ def test_mesh_attention_one_kv_head(cuda_device, kind, mode):
         assert _build.ROUTE_LAUNCHES[path] == before + 1
         r = paged_prefill_ref(q, kp, vp, bt, pos0, seq, 0, ks, vs)
     assert y.shape == r.shape and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
+
+
+# the family configs that serve on a mesh, each on a mesh its cells run;
+# a rank's shapes are read from the placement, never typed here
+MESH_FAMILIES = {"llava-next-mistral-7b": (1, 2), "musicgen-medium": (1, 2),
+                 "llama4-scout-17b-a16e": (1, 2),
+                 "qwen3-moe-235b-a22b": (1, 2), "qwen2.5-3b": (2, 1),
+                 "mamba2-130m": (1, 2), "zamba2-7b": (1, 2),
+                 "gemma3-27b": (1, 2)}
+MESH_MOE = ["llama4-scout-17b-a16e", "qwen3-moe-235b-a22b"]
+MESH_PAGED = ["llava-next-mistral-7b", "musicgen-medium"] + MESH_MOE
+
+
+def _rank_shapes(arch):
+    return rank_shapes(get_arch(arch), MESH_FAMILIES[arch])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 8, 256])
+@pytest.mark.parametrize("arch", list(MESH_FAMILIES))
+def test_mesh_family_gemv_local_shapes(cuda_device, arch, m):
+    """The bit-plane GEMV at every linear of a mesh rank of ``arch`` (its
+    untied head included), 4 bits, bf16: the decode route at M 2 / 8, the
+    tensor-core tile at M 256, within the plain version's tolerance."""
+    dt = torch.bfloat16
+    for k, n in _rank_shapes(arch).linears:
+        gen = torch.Generator(device=cuda_device).manual_seed(k + n + m)
+        q, scale = quantize_symmetric(
+            torch.randn((k, n), generator=gen, device=cuda_device), 4)
+        packed = pack_weights(q, 4)
+        x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
+        path = f"bitplane_gemv/{route(m, dt)}"
+        before = _build.ROUTE_LAUNCHES[path]
+        y = bitplane_gemv(packed, scale, x, bits=4, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert _build.ROUTE_LAUNCHES[path] == before + 1, (k, n)
+        r = bitplane_gemv_ref(packed, scale, x, bits=4, out_dtype=dt)
+        assert y.shape == (m, n), (k, n)
+        torch.testing.assert_close(
+            y.float(), r.float(), rtol=2 ** -7,
+            atol=1e-5 * r.float().abs().max().item(), msg=f"K {k} N {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts_kind", ["ragged", "full"])
+@pytest.mark.parametrize("arch", MESH_MOE)
+@pytest.mark.parametrize("bound", [8, 64])
+def test_mesh_grouped_gemv_local_experts(cuda_device, bound, arch,
+                                         counts_kind):
+    """The grouped launch over a mesh rank's slice of the experts (the
+    ``E_local`` on grid.z, ``offsets (E_local + 1,)``), bf16, through
+    grouped_decode (bound 8, twice: the same bits) and
+    grouped_tensor_core (64), within the plain version's tolerance, at
+    each of the rank's stacked expert linears."""
+    for shape in _rank_shapes(arch).experts:
+        _grouped_local_experts(cuda_device, bound, shape, counts_kind)
+
+
+def _grouped_local_experts(cuda_device, bound, shape, counts_kind):
+    k, n, experts = shape
+    dt = torch.bfloat16
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n + experts)
+    packed = torch.randint(-128, 128, (experts, k // 2, n), generator=gen,
+                           device=cuda_device, dtype=torch.int8)
+    scale = torch.rand((experts, 1, n), generator=gen,
+                       device=cuda_device) / 64 + 1e-3
+    counts = _grouped_counts(counts_kind, experts, bound, gen, cuda_device)
+    offsets = torch.zeros(experts + 1, dtype=torch.int32, device=cuda_device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    rows = int(offsets[-1])
+    x = torch.randn((rows + 5, k), generator=gen, device=cuda_device).to(dt)
+    path = f"bitplane_gemv/{grouped_route(bound, dt)}"
+    assert path.endswith("grouped_decode" if bound == 8
+                         else "grouped_tensor_core")
+    before = _build.ROUTE_LAUNCHES[path]
+    y = bitplane_gemv_grouped(packed, scale, x, offsets, max_rows=bound,
+                              bits=4, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    if bound == 8:
+        assert torch.equal(y[:rows], bitplane_gemv_grouped(
+            packed, scale, x, offsets, max_rows=bound, bits=4,
+            out_dtype=dt)[:rows])
+    r = bitplane_gemv_grouped_ref(packed, scale, x, offsets, max_rows=bound,
+                                  bits=4, out_dtype=dt)
+    torch.testing.assert_close(y[:rows].float(), r[:rows].float(),
+                               rtol=2 ** -7,
+                               atol=1e-5 * r.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MESH_PAGED)
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+def test_mesh_attention_family_heads(cuda_device, kind, arch):
+    """Both paged-attention kernels at the KV heads a (1, 2) rank of each
+    paged family cell holds: decode, then a 32-token chunk."""
+    hkv, g, dh = _rank_shapes(arch).heads
+    gen = torch.Generator(device=cuda_device).manual_seed(hkv * g + dh)
+    b, page, nblk, c = 8, 16, 24, 32
+    kp, vp, ks, vs = _pools(gen, kind, b * nblk + 1, page, hkv, dh,
+                            cuda_device)
+    bt = (1 + torch.randperm(b * nblk, generator=gen, device=cuda_device)
+          ).reshape(b, nblk).int()
+    pos = torch.tensor([0, 15, 16, 33, 129, 250, 301, page * nblk - 1],
+                       dtype=torch.int32, device=cuda_device)
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    y = paged_attention(q, kp, vp, bt, pos, 0, ks, vs)
+    r = paged_attention_ref(q, kp, vp, bt, pos, 0, ks, vs)
+    torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
+    pos0 = torch.tensor([0, 7, 16, 45, 100, 201, 300, 120],
+                        dtype=torch.int32, device=cuda_device)
+    seq = pos0 + c
+    qp = torch.randn((b, c, hkv * g, dh), generator=gen,
+                     device=cuda_device).bfloat16()
+    path = "paged_prefill_attention/tensor_core"
+    before = _build.ROUTE_LAUNCHES[path]
+    y = paged_prefill_attention(qp, kp, vp, bt, pos0, seq, 0, ks, vs)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    r = paged_prefill_ref(qp, kp, vp, bt, pos0, seq, 0, ks, vs)
     torch.testing.assert_close(y.float(), r.float(), **_attn_tol(kind))
 
 

@@ -136,30 +136,51 @@ def model():
 
 def test_what_a_mesh_refuses(model):
     """Graphs on a mesh raise (``gloo`` collectives cannot be captured),
-    as do the families and modes not ported to a mesh, chaos injection,
-    and packed weights without the sharded backend."""
+    as do chaos injection, snapshots and packed weights without the
+    sharded backend.  Slots mode and the moe family build and step: on a
+    one-rank mesh (no collective runs) they give one device's tokens."""
+    from repro_torch.dist.hints import Mesh
     from repro_torch.ft import ChaosInjector
+    from repro_torch.models import init_params
 
     _, _, tcfg, tparams = model
     mesh = StandIn((4, 2), ("data", "model"))
 
-    def build(cfg=tcfg, **kw):
+    def build(cfg=tcfg, params=tparams, mesh=mesh, **kw):
         kw.setdefault("cuda_graphs", False)
-        return ServeEngine(cfg, tparams, tconfig.ServeConfig(
-            engine=kw.pop("engine", tconfig.EngineConfig())),
+        return ServeEngine(cfg, params, tconfig.ServeConfig(
+            max_new_tokens=3, engine=kw.pop("engine",
+                                            tconfig.EngineConfig())),
             device="cpu", mesh=mesh, **kw)
 
     with pytest.raises(ValueError, match="cannot capture"):
         build(cuda_graphs=True)
     with pytest.raises(NotImplementedError, match="item 8"):
-        build(mode="slots")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build(cfg=dataclasses.replace(tcfg, family="moe"))
-    with pytest.raises(NotImplementedError, match="item 8"):
         build(chaos=ChaosInjector(seed=0))
     with pytest.raises(ValueError, match="sharded backend"):
         build(engine=tconfig.EngineConfig(weight_bits=8,
                                           backend="reference"))
+
+    one = Mesh((1, 1), ("data", "model"), 0, torch.device("cpu"),
+                {("data",): None, ("model",): None})
+    moe_cfg = dataclasses.replace(tconfig.get_reduced("qwen3-moe-235b-a22b"),
+                                  dtype="float32")
+    moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0))
+    for cfg, params, mode in ((tcfg, tparams, "slots"),
+                              (moe_cfg, moe_params, "paged"),
+                              (moe_cfg, moe_params, "slots")):
+        tokens = []
+        for m in (None, one):
+            eng = build(cfg, params, m, mode=mode)
+            for p in PROMPTS:
+                eng.submit(list(p))
+            tokens.append([r.output for r in sorted(eng.run(),
+                                                    key=lambda r: r.rid)])
+        assert tokens[0] == tokens[1], (cfg.family, mode)
+        assert eng.mesh_layout["data_shards"] == 1
+        if mode == "paged":
+            with pytest.raises(NotImplementedError, match="item 8"):
+                eng.snapshot()
 
 
 def test_serving_placement_keeps_whole_heads(model):
@@ -209,7 +230,7 @@ def test_sharded_allocator_keeps_lanes_in_their_shard():
     assert alloc.can_allocate(1, 0) and not alloc.can_allocate(2, 1)
     assert not alloc.ensure(3, 8) and len(alloc._mapped[3]) == 1
     assert alloc.shares_pool(0, 1) and not alloc.shares_pool(1, 2)
-    rows = alloc.local_rows(alloc.block_tables, 1, pages=True)
+    rows = alloc.local_pages(alloc.block_tables[2:4], 1)
     assert rows.shape == (2, alloc.max_blocks)
     assert rows[0].tolist() == [p - 10 for p in alloc._mapped[2]]
     assert rows[1, 1:].tolist() == [NULL_PAGE] * (alloc.max_blocks - 1)
