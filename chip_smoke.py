@@ -30,7 +30,8 @@ exits non-zero:
                 expert at the bound; paged decode attention's splits over
                 a 4096-key table (G 1-12, Dh 64-128, pages 16 / 32, run
                 twice); flash attention (D up to 256, padded outside 32 /
-                64 / 128 / 256; zamba2-7b's shared block, D 112 at G 1)
+                64 / 128 / 256; zamba2-7b's shared block, D 112 at G 1;
+                a ``(1, 2)`` rank of ``mesh_prefill``, Hq 8, Hkv 1)
                 and the chunked prefill through both of their routes
                 (``tensor_core`` bfloat16, ``cuda_core`` float32), the
                 prefill's tensor-core route at D 192 and 256 too; past
@@ -152,12 +153,13 @@ exits non-zero:
                 ``MESH_CELLS`` in turn, eager at ``weight_bits=4``, each
                 held against its single-device eager engine on the same
                 params: paged at ``(1, 2)``, ``main``'s first 8 prompts,
-                16 new tokens, ``kv_bits=8``: llava-next (32 layers),
-                musicgen (48), llama4-scout (12 of 48: 8 of 16 experts a
-                rank), qwen3-moe (8 of 94: 64 of 128), and the two MoE
+                16 new tokens, ``kv_bits=8``: llava-next (16 of 32
+                layers), musicgen (48), llama4-scout (12 of 48: 8
+                of 16 experts a rank), qwen3-moe (8 of 94: 64 of 128),
+                and the two MoE
                 configs at 2 layers in float32 with float32 pages; slots
                 mode, 4 prompts of 8-16 tokens, 8 new, ``kv_bits=0``:
-                qwen2.5-3b (36) and mamba2-130m (24) at both meshes,
+                qwen2.5-3b (12 of 36) and mamba2-130m (24) at both meshes,
                 zamba2-7b (12 of 81, 2 sites) and gemma3-27b (6 of 62,
                 one prompt past the 1024-token window) at ``(1, 2)``.
                 The bf16 MoE ranks replay one device's routing, and each
@@ -168,8 +170,30 @@ exits non-zero:
                 and paged attention at each paged cell's rank heads,
                 all at the shapes the port's placement gives a rank
                 (``mesh_shapes``).  The checks and the
-                ``mesh_families`` line: ``mesh_family_checks``.  A rank
-                that fails or outlives ``MESH_TIMEOUT`` fails the phase.
+                ``mesh_families`` line: ``mesh_family_checks``.  Then,
+                in the same spawn, the cells of PR 27, each held against
+                one device (``mesh_slice_checks``): ``mesh_snapshot``
+                (``main``'s first 8 prompts on 4 lanes killed at a
+                restart point, saved by every rank, loaded and restored
+                into fresh rank engines: the uninterrupted run's tokens;
+                the same snapshot into the single-device engine: its
+                tokens up to near ties; save / load / restore s),
+                ``mesh_chaos`` at ``(1, 2)`` (``MESH_CHAOS``'s schedule
+                fires ``page_grant``, ``step_fault``, ``nan_logits`` and
+                ``preempt_storm``: every rank's log, quarantines, retries
+                and finish reasons one device's, tokens up to near ties),
+                ``mesh_prefill`` (``long``'s qwen2.5-3b 2 x 4096 at both
+                meshes, ``ssm``'s mamba2-130m 4 x 4096 at ``(1, 2)``: a
+                one-shot ``prefill(mesh=)``, flash at a rank's heads and
+                the SSD scan once a layer on every rank, last logits
+                within ``long_whole``'s 0.125; seconds, collective ms)
+                and ``mesh_train`` (qwen2.5-3b at 8 of 36 layers in
+                float32, 1 x 1024 tokens a data shard, 3 AdamW steps:
+                losses, grad norms and the change of every rank's params
+                against one device's within ``MESH_TRAIN_TOL``, no kernel
+                launched; step ms,
+                collective ms, peak memory).  A rank that fails or
+                outlives ``MESH_TIMEOUT`` fails the phase.
    ``dense``    starcoder2-15b (40 layers), gemma3-27b (62 layers, window
                 1024 on 5 of 6 layers, 8 prompts of 1,100-1,900 tokens,
                 max_len 2048) and mistral-large-123b cut to 8 of its 88
@@ -2269,13 +2293,15 @@ def _drive(eng, prompts, first, until=None, limit=5000):
 
 def _recording_top(eng):
     """Record the top 8 logits of every sampling step of ``eng`` by
-    (rid, token index), for the near-tie rule."""
+    (rid, token index), for the near-tie rule: of the logits sampled (the
+    audio family's ``(K, V)`` logits sample codebook 0)."""
     import numpy as np
 
     top, sample = {}, eng._sample_next
 
     def recording(req):
-        lg = np.asarray(req.last_logits, np.float32).reshape(-1)
+        lg = np.asarray(req.last_logits, np.float32)
+        lg = lg[0] if lg.ndim == 2 else lg.reshape(-1)
         idx = np.argpartition(lg, -8)[-8:]
         top[req.rid, len(req.output)] = dict(zip(idx.tolist(),
                                                  lg[idx].tolist()))
@@ -3135,6 +3161,9 @@ def flash_tol(torch, dt):
 # changes); bfloat16 takes the tensor-core route, float32 the CUDA-core one
 FLASH_CASES = [("bfloat16", 4096, 0, {}), ("bfloat16", 4100, 0, {}),
                ("bfloat16", 4096, 1024, {}),
+               # a (1, 2) rank of mesh_prefill: 8 of 16 query heads, 1 of
+               # 2 KV heads
+               ("bfloat16", 4096, 0, dict(hq=8, hkv=1)),
                ("bfloat16", 2048, 0, dict(hq=8, hkv=8, d=64)),
                ("bfloat16", 1000, 0, dict(hq=16, hkv=2, d=32)),
                ("bfloat16", 777, 1, dict(hq=4, hkv=4, d=128)),
@@ -3683,7 +3712,7 @@ DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 4, 2, 3
 DRILL_TOL = 1e-5
 
 
-def zipf_tokens(cfg, n=1 << 20, seed=SEED):
+def zipf_tokens(cfg, n=1 << 20, seed=SEED, path=TRAIN_TOKENS):
     """A seeded int32 token file for ``DataPipeline(source="memmap")``:
     ids with natural text's Zipfian frequencies (exponent 1.1, ranks
     assigned to the vocabulary in a seeded order), a stream a model learns
@@ -3694,16 +3723,18 @@ def zipf_tokens(cfg, n=1 << 20, seed=SEED):
     rng = np.random.default_rng(seed)
     ranks = np.minimum(rng.zipf(1.1, n) - 1, cfg.vocab_size - 1)
     ids = rng.permutation(cfg.vocab_size).astype(np.int32)[ranks]
-    TRAIN_TOKENS.parent.mkdir(parents=True, exist_ok=True)
-    ids.tofile(TRAIN_TOKENS)
-    return str(TRAIN_TOKENS)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ids.tofile(path)
+    return str(path)
 
 
-def train_pipeline(cfg, shape):
+def train_pipeline(cfg, shape, path=TRAIN_TOKENS):
+    """``shape`` batches of the Zipf file, written at ``path`` (each
+    process that trains at once writes its own)."""
     from repro_torch.data import DataPipeline
 
     return DataPipeline(cfg, batch=shape[0], seq_len=shape[1], seed=SEED,
-                        source="memmap", path=zipf_tokens(cfg))
+                        source="memmap", path=zipf_tokens(cfg, path=path))
 
 
 def train_path(torch, dev):
@@ -4025,7 +4056,7 @@ def layouts_path(torch, dev):
 MESH_SHAPES = ((1, 2), (2, 1))     # (data, model)
 MESH_REQUESTS = 8                  # main's first 8 prompts
 MESH_NEW = 16
-MESH_TIMEOUT = 600                 # seconds for a mesh's ranks, build of
+MESH_TIMEOUT = 900                 # seconds for a mesh's ranks, build of
 #                                    params and serving included
 # one device's routing of each ``replay`` cell, saved for the ranks
 MESH_ROUTES = ROOT / "build" / "mesh" / "routes"
@@ -4050,8 +4081,11 @@ class MeshCell(NamedTuple):
     replay: bool = False
 
 
+# PR 27 cut llava-next to 16 of 32 layers and the slots qwen2.5-3b cell
+# to 12 of 36, to keep the whole run inside its time with the phase's
+# new cells (PERF.md, PR 27)
 MESH_CELLS = [
-    MeshCell("paged_llava", "llava-next-mistral-7b", None, "paged",
+    MeshCell("paged_llava", "llava-next-mistral-7b", 16, "paged",
              ((1, 2),)),
     MeshCell("paged_musicgen", "musicgen-medium", None, "paged", ((1, 2),)),
     # in bf16 a rank's activations differ from one device's in the last
@@ -4072,7 +4106,7 @@ MESH_CELLS = [
              ((1, 2),), "float32"),
     MeshCell("paged_qwen3_moe_f32", "qwen3-moe-235b-a22b", 2, "paged",
              ((1, 2),), "float32"),
-    MeshCell("slots_qwen2.5", "qwen2.5-3b", None, "slots", ((1, 2), (2, 1))),
+    MeshCell("slots_qwen2.5", "qwen2.5-3b", 12, "slots", ((1, 2), (2, 1))),
     MeshCell("slots_mamba2", "mamba2-130m", None, "slots", ((1, 2), (2, 1))),
     MeshCell("slots_zamba2", "zamba2-7b", 12, "slots", ((1, 2),)),
     MeshCell("slots_gemma3", "gemma3-27b", 6, "slots", ((1, 2),)),
@@ -4515,6 +4549,7 @@ def mesh_rank_main(argv) -> int:
     torch.cuda.empty_cache()
     res["cells"] = {cell.name: mesh_cell_run(torch, mesh, cell, label, rank)
                     for cell in MESH_CELLS if shape in cell.shapes}
+    res["slice"] = mesh_slice_rank(torch, mesh, label)
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     close_rank()
     return 0
@@ -4560,7 +4595,8 @@ def run_mesh_ranks(shape):
 
 def mesh_references(torch, dev, params):
     """The single-device eager engine of every family cell, each freed
-    before the next (qwen2.5-3b on ``main``'s params); their records.  A
+    before the next (qwen2.5-3b at full depth on ``main``'s params); their
+    records.  A
     ``replay`` cell's routing and tokens go to ``MESH_ROUTES``, for its
     ranks to replay."""
     refs = {}
@@ -4569,7 +4605,8 @@ def mesh_references(torch, dev, params):
         t0 = time.perf_counter()
         eng, cell_params, prompts, max_new = mesh_cell_engine(
             torch, dev, cell,
-            params=params if cell.arch == "qwen2.5-3b" else None)
+            params=(params if cell.arch == "qwen2.5-3b"
+                    and cell.layers is None else None))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         stop = record_routes(torch) if cell.replay else None
@@ -4682,6 +4719,504 @@ def mesh_family_checks(label, shape, ranks, refs):
     return out
 
 
+# ------------------------------------------- the mesh cells of PR 27
+# snapshot / restore and chaos on a mesh (paged, main's params), the
+# one-shot prefill on a mesh (flash at a rank's heads, the SSD scan on a
+# whole SSM block) and the tensor-parallel train step
+MESH_WORK = ROOT / "build" / "mesh"
+MESH_SNAPSHOTS = MESH_WORK / "snapshots"
+MESH_SNAP_SLOTS = 4        # main's first 8 prompts queue behind 4 lanes
+MESH_CHAOS = dict(seed=SEED, schedule={
+    "page_grant": {4}, "step_fault": {3, 5, 11, 13}, "nan_logits": {6, 9},
+    "preempt_storm": {8}})
+MESH_CHAOS_RETRIES = 1
+MESH_CHAOS_SHAPES = ((1, 2),)
+# (name, arch, batch, seq, tokens' seed, meshes): long's and ssm's
+# prefills, at full depth
+MESH_PREFILL = [("qwen2.5", "qwen2.5-3b", 2, 4096, SEED + 7,
+                 ((1, 2), (2, 1))),
+                ("mamba2", "mamba2-130m", 4, 4096, SEED + 8, ((1, 2),))]
+MESH_PREFILL_TOL = 0.125   # long_whole's bf16 logit bound
+# qwen2.5-3b at full width, 8 of 36 layers, float32; one 1024-token
+# sequence a data shard, AdamW (train's lr), remat, 3 steps over train's
+# Zipf file, against one device on the same params and batches within
+# the CPU tests' bounds (tests/test_torch_mesh_train.py PORT_TOL): loss
+# and grad norm rel 1e-5, and the change of the rank's params over the
+# steps, ||Δ_rank - Δ_one|| / ||Δ_one||, within 1e-3 (1.0 for a state
+# left unchanged; an elementwise bound would not see that at this lr)
+MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_SEQ = 1024
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_KW = dict(lr=3e-5, warmup_steps=1, total_steps=5, remat="block")
+MESH_TRAIN_TOL = dict(loss_rtol=1e-5, grad_norm_rtol=1e-5, change_rtol=1e-3)
+
+
+def mesh_snapshot_rank(torch, mesh, label):
+    """Cell ``mesh_snapshot`` on one rank: ``main``'s first 8 prompts on
+    4 lanes (4-bit weights, int8 pages), killed at the first restart
+    point (``_restart_point``), saved (``save_snapshot``: every rank
+    gathers, the first writes), run on to the end; a fresh rank engine
+    loads the checkpoint, restores it and runs to the end.  Tokens: the
+    uninterrupted run's, exactly or up to near ties."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    cfg = full_config()
+    prompts = prompts_for(cfg, 16, 33, 300, SEED)[:MESH_REQUESTS]
+    kw = dict(n_slots=MESH_SNAP_SLOTS, max_new=MESH_NEW, cuda_graphs=False,
+              mesh=mesh, sharded=True)
+    eng, params = build_engine(torch, mesh.device, cfg, 4, 8, **kw)
+    reqs, k = _drive(eng, prompts, len(prompts), until=_restart_point)
+    in_flight = sum(not r.done for r in reqs)
+    directory = MESH_SNAPSHOTS / label
+    if mesh.rank == 0:
+        shutil.rmtree(directory, ignore_errors=True)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.save_snapshot(str(directory), k)
+    save_s = time.perf_counter() - t0
+    while eng.has_work():
+        eng.step()
+    want = {r.rid: r.output for r in reqs}
+    n_pages = eng.alloc.n_pages
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh, _ = build_engine(torch, mesh.device, cfg, 4, 8, params=params,
+                            **kw)
+    top = _recording_top(fresh)
+    t0 = time.perf_counter()
+    extra = ckpt.read_manifest(str(directory), k)["extra"]
+    template = {n: ckpt.template_leaf(s, d)
+                for n, (s, d) in extra["array_specs"].items()}
+    arrays, _ = ckpt.load_checkpoint(str(directory), template, k)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore({"arrays": arrays, "host": extra["host"]})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    name = f"mesh_{label}_snapshot_rank{mesh.rank}"
+    got = _finish(name, fresh, in_flight, MESH_NEW)
+    ties = near_ties(name, {rid: want[rid] for rid in got}, got, top)
+    rec = dict(k=k, in_flight=in_flight, save_s=save_s, load_s=load_s,
+               restore_s=restore_s, n_pages=n_pages,
+               layout=fresh.mesh_layout, pool=list(fresh.pages.k.shape),
+               exact=sum(got[r] == want[r] for r in got), near_ties=ties,
+               tokens=want)
+    del fresh, params, top
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_chaos_run(torch, dev, mesh=None, params=None):
+    """Cell ``mesh_chaos``'s traffic (``main``'s first 8 prompts on 4
+    lanes, ``MESH_CHAOS``'s schedule, one retry a request) on this rank,
+    or on one device without ``mesh``: the injector's log, quarantines,
+    retries, finish reasons and tokens."""
+    from repro_torch.ft import ChaosInjector
+
+    cfg = full_config()
+    prompts = prompts_for(cfg, 16, 33, 300, SEED)[:MESH_REQUESTS]
+    chaos = ChaosInjector(**MESH_CHAOS)
+    eng, params = build_engine(
+        torch, dev, cfg, 4, 8, n_slots=MESH_SNAP_SLOTS, max_new=MESH_NEW,
+        params=params, cuda_graphs=False, chaos=chaos, mesh=mesh,
+        sharded=mesh is not None,
+        serve_kw=dict(max_request_retries=MESH_CHAOS_RETRIES))
+    top = _recording_top(eng)
+    reqs = [eng.submit(p) for p in prompts]
+    t0 = time.perf_counter()
+    eng.run()
+    rec = dict(seconds=time.perf_counter() - t0,
+               tokens={r.rid: r.output for r in reqs},
+               reasons={r.rid: r.finish_reason for r in reqs},
+               retries={r.rid: r.retries for r in reqs},
+               quarantined=eng.quarantined, retried=eng.retried,
+               log=[list(e) for e in chaos.log],
+               top={f"{rid}:{i}": c for (rid, i), c in top.items()})
+    del eng, top
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_prefill_cfg(arch):
+    return full_config() if arch == "qwen2.5-3b" else ssm_config()
+
+
+def mesh_prefill_rank(torch, mesh, label, name, arch, batch, seq, seed):
+    """Cell ``mesh_prefill`` on one rank: the one-shot ``prefill(mesh=)``
+    of ``batch x seq`` seeded tokens (the rank's rows) into the rank's
+    slots cache, 4-bit weights on the ``sharded`` backend; its seconds,
+    host ms in collectives, launches by route and peak memory.  The last
+    positions' logits, gathered over the data shards, go to
+    ``MESH_WORK`` for the parent to hold against one device's."""
+    from repro_torch.config import EngineConfig
+    from repro_torch.dist import collectives, local_shard, serve_param_specs
+    from repro_torch.dist.collectives import all_gather
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.models.transformer import rank_view
+
+    cfg, dev = mesh_prefill_cfg(arch), mesh.device
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         engine_bits=4)
+    local = local_shard(params, serve_param_specs(mesh, params, cfg), mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    daxes = mesh.data_axes()
+    rows = batch // mesh.count(daxes)
+    lo = mesh.index(daxes) * rows
+    tokens = seeded_tokens(torch, dev, cfg, batch, seq, seed)[lo:lo + rows]
+    view = rank_view(local, cfg, mesh)
+    cache = init_cache(cfg, rows, seq + 32, device=dev, n_kv_heads=view.hkv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    collectives.reset_seconds()
+    t0 = time.perf_counter()
+    logits, _ = prefill(local, {"tokens": tokens}, cfg, cache,
+                        EngineConfig(weight_bits=4, sharded=True), mesh=mesh)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    rec = dict(prefill_s=prefill_s, rows=rows, hq=view.hq, hkv=view.hkv,
+               collective_ms=1e3 * collectives.SECONDS[0],
+               collective_wait_ms=1e3 * collectives.WAIT[0],
+               launches=dict(_build.LAUNCHES),
+               flash_routes=route_counts("flash_attention"),
+               gemv_routes=route_counts("bitplane_gemv"),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if mesh.count(daxes) > 1:
+        logits = all_gather(logits, mesh.group(daxes), dim=0)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"mesh_{label}_prefill_{name}: non-finite "
+                             "logits")
+    if mesh.rank == 0:
+        torch.save(logits.float().cpu(),
+                   MESH_WORK / f"prefill_{name}_{label}.pt")
+    del local, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_train_cfg():
+    return full_config(n_layers=MESH_TRAIN_LAYERS, dtype="float32")
+
+
+def mesh_train_batches(cfg, n_data, tag):
+    pipe = train_pipeline(cfg, (n_data, MESH_TRAIN_SEQ),
+                          MESH_WORK / f"train_tokens_{tag}.bin")
+    return [pipe.batch_at(i) for i in range(MESH_TRAIN_STEPS)]
+
+
+def mesh_train_ref(torch, dev, label, n_data):
+    """One device's steps of cell ``mesh_train`` on the global batch of
+    ``n_data`` sequences: its metrics and step ms; the change of its
+    params over the steps goes to ``MESH_WORK`` for the ranks to hold
+    their shards' change against."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+    from repro_torch.weights import stack_layers
+
+    cfg, tcfg = mesh_train_cfg(), TrainConfig(**MESH_TRAIN_KW)
+    params = stack_layers(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, tcfg)
+    metrics = []
+    for b in mesh_train_batches(cfg, n_data, "one_device"):
+        t0 = time.perf_counter()
+        params, opt, _, m = step(params, opt, {}, b)
+        torch.cuda.synchronize()
+        metrics.append(dict({k: float(v) for k, v in m.items()},
+                            ms=1e3 * (time.perf_counter() - t0)))
+    del opt, step
+    start = stack_layers(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    torch.save(tree_map(lambda t, t0: (t - t0).cpu(), params, start),
+               MESH_WORK / f"train_ref_{label}.pt")
+    del params, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def mesh_train_rank(torch, mesh, label):
+    """Cell ``mesh_train`` on one rank: ``make_train_step(mesh=)`` on its
+    shards (``mesh_specs``: whole heads, MLP features and vocabulary over
+    ``model``) and its data shard of each batch; each step's metrics, ms
+    and host ms in collectives, peak memory, kernel launches (none: the
+    loss runs the plain mixers), and how far the change of its shards
+    over the steps is from the change of the same blocks of one device's
+    params (``mesh_train_ref``; every rank's blocks together are the
+    gathered tree): ``||Δ_rank - Δ_one|| / ||Δ_one||`` and the largest
+    element of ``|Δ_rank - Δ_one|``."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.dist import collectives, local_shard
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import (make_train_step, mesh_specs,
+                                           shard_train_state)
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import stack_layers
+
+    cfg, tcfg, dev = mesh_train_cfg(), TrainConfig(**MESH_TRAIN_KW), \
+        mesh.device
+    params = stack_layers(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    specs = mesh_specs(cfg, tcfg, mesh)
+    state = shard_train_state(specs, mesh, params, adamw_init(params), {})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    batches = mesh_train_batches(cfg, mesh.count(mesh.data_axes()),
+                                 f"rank{mesh.rank}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    steps = []
+    for b in batches:
+        collectives.reset_seconds()
+        t0 = time.perf_counter()
+        p, o, e, m = step(*state, b)
+        torch.cuda.synchronize()
+        state = (p, o, e)
+        steps.append(dict({k: float(v) for k, v in m.items()},
+                          ms=1e3 * (time.perf_counter() - t0),
+                          collective_ms=1e3 * collectives.SECONDS[0],
+                          collective_wait_ms=1e3 * collectives.WAIT[0]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = sum(_build.LAUNCHES.values())
+    params = state[0]
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = local_shard(stack_layers(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED))),
+        specs["params"], mesh)
+    ref = local_shard(torch.load(MESH_WORK / f"train_ref_{label}.pt",
+                                 mmap=True), specs["params"], mesh)
+    err, num, den = 0.0, 0.0, 0.0
+    for p, p0, d_one in zip(tree_leaves(params), tree_leaves(start),
+                            tree_leaves(ref)):
+        d_one = d_one.to(dev).double()
+        diff = (p.double() - p0.double()) - d_one
+        err = max(err, float(diff.abs().max()))
+        num += float(torch.sum(torch.square(diff)))
+        den += float(torch.sum(torch.square(d_one)))
+    n_local = sum(t.numel() for t in tree_leaves(params))
+    del params, start, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, peak_mem_gib=peak, kernel_launches=launches,
+                change_rel_err=(num / den) ** 0.5,
+                change_max_abs_err=err, params_local=n_local)
+
+
+def mesh_slice_rank(torch, mesh, label):
+    """This rank's cells of the slice on its mesh, each run in turn."""
+    shape = (mesh.shape["data"], mesh.shape["model"])
+    out = dict(snapshot=mesh_snapshot_rank(torch, mesh, label))
+    if shape in MESH_CHAOS_SHAPES:
+        out["chaos"] = mesh_chaos_run(torch, mesh.device, mesh)
+    out["prefill"] = {
+        name: mesh_prefill_rank(torch, mesh, label, name, arch, b, s, seed)
+        for name, arch, b, s, seed, shapes in MESH_PREFILL
+        if shape in shapes}
+    out["train"] = mesh_train_rank(torch, mesh, label)
+    return out
+
+
+def mesh_slice_refs(torch, dev, params, shape, label):
+    """The single-device references of the slice's cells on ``shape``,
+    each freed before the next: the chaos run (on ``main``'s params), the
+    prefills' last logits, the train steps (params to ``MESH_WORK``)."""
+    from repro_torch.config import EngineConfig
+    from repro_torch.models import init_cache, init_params, prefill
+
+    MESH_WORK.mkdir(parents=True, exist_ok=True)
+    refs = {"prefill": {}}
+    if shape in MESH_CHAOS_SHAPES:
+        refs["chaos"] = mesh_chaos_run(torch, dev, params=params)
+    for name, arch, b, s, seed, shapes in MESH_PREFILL:
+        if shape not in shapes:
+            continue
+        cfg = mesh_prefill_cfg(arch)
+        p = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        engine_bits=4)
+        cache = init_cache(cfg, b, s + 32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill(p, {"tokens": seeded_tokens(
+            torch, dev, cfg, b, s, seed)}, cfg, cache,
+            EngineConfig(weight_bits=4))
+        torch.cuda.synchronize()
+        refs["prefill"][name] = dict(logits=logits.float().cpu(),
+                                     prefill_s=time.perf_counter() - t0)
+        del p, cache, logits
+        torch.cuda.empty_cache()
+    refs["train"] = mesh_train_ref(torch, dev, label, shape[0])
+    return refs
+
+
+def mesh_slice_checks(torch, dev, params, label, shape, ranks, refs):
+    """The slice's cells of one mesh against one device: every rank's
+    records alike; the snapshot's tokens after a restore on the ranks
+    (checked there) and, loaded into the single-device engine, equal to
+    the mesh run's up to near ties; chaos: the same log, quarantines,
+    retries and finish reasons as one device's, tokens up to near ties;
+    the prefill's last logits within ``MESH_PREFILL_TOL`` of one
+    device's, flash (tensor-core) and the SSD scan launched once a layer
+    on every rank; the train step's losses, grad norms and change of the
+    params within ``MESH_TRAIN_TOL`` of one device's and no kernel
+    launched.  Emits
+    ``mesh_snapshot`` / ``mesh_chaos`` / ``mesh_prefill`` /
+    ``mesh_train`` and returns them."""
+    recs = [r["slice"] for r in ranks]
+    out = {}
+
+    # snapshot: the mesh's snapshot into the single-device engine
+    snap = [r["snapshot"] for r in recs]
+    want = {int(rid): t for rid, t in snap[0]["tokens"].items()}
+    for r, s in enumerate(snap):
+        if {int(k): v for k, v in s["tokens"].items()} != want:
+            raise AssertionError(f"mesh_{label}_snapshot: rank {r}'s "
+                                 "tokens differ from rank 0's")
+    cfg = full_config()
+    eng, _ = build_engine(torch, dev, cfg, 4, 8, n_slots=MESH_SNAP_SLOTS,
+                          max_new=MESH_NEW, params=params, cuda_graphs=False,
+                          serve_kw=dict(n_pages=snap[0]["n_pages"]))
+    top = _recording_top(eng)
+    t0 = time.perf_counter()
+    eng.load_snapshot(str(MESH_SNAPSHOTS / label))
+    one_load_s = time.perf_counter() - t0
+    eng.audit()
+    name = f"mesh_{label}_snapshot_one_device"
+    got = _finish(name, eng, snap[0]["in_flight"], MESH_NEW)
+    one_ties = near_ties(name, {rid: want[rid] for rid in got}, got, top)
+    del eng, top
+    torch.cuda.empty_cache()
+    out["snapshot"] = dict(
+        model=cfg.name, lanes=MESH_SNAP_SLOTS, requests=MESH_REQUESTS,
+        k=snap[0]["k"], in_flight=snap[0]["in_flight"],
+        layout=snap[0]["layout"], pool=snap[0]["pool"],
+        ranks=[{k: s[k] for k in ("save_s", "load_s", "restore_s",
+                                  "exact", "near_ties")} for s in snap],
+        one_device=dict(load_s=one_load_s, near_ties=one_ties,
+                        exact=sum(got[r] == want[r] for r in got)))
+    emit("mesh_snapshot", mesh=label, **out["snapshot"], card=CARD)
+
+    if "chaos" in refs:
+        # the ranks' records came through JSON: so does the reference
+        ref = json.loads(json.dumps(refs["chaos"]))
+        runs = [r["chaos"] for r in recs]
+        for r, run in enumerate(runs):
+            for key in ("log", "quarantined", "retried", "reasons",
+                        "retries"):
+                if run[key] != ref[key]:
+                    raise AssertionError(
+                        f"mesh_{label}_chaos: rank {r}'s {key} "
+                        f"{run[key]} differ from one device's {ref[key]}")
+            if run["tokens"] != runs[0]["tokens"]:
+                raise AssertionError(f"mesh_{label}_chaos: rank {r}'s "
+                                     "tokens differ from rank 0's")
+        sites = {site for site, _ in ref["log"]}
+        if sites != {"page_grant", "step_fault", "nan_logits",
+                     "preempt_storm"}:
+            raise AssertionError(f"mesh_{label}_chaos: fired {sites}")
+        top = {}
+        for key, cand in runs[0]["top"].items():
+            rid, i = map(int, key.split(":"))
+            top[rid, i] = {int(t): v for t, v in cand.items()}
+        ties = near_ties(f"mesh_{label}_chaos",
+                         {int(k): v for k, v in ref["tokens"].items()},
+                         {int(k): v for k, v in runs[0]["tokens"].items()},
+                         top)
+        out["chaos"] = dict(
+            schedule={k: sorted(v) for k, v in
+                      MESH_CHAOS["schedule"].items()},
+            log=ref["log"], quarantined=ref["quarantined"],
+            retried=ref["retried"], near_ties=ties,
+            seconds=[run["seconds"] for run in runs],
+            one_device_seconds=ref["seconds"])
+        emit("mesh_chaos", mesh=label, **out["chaos"], card=CARD)
+
+    out["prefill"] = {}
+    for name, arch, b, s, seed, shapes in MESH_PREFILL:
+        if shape not in shapes:
+            continue
+        pcfg = mesh_prefill_cfg(arch)
+        got = torch.load(MESH_WORK / f"prefill_{name}_{label}.pt")
+        err = float((got - refs["prefill"][name]["logits"]).abs().max())
+        if err > MESH_PREFILL_TOL:
+            raise AssertionError(f"mesh_{label}_prefill_{name}: last logits "
+                                 f"{err} from one device's")
+        kernel = "flash_attention" if arch == "qwen2.5-3b" else "ssd_scan"
+        for r, run in enumerate(x["prefill"][name] for x in recs):
+            ok = run["launches"][kernel] == pcfg.n_layers
+            if kernel == "flash_attention":
+                ok = ok and run["flash_routes"]["tensor_core"] == \
+                    pcfg.n_layers
+            if not ok or run["gemv_routes"]["tensor_core"] == 0:
+                raise AssertionError(f"mesh_{label}_prefill_{name}: rank {r} "
+                                     f"launches {run['launches']}, flash "
+                                     f"{run['flash_routes']}")
+        out["prefill"][name] = dict(
+            model=pcfg.name, layers=pcfg.n_layers, batch=b, seq=s,
+            logit_max_abs_err=err, logit_tol=MESH_PREFILL_TOL,
+            one_device_prefill_s=refs["prefill"][name]["prefill_s"],
+            ranks=[x["prefill"][name] for x in recs])
+        emit("mesh_prefill", mesh=label, cell=name, **out["prefill"][name],
+             card=CARD)
+
+    ref = refs["train"]
+    runs = [r["train"] for r in recs]
+    for r, run in enumerate(runs):
+        for st, rs in zip(run["steps"], ref):
+            for key in ("loss", "grad_norm"):
+                if abs(st[key] - rs[key]) > MESH_TRAIN_TOL[
+                        f"{key}_rtol"] * abs(rs[key]):
+                    raise AssertionError(
+                        f"mesh_{label}_train: rank {r} {key} {st[key]}, "
+                        f"one device {rs[key]}")
+        if run["change_rel_err"] > MESH_TRAIN_TOL["change_rtol"] or (
+                run["kernel_launches"]):
+            raise AssertionError(
+                f"mesh_{label}_train: rank {r}'s change of the params "
+                f"{run['change_rel_err']} (relative) from one device's, "
+                f"{run['kernel_launches']} kernel launches")
+    tcfg = mesh_train_cfg()
+    ms = sorted(st["ms"] for st in runs[0]["steps"][1:])
+    out["train"] = dict(
+        model=tcfg.name, layers=tcfg.n_layers, dtype=tcfg.dtype,
+        seq_per_data_shard=MESH_TRAIN_SEQ, steps=MESH_TRAIN_STEPS,
+        losses=[st["loss"] for st in runs[0]["steps"]],
+        one_device_losses=[st["loss"] for st in ref],
+        grad_norms=[st["grad_norm"] for st in runs[0]["steps"]],
+        one_device_grad_norms=[st["grad_norm"] for st in ref],
+        step_ms_p50=ms[len(ms) // 2],
+        one_device_step_ms=[st["ms"] for st in ref],
+        collective_ms_per_step=[sum(st["collective_ms"]
+                                    for st in run["steps"])
+                                / len(run["steps"]) for run in runs],
+        tol=MESH_TRAIN_TOL, ranks=runs)
+    emit("mesh_train", mesh=label, **out["train"], card=CARD)
+    (MESH_WORK / f"train_ref_{label}.pt").unlink(missing_ok=True)
+    shutil.rmtree(MESH_SNAPSHOTS / label, ignore_errors=True)
+    return out
+
+
 def mesh_path(torch, dev, cfg, params, prompts):
     """Phase ``mesh``: the kernels at a rank's shapes, the single-device
     eager engine on ``main``'s first prompts and on every family cell of
@@ -4693,8 +5228,13 @@ def mesh_path(torch, dev, cfg, params, prompts):
     GEMV on its decode and tensor-core routes and both paged-attention
     kernels, and return the same tokens, equal to the single-device
     engine's up to near ties; the family cells as
-    :func:`mesh_family_checks` says.  Returns ``main``'s records by mesh
-    and the family cells' by mesh."""
+    :func:`mesh_family_checks` says.  Then the slice's cells (PR 27) in
+    the same spawn, after the family cells, each against its
+    single-device reference (``mesh_slice_refs``, run before the spawn):
+    ``mesh_snapshot``, ``mesh_chaos`` (``(1, 2)``), ``mesh_prefill``,
+    ``mesh_train``, as :func:`mesh_slice_checks` says.  Returns
+    ``main``'s records by mesh, the family cells' and the slice's cells'
+    by mesh."""
     mesh_parity(torch, dev)
     prompts = prompts[:MESH_REQUESTS]
     eng, _ = build_engine(torch, dev, cfg, 4, 8, params=params,
@@ -4704,9 +5244,10 @@ def mesh_path(torch, dev, cfg, params, prompts):
     torch.cuda.empty_cache()
     refs = mesh_references(torch, dev, params)
     want = dict(enumerate(want))
-    summary, families = {}, {}
+    summary, families, slices = {}, {}, {}
     for shape in MESH_SHAPES:
         label = "x".join(map(str, shape))
+        slice_refs = mesh_slice_refs(torch, dev, params, shape, label)
         t0 = time.perf_counter()
         ranks = run_mesh_ranks(shape)
         wall = time.perf_counter() - t0
@@ -4745,8 +5286,10 @@ def mesh_path(torch, dev, cfg, params, prompts):
              single_decode_step_ms=single["decode_step_ms"],
              single_prefill_chunk_ms=single["prefill_chunk_ms"], card=CARD)
         families[label] = mesh_family_checks(label, shape, ranks, refs)
+        slices[label] = mesh_slice_checks(torch, dev, params, label, shape,
+                                          ranks, slice_refs)
     emit("mesh_families", cells=families, card=CARD)
-    return summary, families
+    return summary, families, slices
 
 
 def mesh_family_launches(families, name):
@@ -4904,7 +5447,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with Phase("mesh"):
-        mesh_rec, mesh_fam = mesh_path(torch, dev, cfg, params, prompts)
+        mesh_rec, mesh_fam, mesh_slice = mesh_path(torch, dev, cfg, params,
+                                                   prompts)
         del params
         torch.cuda.empty_cache()
 
@@ -5048,6 +5592,13 @@ def main() -> int:
                                                              name)}
                if name in PAGED_KERNELS + ("bitplane_gemv_grouped",)
                else {}),
+            **({"mesh_prefill_launches": {
+                f"{label}/{cell}": [r["launches"][name] for r in
+                                    rec["ranks"]]
+                for label, recs in mesh_slice.items()
+                for cell, rec in recs["prefill"].items()
+                if rec["ranks"][0]["launches"][name]}}
+               if name in ("flash_attention", "ssd_scan") else {}),
             **({"grouped": [{k: r[k] for k in (
                 "linear", "mode", "k", "n", "experts", "touched", "rows",
                 "gemv_route", "max_abs_err", "ms", "plain_ms", "bound_ms",

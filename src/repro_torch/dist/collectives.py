@@ -1,4 +1,5 @@
-"""The collectives of the mesh: exact and compressed sums, and gathers.
+"""The collectives of the mesh: exact and compressed sums, gathers, the
+ring permute, and the differentiable forms of tensor parallelism.
 
 ``psum_partial`` reduces the row-parallel partial GEMVs of the ``sharded``
 engine backend: an exact float32 sum by default, or
@@ -15,6 +16,12 @@ CUDA tensors (``gloo_cuda_probe.py`` on the card: ``all_reduce``,
 ``all_gather_into_tensor`` and five more, torch 2.11) and moves them
 through host memory itself.  A collective is a host call either way, so
 a step that runs one cannot be captured in a CUDA graph.
+
+**Under autograd** (training on a mesh) the model code calls the
+differentiable forms at the end of this module: :func:`copy_to` ahead
+of a column-parallel block, :func:`sum_over` after a row-parallel one,
+:func:`gather_from` for a sharded output, :func:`ppermute` between
+pipeline stages.  Without autograd recording each is its plain call.
 """
 
 from __future__ import annotations
@@ -114,3 +121,135 @@ def psum_partial(x: torch.Tensor, group, bits: int = 0) -> torch.Tensor:
     if bits:
         return compressed_psum_leaf(x, group, bits)
     return all_reduce(x.to(torch.float32), group).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# differentiable forms (tensor parallelism under autograd)
+# ---------------------------------------------------------------------------
+#
+# The usual pairs of a tensor-parallel layer: ahead of a column-parallel
+# linear the replicated input passes through :func:`copy_to` (its
+# gradient, partial on each rank, is summed over the group); after a
+# row-parallel one the partials are summed by :func:`sum_over` (each
+# rank's partial takes the whole gradient); :func:`gather_from`
+# reassembles a sharded output (each rank keeps its slice of the
+# gradient); :func:`ppermute` hands a tensor round a ring (its gradient
+# goes the other way).  Without autograd recording each is the plain
+# call: the same collective, nothing more.
+
+# point-to-point calls made by :func:`ppermute`, forward and backward
+P2P_CALLS = [0]
+
+
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _group_rank(group) -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank(group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.index = _group_rank(group)
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; under autograd its gradient is summed over
+    ``group`` (None: no group, ``x`` itself)."""
+    if group is None or not _recording(x):
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_reduce` of ``x`` over ``group`` (a 16-bit float summed in
+    float32, returned in its dtype); under autograd each rank's partial
+    takes the whole gradient."""
+    if not _recording(x):
+        return all_reduce(x, group)
+    return _SumOver.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather` of ``x`` along ``dim``; under autograd each rank
+    keeps its own block of the gradient."""
+    if not _recording(x):
+        return all_gather(x, group, dim)
+    return _GatherFrom.apply(x, group, dim)
+
+
+def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Send ``x`` to the rank ``shift`` places on in ``group``'s order and
+    return what the rank ``shift`` places back sent (through host memory,
+    as the other collectives travel on ``gloo``)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    me = _group_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    host = x.detach().to("cpu").contiguous()
+    out = torch.empty_like(host)
+
+    def exchange():
+        reqs = [dist.isend(host, dst), dist.irecv(out, src)]
+        for r in reqs:
+            r.wait()
+
+    _timed(exchange, x)
+    P2P_CALLS[0] += 1
+    return out.to(x.device)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """The ring permute ``i -> i + shift`` over ``group`` (JAX's
+    ``lax.ppermute`` with ``perm = [(i, (i + shift) % n)]``): every rank
+    sends ``x`` on and returns what it received; under autograd the
+    gradient travels the reverse permute."""
+    if not _recording(x):
+        return _permute(x, group, shift)
+    return _Permute.apply(x, group, shift)

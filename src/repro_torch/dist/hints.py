@@ -115,9 +115,14 @@ def _group_keys(axis_names: Tuple[str, ...]) -> Iterator[Tuple[str, ...]]:
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
-              device: DeviceLike = None) -> Mesh:
+              device: DeviceLike = None,
+              ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
     """This rank's :class:`Mesh` over the initialised ``torch.distributed``
-    world, whose size must equal the product of ``shape``.
+    world, whose size must equal the product of ``shape``; or, with
+    ``ranks``, over those world ranks alone (in mesh order; their count
+    the product of ``shape``), e.g. the survivors of a node loss
+    (``ft.elastic``): a rank outside them gets None, and the mesh's
+    ``rank`` is the rank's place in ``ranks``.
 
     Every rank must call this, in the same order as its other group
     creations: each axis's subgroups (and the folded data axes') are made
@@ -142,9 +147,16 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
         raise ValueError(f"shape {shape} and axes {axis_names} differ in "
                          "length")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if math.prod(shape) != world:
+    members = list(range(world)) if ranks is None else [int(r) for r in
+                                                        ranks]
+    if members != sorted(set(members)):
+        # a process group orders its ranks by world rank, and a rank's
+        # index along the mesh must be its rank in the group
+        raise ValueError(f"ranks must ascend without repeats: {members}")
+    if math.prod(shape) != len(members):
         raise ValueError(f"mesh {dict(zip(axis_names, shape))} needs "
-                         f"{math.prod(shape)} ranks; the world has {world}")
+                         f"{math.prod(shape)} ranks; it is given "
+                         f"{len(members)}")
     if device is None:
         resolve_device(None)  # raises on a host without CUDA
         device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -158,14 +170,16 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
         # keeps the one it belongs to
         for fixed in itertools.product(*(range(shape[i]) for i in others)):
             base = sum(c * strides[i] for c, i in zip(fixed, others))
-            ranks = sorted(base + sum(c * strides[i] for c, i in
-                                      zip(inner, idx))
-                           for inner in itertools.product(
-                               *(range(shape[i]) for i in idx)))
-            g = dist.new_group(ranks)
-            if rank in ranks:
+            sub = sorted(members[base + sum(c * strides[i] for c, i in
+                                            zip(inner, idx))]
+                         for inner in itertools.product(
+                             *(range(shape[i]) for i in idx)))
+            g = dist.new_group(sub)
+            if rank in sub:
                 groups[key] = g
-    return Mesh(shape, axis_names, rank, device, groups)
+    if rank not in members:
+        return None
+    return Mesh(shape, axis_names, members.index(rank), device, groups)
 
 
 def init_rank(rank: int, world: int, store_path: str, *,

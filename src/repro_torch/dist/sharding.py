@@ -359,7 +359,8 @@ def serve_param_specs(mesh, params: Pytree, cfg,
       and the gated norm normalises over all of ``d_inner``;
 
     a block that fails its test is replicated on the mesh (all its specs
-    None).  The embedding's vocabulary rows (axis −2: ``(V, D)``, or the
+    None).  ``params["layers"]`` may be a list of layers or the training
+    layout's stacked tree.  The embedding's vocabulary rows (axis −2: ``(V, D)``, or the
     audio family's ``(K, V, D)``) and an untied head's columns keep
     :func:`param_shardings`' spec.
     """
@@ -384,14 +385,17 @@ def serve_param_specs(mesh, params: Pytree, cfg,
                 block[k] = _replicated(block[k])
 
     heads_ok = cfg.n_kv_heads > 0 and cfg.n_kv_heads % msize == 0
-    for lspec in specs["layers"]:
+    layers = specs["layers"]
+    # one dict per layer, or the training layout's one dict of stacked
+    # leaves (``weights.stack_layers``), whose expert axis is then 1
+    for lspec in layers if isinstance(layers, list) else [layers]:
         if "attn" in lspec:
             fix(lspec["attn"], _ATTN_KEYS, heads_ok)
         if "mlp" in lspec:
             fix(lspec["mlp"], _MLP_KEYS, True)
         if "moe" in lspec:
             moe = lspec["moe"]
-            fix(moe, _MLP_KEYS, True, axis=0)
+            fix(moe, _MLP_KEYS, True, axis=-3)
             if "shared" in moe:
                 fix(moe["shared"], _MLP_KEYS, True)
         if "ssm" in lspec:

@@ -13,7 +13,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.collectives import psum_partial
+from repro_torch.dist.collectives import sum_over
 from repro_torch.engine import EnginePlan, as_packed, is_packed, plan_for_bits
 
 
@@ -56,7 +56,9 @@ def row_dense(p, x: torch.Tensor, plan: Optional[EnginePlan],
     summed over ``group`` (None: the whole linear, :func:`dense`).  A
     packed one runs the ``sharded`` backend, which sums its float32
     partials itself; a dense one is multiplied in float32 and summed
-    here.  The bias, whole on every rank, is added once, after the sum."""
+    here (:func:`~repro_torch.dist.collectives.sum_over`, so that under
+    autograd each rank's partial takes the whole gradient).  The bias,
+    whole on every rank, is added once, after the sum."""
     if group is None:
         return dense(p, x, plan)
     if is_packed(p):
@@ -66,8 +68,8 @@ def row_dense(p, x: torch.Tensor, plan: Optional[EnginePlan],
                 "a row-parallel packed linear on a mesh runs through the "
                 "sharded backend (EngineConfig(sharded=True))")
         return dense(p, x, plan)
-    y = psum_partial(torch.matmul(x.to(torch.float32),
-                                  p["w"].to(torch.float32)), group)
+    y = sum_over(torch.matmul(x.to(torch.float32),
+                              p["w"].to(torch.float32)), group)
     y = y.to(x.dtype)
     if p.get("bias") is not None:
         y = y + p["bias"].to(y.dtype)

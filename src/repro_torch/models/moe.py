@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.dist.collectives import psum_partial
+from repro_torch.dist.collectives import copy_to, sum_over
 from repro_torch.engine import (
     EnginePlan,
     PackedLinear,
@@ -144,11 +144,17 @@ def grouped_matmul(w: torch.Tensor, x: torch.Tensor, offsets: torch.Tensor,
                                    w.to(x.dtype)), idx, valid, x.shape[0])
 
 
-def route(params, x: torch.Tensor, cfg: ModelConfig):
+def route(params, x: torch.Tensor, cfg: ModelConfig, data_group=None,
+          data_count: int = 1):
     """The JAX package's routing of ``x (B, S, D)``: returns the gates
     ``(B, S, k)`` (float32, renormalised), the experts ``(B, S, k)``,
     the kept mask ``(B, S, k)`` under the per-row capacity, and the aux
-    loss."""
+    loss.  ``data_group``: the ``data_count`` data shards of a mesh whose
+    rows make up the batch; the aux loss's token fractions and mean
+    probabilities are then means over all of them, so every shard holds
+    the whole batch's aux (under autograd each shard's probabilities take
+    ``1 / data_count`` of its gradient, the share of a loss whose
+    gradients are summed over the data shards)."""
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = _capacity(s, cfg)
@@ -164,6 +170,9 @@ def route(params, x: torch.Tensor, cfg: ModelConfig):
     frac_tokens = (top_i[..., 0, None] == experts).to(torch.float32).mean(
         (0, 1))
     mean_probs = probs.mean((0, 1))
+    if data_group is not None:
+        frac_tokens = sum_over(frac_tokens, data_group) / data_count
+        mean_probs = sum_over(mean_probs, data_group) / data_count
     aux = e * torch.sum(frac_tokens * mean_probs) * cfg.router_aux_coef
 
     # rank of each pair among the row's pairs of its expert, in (token,
@@ -192,16 +201,24 @@ def moe_block(
     a mesh rank's ``RankView``; with its experts sharded the rank computes
     its own (``counts`` gets their rows, zeros elsewhere) and the model
     group sums the contributions (module docstring); the shared expert's
-    ``w_down`` sums over ``view.mlp_group``."""
+    ``w_down`` sums over ``view.mlp_group``.  Under autograd the experts'
+    input and the gates pass through ``copy_to`` (their gradients, partial
+    on each rank, summed over the group), and the aux loss is the whole
+    batch's over ``view.data_group`` (:func:`route`)."""
     squeeze = x.ndim == 2
     if squeeze:
         x = x[None]
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    gates, experts, keep, aux = route(params, x, cfg)
+    data = (() if view is None or view.data_group is None
+            else (view.data_group, view.data_count))
+    gates, experts, keep, aux = route(params, x, cfg, *data)
     lo, e_local = 0, e
+    x_experts = x
     if view is not None and view.expert_group is not None:
         lo, e_local = view.expert_lo, view.n_experts
+        x_experts = copy_to(x, view.expert_group)
+        gates = copy_to(gates, view.expert_group)
         experts = experts - lo
         keep = keep & (experts >= 0) & (experts < e_local)
 
@@ -220,7 +237,7 @@ def moe_block(
         if e_local < e:
             counts.zero_()
         counts[lo:lo + e_local].copy_(offsets[1:] - offsets[:-1])
-    xs = x.reshape(b * s, d)[order // k]                       # (P, D)
+    xs = x_experts.reshape(b * s, d)[order // k]               # (P, D)
     max_rows = max_expert_rows(b, s, cfg)
     gate = grouped_dense(params["w_gate"], xs, offsets, max_rows, plan)
     up = grouped_dense(params["w_up"], xs, offsets, max_rows, plan)
@@ -236,16 +253,16 @@ def moe_block(
     contrib = torch.where(keep[..., None], contrib * g,
                           torch.zeros((), device=x.device))
     if e_local < e:
-        contrib = psum_partial(contrib, view.expert_group)
+        contrib = sum_over(contrib, view.expert_group)
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
     y = y.to(x.dtype)
 
     if "shared" in params:
-        down = functools.partial(row_dense, plan=plan,
-                                 group=view.mlp_group if view else None)
-        y = y + swiglu(params["shared"], x, plan, down)
+        group = view.mlp_group if view else None
+        down = functools.partial(row_dense, plan=plan, group=group)
+        y = y + swiglu(params["shared"], copy_to(x, group), plan, down)
     if squeeze:
         y = y[0]
     return y, aux

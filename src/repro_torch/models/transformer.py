@@ -62,7 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import FAMILIES, PAGED_FAMILIES, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist.collectives import all_gather, all_reduce
+from repro_torch.dist.collectives import copy_to, gather_from, sum_over
 from repro_torch.dist.sharding import _ROW
 from repro_torch.engine import (
     EnginePlan,
@@ -224,9 +224,9 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 def _mlp_apply(lp, x, cfg, plan, view=None):
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    down = functools.partial(row_dense, plan=plan,
-                             group=view.mlp_group if view else None)
+    group = view.mlp_group if view else None
+    h = copy_to(rms_norm(x, lp["ln2"], cfg.norm_eps), group)
+    down = functools.partial(row_dense, plan=plan, group=group)
     return x + swiglu(lp["mlp"], h, plan, down)
 
 
@@ -283,10 +283,10 @@ def _embed_sharded(table, tokens, cfg, view):
     ids = torch.clamp(ids, 0, rows - 1)
     x = torch.stack([tables[k][ids[..., k]] for k in range(ids.shape[-1])],
                     dim=-2)                                 # (..., K, D)
-    x = all_reduce(torch.where(held[..., None], x,
-                               torch.zeros((), dtype=x.dtype,
-                                           device=x.device)),
-                   view.vocab_group)
+    x = sum_over(torch.where(held[..., None], x,
+                             torch.zeros((), dtype=x.dtype,
+                                         device=x.device)),
+                 view.vocab_group)
     if not audio:
         return x[..., 0, :]
     return sum(x[..., k, :] for k in range(cfg.n_codebooks))
@@ -301,12 +301,13 @@ def _image_tokens(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> int:
 
 
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, view=None):
     """Returns (x ``(B, S, D)``, positions ``(B, S)``): ``batch["tokens"]``
     embedded (for a vlm with ``batch["img_embeds"]`` ``(B, S_img, D)``,
     those prepended, so S counts both), and ``batch["positions"]`` when
-    given, else ``0..S-1`` in every row."""
-    x = _embed(params, batch["tokens"], cfg)
+    given, else ``0..S-1`` in every row.  ``view``: a mesh rank's
+    :class:`RankView` (its vocabulary rows)."""
+    x = _embed(params, batch["tokens"], cfg, view)
     if _image_tokens(batch, cfg):
         x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
@@ -322,8 +323,11 @@ def _lm_logits(params, x, cfg, plan, view=None):
     mesh rank whose head holds a slice of the vocabulary (the tied
     embedding's rows, or an untied head's column-parallel slice), the
     model group gathers the slices to full width before anything reads
-    them."""
+    them (under autograd the head's input passes through ``copy_to`` and
+    each rank keeps its slice of the logits' gradient)."""
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if view is not None:
+        h = copy_to(h, view.head_group)
     if cfg.tie_embeddings:
         # a plain large product outside any kernel, as the JAX package
         # leaves it to XLA
@@ -331,7 +335,7 @@ def _lm_logits(params, x, cfg, plan, view=None):
     else:
         logits = dense(params["lm_head"], h, plan)
     if view is not None and view.head_group is not None:
-        logits = all_gather(logits, view.head_group, dim=-1)
+        logits = gather_from(logits, view.head_group, dim=-1)
     if cfg.family == "audio":
         logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks,
                                 cfg.vocab_size)
@@ -388,8 +392,8 @@ def _layer_pools(pages, layer):
     return pages.k[layer], pages.v[layer], None, None
 
 
-def _resolve(eng, attn_backend, device):
-    plan = resolve_plan(eng, device=device)
+def _resolve(eng, attn_backend, device, mesh=None):
+    plan = resolve_plan(eng, device=device, mesh=mesh)
     if attn_backend is None and plan is not None:
         attn_backend = plan.attn_backend
     return plan, resolve_attn_backend(attn_backend, device)
@@ -402,12 +406,16 @@ def _resolve(eng, attn_backend, device):
 
 def _attn_apply(p, x, positions, cfg, plan, window, *, use_flash: bool,
                 attn_backend: str, sequential: bool,
-                local_gather: bool = False):
+                local_gather: bool = False, view=None):
     """Full-sequence attention sub-block.  Returns (out, (k, v)).
-    ``local_gather``: a windowed layer runs :func:`attend_local_gather`."""
+    ``local_gather``: a windowed layer runs :func:`attend_local_gather`.
+    ``view``: a mesh rank's :class:`RankView`: the rank's heads, and
+    ``wo``'s partials summed over its attention group."""
     b, s, _ = x.shape
-    dh, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    dh = cfg.resolved_head_dim
+    hq, hkv = (view.hq, view.hkv) if view else (cfg.n_heads, cfg.n_kv_heads)
+    group = view.attn_group if view else None
+    h = copy_to(rms_norm(x, p["ln1"], cfg.norm_eps), group)
     q = dense(p["attn"]["wq"], h, plan).reshape(b, s, hq, dh)
     k = dense(p["attn"]["wk"], h, plan).reshape(b, s, hkv, dh)
     v = dense(p["attn"]["wv"], h, plan).reshape(b, s, hkv, dh)
@@ -420,20 +428,34 @@ def _attn_apply(p, x, positions, cfg, plan, window, *, use_flash: bool,
                          attn_backend=attn_backend, sequential=sequential)
     else:
         o = attend_dense(q, k, v, positions, positions, window)
-    o = dense(p["attn"]["wo"], o.reshape(b, s, hq * dh), plan)
+    o = row_dense(p["attn"]["wo"], o.reshape(b, s, hq * dh), plan, group)
     return x + o, (k, v)
 
 
-def _sequence_setup(params, batch, cfg, eng, attn_backend):
+def _sequence_setup(params, batch, cfg, eng, attn_backend, view, mesh):
     """Embeddings, positions, the plan and the sequence mixers' settings of
     :func:`forward` and :func:`prefill`: flash attention from
-    :data:`FLASH_THRESHOLD` tokens, the kernels on the ``cuda`` backend."""
+    :data:`FLASH_THRESHOLD` tokens, the kernels on the ``cuda`` backend,
+    the rank's heads (``view``)."""
     _check_family(cfg, FAMILIES)
-    x, positions = embed_inputs(params, batch, cfg)
-    plan, abk = _resolve(eng, attn_backend, x.device)
+    x, positions = embed_inputs(params, batch, cfg, view)
+    plan, abk = _resolve(eng, attn_backend, x.device, mesh)
     return x, positions, plan, dict(
         use_flash=x.shape[1] >= FLASH_THRESHOLD, attn_backend=abk,
-        sequential=batch.get("positions") is None)
+        sequential=batch.get("positions") is None, view=view)
+
+
+def _sequence_view(params, cfg, mesh) -> "RankView":
+    """:func:`rank_view` for a full-sequence pass over the rank's data
+    shard of a batch: with more than one data shard, the shards' group,
+    over which a moe layer takes the whole batch's aux loss."""
+    view = rank_view(params, cfg, mesh)
+    if mesh is not None:
+        daxes = mesh.data_axes()
+        n = mesh.count(daxes)
+        if n > 1:
+            view = view._replace(data_group=mesh.group(daxes), data_count=n)
+    return view
 
 
 def _site(cfg: ModelConfig, layer: int) -> Optional[int]:
@@ -463,6 +485,7 @@ def forward(
     attn_backend: Optional[str] = None,
     local_gather: bool = False,
     remat: str = "block",
+    mesh=None,
 ):
     """Full-sequence forward (scoring).  Returns (logits ``(B, S, V)``, or
     ``(B, S, K, V)`` for the audio family, aux loss) — or (hidden ``(B,
@@ -486,9 +509,22 @@ def forward(
     its scanned body in ``jax.checkpoint``.  Without autograd recording it
     changes nothing.  The kernels refuse inputs that require grad: a
     training loss runs ``attn_backend="gather"``.
+
+    ``mesh``: this rank's mesh.  ``params`` are then the rank's shards
+    (``dist.sharding.serve_param_specs`` / ``local_shard``: whole heads,
+    experts over ``model``, SSM blocks whole) and ``batch`` its data
+    shard (``batch_shardings``); attention, flash included, runs at the
+    rank's heads, the row-parallel ``wo`` / ``w_down`` sums, the
+    vocabulary's lookups and logits and a MoE layer's combine cross the
+    model group through the differentiable collectives, and the moe
+    family's aux loss is the whole batch's (a mean over the data
+    shards).  The output covers the rank's rows at full width.  Packed
+    weights on a mesh run the ``sharded`` backend
+    (``EngineConfig(sharded=True)``, resolved here with the mesh).
     """
+    view = _sequence_view(params, cfg, mesh)
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
-                                                 attn_backend)
+                                                 attn_backend, view, mesh)
     use_kernel = mixers["attn_backend"] == "cuda"
     local_gather = (local_gather and cfg.sliding_window > 0
                     and cfg.global_every > 0)
@@ -497,7 +533,7 @@ def forward(
         def body(x, lp, win):
             x, _ = _attn_apply(lp, x, positions, cfg, plan, win,
                                local_gather=local_gather, **mixers)
-            return _ffn_apply(lp, x, cfg, plan)
+            return _ffn_apply(lp, x, cfg, plan, view=view)
 
         step = _remat(body, remat)
         for lp, win in zip(params["layers"], _layer_windows(cfg)):
@@ -514,7 +550,7 @@ def forward(
             if shared is not None and _site(cfg, layer) is not None:
                 x, _ = _attn_apply(shared, x, positions, cfg, plan, 0,
                                    **mixers)
-                x = _mlp_apply(shared, x, cfg, plan)
+                x = _mlp_apply(shared, x, cfg, plan, view)
             return x
 
         step = _remat(body, remat)
@@ -523,7 +559,7 @@ def forward(
     x = x[:, _image_tokens(batch, cfg):]
     if return_hidden:
         return x, aux
-    return _lm_logits(params, x, cfg, plan), aux
+    return _lm_logits(params, x, cfg, plan, view), aux
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
@@ -537,22 +573,25 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor,
 
 def chunked_ce(params: Params, hidden: torch.Tensor, labels: torch.Tensor,
                cfg: ModelConfig, eng: Optional[EnginePlan] = None,
-               chunk: int = 512, aux=0.0) -> torch.Tensor:
+               chunk: int = 512, aux=0.0, mesh=None) -> torch.Tensor:
     """Cross entropy with the LM head applied per sequence chunk of
     ``chunk`` positions: live logits are ``(B, chunk, V)`` instead of
     ``(B, S, V)``, and each chunk's head and softmax run under
     ``torch.utils.checkpoint`` (recomputed in the backward pass), as the
     JAX package's ``jax.checkpoint`` scan body.  Equal to
     ``loss_fn(_lm_logits(hidden))``, which it runs instead when S is not a
-    multiple of the chunk."""
-    plan = resolve_plan(eng, device=hidden.device)
+    multiple of the chunk.  ``mesh``: as in :func:`forward` (the rank's
+    rows, their token mean)."""
+    plan = resolve_plan(eng, device=hidden.device, mesh=mesh)
+    view = rank_view(params, cfg, mesh)
     b, s = hidden.shape[:2]
     chunk = min(chunk, s)
     if s % chunk:
-        return loss_fn(_lm_logits(params, hidden, cfg, plan), labels, aux)
+        return loss_fn(_lm_logits(params, hidden, cfg, plan, view), labels,
+                       aux)
 
     def body(hc, lc):
-        logits = _lm_logits(params, hc, cfg, plan)
+        logits = _lm_logits(params, hc, cfg, plan, view)
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         return -torch.gather(logp, -1, lc.long()[..., None]).sum()
 
@@ -676,6 +715,7 @@ def prefill(
     cache: Params,
     eng: Optional[EnginePlan] = None,
     attn_backend: Optional[str] = None,
+    mesh=None,
 ):
     """Run the prompt through the model in one pass, filling the cache.
 
@@ -686,6 +726,10 @@ def prefill(
     site; conv and h states replaced; ``pos`` set to S); the returned
     dictionary holds the same tensors.  A vlm batch with ``img_embeds``
     counts its image positions in S and fills their K/V too.
+
+    ``mesh``: this rank's mesh, as in :func:`forward`; ``cache`` holds
+    the rank's rows and KV heads (``init_cache(n_kv_heads=)``, the
+    shards :func:`decode_step` reads), and the logits are full width.
     """
     layout = _decode_only_layout(cache)
     if layout is not None:
@@ -694,8 +738,9 @@ def prefill(
             "package (its prefill reads one stacked full-precision K/V and "
             "would cast to int8 without scales); decode the prompt from an "
             "empty cache with decode_step")
+    view = rank_view(params, cfg, mesh)
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
-                                                 attn_backend)
+                                                 attn_backend, view, mesh)
     s = x.shape[1]
     if "k" in cache and s > cache["k"].shape[2]:
         raise ValueError(f"prefill: {s} prompt tokens exceed the cache's "
@@ -711,7 +756,7 @@ def prefill(
                                               _layer_windows(cfg))):
             x, (k, v) = _attn_apply(lp, x, positions, cfg, plan, win,
                                     **mixers)
-            x, _ = _ffn_apply(lp, x, cfg, plan)
+            x, _ = _ffn_apply(lp, x, cfg, plan, view=view)
             put_kv(layer, k, v)
     else:
         use_kernel = mixers["attn_backend"] == "cuda"
@@ -727,11 +772,11 @@ def prefill(
             if shared is not None and site is not None:
                 x, (k, v) = _attn_apply(shared, x, positions, cfg, plan, 0,
                                         **mixers)
-                x = _mlp_apply(shared, x, cfg, plan)
+                x = _mlp_apply(shared, x, cfg, plan, view)
                 put_kv(site, k, v)
     x = x[:, _image_tokens(batch, cfg):]
     cache["pos"].fill_(s)
-    return _lm_logits(params, x[:, -1:], cfg, plan), dict(cache)
+    return _lm_logits(params, x[:, -1:], cfg, plan, view), dict(cache)
 
 
 def _decode_qkv(p, x, pos, cfg, plan, view):
@@ -855,7 +900,7 @@ def decode_step(
     whole on every rank.  The returned logits are full width over the
     rank's lanes."""
     _check_family(cfg, FAMILIES)
-    plan, _ = _resolve(eng, attn_backend, tokens.device)
+    plan, _ = _resolve(eng, attn_backend, tokens.device, mesh)
     view = rank_view(params, cfg, mesh)
     pos = cache["pos"]
     x = _embed(params, tokens, cfg, view)
@@ -929,6 +974,8 @@ class RankView(NamedTuple):
     expert_group: Any = None    # experts sharded: sum the contributions
     expert_lo: int = 0          # first expert this rank holds
     n_experts: Optional[int] = None   # experts this rank holds (None: all)
+    data_group: Any = None      # full-sequence pass: the batch's shards
+    data_count: int = 1
 
 
 def _width(p) -> int:
@@ -1026,7 +1073,7 @@ def decode_step_paged(
     lookups and logits and a MoE layer's combine cross the model group,
     and the returned logits are full width."""
     _check_family(cfg)
-    plan, abk = _resolve(eng, attn_backend, tokens.device)
+    plan, abk = _resolve(eng, attn_backend, tokens.device, mesh)
     view = rank_view(params, cfg, mesh)
     b = tokens.shape[0]
     dh, hq, hkv = cfg.resolved_head_dim, view.hq, view.hkv
@@ -1080,7 +1127,7 @@ def prefill_chunk(
     in :func:`decode_step_paged`.
     """
     _check_family(cfg)
-    plan, abk = _resolve(eng, attn_backend, tokens.device)
+    plan, abk = _resolve(eng, attn_backend, tokens.device, mesh)
     view = rank_view(params, cfg, mesh)
     b, c = tokens.shape[:2]
     dh, hq, hkv = cfg.resolved_head_dim, view.hq, view.hkv

@@ -2,6 +2,7 @@
 the JAX package's ``repro.optim`` over nested dicts of tensors."""
 
 from repro_torch.optim.optimizers import (
+    LeafShards,
     OptState,
     adafactor_init,
     adafactor_update,

@@ -10,11 +10,17 @@ An update runs under ``torch.no_grad()`` and writes the params and the
 state **in place** (as JAX's donated train step reuses their buffers): it
 returns the same tensors, with ``OptState.step`` a new 0-d int32 tensor.
 The caller keeps a copy of anything it still needs from before the step.
+
+On a mesh each rank updates its shards of the params and the state
+(``shards``, a :class:`LeafShards`): AdamW and SGD are elementwise and
+need nothing more; Adafactor's factored means and its update's RMS are
+taken over the whole leaf, summing over the model group where the leaf
+is split.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,6 +34,32 @@ F32 = torch.float32
 class OptState(NamedTuple):
     step: torch.Tensor      # 0-d int32: updates taken
     inner: Tree
+
+
+class LeafShards:
+    """Where a rank's leaves are split: ``cuts``, a tree of the params'
+    structure whose leaves are tuples of the axes split over ``group``
+    (``size`` ranks; ``()`` for a leaf whole on every rank), e.g. from
+    ``dist.sharding`` specs.  :meth:`mean` reduces over the whole leaf
+    from a rank's block."""
+
+    def __init__(self, cuts: Tree, group, size: int):
+        self.cuts, self.group, self.size = cuts, group, size
+
+    def mean(self, x: torch.Tensor, cut, dims=None) -> torch.Tensor:
+        """``torch.mean(x, dims)`` (all dims for None) of the whole leaf
+        from this rank's block ``x``, split along the axes ``cut``: the
+        block's sums added over the group where a reduced axis is
+        split."""
+        from repro_torch.dist.collectives import all_reduce
+
+        dims = tuple(range(x.ndim)) if dims is None else dims
+        if not any(d % x.ndim in cut for d in dims):
+            return torch.mean(x, dims)
+        n = 1
+        for d in dims:
+            n *= x.shape[d] * (self.size if d % x.ndim in cut else 1)
+        return all_reduce(torch.sum(x, dims), self.group) / n
 
 
 def _step0(params: Tree) -> torch.Tensor:
@@ -58,7 +90,9 @@ def adamw_init(params: Tree) -> OptState:
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: OptState, params: Tree,
-                 cfg: TrainConfig, lr: torch.Tensor) -> Tuple[Tree, OptState]:
+                 cfg: TrainConfig, lr: torch.Tensor,
+                 shards: Optional[LeafShards] = None
+                 ) -> Tuple[Tree, OptState]:
     step = state.step + 1
     b1, b2, eps = cfg.beta1, cfg.beta2, cfg.eps
     c1 = 1.0 - b1 ** step.to(F32)
@@ -96,36 +130,43 @@ def adafactor_init(params: Tree) -> OptState:
     return OptState(step=_step0(params), inner=tree_map(make, params))
 
 
-def _factored_leaves(params: Tree, state: Tree):
-    """(param, its state dict) pairs: the state tree has a dict where the
-    param tree has a leaf."""
+def _factored_leaves(params: Tree, state: Tree, cuts: Tree = None):
+    """(param, its state dict, its cut axes) triples: the state tree has a
+    dict where the param tree has a leaf; ``cuts`` a tuple (``()`` without
+    a tree of cuts)."""
     if isinstance(params, dict):
         for k in sorted(params):
-            yield from _factored_leaves(params[k], state[k])
+            yield from _factored_leaves(params[k], state[k],
+                                        None if cuts is None else cuts[k])
     elif isinstance(params, (list, tuple)):
-        for p, s in zip(params, state):
-            yield from _factored_leaves(p, s)
+        for i, (p, s) in enumerate(zip(params, state)):
+            yield from _factored_leaves(p, s,
+                                        None if cuts is None else cuts[i])
     elif params is not None:
-        yield params, state
+        yield params, state, () if cuts is None else cuts
 
 
 @torch.no_grad()
 def adafactor_update(grads: Tree, state: OptState, params: Tree,
-                     cfg: TrainConfig, lr: torch.Tensor
+                     cfg: TrainConfig, lr: torch.Tensor,
+                     shards: Optional[LeafShards] = None
                      ) -> Tuple[Tree, OptState]:
     step = state.step + 1
     decay = 1.0 - step.to(F32) ** -0.8
     eps = 1e-30
-    pairs = list(_factored_leaves(params, state.inner))
-    for (p, s), g in zip(pairs, tree_leaves(grads)):
+    sh = shards or LeafShards(None, None, 1)
+    triples = list(_factored_leaves(params, state.inner, sh.cuts))
+    for (p, s, cut), g in zip(triples, tree_leaves(grads)):
         g = g.to(F32)
         g2 = g * g + eps
         if p.ndim >= 2:
-            vr = decay * s["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
-            vc = decay * s["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+            vr = decay * s["vr"] + (1 - decay) * sh.mean(g2, cut, (-1,))
+            vc = decay * s["vc"] + (1 - decay) * sh.mean(g2, cut, (-2,))
+            # vr's last axis is the leaf's axis -2
+            vr_cut = tuple(a for a in cut if a < p.ndim - 1)
             denom = torch.sqrt(
                 vr[..., None] * vc[..., None, :]
-                / torch.clamp(torch.mean(vr, dim=-1, keepdim=True)[..., None],
+                / torch.clamp(sh.mean(vr, vr_cut, (-1,))[..., None, None],
                               min=eps))
             upd_ = g / torch.clamp(denom, min=eps)
             s["vr"].copy_(vr)
@@ -135,7 +176,7 @@ def adafactor_update(grads: Tree, state: OptState, params: Tree,
             upd_ = g / (torch.sqrt(v) + 1e-8)
             s["v"].copy_(v)
         # update clipping (RMS <= 1) as in the Adafactor paper
-        rms = torch.sqrt(torch.mean(upd_ * upd_) + eps)
+        rms = torch.sqrt(sh.mean(upd_ * upd_, cut) + eps)
         upd_ = upd_ / torch.clamp(rms, min=1.0)
         pf = p.to(F32)
         _write(p, pf - lr * (upd_ + cfg.weight_decay * pf))
@@ -153,7 +194,9 @@ def sgd_init(params: Tree) -> OptState:
 
 @torch.no_grad()
 def sgd_update(grads: Tree, state: OptState, params: Tree,
-               cfg: TrainConfig, lr: torch.Tensor) -> Tuple[Tree, OptState]:
+               cfg: TrainConfig, lr: torch.Tensor,
+               shards: Optional[LeafShards] = None
+               ) -> Tuple[Tree, OptState]:
     def upd(p, g, m):
         m.mul_(cfg.beta1).add_(g.to(F32))
         return _write(p, p.to(F32) - lr * m)

@@ -123,8 +123,17 @@ range could not hold one ``max_len`` request, or with the prefix cache
 (a cached page may serve any lane).  ``mesh_layout`` says which.
 
 A step on a mesh runs host collectives (``gloo`` cannot be captured), so
-``cuda_graphs`` must be False there.  Snapshots and chaos injection
-raise ``NotImplementedError`` on a mesh.
+``cuda_graphs`` must be False there.  A snapshot on a mesh holds the pool
+at one device's names and shape (every rank gathers it: heads over
+``model``, page ranges over data) and every rank returns the same one;
+a restore cuts each rank's block back out, so a snapshot moves between a
+mesh and one device (this package's engine or the JAX package's) where
+the geometry agrees (a data-sharded pool's per-shard null pages are
+listed free in it).  Chaos injection runs on a mesh as on one device:
+its decisions are host-side, every rank runs the same host schedule and
+so fires the same faults at the same checks, each after the step's
+collectives; a faulted lane's pages are zeroed by the data shard that
+holds them, in its local page ids.
 """
 
 from __future__ import annotations
@@ -132,6 +141,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
 import time
 from typing import Callable, Deque, Dict, Iterable, List, Optional, Tuple
 
@@ -275,7 +285,7 @@ def _check_slots_options(scfg: ServeConfig, prefix_cache: bool,
                        "(no page pool)")
 
 
-def _check_mesh_options(cuda_graphs: bool, chaos) -> None:
+def _check_mesh_options(cuda_graphs: bool) -> None:
     """What a mesh does not serve yet raises, naming where it is queued."""
     if cuda_graphs:
         raise ValueError(
@@ -284,9 +294,6 @@ def _check_mesh_options(cuda_graphs: bool, chaos) -> None:
             "transport of ranks sharing one card); pass cuda_graphs=False. "
             "Graphs on a mesh wait for NCCL over two or more cards "
             "(ROADMAP.md queue 1 item 8 (e))")
-    if chaos is not None:
-        raise NotImplementedError(
-            "chaos injection on a mesh is ROADMAP.md queue 1 item 8 (c)")
 
 
 def _host_tensor(a) -> torch.Tensor:
@@ -388,7 +395,7 @@ class ServeEngine:
             # the allocator's page_grant site included
             chaos.obs = self.obs
         if mesh is not None:
-            _check_mesh_options(cuda_graphs, chaos)
+            _check_mesh_options(cuda_graphs)
             if device is None:
                 device = mesh.device
         self.device = resolve_device(device)
@@ -639,10 +646,16 @@ class ServeEngine:
                     arrays["block_tables"], self._lane_shard)
         self.lanes.load(**arrays)
 
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh is ROADMAP.md queue 1 item 8 (c)")
+    def _pool_cuts(self) -> Tuple[Optional[object], Optional[object]]:
+        """``(head group, page group)``: the groups over which this rank's
+        pool is a block of the whole one (the KV-head axis 3 over
+        ``model``, the page axis 1 over the data shards), each None where
+        the rank holds the axis whole."""
+        if self.mesh is None:
+            return None, None
+        heads = (self.mesh.group("model")
+                 if self._kv_heads != self.cfg.n_kv_heads else None)
+        return heads, self._lane_group
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt: List[int],
@@ -971,12 +984,21 @@ class ServeEngine:
         cannot change a snapshot taken.  Terminal requests are the
         caller's, not the engine's, and are left out; telemetry state
         restarts fresh.  Persist it with :meth:`save_snapshot`.
+
+        On a mesh every rank calls it (a collective): the pool is gathered
+        to one device's shape, and every rank returns the same snapshot.
         """
-        self._no_mesh("snapshot")
         if self.mode != "paged":
             raise ValueError("snapshot() covers the paged engine only")
-        arrays: Dict = {name: t.detach().to("cpu", copy=True)
-                        for name, t in self._pool_tensors().items()}
+        heads, pages = self._pool_cuts()
+        arrays: Dict = {}
+        for name, t in self._pool_tensors().items():
+            t = t.detach()
+            if heads is not None:
+                t = all_gather(t, heads, dim=3)
+            if pages is not None:
+                t = all_gather(t, pages, dim=1)
+            arrays[name] = t.to("cpu", copy=True)
         arrays["generator"] = self.generator.get_state().numpy().copy()
 
         live: List[Request] = [r for r in self.sched.slot_req
@@ -1026,7 +1048,11 @@ class ServeEngine:
                 "engine_step": self._engine_step,
             },
             "alloc": {
-                "free": [int(p) for p in self.alloc.free],
+                # a data-sharded pool's shard null pages hold nothing a
+                # request reads: listed free, so that a single-device
+                # engine (this package's or JAX's) takes them in
+                "free": sorted(self.alloc._reserved() - {NULL_PAGE})
+                        + [int(p) for p in self.alloc.free],
                 "pos": [int(x) for x in self.alloc.pos],
                 "mapped": [[int(p) for p in m]
                            for m in self.alloc._mapped],
@@ -1054,8 +1080,15 @@ class ServeEngine:
         ``generator``) restores too; this engine then keeps its own
         generator, whose draws differ from JAX's anyway, and greedy
         decoding reads none.
+
+        On a mesh each rank writes its block of the snapshot's pool (its
+        KV heads, its data shard's pages), so a snapshot restores across
+        placements: mesh and one device either way, where the geometry
+        agrees.  Pages this engine holds back (a data-sharded pool's
+        per-shard null pages) leave the snapshot's free list; a lane that
+        maps a page outside its data shard's range here raises
+        ``ValueError`` naming the lane and the page.
         """
-        self._no_mesh("restore")
         if self.mode != "paged":
             raise ValueError("restore() covers the paged engine only")
         host = snap["host"]
@@ -1065,18 +1098,35 @@ class ServeEngine:
         if diff:
             raise ValueError(
                 f"snapshot geometry does not match this engine: {diff}")
+        alloc = host["alloc"]
+        for slot, mapped in enumerate(alloc["mapped"]):
+            for page in mapped:
+                if not self.alloc._in_pool(slot, int(page)):
+                    raise ValueError(
+                        f"snapshot lane {slot} maps page {page}, outside "
+                        "the pages this engine's placement gives that "
+                        "lane")
 
         arrays = snap["arrays"]
+        heads, pages = self._pool_cuts()
         with torch.no_grad():
             for name, pool in self._pool_tensors().items():
-                pool.copy_(_host_tensor(arrays[name]))
+                src = _host_tensor(arrays[name])
+                if heads is not None:
+                    n = pool.shape[3]
+                    src = src.narrow(3, self.mesh.index("model") * n, n)
+                if pages is not None:
+                    n = pool.shape[1]
+                    src = src.narrow(1, self._lane_shard * n, n)
+                pool.copy_(src)
         if "generator" in arrays:
             self.generator.set_state(
                 _host_tensor(arrays["generator"]).to(torch.uint8))
 
         # allocator first: the cache's blocked recount reads refcounts
-        alloc = host["alloc"]
-        self.alloc.free[:] = [int(p) for p in alloc["free"]]
+        reserved = self.alloc._reserved()
+        self.alloc.free[:] = [int(p) for p in alloc["free"]
+                              if int(p) not in reserved]
         self.alloc._mapped[:] = [[int(p) for p in m]
                                  for m in alloc["mapped"]]
         self.alloc.pos[:] = alloc["pos"]
@@ -1144,14 +1194,26 @@ class ServeEngine:
     def save_snapshot(self, directory: str, step: int) -> str:
         """Persist :meth:`snapshot` through :mod:`repro_torch.ckpt`
         (manifest, checksummed shards, atomic commit), in the JAX
-        package's layout.  Returns the written path."""
+        package's layout.  Returns the written path.  On a mesh every
+        rank calls it: the first rank writes the (identical) snapshot,
+        and every rank returns once it is committed."""
         snap = self.snapshot()
         specs = {name: [list(a.shape), ckpt.dtype_name(a)]
                  for name, a in snap["arrays"].items()}
-        return ckpt.save_checkpoint(
-            directory, step, snap["arrays"],
-            extra={"kind": "serve-engine-snapshot",
-                   "host": snap["host"], "array_specs": specs})
+        path = os.path.join(directory, f"step_{step:08d}")
+        if self.mesh is None or self.mesh.rank == 0:
+            path = ckpt.save_checkpoint(
+                directory, step, snap["arrays"],
+                extra={"kind": "serve-engine-snapshot",
+                       "host": snap["host"], "array_specs": specs})
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            # a barrier over each axis in turn waits for every rank of the
+            # mesh (which may be laid over part of the world's ranks)
+            for axis in self.mesh.axis_names:
+                dist.barrier(group=self.mesh.group(axis))
+        return path
 
     def load_snapshot(self, directory: str,
                       step: Optional[int] = None) -> int:
@@ -1350,11 +1412,17 @@ class ServeEngine:
         free list (:func:`~repro_torch.serve.pages.scrub_pages`: in place,
         no host sync).  Pages the prefix cache holds or other lanes share
         are skipped: a clean prefill wrote them before this request's
-        fault and other requests still read them."""
+        fault and other requests still read them.  On a data-sharded pool
+        only the lane's own data shard holds them, at local page ids."""
         cached = (set(self.prefix_cache.pages())
                   if self.prefix_cache is not None else set())
         private = [p for p in self.alloc._mapped[slot]
                    if self.alloc.refcount[p] == 1 and p not in cached]
+        if private and self._lane_shard is not None:
+            if self.alloc.shard_of(slot) != self._lane_shard:
+                return
+            base = self._lane_shard * self.alloc.shard_pages
+            private = [p - base for p in private]
         if private:
             scrub_pages(self.pages, private)
 

@@ -19,19 +19,45 @@ and SSD paths, which is what the JAX package trains on (its Pallas flash
 kernel is off by default and none of its kernels has a backward pass).
 The CUDA kernels refuse inputs that require grad, and no backward kernel
 is written.  Linears are float weights (``torch.matmul``), as in JAX.
+
+**On a mesh** (``make_train_step(..., mesh=)``, one process a rank of a
+``(data, model)`` mesh, tensor-parallel): the params and the optimizer
+and error-feedback state are the rank's shards under :func:`mesh_specs`
+(``dist.sharding.serve_param_specs`` on the stacked tree: whole heads,
+experts over ``model``, SSM blocks whole; the state follows its params),
+and the step takes the global batch and runs its data shard
+(``batch_shardings``).  The forward crosses the model group through the
+differentiable collectives, so a leaf whole on every model rank gets the
+same whole gradient on each.  Each data shard's loss counts ``1/d`` of
+its token mean (the moe family's aux loss, the whole batch's, once), the
+gradients are summed over the data shards in float32, and the loss is
+the global mean, as JAX's GSPMD step has them.  The global norm sums the
+squares of the split leaves over the model group and counts a whole leaf
+once; Adafactor and the compression's absmax reduce over the whole leaf
+(``optim.LeafShards``).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, TrainConfig
+from repro_torch.dist.collectives import all_reduce
+from repro_torch.dist.sharding import (
+    Spec,
+    batch_shardings,
+    local_shard,
+    serve_param_specs,
+    tree_map_with_path,
+)
 from repro_torch.models.transformer import chunked_ce, forward
 from repro_torch.optim import (
+    LeafShards,
+    OptState,
     cosine_warmup,
     ef_state_init,
     error_feedback_compress,
@@ -44,12 +70,26 @@ Tree = Any
 F32 = torch.float32
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _square_sum(leaf: torch.Tensor) -> torch.Tensor:
     # a sum of squares, as JAX's: on the CPU ``torch.linalg.vector_norm``
     # of a 311 M-element float32 leaf (qwen2.5-3b's embedding) comes out
     # 0.1-0.3% low, where ``torch.sum`` sums in a cascade
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(F32)))
-                          for leaf in tree_leaves(tree)))
+    return torch.sum(torch.square(leaf.to(F32)))
+
+
+def _global_norm(tree, shards: Optional[LeafShards] = None) -> torch.Tensor:
+    """The norm over every leaf; on a mesh (``shards``) the split leaves'
+    squares are summed over the model group and a whole leaf counts
+    once."""
+    if shards is None:
+        return torch.sqrt(sum(_square_sum(leaf)
+                              for leaf in tree_leaves(tree)))
+    parts = {True: [], False: []}
+    tree_map(lambda g, cut: parts[bool(cut)].append(_square_sum(g)), tree,
+             shards.cuts)
+    zero = torch.zeros((), dtype=F32, device=tree_leaves(tree)[0].device)
+    split = all_reduce(sum(parts[True], zero), shards.group)
+    return torch.sqrt(sum(parts[False], zero) + split)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -92,8 +132,157 @@ def _grad_pieces(params: Tree, acc: Tree):
     return tree, pieces, slots
 
 
+# elements of one all-reduce of the gradients over the data shards
+_BUCKET = 1 << 26
+
+
+def _sum_leaves(leaves, group) -> None:
+    """Sum float32 ``leaves`` over ``group`` in place, a bucket of up to
+    :data:`_BUCKET` elements a collective."""
+    bucket: list = []
+
+    def flush():
+        if bucket:
+            flat = all_reduce(torch.cat([t.reshape(-1) for t in bucket]),
+                              group)
+            for t, part in zip(bucket, torch.split(
+                    flat, [t.numel() for t in bucket])):
+                t.copy_(part.view_as(t))
+            bucket.clear()
+
+    size = 0
+    for leaf in leaves:
+        if size + leaf.numel() > _BUCKET:
+            flush()
+            size = 0
+        bucket.append(leaf)
+        size += leaf.numel()
+    flush()
+
+
+def mesh_specs(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> Dict[str, Any]:
+    """The placement of the training state on ``mesh``: ``params`` (the
+    stacked tree's :func:`~repro_torch.dist.sharding.serve_param_specs`),
+    ``opt`` (the optimizer state's ``inner`` tree: AdamW's moments and
+    SGD's momentum as their params, Adafactor's ``vr`` / ``vc`` as the
+    axes of the param they keep) and ``ef`` (as the params).  Read from
+    the shapes alone (the tree is built under ``FakeTensorMode``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import init_params
+
+    with FakeTensorMode():
+        shapes = stack_layers(init_params(cfg, torch.Generator()))
+    specs = serve_param_specs(mesh, shapes, cfg)
+    if tcfg.optimizer == "adamw":
+        opt = {"m": specs, "v": specs}
+    elif tcfg.optimizer == "adafactor":
+        def factored(path, spec):
+            if len(spec) >= 2:
+                return {"vr": Spec(spec[:-1]),
+                        "vc": Spec(spec[:-2] + spec[-1:])}
+            return {"v": spec}
+
+        opt = tree_map_with_path(factored, specs)
+    else:
+        opt = specs
+    return {"params": specs, "opt": opt, "ef": specs}
+
+
+def shard_train_state(specs: Dict[str, Any], mesh, params, opt_state,
+                      ef_state):
+    """This rank's ``(params, opt_state, ef_state)`` from whole ones under
+    :func:`mesh_specs`' ``specs`` (a leaf the rank holds whole is the
+    input's tensor itself, not a copy)."""
+    return (local_shard(params, specs["params"], mesh),
+            OptState(opt_state.step,
+                     local_shard(opt_state.inner, specs["opt"], mesh)),
+            local_shard(ef_state, specs["ef"], mesh) if ef_state
+            else ef_state)
+
+
+def _make_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
+    """``(grads, shards)``: ``grads(params, batch) -> (gradients, loss)``,
+    the float32 gradients a step of :func:`make_train_step` applies
+    (summed over the data shards on a mesh, before compression and
+    clipping) with the global loss; ``shards`` the
+    :class:`~repro_torch.optim.LeafShards` of the split leaves (None off a
+    mesh, or with one model rank)."""
+    shards = data_group = None
+    n_data = 1
+    if mesh is not None and mesh.count("model") > 1:
+        pspecs = mesh_specs(cfg, tcfg, mesh)["params"]
+        shards = LeafShards(
+            tree_map_with_path(lambda path, spec: tuple(
+                ax for ax, e in enumerate(spec)
+                if e is not None and mesh.count(e) > 1), pspecs),
+            mesh.group("model"), mesh.count("model"))
+    if mesh is not None:
+        daxes = mesh.data_axes()
+        n_data = mesh.count(daxes)
+        if n_data > 1:
+            data_group = mesh.group(daxes)
+
+    def loss_of(params, batch):
+        """(objective, its cross-entropy part, aux): the rank's share of
+        the global loss, whose gradients summed over the data shards are
+        the global loss's."""
+        hidden, aux = forward(params, batch, cfg, remat=tcfg.remat,
+                              return_hidden=True, attn_backend="gather",
+                              mesh=mesh)
+        ce = chunked_ce(params, hidden, batch["labels"], cfg,
+                        mesh=mesh) / n_data
+        return ce + aux, ce, aux
+
+    def accumulate(acc, params, batch):
+        if mesh is not None:
+            batch = local_shard(batch, batch_shardings(mesh, batch), mesh)
+        tree, pieces, slots = _grad_pieces(params, acc)
+        with torch.enable_grad():
+            loss, ce, aux = loss_of(tree, batch)
+            grads = torch.autograd.grad(loss, pieces, allow_unused=True)
+        with torch.no_grad():
+            for a, g in zip(slots, grads):
+                if g is not None:
+                    a.add_(g)
+        if data_group is None:
+            return loss.detach()
+        return torch.stack([ce.detach(), aux.detach()])
+
+    def grads(params, batch):
+        device = tree_leaves(params)[0].device
+        batch = _as_batch(batch, device)
+        mb = tcfg.microbatches
+        # float32 from the start: for mb == 1 it holds the grads exactly
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
+                                             device=p.device), params)
+        if mb > 1:
+            # JAX's split of the global batch: microbatch i holds global
+            # rows [i B / mb, (i + 1) B / mb), and on a mesh each data
+            # shard runs its block of those rows (the moe aux loss is not
+            # linear in which rows share a microbatch)
+            micros = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
+                      for k, v in batch.items()}
+            loss = 0
+            for i in range(mb):
+                loss = loss + accumulate(
+                    acc, params, {k: v[i] for k, v in micros.items()})
+            loss = loss / mb
+            for a in tree_leaves(acc):
+                a.div_(mb)
+        else:
+            loss = accumulate(acc, params, batch)
+        if data_group is not None:
+            with torch.no_grad():
+                _sum_leaves(tree_leaves(acc), data_group)
+                loss = all_reduce(loss[0], data_group) + loss[1]
+        return acc, loss
+
+    return grads, shards
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    donate: bool = True) -> Callable:
+                    donate: bool = True, mesh=None) -> Callable:
     """Returns ``step(params, opt_state, ef_state, batch) -> (params,
     opt_state, ef_state, metrics)``, params and states in the stacked
     layout, ``batch`` numpy arrays or tensors (moved to the params'
@@ -105,57 +294,30 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     is accepted for JAX's signature and changes nothing.  ``ef_state`` is
     the error-feedback buffer when gradient compression is on (an empty
     dict otherwise).
+
+    ``mesh``: this rank's mesh (module docstring).  ``params``, the
+    states and the returned ones are then the rank's shards
+    (:func:`shard_train_state`), ``batch`` the global batch, and the
+    metrics the global ones, equal on every rank.
     """
     del donate
     _, update_fn = make_optimizer(tcfg.optimizer)
-
-    def loss_of(params, batch):
-        hidden, aux = forward(params, batch, cfg, remat=tcfg.remat,
-                              return_hidden=True, attn_backend="gather")
-        return chunked_ce(params, hidden, batch["labels"], cfg, aux=aux)
-
-    def accumulate(acc, params, batch) -> torch.Tensor:
-        tree, pieces, slots = _grad_pieces(params, acc)
-        with torch.enable_grad():
-            loss = loss_of(tree, batch)
-            grads = torch.autograd.grad(loss, pieces, allow_unused=True)
-        with torch.no_grad():
-            for a, g in zip(slots, grads):
-                if g is not None:
-                    a.add_(g)
-        return loss.detach()
+    grads, shards = _make_grads(cfg, tcfg, mesh)
 
     def step(params, opt_state, ef_state, batch):
-        device = tree_leaves(params)[0].device
-        batch = _as_batch(batch, device)
-        mb = tcfg.microbatches
-        # float32 from the start: for mb == 1 it holds the grads exactly
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                             device=p.device), params)
-        if mb > 1:
-            micros = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:])
-                      for k, v in batch.items()}
-            loss = torch.zeros((), dtype=F32, device=device)
-            for i in range(mb):
-                loss = loss + accumulate(
-                    acc, params, {k: v[i] for k, v in micros.items()})
-            loss = loss / mb
-            for a in tree_leaves(acc):
-                a.div_(mb)
-        else:
-            loss = accumulate(acc, params, batch)
-
+        acc, loss = grads(params, batch)
         with torch.no_grad():
             if tcfg.grad_compress_bits:
                 acc, ef_state = error_feedback_compress(
-                    acc, ef_state, tcfg.grad_compress_bits)
-            gnorm = _global_norm(acc)
+                    acc, ef_state, tcfg.grad_compress_bits, shards)
+            gnorm = _global_norm(acc, shards)
             scale = _clip_scale(gnorm, tcfg.grad_clip)
             for a in tree_leaves(acc):
                 a.mul_(scale)
             lr = cosine_warmup(opt_state.step, tcfg.lr, tcfg.warmup_steps,
                                tcfg.total_steps)
-            params, opt_state = update_fn(acc, opt_state, params, tcfg, lr)
+            params, opt_state = update_fn(acc, opt_state, params, tcfg, lr,
+                                          shards=shards)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         return params, opt_state, ef_state, metrics
 

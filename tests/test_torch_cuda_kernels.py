@@ -1845,3 +1845,68 @@ def test_mesh_sharded_gemv_two_ranks(cuda_device, tmp_path):
         for case, rec in res.items():
             want = "col" if case.startswith("wq") else "row"
             assert rec["shard"] == want and rec["ok"], (r, case, rec)
+
+
+# the full-sequence path on a mesh (``forward`` / ``prefill(mesh=)``):
+# flash attention at the heads a rank holds, the SSD scan on the SSM
+# block every rank holds whole; the shapes are read from the placement
+SEQ_MESH = [("qwen2.5-3b", (1, 2)), ("qwen2.5-3b", (2, 1)),
+            ("llava-next-mistral-7b", (1, 2)), ("musicgen-medium", (1, 2)),
+            ("qwen3-moe-235b-a22b", (1, 2)), ("zamba2-7b", (1, 2)),
+            ("gemma3-27b", (1, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mesh", SEQ_MESH,
+                         ids=[f"{a}-{m[0]}x{m[1]}" for a, m in SEQ_MESH])
+def test_mesh_flash_attention_rank_heads(cuda_device, arch, mesh):
+    """Flash attention at a rank's query and KV heads (qwen2.5-3b at
+    ``(1, 2)``: 8 of 16 query heads, 1 of 2 KV heads), the config's dtype
+    and window, over a ragged 1,000-token sequence."""
+    cfg = get_arch(arch)
+    hkv, g, dh = rank_shapes(cfg, mesh).heads
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(hkv * g + dh)
+    s, window = 1000, cfg.sliding_window
+    q = torch.randn((2, s, hkv * g, dh), generator=gen,
+                    device=cuda_device).to(dt)
+    k = torch.randn((2, s, hkv, dh), generator=gen, device=cuda_device).to(dt)
+    v = torch.randn((2, s, hkv, dh), generator=gen, device=cuda_device).to(dt)
+    path = f"flash_attention/{flash_route(dt, dh)}"
+    before = _build.ROUTE_LAUNCHES[path]
+    y = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[path] == before + 1
+    r = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), window=window).transpose(1, 2)
+    assert y.shape == q.shape and y.dtype == dt
+    rtol = 1e-5 if dt == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y.float(), r.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b"])
+def test_mesh_ssd_scan_whole_block(cuda_device, arch):
+    """The SSD scan on a ``(1, 2)`` rank: the SSM block is whole there
+    (``in_proj`` at its full width), so the scan runs every head, at the
+    config's chunk, over 2,048 steps."""
+    cfg = get_arch(arch)
+    nh, p, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    width = 2 * cfg.d_inner + 2 * n + nh
+    assert (cfg.d_model, width) in rank_shapes(cfg, (1, 2)).linears
+    gen = torch.Generator(device=cuda_device).manual_seed(nh + n)
+    dt = getattr(torch, cfg.dtype)
+    bsz, s = 2, 2048
+    x = (0.1 * torch.randn((bsz, s, nh, p), generator=gen,
+                           device=cuda_device)).to(dt)
+    la = -0.2 * torch.rand((bsz, s, nh), generator=gen, device=cuda_device)
+    b_in = torch.randn((bsz, s, n), generator=gen, device=cuda_device).to(dt)
+    c_in = torch.randn((bsz, s, n), generator=gen, device=cuda_device).to(dt)
+    before = _build.LAUNCHES["ssd_scan"]
+    y, h = ssd_scan(x, la, b_in, c_in, chunk=cfg.ssm_chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_scan"] == before + 1
+    ry, rh = ssd_scan_ref(x, la, b_in, c_in, cfg.ssm_chunk)
+    for out, ref in ((y, ry), (h, rh)):
+        torch.testing.assert_close(out, ref, rtol=1e-4,
+                                   atol=1e-4 * ref.abs().max().item())

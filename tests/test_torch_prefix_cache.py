@@ -278,14 +278,14 @@ def _same_after_each(ops, streams, pair):
         assert NULL_PAGE not in talloc.free and not tcache.holds(NULL_PAGE)
 
 
-@settings(max_examples=40)
+@settings(max_examples=40, deadline=None)
 @given(ops=_OPS)
 def test_random_ops_match_jax(ops):
     streams = [[100 * (s + 1) + i for i in range(24)] for s in range(3)]
     _same_after_each(ops, streams, _pair())
 
 
-@settings(max_examples=40)
+@settings(max_examples=40, deadline=None)
 @given(ops=_OPS)
 def test_random_ops_on_shared_stream_match_jax(ops):
     """Two slots walk the same token stream, so shared pins hit interior

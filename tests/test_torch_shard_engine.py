@@ -136,9 +136,11 @@ def model():
 
 def test_what_a_mesh_refuses(model):
     """Graphs on a mesh raise (``gloo`` collectives cannot be captured),
-    as do chaos injection, snapshots and packed weights without the
-    sharded backend.  Slots mode and the moe family build and step: on a
-    one-rank mesh (no collective runs) they give one device's tokens."""
+    as do packed weights without the sharded backend; chaos injection
+    builds.  Slots mode and the moe family build and step: on a one-rank
+    mesh (no collective runs) they give one device's tokens, and a paged
+    engine's snapshot there is one device's, which restores into a fresh
+    one-rank engine."""
     from repro_torch.dist.hints import Mesh
     from repro_torch.ft import ChaosInjector
     from repro_torch.models import init_params
@@ -155,14 +157,13 @@ def test_what_a_mesh_refuses(model):
 
     with pytest.raises(ValueError, match="cannot capture"):
         build(cuda_graphs=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build(chaos=ChaosInjector(seed=0))
     with pytest.raises(ValueError, match="sharded backend"):
         build(engine=tconfig.EngineConfig(weight_bits=8,
                                           backend="reference"))
 
     one = Mesh((1, 1), ("data", "model"), 0, torch.device("cpu"),
                 {("data",): None, ("model",): None})
+    assert build(mesh=one, chaos=ChaosInjector(seed=0)).chaos is not None
     moe_cfg = dataclasses.replace(tconfig.get_reduced("qwen3-moe-235b-a22b"),
                                   dtype="float32")
     moe_params = init_params(moe_cfg, torch.Generator().manual_seed(0))
@@ -179,8 +180,11 @@ def test_what_a_mesh_refuses(model):
         assert tokens[0] == tokens[1], (cfg.family, mode)
         assert eng.mesh_layout["data_shards"] == 1
         if mode == "paged":
-            with pytest.raises(NotImplementedError, match="item 8"):
-                eng.snapshot()
+            snap = eng.snapshot()
+            assert snap["arrays"]["pages/k"].shape == eng.pages.k.shape
+            fresh = build(cfg, params, one, mode=mode)
+            fresh.restore(snap)
+            fresh.audit()
 
 
 def test_serving_placement_keeps_whole_heads(model):
@@ -362,10 +366,7 @@ for name, kw in case["serve"].items():
         pool=tuple(eng.pages.k.shape), backend=eng.plan and eng.plan.backend,
         prefix=eng.prefix_stats())
     if name == "kv0":
-        try:
-            eng.snapshot()
-        except NotImplementedError as e:
-            out["snapshot_refused"] = str(e)
+        out["snapshot_pool"] = tuple(eng.snapshot()["arrays"]["pages/k"].shape)
 m24 = make_mesh((2, 4), ("data", "model"), device="cpu")
 eng, toks = serve(m24)
 out["serve"]["mesh_2x4"] = dict(tokens=toks, layout=eng.mesh_layout,
@@ -463,4 +464,5 @@ def test_sharded_backend_and_mesh_serving_on_8_ranks(model, tmp_path):
     assert s["w8"]["backend"] == "sharded"
     # (2, 4): the 2 KV heads stay whole on every rank
     assert s["mesh_2x4"]["layout"]["kv_heads"] == 2
-    assert "item 8 (c)" in res[0]["snapshot_refused"]
+    # a snapshot gathers the pool to one device's shape on every rank
+    assert all(out["snapshot_pool"][1:4] == (36, 4, 2) for out in res)
