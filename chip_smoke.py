@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --mesh`` runs ``env``, ``build`` and phase
-``mesh`` alone; ``--mesh-rank R --mesh-shape DxM --mesh-dir DIR`` is one
-of that phase's rank processes, which it starts itself.)
+``mesh`` alone, ``--launch`` phase ``launch`` alone; ``--mesh-rank R
+--mesh-shape DxM --mesh-dir DIR`` is one of phase ``mesh``'s rank
+processes, which it starts itself.)
 
 It builds the hand-written CUDA kernels of ``src/repro_torch/csrc`` and runs
 these phases, each printing JSON lines; any failure raises and the script
@@ -153,14 +154,14 @@ exits non-zero:
                 ``MESH_CELLS`` in turn, eager at ``weight_bits=4``, each
                 held against its single-device eager engine on the same
                 params: paged at ``(1, 2)``, ``main``'s first 8 prompts,
-                16 new tokens, ``kv_bits=8``: llava-next (16 of 32
-                layers), musicgen (48), llama4-scout (12 of 48: 8
-                of 16 experts a rank), qwen3-moe (8 of 94: 64 of 128),
+                16 new tokens, ``kv_bits=8``: llava-next (8 of 32
+                layers), musicgen (24 of 48), llama4-scout (6 of 48: 8
+                of 16 experts a rank), qwen3-moe (4 of 94: 64 of 128),
                 and the two MoE
                 configs at 2 layers in float32 with float32 pages; slots
                 mode, 4 prompts of 8-16 tokens, 8 new, ``kv_bits=0``:
-                qwen2.5-3b (12 of 36) and mamba2-130m (24) at both meshes,
-                zamba2-7b (12 of 81, 2 sites) and gemma3-27b (6 of 62,
+                qwen2.5-3b (6 of 36) and mamba2-130m (24) at both meshes,
+                zamba2-7b (6 of 81, 1 site) and gemma3-27b (2 of 62,
                 one prompt past the 1024-token window) at ``(1, 2)``.
                 The bf16 MoE ranks replay one device's routing, and each
                 choice of their own that differs from it must be at a
@@ -187,14 +188,14 @@ exits non-zero:
                 one-shot ``prefill(mesh=)``, flash at a rank's heads and
                 the SSD scan once a layer on every rank, last logits
                 within ``long_whole``'s 0.125; seconds, collective ms)
-                and ``mesh_train`` (qwen2.5-3b at 8 of 36 layers in
+                and ``mesh_train`` (qwen2.5-3b at 4 of 36 layers in
                 float32, 1 x 1024 tokens a data shard, 3 AdamW steps:
                 losses, grad norms and the change of every rank's params
                 against one device's within ``MESH_TRAIN_TOL``, no kernel
                 launched; step ms,
                 collective ms, peak memory).  A rank that fails or
                 outlives ``MESH_TIMEOUT`` fails the phase.
-   ``dense``    starcoder2-15b (40 layers), gemma3-27b (62 layers, window
+   ``dense``    starcoder2-15b (20 of 40 layers), gemma3-27b (16 of 62 layers, window
                 1024 on 5 of 6 layers, 8 prompts of 1,100-1,900 tokens,
                 max_len 2048) and mistral-large-123b cut to 8 of its 88
                 layers, at published widths, served paged at
@@ -205,8 +206,8 @@ exits non-zero:
                 ``whole``'s check at 2 layers (gemma3: one local, one
                 global layer, prompts past the window).
    ``moe``      after ``dense`` has freed its params: llama4-scout-17b-a16e
-                (48 layers, full width, 16 experts top-1 and a shared
-                expert) and qwen3-moe-235b-a22b cut to 16 of 94 layers
+                (12 of 48 layers, full width, 16 experts top-1 and a shared
+                expert) and qwen3-moe-235b-a22b cut to 8 of 94 layers
                 (128 experts top-8), ``main``'s setup and traffic, the
                 expert linears on the grouped launch: tok/s, step and
                 chunk ms, init seconds, peak memory, launches by route
@@ -219,8 +220,9 @@ exits non-zero:
                 tokens); ``whole``'s check at 2 layers in
                 float32 with float32 pages (a router near-tie rerouted by
                 a bf16 rounding is no kernel fault).
-   ``families`` after ``moe``: llava-next-mistral-7b (32 layers) and
-                musicgen-medium (48 layers, 4 codebooks, each prompt id
+   ``families`` after ``moe``: llava-next-mistral-7b (16 of 32 layers)
+                and musicgen-medium (24 of 48 layers, 4 codebooks, each
+                prompt id
                 broadcast over them) served paged with ``main``'s setup
                 and traffic: tok/s, step and chunk ms, init seconds, peak
                 memory, launches by route, the ledger's decode bytes
@@ -229,7 +231,7 @@ exits non-zero:
                 path (2 prompts of 2880 seeded image positions and 1216
                 tokens: flash attention, then 16 decode steps) and at 2
                 layers against the plain path and ``forward``; zamba2-7b
-                (81 layers, one shared attention block applied at 13
+                (42 of 81 layers, one shared attention block applied at 7
                 sites) in slots mode (8 slots, max_len 1024, 8 prompts of
                 17-64 tokens, 16 new each), graphs against eager at 12
                 layers (two sites), its full-sequence path (2 x 4096
@@ -279,15 +281,33 @@ exits non-zero:
                 steps, a node failure at step 3: the uninterrupted run's
                 losses within 1e-5).
    ``layouts``  the decode-only slots-cache layouts, eager and greedy from
-                empty caches at ``weight_bits=4``: qwen2.5-3b (36 layers,
-                8 lanes, 64 steps) unstacked against stacked (identical
+                empty caches at ``weight_bits=4``: qwen2.5-3b (9 of 36
+                layers, 8 lanes, 64 steps) unstacked against stacked (identical
                 tokens), int8 stacked against unstacked (logits within
                 1e-3) and against full precision (near ties only);
                 gemma3-27b cut to 6 layers (5 local, 1 global) in float32,
                 2 lanes, 1,100 steps past its 1,024 window: the split
                 local/global cache against the uniform one (logits within
-                2e-3); zamba2-7b unstacked against stacked (identical
-                tokens).
+                2e-3); zamba2-7b (13 of 81 layers) unstacked against
+                stacked (identical tokens).
+   ``launch``   the cells of ``repro_torch.launch.steps`` on a
+                ``make_host_mesh()`` ``(1, 1)`` (``LAUNCH_CELLS``: qwen2.5-3b
+                ``prefill_cell`` 2 x 4096, ``chunked_prefill_cell`` 8 lanes
+                x 32 over 1,024-token tables, ``paged_serve_cell`` and
+                ``serve_cell`` 8 x 1,024, ``train_cell`` 2 microbatches of
+                1 x 1,024 with remat, and mamba2-130m's ``prefill_cell`` 4
+                x 4096), each one warm-up and three timed calls (p50 ms),
+                then counted under the op counter on the card and on
+                ``meta`` (equal, to the unit), its kernel launches equal
+                to its priced calls by route, its bound
+                (``roofline.roofline_report`` on the data sheet's rates)
+                no more than 1.05x its time, its argument bytes on the
+                card within 2% of the count's; then the dry records of
+                ``LAUNCH_DRY`` (``launch.dryrun.run_cell`` on a rank of a
+                ``(16, 16)`` mesh, one of ``(2, 16, 16)``), counted on the
+                host's CPU in a background process started after
+                ``build``: their three terms, dominant term, memory and
+                ``count_s``.
 10. ``engine``   the paper's GEMV engine path: ``repro_torch.paper_demo``
                 at dim 96 on the card, then at d = 2048 (qwen2.5-3b's wq)
                 and d = 1983 (the largest 8-bit GEMV the U55 holds) the
@@ -419,8 +439,10 @@ GROUPED_NAMES = {(5120, 8192): "llama4 w_gate/w_up",
                  (4096, 1536): "qwen3 w_gate/w_up",
                  (1536, 4096): "qwen3 w_down"}
 GROUPED_BOUNDS = {"decode": 8, "chunk": 64}
-# phase moe: (arch, layers or None for all), served with main's setup
-MOE_CASES = [("llama4-scout-17b-a16e", None), ("qwen3-moe-235b-a22b", 16)]
+# phase moe: (arch, layers or None for all), served with main's setup;
+# llama4-scout cut to 12 of 48 layers and qwen3-moe to 8 of 94, to keep
+# the whole run inside its time with phase ``launch`` (PERF.md §4)
+MOE_CASES = [("llama4-scout-17b-a16e", 12), ("qwen3-moe-235b-a22b", 8)]
 # the engine phase's exact GEMVs: qwen2.5-3b's wq (K = N = 2048); the U55's
 # largest resident 8-bit square GEMV is added at run time
 ENGINE_DIMS = (2048,)
@@ -664,6 +686,7 @@ def gemv_parity(torch, dev):
 
 
 def gemv_time(torch, dev, m, k, n, bits=4, radix=1, dt=None):
+    from repro_torch.roofline import kernel_costs
     from repro_torch.core import unpack_weights
     from repro_torch.kernels._gemv import route
     from repro_torch.kernels.bitplane_gemv.kernel import bitplane_gemv_cuda
@@ -678,9 +701,8 @@ def gemv_time(torch, dev, m, k, n, bits=4, radix=1, dt=None):
                           out_dtype=dt)
     rtol, atol = gemv_tol(dt, r)
     err, _ = check_close("bitplane_gemv", y, r, rtol, atol, m=m, k=k, n=n)
-    xb = x.element_size()
-    n_bytes = k * n * bits // 8 + 4 * n + m * k * xb + m * n * xb
-    n_ops = 2 * m * k * n
+    n_bytes, n_ops = kernel_costs.bitplane_gemv(m, k, n, bits,
+                                                x.element_size())
     dname = "bfloat16" if dt == torch.bfloat16 else "float32"
     bms, by = bound_ms(n_bytes, n_ops, dname)
     copies = n_copies(k * n * bits // 8)
@@ -823,6 +845,7 @@ def grouped_time(torch, dev, k, n, experts, top_k, mode, bits=4):
     counts the codes and scales of the touched experts, x and y; the
     library call is ``torch.bmm`` over the touched experts' bf16 weights
     with each expert's rows padded to the most any has."""
+    from repro_torch.roofline import kernel_costs
     from repro_torch.core import unpack_weights
     from repro_torch.kernels._gemv import grouped_route
     from repro_torch.kernels.bitplane_gemv.kernel import (
@@ -859,8 +882,8 @@ def grouped_time(torch, dev, k, n, experts, top_k, mode, bits=4):
                          atol, k=k, n=n, mode=mode)
     touched = int((counts > 0).sum())
     per_expert = k * n * bits // 8 + 4 * n
-    n_bytes = touched * per_expert + 2 * rows * (k + n)
-    n_ops = 2 * rows * k * n
+    n_bytes, n_ops = kernel_costs.bitplane_gemv_grouped(rows, k, n, bits,
+                                                        touched)
     bms, by = bound_ms(n_bytes, n_ops, "bfloat16")
     copies = n_copies(touched * per_expert)
     packs = [packed.clone() for _ in range(copies)]
@@ -1137,6 +1160,7 @@ def attn_time(torch, dev, kind, mode, dh=128):
     tokens."""
     import torch.nn.functional as F
 
+    from repro_torch.roofline import kernel_costs
     from repro_torch.kernels.paged_attention.kernel import (
         paged_decode_attention_cuda,
         paged_prefill_attention_cuda,
@@ -1171,7 +1195,8 @@ def attn_time(torch, dev, kind, mode, dh=128):
         ref = plain(kp, vp, ks, vs)
         mask = (t_pos[None, :] <= cur[:, None].long())[:, None, None, :]
         q_lib = q.reshape(b, hkv * g, 1, dh)
-        q_bytes, o_bytes = q.numel() * q.element_size(), q.numel() * 4
+        n_bytes, n_ops = kernel_costs.paged_decode_attention(
+            b, hkv, g, dh, nblk, keys, eb, q.element_size(), ks is not None)
     else:
         pos0 = torch.tensor([0, 32, 64, 100, 150, 200, 250, 268],
                             dtype=torch.int32, device=dev)
@@ -1193,16 +1218,14 @@ def attn_time(torch, dev, kind, mode, dh=128):
         mask = ((t_pos[None, None, :] <= qpos[:, :, None])
                 & (t_pos[None, None, :] < lim[:, None, None]))[:, None]
         q_lib = q.reshape(b, c, hkv * g, dh).transpose(1, 2).contiguous()
-        q_bytes, o_bytes = q.numel() * q.element_size(), q.numel() * 4
+        n_bytes, n_ops = kernel_costs.paged_prefill_attention(
+            b, c, hkv, g, dh, nblk, keys, pairs, eb, q.element_size(),
+            ks is not None)
         out, ref = out[valid_rows], ref[valid_rows]
     rtol, atol = attn_tol(kind)
     err, _ = check_close(f"paged_{mode}_attention", out, ref, rtol, atol,
                          kind=kind)
     kv_bytes = keys * hkv * dh * eb * 2
-    if ks is not None:
-        kv_bytes += keys * hkv * 2 * 2
-    n_bytes = kv_bytes + q_bytes + o_bytes + bt.numel() * 4 + b * 8
-    n_ops = 4 * pairs * dh
     bms, by = bound_ms(n_bytes, n_ops, "float32" if kind == "float32"
                        else "bfloat16")
     # rotate whole pools so the pages read across the run exceed L2
@@ -1292,6 +1315,7 @@ def int8_parity(torch, dev):
 
 
 def int8_time(torch, dev, m, k, n, dt=None):
+    from repro_torch.roofline import kernel_costs
     from repro_torch.kernels._gemv import decode_splits, route, sm_count
     from repro_torch.kernels.int8_matvec.kernel import int8_matvec_cuda
     from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
@@ -1303,9 +1327,7 @@ def int8_time(torch, dev, m, k, n, dt=None):
     r = int8_matvec_ref(q, scale, x, out_dtype=dt)
     rtol, atol = int8_tol(torch, q, scale, x, dt)
     err, _ = check_close("int8_matvec", y, r, rtol, atol, m=m, k=k, n=n)
-    xb = x.element_size()
-    n_bytes = k * n + 4 * n + m * k * xb + m * n * xb
-    n_ops = 2 * m * k * n
+    n_bytes, n_ops = kernel_costs.int8_matvec(m, k, n, x.element_size())
     dname = "bfloat16" if dt == torch.bfloat16 else "float32"
     bms, by = bound_ms(n_bytes, n_ops, dname)
     qs = [q.clone() for _ in range(n_copies(k * n))]
@@ -2491,8 +2513,10 @@ def snapshot_path(torch, dev, cfg, params, main_prompts, main_tokens,
 # hi), max_len).  gemma3's prompts pass its 1024-token window;
 # mistral-large at 8 of its 88 layers (its 4-bit codes at 88 layers are
 # about 61 GB)
-DENSE_CASES = [("starcoder2-15b", None, (16, 33, 300), 1024),
-               ("gemma3-27b", None, (8, 1100, 1900), 2048),
+# starcoder2-15b cut to 20 of 40 layers and gemma3-27b to 16 of 62 (2
+# global), for phase ``launch``'s time (PERF.md §4)
+DENSE_CASES = [("starcoder2-15b", 20, (16, 33, 300), 1024),
+               ("gemma3-27b", 16, (8, 1100, 1900), 2048),
                ("mistral-large-123b", 8, (16, 33, 300), 1024)]
 
 
@@ -2715,8 +2739,12 @@ def moe_path(torch, dev):
 
 # phase families: the paged two (arch, image positions of the full-sequence
 # prompts or 0), each at its published depth
-FAMILY_PAGED = [("llava-next-mistral-7b", 2880), ("musicgen-medium", 0)]
+# (arch, image positions, layers): depth cut to keep the whole run inside
+# its time with phase ``launch`` (PERF.md §4)
+FAMILY_PAGED = [("llava-next-mistral-7b", 2880, 16),
+                ("musicgen-medium", 0, 24)]
 HYBRID = "zamba2-7b"
+FAMILY_HYBRID_LAYERS = 42          # 7 of 13 shared-attention sites
 # the vlm full-sequence prompts: image positions + text tokens = 4096
 VLM_TEXT_TOKENS = 1216
 
@@ -2753,10 +2781,12 @@ def sequence_summary(rec):
 
 def families_path(torch, dev):
     """Phase ``families``: the vlm, audio and hybrid configs at published
-    widths and depths, 4-bit weights, random weights from the seed.
+    widths, depth cut (``FAMILY_PAGED``, ``FAMILY_HYBRID_LAYERS``), 4-bit
+    weights, random weights from the seed.
 
-    * llava-next-mistral-7b (32 layers) and musicgen-medium (48 layers,
-      four codebooks, each prompt id broadcast over them) served paged at
+    * llava-next-mistral-7b (16 of 32 layers) and musicgen-medium (24 of
+      48 layers, four codebooks, each prompt id broadcast over them) served
+      paged at
       ``kv_bits=8`` with ``main``'s setup (8 lanes, page 16, chunk 32, 16
       text prompts of 33-300 tokens, 32 new tokens each): graphs, then
       eager (identical tokens), the ledger's decode bytes share, then at 2
@@ -2765,7 +2795,7 @@ def families_path(torch, dev):
       image positions and 1216 tokens (4096 positions: flash attention),
       16 ``decode_step`` s; at 2 layers against the plain path and
       ``forward`` (``long_whole``'s check);
-    * zamba2-7b (81 layers, 13 shared-attention sites) in slots mode at
+    * zamba2-7b (42 of 81 layers, 7 shared-attention sites) in slots mode at
       ``kv_bits=0``: 8 slots, max_len 1024, 8 prompts of 17-64 tokens by
       sequential decode, 16 new tokens each; graphs against eager at 12
       layers (two sites); the full-sequence path, ``prefill`` of 2 x 4096
@@ -2778,8 +2808,8 @@ def families_path(torch, dev):
     from repro_torch.config import EngineConfig
 
     out = {}
-    for arch, n_img in FAMILY_PAGED:
-        cfg = arch_config(arch)
+    for arch, n_img, layers in FAMILY_PAGED:
+        cfg = arch_config(arch, layers)
         prompts = prompts_for(cfg, 16, 33, 300, SEED + 70)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2822,7 +2852,7 @@ def families_path(torch, dev):
                                  VLM_TEXT_TOKENS, 32, n_img=n_img)
         torch.cuda.empty_cache()
 
-    cfg = arch_config(HYBRID)
+    cfg = arch_config(HYBRID, FAMILY_HYBRID_LAYERS)
     sites = cfg.n_layers // cfg.attn_every
     prompts = prompts_for(cfg, 8, 17, 64, SEED + 72)
     torch.cuda.synchronize()
@@ -3234,6 +3264,7 @@ def flash_time(torch, dev, **shape):
     ``FLASH_SHAPE``)."""
     import torch.nn.functional as F
 
+    from repro_torch.roofline import kernel_costs
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda,
         route as flash_route,
@@ -3247,10 +3278,8 @@ def flash_time(torch, dev, **shape):
     rtol, atol = flash_tol(torch, dt)
     err, _ = check_close("flash_attention", y, flash_plain(q, k, v, 0),
                          rtol, atol)
-    eb = q.element_size()
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * eb
-    pairs = sh["s"] * (sh["s"] + 1) // 2 * sh["b"] * sh["hq"]
-    n_ops = 4 * sh["d"] * pairs
+    n_bytes, n_ops = kernel_costs.flash_attention(
+        sh["b"], sh["s"], sh["hq"], sh["hkv"], sh["d"], q.element_size())
     bms, by = bound_ms(n_bytes, n_ops, "bfloat16")
     sets = [tuple(t.clone() for t in (q, k, v))
             for _ in range(n_copies(n_bytes))]
@@ -3343,6 +3372,7 @@ def ssd_time(torch, dev):
     four 4096-token prompts, chunk 256), and its three kernels' device
     times.  No single PyTorch call computes the scan: library_ms is
     null."""
+    from repro_torch.roofline import kernel_costs
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -3353,16 +3383,12 @@ def ssd_time(torch, dev):
     ry, _ = ssd_scan_ref(*inputs)
     rtol, atol = ssd_tol(ry)
     err, _ = check_close("ssd_scan", y, ry, rtol, atol)
+    xdt, la, b_in, _ = inputs
     b, s, nh, p, n = sh["b"], sh["s"], sh["h"], sh["p"], sh["n"]
-    n_bytes = (sum(t.numel() * t.element_size() for t in inputs)
-               + 4 * (b * s * nh * p + b * nh * p * n))
-    # the chunked algorithm at this chunk: C B^T under the diagonal once per
-    # lane and chunk; per head the decayed intra product, the inter term
-    # and the state update
-    tri = chunk * (chunk + 1) // 2
     nc = s // chunk
-    n_ops = b * nc * (2 * n * tri + nh * (tri + 2 * p * tri
-                                          + 4 * chunk * n * p))
+    n_bytes, n_ops = kernel_costs.ssd_scan(
+        b, s, nh, p, n, chunk, xdt.element_size(), la.element_size(),
+        b_in.element_size())
     bms, by = bound_ms(n_bytes, n_ops, "bfloat16")
     sets = [tuple(t.clone() for t in inputs)
             for _ in range(n_copies(n_bytes))]
@@ -3911,10 +3937,13 @@ def train_cut_checks(torch, dev):
 
 
 # ------------------------------------------------- slots-cache layouts
-LAYOUT_LANES, LAYOUT_STEPS = 8, 64
+# qwen2.5-3b cut to 9 of 36 layers and zamba2-7b to 13 of 81 (2 of 13
+# shared-attention sites), with the other depth cuts of PERF.md §4, to
+# keep the whole run inside its time with phase ``launch``
+LAYOUT_LANES, LAYOUT_STEPS, LAYOUT_LAYERS = 8, 64, 9
 LAYOUT_KV8_TOL = 1e-3
 SPLIT_LAYERS, SPLIT_LANES, SPLIT_STEPS, SPLIT_TOL = 6, 2, 1100, 2e-3
-HYBRID_LANES, HYBRID_STEPS = 2, 32
+HYBRID_LANES, HYBRID_STEPS, HYBRID_LAYERS = 2, 32, 13
 
 
 def layout_greedy(torch, dev, cfg, params, ecfg, first, n_steps, **layout):
@@ -3938,7 +3967,7 @@ def layouts_path(torch, dev):
     """The three decode-only slots-cache layouts on the card, eager and
     greedy from empty caches at ``weight_bits=4`` (the GEMV kernels run):
 
-    * qwen2.5-3b (36 layers, 8 lanes, 64 steps): unstacked gives the
+    * qwen2.5-3b (9 of 36 layers, 8 lanes, 64 steps): unstacked gives the
       stacked cache's tokens exactly, at full precision and int8; the
       int8 layouts give each other's logits within 1e-3 and the
       full-precision tokens up to near ties (``check_tokens``, the 0.125
@@ -3947,7 +3976,7 @@ def layouts_path(torch, dev):
       float32, 2 lanes, 1,100 steps (past the 1,024 window): the
       ``split_local`` cache, fed the uniform cache's greedy tokens, gives
       its logits within 2e-3 at every step;
-    * zamba2-7b (81 layers, 13 shared-attention sites, 2 lanes, 32
+    * zamba2-7b (13 of 81 layers, 2 shared-attention sites, 2 lanes, 32
       steps): unstacked gives the stacked cache's tokens exactly.
     """
     import numpy as np
@@ -3969,7 +3998,7 @@ def layouts_path(torch, dev):
 
     out = {}
     _build.reset_launches()
-    cfg = full_config()
+    cfg = full_config(n_layers=LAYOUT_LAYERS)
     params = init(cfg)
     first = first_tokens(cfg, LAYOUT_LANES)
     t0 = time.perf_counter()
@@ -4028,7 +4057,7 @@ def layouts_path(torch, dev):
     del params, caches
     torch.cuda.empty_cache()
 
-    cfg = arch_config(HYBRID)
+    cfg = arch_config(HYBRID, HYBRID_LAYERS)
     params = init(cfg)
     first = first_tokens(cfg, HYBRID_LANES)
     t0 = time.perf_counter()
@@ -4083,11 +4112,12 @@ class MeshCell(NamedTuple):
 
 # PR 27 cut llava-next to 16 of 32 layers and the slots qwen2.5-3b cell
 # to 12 of 36, to keep the whole run inside its time with the phase's
-# new cells (PERF.md, PR 27)
+# new cells; then llava, musicgen, llama4, qwen3-moe and the slots
+# qwen2.5-3b and zamba2 cells were halved for phase ``launch`` (PERF.md §4)
 MESH_CELLS = [
-    MeshCell("paged_llava", "llava-next-mistral-7b", 16, "paged",
+    MeshCell("paged_llava", "llava-next-mistral-7b", 8, "paged",
              ((1, 2),)),
-    MeshCell("paged_musicgen", "musicgen-medium", None, "paged", ((1, 2),)),
+    MeshCell("paged_musicgen", "musicgen-medium", 24, "paged", ((1, 2),)),
     # in bf16 a rank's activations differ from one device's in the last
     # bits (the row-parallel partials add in another order, and a K split
     # depends on a linear's local N), enough to flip a router choice at a
@@ -4095,9 +4125,9 @@ MESH_CELLS = [
     # runs part; so the ranks replay one device's routing, and at every
     # choice of their own that differs, the router logits must be at a
     # near tie (``replay_routes``)
-    MeshCell("paged_llama4", "llama4-scout-17b-a16e", 12, "paged",
+    MeshCell("paged_llama4", "llama4-scout-17b-a16e", 6, "paged",
              ((1, 2),), replay=True),
-    MeshCell("paged_qwen3_moe", "qwen3-moe-235b-a22b", 8, "paged",
+    MeshCell("paged_qwen3_moe", "qwen3-moe-235b-a22b", 4, "paged",
              ((1, 2),), replay=True),
     # the two MoE configs at 2 layers in float32, with float32 pages: the
     # routing agrees with one device's, and these hold the ranks' own
@@ -4106,10 +4136,12 @@ MESH_CELLS = [
              ((1, 2),), "float32"),
     MeshCell("paged_qwen3_moe_f32", "qwen3-moe-235b-a22b", 2, "paged",
              ((1, 2),), "float32"),
-    MeshCell("slots_qwen2.5", "qwen2.5-3b", 12, "slots", ((1, 2), (2, 1))),
+    MeshCell("slots_qwen2.5", "qwen2.5-3b", 6, "slots", ((1, 2), (2, 1))),
     MeshCell("slots_mamba2", "mamba2-130m", None, "slots", ((1, 2), (2, 1))),
-    MeshCell("slots_zamba2", "zamba2-7b", 12, "slots", ((1, 2),)),
-    MeshCell("slots_gemma3", "gemma3-27b", 6, "slots", ((1, 2),)),
+    MeshCell("slots_zamba2", "zamba2-7b", 6, "slots", ((1, 2),)),
+    # two local layers: the window's ring past 1024 tokens on a rank (the
+    # global layers are dense attention, as qwen2.5-3b's cell has it)
+    MeshCell("slots_gemma3", "gemma3-27b", 2, "slots", ((1, 2),)),
 ]
 MESH_SLOT_REQUESTS = 4             # prompts of 8-16 tokens in slots mode
 MESH_SLOT_NEW = 8
@@ -4737,14 +4769,15 @@ MESH_PREFILL = [("qwen2.5", "qwen2.5-3b", 2, 4096, SEED + 7,
                  ((1, 2), (2, 1))),
                 ("mamba2", "mamba2-130m", 4, 4096, SEED + 8, ((1, 2),))]
 MESH_PREFILL_TOL = 0.125   # long_whole's bf16 logit bound
-# qwen2.5-3b at full width, 8 of 36 layers, float32; one 1024-token
+# qwen2.5-3b at full width, 4 of 36 layers, float32;
+# one 1024-token
 # sequence a data shard, AdamW (train's lr), remat, 3 steps over train's
 # Zipf file, against one device on the same params and batches within
 # the CPU tests' bounds (tests/test_torch_mesh_train.py PORT_TOL): loss
 # and grad norm rel 1e-5, and the change of the rank's params over the
 # steps, ||Δ_rank - Δ_one|| / ||Δ_one||, within 1e-3 (1.0 for a state
 # left unchanged; an elementwise bound would not see that at this lr)
-MESH_TRAIN_LAYERS = 8
+MESH_TRAIN_LAYERS = 4
 MESH_TRAIN_SEQ = 1024
 MESH_TRAIN_STEPS = 3
 MESH_TRAIN_KW = dict(lr=3e-5, warmup_steps=1, total_steps=5, remat="block")
@@ -5312,6 +5345,16 @@ def mesh_family_launches(families, name):
     return out
 
 
+def launch_only(torch, dev, t_start, dry) -> int:
+    """``chip_smoke.py --launch``: phase ``launch`` alone after ``env`` and
+    ``build``."""
+    with Phase("launch"):
+        launch_path(torch, dev, dry)
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(CARD, flush=True)
+    return 0
+
+
 def mesh_only(torch, dev, t_start) -> int:
     """``chip_smoke.py --mesh``: phase ``mesh`` alone after ``env`` and
     ``build``, on params drawn as ``main`` draws them."""
@@ -5326,6 +5369,225 @@ def mesh_only(torch, dev, t_start) -> int:
     emit("done", seconds=time.perf_counter() - t_start)
     print(CARD, flush=True)
     return 0
+
+
+# ----------------------------------------------------------- launch phase
+# the cells of ``repro_torch.launch.steps`` on the card, each at the shape
+# an earlier phase runs: (name, arch, kind, seq_len, batch, cell options)
+LAUNCH_CELLS = [
+    ("prefill", "qwen2.5-3b", "prefill", 4096, 2, {}),              # long
+    ("chunked_prefill", "qwen2.5-3b", "prefill", 1024, 8,           # main
+     {"chunked": True}),
+    ("paged_serve", "qwen2.5-3b", "decode", 1024, 8, {"paged": True}),
+    ("serve", "qwen2.5-3b", "decode", 1024, 8, {}),
+    ("train", "qwen2.5-3b", "train", 1024, 2, {}),                  # train
+    ("ssm_prefill", "mamba2-130m", "prefill", 4096, 4, {}),         # ssm
+]
+LAUNCH_TIMED = 3             # timed calls a cell (p50), after one warm-up
+LAUNCH_BOUND_SLACK = 1.05    # a cell faster than its bound by more fails
+LAUNCH_ARG_RTOL = 0.02       # the card's argument bytes against the count
+# the dry records: a rank of (16, 16), and one of (2, 16, 16)
+LAUNCH_DRY = [
+    ("qwen2.5-3b", "decode_32k",
+     ["--paged", "--engine-bits", "4", "--kv-bits", "8"]),
+    ("qwen2.5-3b", "prefill_32k", ["--chunked-prefill"]),
+    ("qwen2.5-3b", "train_4k", []),
+    ("mamba2-130m", "long_500k", []),
+    ("llama4-scout-17b-a16e", "decode_32k",
+     ["--paged", "--engine-bits", "4", "--multi-pod"]),
+]
+LAUNCH_DRY_DIR = ROOT / "build" / "dryrun"
+LAUNCH_DRY_TIMEOUT = 600
+_DRY_PROGRAM = """
+import json, sys
+import torch
+from repro_torch.launch.dryrun import main
+torch.set_num_threads(1)
+for argv in json.loads(sys.argv[1]):
+    main(argv)
+"""
+
+
+class DryRuns:
+    """The dry records of ``LAUNCH_DRY``, counted on the host's CPU in one
+    background process (no CUDA device visible to it, one thread, the
+    lowest priority, so that it takes little from the phases' host work)
+    while the card runs the earlier phases; :meth:`records` waits for it.
+    Stopped at exit if it still runs."""
+
+    def __init__(self):
+        import atexit
+        import os
+
+        LAUNCH_DRY_DIR.mkdir(parents=True, exist_ok=True)
+        argvs = [["--arch", arch, "--shape", shape, *flags,
+                  "--out", str(LAUNCH_DRY_DIR)]
+                 for arch, shape, flags in LAUNCH_DRY]
+        self.log_path = LAUNCH_DRY_DIR / "launch_dry.log"
+        self.log = open(self.log_path, "w")
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _DRY_PROGRAM, json.dumps(argvs)],
+            stdout=self.log, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+            preexec_fn=lambda: os.nice(19))
+        atexit.register(self.stop)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+    def records(self):
+        rc = self.proc.wait(timeout=LAUNCH_DRY_TIMEOUT)
+        self.log.close()
+        text = self.log_path.read_text()
+        if rc != 0:
+            raise AssertionError(f"launch_dry: the dry runs exited {rc}:\n"
+                                 f"{text[-3000:]}")
+        paths = [ln.split("wrote ", 1)[1].strip()
+                 for ln in text.splitlines() if ln.startswith("wrote ")]
+        if len(paths) != len(LAUNCH_DRY):
+            raise AssertionError(f"launch_dry: {len(paths)} records of "
+                                 f"{len(LAUNCH_DRY)}:\n{text[-3000:]}")
+        return [json.loads((ROOT / p).read_text()) for p in paths]
+
+
+def launch_counts_equal(name, card, meta):
+    """The count on the card and on ``meta`` must be equal, to the unit."""
+    for key in ("flops", "bytes", "transcendentals", "collectives",
+                "priced"):
+        if card[key] != meta[key]:
+            raise AssertionError(f"launch {name}: {key} counted on the card "
+                                 f"{card[key]} and on meta {meta[key]}")
+
+
+def launch_path(torch, dev, dry):
+    """Phase ``launch``: every cell of ``LAUNCH_CELLS`` built by
+    ``repro_torch.launch.steps.build_cell(abstract=False)`` on a
+    ``make_host_mesh()`` ``(1, 1)``: one warm-up call, three timed (p50),
+    one counted under the op counter on the card and one on ``meta``
+    (equal, to the unit), its kernel launches (``_build`` counts over the
+    counted call) equal to its priced calls by route, its bound
+    (``roofline_report`` with ``HW_H100``) no more than 1.05x its time,
+    and its argument bytes on the card within 2% of the count's.  Then the
+    dry records (``DryRuns``)."""
+    from repro_torch.config import (EngineConfig, RunConfig, ServeConfig,
+                                    ShapeConfig, TrainConfig)
+    from repro_torch.dist.hints import dry_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, cache_bytes
+    from repro_torch.roofline import (HW_H100, counted_costs,
+                                      model_bytes_for_cell,
+                                      model_flops_for_cell, roofline_report)
+
+    mesh = make_host_mesh(device=dev)
+    meta = dry_mesh((1, 1), ("data", "model"))
+    eng = EngineConfig(weight_bits=4, kv_bits=8)
+    out = {}
+    for name, arch, kind, seq, batch, kw in LAUNCH_CELLS:
+        cfg = arch_config(arch)
+        shape = ShapeConfig(f"launch_{name}", kind, seq, batch)
+        run = RunConfig(model=cfg, shape=shape,
+                        train=TrainConfig(remat="block", microbatches=2),
+                        serve=ServeConfig(engine=eng, page_size=16,
+                                          prefill_chunk=32))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn, args, _ = build_cell(run, mesh, abstract=False, device=dev,
+                                 seed=SEED, **dict(kw))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        arg_bytes = torch.cuda.memory_allocated() - base
+        fn(*args)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(LAUNCH_TIMED):
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = sorted(times)[len(times) // 2] * 1e3
+        before = (dict(_build.LAUNCHES), dict(_build.ROUTE_LAUNCHES))
+        torch.cuda.reset_peak_memory_stats()
+        card = counted_costs(fn, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        kernels = {k: v - before[0][k] for k, v in _build.LAUNCHES.items()
+                   if v != before[0][k]}
+        routes = {k: v - before[1][k]
+                  for k, v in _build.ROUTE_LAUNCHES.items()
+                  if v != before[1][k]}
+        del fn, args
+        torch.cuda.empty_cache()
+        mfn, margs, _ = build_cell(run, meta, abstract=True, **dict(kw))
+        on_meta = counted_costs(mfn, *margs)
+        del mfn, margs
+        launch_counts_equal(name, card, on_meta)
+        priced = card["priced"]
+        want_kernels = {}
+        for key, n in priced.items():
+            kernel = key.split("/")[0]
+            want_kernels[kernel] = want_kernels.get(kernel, 0) + n
+        want_routes = {k: n for k, n in priced.items()
+                       if k in _build.ROUTE_LAUNCHES}
+        if kernels != want_kernels or routes != want_routes:
+            raise AssertionError(f"launch {name}: launches {kernels} / "
+                                 f"{routes} against priced calls {priced}")
+        bits = 0 if kind == "train" else eng.weight_bits
+        report = roofline_report(
+            card, 1, model_flops=model_flops_for_cell(cfg, shape),
+            model_bytes=model_bytes_for_cell(
+                cfg, shape, bits, cache_bytes(run, kind, **dict(kw))),
+            hw=HW_H100)
+        bound_ms = report["bound_seconds"] * 1e3
+        if bound_ms > LAUNCH_BOUND_SLACK * ms:
+            raise AssertionError(f"launch {name}: {ms} ms measured, faster "
+                                 f"than its bound of {bound_ms} ms: the "
+                                 "count is wrong")
+        mem = card["memory_analysis"]
+        argument = mem["argument_size_in_bytes"]
+        if abs(arg_bytes - argument) > LAUNCH_ARG_RTOL * argument:
+            raise AssertionError(f"launch {name}: {arg_bytes} argument bytes "
+                                 f"on the card against {argument} counted")
+        rec = dict(
+            cell=name, model=cfg.name, layers=cfg.n_layers, kind=kind,
+            seq=seq, batch=batch, options=kw, build_s=build_s, ms=ms,
+            times_ms=[t * 1e3 for t in times], bound_ms=bound_ms,
+            dominant=report["dominant"],
+            compute_ms=report["compute_s"] * 1e3,
+            memory_ms=report["memory_s"] * 1e3,
+            collective_ms=report["collective_s"] * 1e3,
+            roofline_fraction=report["roofline_fraction"],
+            bound_over_ms=bound_ms / ms, flops=card["flops"],
+            bytes=card["bytes"], priced=priced, launches=kernels,
+            route_launches=routes, regions=card["regions"],
+            count_s_card=card["count_s"], count_s_meta=on_meta["count_s"],
+            argument_bytes_card=arg_bytes, memory=mem,
+            peak_minus_arguments=peak - arg_bytes, card=CARD)
+        emit("launch_cell", **rec)
+        out[name] = rec
+        torch.cuda.empty_cache()
+    dry_recs = []
+    for r in dry.records():
+        keep = dict(arch=r["arch"], shape=r["shape"], mesh=r["mesh"],
+                    kind=r["kind"], compute_s=r["compute_s"],
+                    memory_s=r["memory_s"], collective_s=r["collective_s"],
+                    dominant=r["dominant"],
+                    roofline_fraction=r.get("roofline_fraction"),
+                    collectives=r["collective_bytes_per_device"],
+                    memory=r["memory_analysis"], priced=r["priced"],
+                    count_s=r["count_s"])
+        emit("launch_dry", **keep)
+        dry_recs.append(keep)
+    emit("launch_summary", cells=list(out), dry=len(dry_recs),
+         dry_wall_s=time.perf_counter() - dry.t0, card=CARD)
+    return out
 
 
 def main() -> int:
@@ -5369,6 +5631,10 @@ def main() -> int:
 
     if sys.argv[1:] == ["--mesh"]:
         return mesh_only(torch, dev, t_start)
+    # the dry records need no card: counted meanwhile, on the host's CPU
+    dry = DryRuns()
+    if sys.argv[1:] == ["--launch"]:
+        return launch_only(torch, dev, t_start, dry)
 
     with Phase("parity"):
         gemv_parity(torch, dev)
@@ -5492,6 +5758,9 @@ def main() -> int:
     with Phase("layouts"):
         layouts_path(torch, dev)
 
+    with Phase("launch"):
+        launch_rec = launch_path(torch, dev, dry)
+
     with Phase("engine"):
         engine_rec = engine_path(torch, dev)
 
@@ -5599,6 +5868,11 @@ def main() -> int:
                 for cell, rec in recs["prefill"].items()
                 if rec["ranks"][0]["launches"][name]}}
                if name in ("flash_attention", "ssd_scan") else {}),
+            **({"launch_launches": {
+                cell: rec["launches"][name]
+                for cell, rec in launch_rec.items()
+                if rec["launches"].get(name)}}
+               if name != "bitplane_gemv_grouped" else {}),
             **({"grouped": [{k: r[k] for k in (
                 "linear", "mode", "k", "n", "experts", "touched", "rows",
                 "gemv_route", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -138,6 +138,49 @@ class ModelConfig:
             return False
         return (i % self.global_every) == (self.global_every - 1)
 
+    # --- parameter accounting (used by roofline MODEL_FLOPS and docs) ---------
+    def param_count(self) -> int:
+        """Total parameter count N (embedding included once)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n_q, n_kv = self.n_heads, self.n_kv_heads
+        per_layer = 0
+        attn = d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+        if self.qkv_bias:
+            attn += (n_q + 2 * n_kv) * hd
+        mlp_mats = 3 if self.mlp_gated else 2
+        mlp_dense = mlp_mats * d * self.d_ff
+        if self.family in ("dense", "vlm", "audio"):
+            per_layer = attn + mlp_dense + 2 * d  # 2 RMSNorm scales
+        elif self.family == "moe":
+            routed = self.n_experts * 3 * d * self.moe_d_ff
+            shared = self.n_shared_experts * 3 * d * self.d_ff
+            router = d * self.n_experts
+            per_layer = attn + routed + shared + router + 2 * d
+        elif self.family in ("ssm", "hybrid"):
+            di, st, nh = self.d_inner, self.ssm_state, self.n_ssm_heads
+            in_proj = d * (2 * di + 2 * st + nh)  # z, x, B, C, dt
+            conv = (di + 2 * st) * self.conv_width
+            out_proj = di * d
+            ssm_misc = 2 * nh + di  # A_log, dt_bias, norm scale on gate
+            per_layer = in_proj + conv + out_proj + ssm_misc + 2 * d
+        total = self.n_layers * per_layer
+        if self.family == "hybrid" and self.attn_every:
+            # one shared-weight attention+MLP block
+            total += attn + mlp_dense + 2 * d
+        emb = self.vocab_size * d * self.n_codebooks
+        head = 0 if self.tie_embeddings else self.vocab_size * d * self.n_codebooks
+        total += emb + head + d  # final norm
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE uses top_k of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        routed_all = self.n_layers * self.n_experts * 3 * d * self.moe_d_ff
+        routed_active = self.n_layers * self.top_k * 3 * d * self.moe_d_ff
+        return int(self.param_count() - routed_all + routed_active)
+
 
 @dataclass(frozen=True)
 class EngineConfig:

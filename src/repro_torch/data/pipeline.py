@@ -23,6 +23,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.config.base import ModelConfig
 
@@ -161,3 +162,21 @@ class DataPipeline:
         if self._thread is not None:
             self._thread.join(timeout=1.0)
             self._thread = None
+
+
+def synthetic_batch_specs(cfg: ModelConfig, batch: int, seq_len: int,
+                          device="meta") -> Dict[str, torch.Tensor]:
+    """Empty tensors with the keys, shapes and dtypes of a batch of
+    :meth:`DataPipeline.batch_at` (the dry run's input specs; on ``meta``
+    they take no memory)."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    tok = ((batch, seq_len, cfg.n_codebooks) if cfg.family == "audio"
+           else (batch, seq_len))
+    specs = {"tokens": spec(tok, torch.int32),
+             "labels": spec(tok, torch.int32)}
+    if cfg.family == "vlm":
+        specs["img_embeds"] = spec((batch, cfg.img_tokens, cfg.d_model),
+                                   torch.float32)
+    return specs

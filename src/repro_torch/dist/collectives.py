@@ -7,7 +7,16 @@ engine backend: an exact float32 sum by default, or
 JAX package's ``repro/dist/collectives.py``).  ``all_gather`` reassembles
 a tensor sharded along one axis: the vocabulary slices of the head's
 logits, the data shards' lanes, the blocks of :func:`~repro_torch.dist.
-sharding.gather_shards`.
+sharding.gather_shards`.  :func:`reduce_scatter` sums a tensor over the
+group and leaves each rank its block (FSDP's gradients).
+
+**Counting.**  Every collective tallies its output bytes into the active
+op counter (``roofline.op_cost.collective``) under JAX's family names
+(``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``collective-permute``), on a real group and a dry one alike; a group of
+one rank moves nothing and tallies nothing.  On a
+:class:`~repro_torch.dist.hints.DryGroup` (a dry mesh) each returns an
+empty output of the right shape and communicates nothing.
 
 **Transport.**  The tensors go to ``torch.distributed`` as they are, on
 their device.  Ranks sharing one card form a ``gloo`` group (NCCL refuses
@@ -29,6 +38,9 @@ from __future__ import annotations
 import time
 
 import torch
+
+from repro_torch.dist.hints import DryGroup
+from repro_torch.roofline import op_cost
 
 # host seconds summed since the last reset: inside the collectives
 # (SECONDS), and before them, waiting for the device to finish the work
@@ -65,32 +77,82 @@ def _timed(call, x: torch.Tensor, *args, **kw):
     SECONDS[0] += time.perf_counter() - t1
 
 
+def _group_size(group) -> int:
+    """Ranks of ``group`` (a process group, None for the world, or a
+    :class:`~repro_torch.dist.hints.DryGroup`)."""
+    if isinstance(group, DryGroup):
+        return group.size
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+def _nbytes(x: torch.Tensor, dtype=None) -> int:
+    return x.numel() * (x.element_size() if dtype is None else dtype.itemsize)
+
+
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``x`` reduced (``"sum"`` or ``"max"``) over the
     group; a 16-bit float tensor is reduced in float32."""
-    import torch.distributed as dist
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    n = _group_size(group)
+    n_bytes = _nbytes(x, torch.float32 if wide else None) if n > 1 else 0
+    with op_cost.collective("all-reduce", n_bytes, n_bytes):
+        if isinstance(group, DryGroup):
+            return x.clone() if n == 1 else torch.empty_like(x)
+        import torch.distributed as dist
 
-    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    buf = x.to(torch.float32) if x.dtype in (torch.bfloat16,
-                                             torch.float16) else x.clone()
-    buf = buf.contiguous()
-    _timed(dist.all_reduce, buf, buf, op=rop, group=group)
-    return buf.to(x.dtype)
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        buf = x.to(torch.float32) if wide else x.clone()
+        buf = buf.contiguous()
+        _timed(dist.all_reduce, buf, buf, op=rop, group=group)
+        return buf.to(x.dtype)
 
 
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's ``x`` blocks concatenated along ``dim``, in group rank
     order (every block of one shape)."""
-    import torch.distributed as dist
-
-    n = dist.get_world_size(group)
+    n = _group_size(group)
     if n == 1:
         return x
-    xt = x.movedim(dim, 0).contiguous()
-    out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    _timed(dist.all_gather_into_tensor, xt, out, xt, group=group)
-    return out.movedim(0, dim).contiguous()
+    with op_cost.collective("all-gather", n * _nbytes(x), _nbytes(x)):
+        shape = list(x.shape)
+        shape[dim] *= n
+        if isinstance(group, DryGroup):
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
+        import torch.distributed as dist
+
+        xt = x.movedim(dim, 0).contiguous()
+        out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        _timed(dist.all_gather_into_tensor, xt, out, xt, group=group)
+        return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """``x`` summed over the group, this rank's block along ``dim`` (``x``'s
+    size there divided by the group's; a 16-bit float summed in float32
+    and returned in its dtype).  On ``gloo``, which has no reduce-scatter,
+    it travels as an all-reduce of which each rank keeps its block; it is
+    counted as the reduce-scatter it computes."""
+    n = _group_size(group)
+    if n == 1:
+        return x
+    block = x.shape[dim] // n
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    out_bytes = _nbytes(x, torch.float32 if wide else None) // n
+    with op_cost.collective("reduce-scatter", out_bytes, n * out_bytes):
+        if isinstance(group, DryGroup):
+            shape = list(x.shape)
+            shape[dim] = block
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
+        import torch.distributed as dist
+
+        buf = (x.to(torch.float32) if wide else x.clone()).contiguous()
+        _timed(dist.all_reduce, buf, buf, op=dist.ReduceOp.SUM,
+               group=group)
+        return buf.narrow(dim, _group_rank(group) * block, block).to(
+            x.dtype).contiguous()
 
 
 def compressed_psum_leaf(x: torch.Tensor, group, bits: int = 8
@@ -146,6 +208,8 @@ def _recording(x: torch.Tensor) -> bool:
 
 
 def _group_rank(group) -> int:
+    if isinstance(group, DryGroup):
+        return group.index
     import torch.distributed as dist
 
     return dist.get_rank(group)
@@ -184,6 +248,17 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
 
 
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as it is; under autograd its gradient is summed over
     ``group`` (None: no group, ``x`` itself)."""
@@ -209,29 +284,42 @@ def gather_from(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return _GatherFrom.apply(x, group, dim)
 
 
+def fsdp_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """FSDP's gather of a parameter's shards: :func:`all_gather` of ``x``
+    along ``dim``; under autograd the gradient, partial on each rank (a
+    data shard's), is summed over the group and each rank keeps its block
+    (:func:`reduce_scatter`)."""
+    if not _recording(x):
+        return all_gather(x, group, dim)
+    return _FsdpGather.apply(x, group, dim)
+
+
 def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     """Send ``x`` to the rank ``shift`` places on in ``group``'s order and
     return what the rank ``shift`` places back sent (through host memory,
     as the other collectives travel on ``gloo``)."""
-    import torch.distributed as dist
-
-    n = dist.get_world_size(group)
+    n = _group_size(group)
     if n == 1:
         return x
-    me = _group_rank(group)
-    dst = dist.get_global_rank(group, (me + shift) % n)
-    src = dist.get_global_rank(group, (me - shift) % n)
-    host = x.detach().to("cpu").contiguous()
-    out = torch.empty_like(host)
+    with op_cost.collective("collective-permute", _nbytes(x), _nbytes(x)):
+        P2P_CALLS[0] += 1
+        if isinstance(group, DryGroup):
+            return torch.empty_like(x)
+        import torch.distributed as dist
 
-    def exchange():
-        reqs = [dist.isend(host, dst), dist.irecv(out, src)]
-        for r in reqs:
-            r.wait()
+        me = _group_rank(group)
+        dst = dist.get_global_rank(group, (me + shift) % n)
+        src = dist.get_global_rank(group, (me - shift) % n)
+        host = x.detach().to("cpu").contiguous()
+        out = torch.empty_like(host)
 
-    _timed(exchange, x)
-    P2P_CALLS[0] += 1
-    return out.to(x.device)
+        def exchange():
+            reqs = [dist.isend(host, dst), dist.irecv(out, src)]
+            for r in reqs:
+                r.wait()
+
+        _timed(exchange, x)
+        return out.to(x.device)
 
 
 class _Permute(torch.autograd.Function):

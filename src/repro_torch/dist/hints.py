@@ -14,6 +14,13 @@ takes JAX's meshes), this rank's coordinate, one process subgroup per axis
 and one over the data axes folded (``("pod", "data")``), and the rank's
 device.
 
+A **dry** mesh (:func:`dry_mesh`) is one rank's view with no world
+behind it: its device is ``meta`` and its groups are :class:`DryGroup` s,
+on which every collective of :mod:`repro_torch.dist.collectives` returns
+an empty output of the right shape, tallies its bytes and communicates
+nothing.  The dry run (``repro_torch.launch.dryrun``) counts a rank of a
+``(16, 16)`` mesh this way on one host.
+
 Since every rank holds its local shards explicitly, the hints
 (:func:`with_hint` and its two users) have nothing left to constrain: they
 keep the JAX package's names and signatures and return their input
@@ -25,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -112,6 +119,27 @@ def _group_keys(axis_names: Tuple[str, ...]) -> Iterator[Tuple[str, ...]]:
     data = tuple(a for a in DATA_AXES if a in axis_names)
     if len(data) > 1:
         yield data
+
+
+class DryGroup(NamedTuple):
+    """A process group with no processes: the ``axes`` it spans, its
+    ``size`` and this rank's ``index`` in it."""
+
+    axes: Tuple[str, ...]
+    size: int
+    index: int
+
+
+def dry_mesh(shape: Sequence[int], axis_names: Sequence[str],
+             rank: int = 0, device: DeviceLike = "meta") -> Mesh:
+    """Rank ``rank``'s :class:`Mesh` of a ``shape`` mesh with no
+    ``torch.distributed`` world: one :class:`DryGroup` per axis (and over
+    the data axes folded), on ``device`` (``meta``: shapes only)."""
+    axis_names = tuple(axis_names)
+    probe = Mesh(shape, axis_names, rank, torch.device(device), {})
+    groups = {key: DryGroup(key, probe.count(key), probe.index(key))
+              for key in _group_keys(axis_names)}
+    return Mesh(shape, axis_names, rank, torch.device(device), groups)
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,

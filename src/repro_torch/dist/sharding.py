@@ -181,9 +181,9 @@ def param_spec(path, leaf, mesh, model_axis: str = "model") -> Spec:
     return Spec(spec)
 
 
-def _with_fsdp(spec: Spec, leaf, mesh) -> Spec:
+def _with_fsdp(spec: Spec, leaf, mesh, first: int = 0) -> Spec:
     """Layer ZeRO/FSDP on top of TP: shard the first still-replicated,
-    divisible axis over the data axes."""
+    divisible axis (from axis ``first`` on) over the data axes."""
     data_axes = _data_axes(mesh)
     if not data_axes:
         return spec
@@ -194,7 +194,7 @@ def _with_fsdp(spec: Spec, leaf, mesh) -> Spec:
     if prod == 1:
         return spec
     entries = list(spec) + [None] * (leaf.ndim - len(spec))
-    for ax in range(leaf.ndim):
+    for ax in range(first, leaf.ndim):
         if entries[ax] is None and leaf.shape[ax] > 0 \
                 and leaf.shape[ax] % prod == 0:
             entries[ax] = data_axes if len(data_axes) > 1 else data_axes[0]
@@ -210,6 +210,22 @@ def param_shardings(mesh, params: Pytree, mode: str = "tp") -> Pytree:
         if mode == "fsdp":
             spec = _with_fsdp(spec, leaf, mesh)
         return spec
+
+    return tree_map_with_path(one, params)
+
+
+def fsdp_param_specs(mesh, params: Pytree) -> Pytree:
+    """The storage placement of FSDP training (``train.trainer``):
+    :func:`param_shardings` in ``"fsdp"`` mode, with the data axes on a
+    stacked layer leaf's own first divisible axis (JAX's rule on the
+    layer's leaf, never the stacked layer axis 0), so that gathering one
+    layer gathers that layer alone.  A rank holds as many bytes as under
+    JAX's rule wherever a layer's leaf has a divisible axis of its own."""
+
+    def one(path, leaf):
+        spec = param_spec(path, leaf, mesh)
+        return _with_fsdp(spec, leaf, mesh,
+                          first=1 if path and path[0] == "layers" else 0)
 
     return tree_map_with_path(one, params)
 
@@ -523,6 +539,37 @@ def rank_shapes(cfg, shape: Tuple[int, ...],
     is cut alike, so one layer speaks for all."""
     return _rank_shapes(dataclasses.replace(cfg, n_layers=1),
                         tuple(shape), tuple(axis_names), rank, bits)
+
+
+def _to_meta(tree: Pytree) -> Pytree:
+    return tree_map_with_path(
+        lambda path, t: torch.empty_strided(t.shape, t.stride(),
+                                            dtype=t.dtype, device="meta"),
+        tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_layer(cfg, engine_bits: int) -> Pytree:
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import init_params
+
+    with FakeTensorMode():
+        one = init_params(dataclasses.replace(cfg, n_layers=1),
+                          torch.Generator(), engine_bits=engine_bits)
+    return _to_meta(one)
+
+
+def meta_params(cfg, engine_bits: int = 0) -> Pytree:
+    """The whole param tree of ``cfg`` (``engine_bits`` packed, as
+    ``init_params`` packs it) as new empty ``meta`` tensors: one layer
+    drawn under ``FakeTensorMode`` (no weight, no memory; cached by
+    config), its shapes given to every layer."""
+    one = _one_layer(cfg, engine_bits)
+    out = _to_meta(one)
+    out["layers"] = [_to_meta(one["layers"][0])
+                     for _ in range(cfg.n_layers)]
+    return out
 
 
 @functools.lru_cache(maxsize=None)

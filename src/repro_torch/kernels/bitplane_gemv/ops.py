@@ -3,8 +3,13 @@
 Flattens ``(..., K)`` activations to ``(M, K)`` and dispatches by the
 tensor's device (``bitplane_gemv_grouped``, the stacked-expert form, too):
 the CUDA kernel for CUDA tensors, the plain version (``ref.py``) for CPU
-tensors, and an error for anything else.  There is no
-fallback from the kernel to the plain version.
+tensors, an empty output for ``meta`` tensors inside the op counter (a
+dry run, ``op_cost.dry``; outside one they go to the CUDA launcher, which
+refuses them), and an error for anything else.  There is no fallback from the
+kernel to the plain version.  Each call first opens ``op_cost.priced``
+with its bytes and operations (``roofline.kernel_costs``) and the route
+the card takes, so an active counter prices it alike on every device
+(and no counter, no pricing).
 """
 
 from __future__ import annotations
@@ -15,10 +20,12 @@ from repro_torch.kernels.bitplane_gemv.kernel import (
     bitplane_gemv_cuda,
     bitplane_gemv_grouped_cuda,
 )
+from repro_torch.kernels._gemv import grouped_route, route
 from repro_torch.kernels.bitplane_gemv.ref import (
     bitplane_gemv_grouped_ref,
     bitplane_gemv_ref,
 )
+from repro_torch.roofline import kernel_costs, op_cost
 
 
 def bitplane_gemv(
@@ -33,12 +40,17 @@ def bitplane_gemv(
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
     n = packed.shape[-1]
-    if x.device.type == "cpu":
-        y = bitplane_gemv_ref(packed, scale, x2, bits=bits, radix=radix,
-                              out_dtype=out_dtype)
-    else:
-        y = bitplane_gemv_cuda(packed, scale, x2.contiguous(), bits=bits,
-                               radix=radix, out_dtype=out_dtype)
+    with op_cost.priced("bitplane_gemv", lambda: (
+            route(x2.shape[0], x.dtype),
+            *kernel_costs.bitplane_gemv_call(packed, x2, bits, out_dtype))):
+        if x.device.type == "cpu":
+            y = bitplane_gemv_ref(packed, scale, x2, bits=bits, radix=radix,
+                                  out_dtype=out_dtype)
+        elif op_cost.dry(x):
+            y = op_cost.meta_output((x2.shape[0], n), out_dtype)
+        else:
+            y = bitplane_gemv_cuda(packed, scale, x2.contiguous(), bits=bits,
+                                   radix=radix, out_dtype=out_dtype)
     return y.reshape(lead + (n,))
 
 
@@ -56,10 +68,18 @@ def bitplane_gemv_grouped(
     """``y[offsets[e]:offsets[e+1]] = (x[...] @ unpack(packed[e])) *
     scale[e]``; ``max_rows`` bounds any expert's rows (it picks the card's
     route and sizes its launch).  Rows past ``offsets[E]`` are undefined."""
-    if x.device.type == "cpu":
-        return bitplane_gemv_grouped_ref(packed, scale, x, offsets,
-                                         max_rows=max_rows, bits=bits,
-                                         radix=radix, out_dtype=out_dtype)
-    return bitplane_gemv_grouped_cuda(packed, scale, x.contiguous(), offsets,
-                                      max_rows=max_rows, bits=bits,
-                                      radix=radix, out_dtype=out_dtype)
+    with op_cost.priced("bitplane_gemv", lambda: (
+            grouped_route(max_rows, x.dtype),
+            *kernel_costs.bitplane_gemv_grouped_call(packed, x, max_rows,
+                                                     bits, out_dtype))):
+        if x.device.type == "cpu":
+            return bitplane_gemv_grouped_ref(packed, scale, x, offsets,
+                                             max_rows=max_rows, bits=bits,
+                                             radix=radix, out_dtype=out_dtype)
+        if op_cost.dry(x):
+            return op_cost.meta_output((x.shape[0], packed.shape[-1]),
+                                       out_dtype)
+        return bitplane_gemv_grouped_cuda(packed, scale, x.contiguous(),
+                                          offsets, max_rows=max_rows,
+                                          bits=bits, radix=radix,
+                                          out_dtype=out_dtype)

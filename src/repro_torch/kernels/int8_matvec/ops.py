@@ -4,8 +4,10 @@ Keeps the JAX wrapper's contract: a 1-D ``x`` gives a 1-D result, leading
 dimensions of ``x`` are flattened to ``(M, K)``, and N and K are ragged
 (the kernel masks them; nothing is padded).  Dispatches by the tensor's
 device: the CUDA kernel for CUDA tensors, the plain version (``ref.py``)
-for CPU tensors, and an error for anything else.  There is no fallback
-from the kernel to the plain version.
+for CPU tensors, an empty output for ``meta`` tensors inside the op
+counter (``op_cost.dry``), and an error for anything else.  There is no
+fallback from the kernel to the plain version.  Each call opens
+``op_cost.priced`` first (``bitplane_gemv/ops.py`` says why).
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.int8_matvec.kernel import int8_matvec_cuda
+from repro_torch.kernels._gemv import route
 from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
+from repro_torch.roofline import kernel_costs, op_cost
 
 
 def int8_matvec(
@@ -28,9 +32,15 @@ def int8_matvec(
         x = x[None, :]
     lead = tuple(x.shape[:-1])
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
-        y = int8_matvec_ref(q, scale, x2, out_dtype=out_dtype)
-    else:
-        y = int8_matvec_cuda(q, scale, x2.contiguous(), out_dtype=out_dtype)
+    with op_cost.priced("int8_matvec", lambda: (
+            route(x2.shape[0], x.dtype),
+            *kernel_costs.int8_matvec_call(q, x2, out_dtype))):
+        if x.device.type == "cpu":
+            y = int8_matvec_ref(q, scale, x2, out_dtype=out_dtype)
+        elif op_cost.dry(x):
+            y = op_cost.meta_output((x2.shape[0], q.shape[-1]), out_dtype)
+        else:
+            y = int8_matvec_cuda(q, scale, x2.contiguous(),
+                                 out_dtype=out_dtype)
     y = y.reshape(lead + (q.shape[-1],))
     return y[0] if squeeze else y

@@ -6,7 +6,12 @@ They take the model layouts — decode ``q`` as ``(B, 1, Hq, Dh)``, prefill
 the same layout in ``q``'s dtype.  Dispatch is by the query's device: the
 CUDA kernels for CUDA tensors (the grouped ``(…, Hkv, G, Dh)`` view is the
 same memory, so nothing is copied or padded), the plain versions
-(``ref.py``) for CPU tensors, and an error for anything else.
+(``ref.py``) for CPU tensors, an empty output for ``meta`` tensors inside
+the op counter, and an error for anything else.  Each call opens
+``op_cost.priced`` first (``bitplane_gemv/ops.py`` says why), at every
+slot of the block table: the launchers read no length back from the
+device, so on the card the count is an upper bound for a partly filled
+table.
 """
 
 from __future__ import annotations
@@ -18,11 +23,13 @@ import torch
 from repro_torch.kernels.paged_attention.kernel import (
     paged_decode_attention_cuda,
     paged_prefill_attention_cuda,
+    prefill_route,
 )
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref,
     paged_prefill_ref,
 )
+from repro_torch.roofline import kernel_costs, op_cost
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -40,9 +47,20 @@ def paged_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Paged decode attention; ``(B, 1, Hq, Dh)`` in ``q.dtype``."""
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   cur_pos, window, k_scale, v_scale)
+    with op_cost.priced("paged_decode_attention", lambda: (
+            None, *kernel_costs.paged_decode_call(q, k_pages, block_tables,
+                                                  k_scale))):
+        if q.device.type == "cpu":
+            return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                       cur_pos, window, k_scale, v_scale)
+        if op_cost.dry(q):
+            return op_cost.meta_output(q.shape, q.dtype)
+        return _decode_cuda(q, k_pages, v_pages, block_tables, cur_pos,
+                            window, k_scale, v_scale)
+
+
+def _decode_cuda(q, k_pages, v_pages, block_tables, cur_pos, window,
+                 k_scale, v_scale):
     b, _, hq, d = q.shape
     hkv = k_pages.shape[2]
     out = paged_decode_attention_cuda(
@@ -64,9 +82,23 @@ def paged_prefill_attention(
 ) -> torch.Tensor:
     """Paged chunked-prefill attention; ``(B, C, Hq, Dh)`` in ``q.dtype``.
     The chunk's K/V must already be scattered into the pool."""
-    if q.device.type == "cpu":
-        return paged_prefill_ref(q, k_pages, v_pages, block_tables, pos0,
-                                 seq_lens, window, k_scale, v_scale)
+    with op_cost.priced("paged_prefill_attention", lambda: (
+            op_cost.route_or_none(prefill_route, q.dtype, k_pages.dtype,
+                                  q.shape[-1], q.shape[2] // k_pages.shape[2]),
+            *kernel_costs.paged_prefill_call(q, k_pages, block_tables,
+                                             k_scale))):
+        if q.device.type == "cpu":
+            return paged_prefill_ref(q, k_pages, v_pages, block_tables,
+                                     pos0, seq_lens, window, k_scale,
+                                     v_scale)
+        if op_cost.dry(q):
+            return op_cost.meta_output(q.shape, q.dtype)
+        return _prefill_cuda(q, k_pages, v_pages, block_tables, pos0,
+                             seq_lens, window, k_scale, v_scale)
+
+
+def _prefill_cuda(q, k_pages, v_pages, block_tables, pos0, seq_lens, window,
+                  k_scale, v_scale):
     b, c, hq, d = q.shape
     hkv = k_pages.shape[2]
     out = paged_prefill_attention_cuda(

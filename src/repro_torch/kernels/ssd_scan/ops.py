@@ -1,8 +1,11 @@
 """Public wrapper of the SSD-scan kernel.
 
 Dispatches by the tensors' device: the CUDA kernel for CUDA tensors, the
-plain recurrence (``ref.py``) for CPU tensors, and an error for anything
-else.  There is no fallback from the kernel to the plain version.
+plain recurrence (``ref.py``) for CPU tensors, empty outputs for ``meta``
+tensors inside the op counter, and an error for anything else.  There is
+no fallback from the kernel to the plain version.  Each call opens
+``op_cost.priced`` first (``bitplane_gemv/ops.py`` says why), at the
+chunk the kernels run.
 """
 
 from __future__ import annotations
@@ -11,8 +14,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.kernel import kernel_chunk, ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.roofline import kernel_costs, op_cost
 
 
 def ssd_scan(xdt: torch.Tensor, la: torch.Tensor, b_in: torch.Tensor,
@@ -25,10 +29,18 @@ def ssd_scan(xdt: torch.Tensor, la: torch.Tensor, b_in: torch.Tensor,
     cut to S, as the JAX kernel does, and must divide S.
     """
     chunk = min(chunk, xdt.shape[1])
-    if xdt.device.type == "cpu":
-        return ssd_scan_ref(xdt, la, b_in, c_in, chunk)
-    return ssd_scan_cuda(_aligned(xdt), _aligned(la.float()),
-                         _aligned(b_in), _aligned(c_in), chunk=chunk)
+    with op_cost.priced("ssd_scan", lambda: (
+            None, *kernel_costs.ssd_scan_call(
+                xdt, b_in, kernel_chunk(chunk, xdt.shape[1])))):
+        if xdt.device.type == "cpu":
+            return ssd_scan_ref(xdt, la, b_in, c_in, chunk)
+        if op_cost.dry(xdt):
+            b, s, h, p = xdt.shape
+            return (op_cost.meta_output((b, s, h, p), torch.float32),
+                    op_cost.meta_output((b, h, p, b_in.shape[-1]),
+                                        torch.float32))
+        return ssd_scan_cuda(_aligned(xdt), _aligned(la.float()),
+                             _aligned(b_in), _aligned(c_in), chunk=chunk)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

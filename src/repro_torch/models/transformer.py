@@ -445,11 +445,11 @@ def _sequence_setup(params, batch, cfg, eng, attn_backend, view, mesh):
         sequential=batch.get("positions") is None, view=view)
 
 
-def _sequence_view(params, cfg, mesh) -> "RankView":
+def _sequence_view(params, cfg, mesh, layer0=None) -> "RankView":
     """:func:`rank_view` for a full-sequence pass over the rank's data
     shard of a batch: with more than one data shard, the shards' group,
     over which a moe layer takes the whole batch's aux loss."""
-    view = rank_view(params, cfg, mesh)
+    view = rank_view(params, cfg, mesh, layer0=layer0)
     if mesh is not None:
         daxes = mesh.data_axes()
         n = mesh.count(daxes)
@@ -486,6 +486,7 @@ def forward(
     local_gather: bool = False,
     remat: str = "block",
     mesh=None,
+    gather=None,
 ):
     """Full-sequence forward (scoring).  Returns (logits ``(B, S, V)``, or
     ``(B, S, K, V)`` for the audio family, aux loss) — or (hidden ``(B,
@@ -521,8 +522,16 @@ def forward(
     shards).  The output covers the rank's rows at full width.  Packed
     weights on a mesh run the ``sharded`` backend
     (``EngineConfig(sharded=True)``, resolved here with the mesh).
+
+    ``gather`` (FSDP training, ``train.trainer``): ``params["layers"]``
+    hold the rank's storage shards, and ``gather(lp)`` gathers a layer's
+    leaves to the placement above inside the layer's body, so that remat
+    gathers them again in the backward pass; ``gather.shapes(lp)`` gives
+    the gathered shapes, which the rank's view reads.
     """
-    view = _sequence_view(params, cfg, mesh)
+    view = _sequence_view(params, cfg, mesh,
+                          gather.shapes(params["layers"][0])
+                          if gather is not None else None)
     x, positions, plan, mixers = _sequence_setup(params, batch, cfg, eng,
                                                  attn_backend, view, mesh)
     use_kernel = mixers["attn_backend"] == "cuda"
@@ -531,6 +540,8 @@ def forward(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in PAGED_FAMILIES:
         def body(x, lp, win):
+            if gather is not None:
+                lp = gather(lp)
             x, _ = _attn_apply(lp, x, positions, cfg, plan, win,
                                local_gather=local_gather, **mixers)
             return _ffn_apply(lp, x, cfg, plan, view=view)
@@ -544,6 +555,8 @@ def forward(
         shared = params.get("shared_attn")
 
         def body(x, lp, layer):
+            if gather is not None:
+                lp = gather(lp)
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             x = x + ssm_forward(lp["ssm"], h, cfg, plan,
                                 use_kernel=use_kernel)
@@ -983,10 +996,13 @@ def _width(p) -> int:
     return as_packed(p).out_features if is_packed(p) else p["w"].shape[-1]
 
 
-def _first_block(params: Params, *names: str) -> Optional[Params]:
+def _first_block(params: Params, *names: str,
+                 layer0: Optional[Params] = None) -> Optional[Params]:
     """The first block found under one of ``names`` (a ``/`` path) in a
-    layer, else in the hybrid's ``shared_attn``; None when none is."""
-    for where in list(params["layers"][:1]) + [params.get("shared_attn")]:
+    layer (``layer0``, or the first of ``params["layers"]``), else in the
+    hybrid's ``shared_attn``; None when none is."""
+    first = [layer0] if layer0 is not None else list(params["layers"][:1])
+    for where in first + [params.get("shared_attn")]:
         for name in names:
             node = where
             for key in name.split("/"):
@@ -997,7 +1013,8 @@ def _first_block(params: Params, *names: str) -> Optional[Params]:
 
 
 def rank_view(params: Params, cfg: ModelConfig, mesh,
-              model_axis: str = "model") -> RankView:
+              model_axis: str = "model",
+              layer0: Optional[Params] = None) -> RankView:
     """This rank's :class:`RankView`, for every family: the heads from the
     first attention block present (a layer's, or the hybrid's
     ``shared_attn``), the MLP's cut from the first MLP (a layer's, a MoE
@@ -1005,19 +1022,21 @@ def rank_view(params: Params, cfg: ModelConfig, mesh,
     first MoE layer's stacked ``w_gate``, the vocabulary from the
     embedding's axis −2 (``(V, D)``, or the audio family's ``(K, V,
     D)``).  Every layer is cut alike, so the first speaks for all; SSM
-    blocks are whole.  Without a mesh: the whole model, no group."""
+    blocks are whole.  Without a mesh: the whole model, no group.
+    ``layer0``: the layer to read in place of ``params["layers"][0]``
+    (FSDP's gathered shapes, where the layers hold storage shards)."""
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     if mesh is None:
         return RankView(hq, hkv, None, None, None, 0, None)
     group = mesh.group(model_axis)
     index = mesh.index(model_axis)
     dh = cfg.resolved_head_dim
-    attn = _first_block(params, "attn")
+    attn = _first_block(params, "attn", layer0=layer0)
     hq_l, hkv_l = ((_width(attn["wq"]) // dh, _width(attn["wk"]) // dh)
                    if attn is not None else (hq, hkv))
-    mlp = _first_block(params, "mlp", "moe/shared")
+    mlp = _first_block(params, "mlp", "moe/shared", layer0=layer0)
     mlp_cut = mlp is not None and _width(mlp["w_up"]) < cfg.d_ff
-    experts = _first_block(params, "moe/w_gate")
+    experts = _first_block(params, "moe/w_gate", layer0=layer0)
     e_local = None
     if experts is not None:
         e_local = (as_packed(experts).packed if is_packed(experts)

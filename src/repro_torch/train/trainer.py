@@ -35,22 +35,43 @@ the global mean, as JAX's GSPMD step has them.  The global norm sums the
 squares of the split leaves over the model group and counts a whole leaf
 once; Adafactor and the compression's absmax reduce over the whole leaf
 (``optim.LeafShards``).
+
+**FSDP** (``mode="fsdp"``, the JAX package's ``train_cell``): the rank
+stores its shards of the params and of the optimizer state under
+:func:`mesh_specs`' ``"fsdp"`` placement, ``dist.sharding.
+fsdp_param_specs`` (JAX's ``param_shardings(mode="fsdp")``: the data
+axes on top of tensor parallelism).  The step gathers each layer's
+leaves to the tensor-parallel placement above inside the layer's body
+(:class:`LayerGather`), so a rank holds at most one layer's gathered
+weights beyond its shards (remat gathers them again for the backward
+pass); the other params are gathered once a microbatch.  A gather over
+the data axes is ``dist.collectives.fsdp_gather``, whose backward sums
+the data shards' gradients and leaves each rank its block
+(``reduce_scatter``); a gather over ``model`` of a block the rank runs
+whole is ``gather_from``, whose backward keeps the rank's block.  The
+gradients of the leaves whole over the data axes are summed over them
+as above.  AdamW and SGD update the local shards; the global norm counts
+each leaf once over the data and model groups.  Adafactor and the
+gradient compression, which reduce over a whole leaf, are not run under
+FSDP (they raise).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, TrainConfig
-from repro_torch.dist.collectives import all_reduce
+from repro_torch.dist.collectives import all_reduce, fsdp_gather, gather_from
 from repro_torch.dist.sharding import (
     Spec,
     batch_shardings,
+    fsdp_param_specs,
     local_shard,
+    meta_params,
     serve_param_specs,
     tree_map_with_path,
 )
@@ -77,10 +98,13 @@ def _square_sum(leaf: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.square(leaf.to(F32)))
 
 
-def _global_norm(tree, shards: Optional[LeafShards] = None) -> torch.Tensor:
+def _global_norm(tree, shards=None) -> torch.Tensor:
     """The norm over every leaf; on a mesh (``shards``) the split leaves'
     squares are summed over the model group and a whole leaf counts
-    once."""
+    once; under FSDP (:class:`FsdpSplit`) over every group a leaf is split
+    over."""
+    if isinstance(shards, FsdpSplit):
+        return shards.norm(tree)
     if shards is None:
         return torch.sqrt(sum(_square_sum(leaf)
                               for leaf in tree_leaves(tree)))
@@ -160,20 +184,118 @@ def _sum_leaves(leaves, group) -> None:
     flush()
 
 
-def mesh_specs(cfg: ModelConfig, tcfg: TrainConfig, mesh) -> Dict[str, Any]:
+class FsdpSplit:
+    """Where each FSDP storage shard is split: ``split``, a tree of the
+    params' structure whose leaves are :class:`Spec` s of the mesh
+    entries (axis names or tuples of them) the leaf is split over."""
+
+    def __init__(self, split, mesh):
+        self.split, self.mesh = split, mesh
+
+    def groups(self, tree):
+        """``{entries: [leaves]}``, in the tree's order (the same on every
+        rank, so the collectives that follow line up)."""
+        out: Dict[tuple, list] = {}
+        tree_map_with_path(lambda path, g, s: out.setdefault(
+            tuple(s), []).append(g), tree, self.split)
+        return out
+
+    def norm(self, tree) -> torch.Tensor:
+        zero = torch.zeros((), dtype=F32, device=tree_leaves(tree)[0].device)
+        total = zero
+        for entries, leaves in self.groups(tree).items():
+            part = sum((_square_sum(g) for g in leaves), zero)
+            for entry in entries:
+                part = all_reduce(part, self.mesh.group(entry))
+            total = total + part
+        return torch.sqrt(total)
+
+
+def _data_entry(entry, mesh) -> bool:
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    return all(n in mesh.data_axes() for n in names)
+
+
+def _gather_plan(store: Spec, compute: Spec, mesh, first: int) -> tuple:
+    """``((axis, entry), ...)``: the gathers that take a storage shard to
+    the compute placement, axes counted from ``first`` (a stacked layer
+    leaf's piece drops its layer axis)."""
+    plan = []
+    for ax, (s, c) in enumerate(zip(store, compute)):
+        if s == c or s is None or mesh.count(s) == 1:
+            continue
+        if c is not None or ax < first:
+            raise ValueError(f"FSDP storage {store} does not extend the "
+                             f"compute placement {compute}")
+        plan.append((ax - first, s))
+    return tuple(plan)
+
+
+def _gather_leaf(t: torch.Tensor, plan: tuple, mesh) -> torch.Tensor:
+    for ax, entry in plan:
+        group = mesh.group(entry)
+        t = (fsdp_gather(t, group, ax) if _data_entry(entry, mesh)
+             else gather_from(t, group, ax))
+    return t
+
+
+class LayerGather:
+    """FSDP's gather of a layer's storage shards to the compute placement
+    (``forward(gather=)``), and of the other params (:meth:`top`)."""
+
+    def __init__(self, plans: Dict[tuple, tuple], mesh):
+        self.plans, self.mesh = plans, mesh
+
+    def _map(self, tree, prefix, fn):
+        return tree_map_with_path(
+            lambda path, t: fn(t, self.plans[prefix + tuple(path)]), tree)
+
+    def __call__(self, lp):
+        return self._map(lp, ("layers",), lambda t, plan: _gather_leaf(
+            t, plan, self.mesh))
+
+    def top(self, tree):
+        return {k: (v if k == "layers" else self._map(
+            v, (k,), lambda t, plan: _gather_leaf(t, plan, self.mesh)))
+            for k, v in tree.items()}
+
+    def shapes(self, lp):
+        """The gathered shapes of a layer, as empty ``meta`` tensors."""
+        def one(t, plan):
+            shape = list(t.shape)
+            for ax, entry in plan:
+                shape[ax] *= self.mesh.count(entry)
+            return torch.empty(shape, dtype=t.dtype, device="meta")
+        return self._map(lp, ("layers",), one)
+
+
+def mesh_specs(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+               mode: str = "tp") -> Dict[str, Any]:
     """The placement of the training state on ``mesh``: ``params`` (the
     stacked tree's :func:`~repro_torch.dist.sharding.serve_param_specs`),
     ``opt`` (the optimizer state's ``inner`` tree: AdamW's moments and
     SGD's momentum as their params, Adafactor's ``vr`` / ``vc`` as the
     axes of the param they keep) and ``ef`` (as the params).  Read from
-    the shapes alone (the tree is built under ``FakeTensorMode``)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
+    the shapes alone (``dist.sharding.meta_params``).
 
-    from repro_torch.models import init_params
-
-    with FakeTensorMode():
-        shapes = stack_layers(init_params(cfg, torch.Generator()))
+    ``mode="fsdp"``: the params and the state stored under
+    :func:`~repro_torch.dist.sharding.fsdp_param_specs`, and ``compute``,
+    the tensor-parallel placement above, which the step gathers them to
+    (module docstring; AdamW and SGD only)."""
+    if mode not in ("tp", "fsdp"):
+        raise ValueError(f"mode must be tp/fsdp, got {mode!r}")
+    shapes = stack_layers(meta_params(cfg))
     specs = serve_param_specs(mesh, shapes, cfg)
+    if mode == "fsdp":
+        if tcfg.optimizer == "adafactor" or tcfg.grad_compress_bits:
+            raise NotImplementedError(
+                "FSDP training runs AdamW or SGD without gradient "
+                "compression: Adafactor's factored moments and the "
+                "compression's absmax reduce over a whole leaf")
+        store = fsdp_param_specs(mesh, shapes)
+        opt = {"m": store, "v": store} if tcfg.optimizer == "adamw" \
+            else store
+        return {"params": store, "opt": opt, "ef": store, "compute": specs}
     if tcfg.optimizer == "adamw":
         opt = {"m": specs, "v": specs}
     elif tcfg.optimizer == "adafactor":
@@ -201,16 +323,29 @@ def shard_train_state(specs: Dict[str, Any], mesh, params, opt_state,
             else ef_state)
 
 
-def _make_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
+def _make_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
+                mode: str = "tp"):
     """``(grads, shards)``: ``grads(params, batch) -> (gradients, loss)``,
     the float32 gradients a step of :func:`make_train_step` applies
     (summed over the data shards on a mesh, before compression and
     clipping) with the global loss; ``shards`` the
     :class:`~repro_torch.optim.LeafShards` of the split leaves (None off a
-    mesh, or with one model rank)."""
-    shards = data_group = None
+    mesh, or with one model rank), or under FSDP the :class:`FsdpSplit`
+    of the storage shards."""
+    shards = data_group = gather = None
     n_data = 1
-    if mesh is not None and mesh.count("model") > 1:
+    if mesh is not None and mode == "fsdp":
+        specs = mesh_specs(cfg, tcfg, mesh, mode="fsdp")
+        plans: Dict[tuple, tuple] = {}
+        tree_map_with_path(lambda path, s, c: plans.__setitem__(
+            tuple(path), _gather_plan(
+                s, c, mesh, 1 if path[0] == "layers" else 0)),
+            specs["params"], specs["compute"])
+        gather = LayerGather(plans, mesh)
+        shards = FsdpSplit(tree_map_with_path(lambda path, s: Spec(
+            e for e in s if e is not None and mesh.count(e) > 1),
+            specs["params"]), mesh)
+    elif mesh is not None and mesh.count("model") > 1:
         pspecs = mesh_specs(cfg, tcfg, mesh)["params"]
         shards = LeafShards(
             tree_map_with_path(lambda path, spec: tuple(
@@ -229,7 +364,7 @@ def _make_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
         the global loss's."""
         hidden, aux = forward(params, batch, cfg, remat=tcfg.remat,
                               return_hidden=True, attn_backend="gather",
-                              mesh=mesh)
+                              mesh=mesh, gather=gather)
         ce = chunked_ce(params, hidden, batch["labels"], cfg,
                         mesh=mesh) / n_data
         return ce + aux, ce, aux
@@ -239,6 +374,8 @@ def _make_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
             batch = local_shard(batch, batch_shardings(mesh, batch), mesh)
         tree, pieces, slots = _grad_pieces(params, acc)
         with torch.enable_grad():
+            if gather is not None:
+                tree = gather.top(tree)
             loss, ce, aux = loss_of(tree, batch)
             grads = torch.autograd.grad(loss, pieces, allow_unused=True)
         with torch.no_grad():
@@ -274,7 +411,12 @@ def _make_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
             loss = accumulate(acc, params, batch)
         if data_group is not None:
             with torch.no_grad():
-                _sum_leaves(tree_leaves(acc), data_group)
+                # under FSDP the data-split leaves were summed by their
+                # gathers' backward (reduce-scatter)
+                _sum_leaves(tree_leaves(acc) if gather is None else [
+                    g for entries, leaves in shards.groups(acc).items()
+                    if not any(_data_entry(e, mesh) for e in entries)
+                    for g in leaves], data_group)
                 loss = all_reduce(loss[0], data_group) + loss[1]
         return acc, loss
 
@@ -282,7 +424,8 @@ def _make_grads(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    donate: bool = True, mesh=None) -> Callable:
+                    donate: bool = True, mesh=None,
+                    mode: str = "tp") -> Callable:
     """Returns ``step(params, opt_state, ef_state, batch) -> (params,
     opt_state, ef_state, metrics)``, params and states in the stacked
     layout, ``batch`` numpy arrays or tensors (moved to the params'
@@ -298,11 +441,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``mesh``: this rank's mesh (module docstring).  ``params``, the
     states and the returned ones are then the rank's shards
     (:func:`shard_train_state`), ``batch`` the global batch, and the
-    metrics the global ones, equal on every rank.
+    metrics the global ones, equal on every rank.  ``mode="fsdp"``: the
+    params and states are the rank's FSDP storage shards (module
+    docstring), placed by ``mesh_specs(..., mode="fsdp")``.
     """
     del donate
     _, update_fn = make_optimizer(tcfg.optimizer)
-    grads, shards = _make_grads(cfg, tcfg, mesh)
+    grads, shards = _make_grads(cfg, tcfg, mesh, mode)
 
     def step(params, opt_state, ef_state, batch):
         acc, loss = grads(params, batch)

@@ -16,6 +16,10 @@ mirroring ``tests/test_costs.py``.
   ``gather``) match the model's dot FLOPs (every linear's 2·K·N a token,
   the attention's q·K and p·V over the padded view) within ``TOL`` = 5%,
   JAX's tolerance against XLA's compiled costs.
+* **The whole table** (JAX's contract, ``tests/test_costs.py``): the
+  ledger's total FLOPs of a paged decode step and a chunk against the
+  op counter's count (``roofline.counted_costs``) over the port's plain
+  steps, within ``TOL``.
 * **Attribution.**  A served engine charges every step; per-request rows
   sum to the totals; a chaos-retried request's recomputed work lands in
   ``wasted_flops``; the ledger equals the JAX engine's on the same
@@ -221,6 +225,46 @@ def test_dot_flops_match_flop_counter(kind, cfg, kv_bits):
         f"counted {measured:.3e} (ratio {ratio:.4f})")
     # the dots are most of the whole table's FLOPs at these shapes
     assert modeled <= whole <= 1.5 * modeled
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+@pytest.mark.parametrize("cfg", SHAPES, ids=lambda c: c.name)
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_table_flops_match_counted_costs(kind, cfg, kv_bits):
+    from repro_torch.roofline import counted_costs
+
+    params = torch_init_params(cfg, torch.Generator().manual_seed(0))
+    pages = init_kv_pages(cfg, B * NBLK + 1, PAGE, kv_bits=kv_bits,
+                          device="cpu")
+    bt = torch.arange(1, 1 + B * NBLK, dtype=torch.int32).reshape(B, NBLK)
+    eng = (tconfig.EngineConfig(kv_bits=8, backend="reference",
+                                attn_backend="gather") if kv_bits else None)
+    dims = costs.model_dims(cfg)
+    if kind == "decode":
+        measured = counted_costs(
+            lambda: decode_step_paged(
+                params, pages, bt, torch.full((B,), 5, dtype=torch.int32),
+                torch.ones((B,), dtype=torch.bool),
+                torch.zeros((B, 1), dtype=torch.int32), cfg, eng,
+                attn_backend="gather"))["flops"]
+        modeled = costs.total_cost(costs.decode_step_costs(
+            dims, batch=B, context=NBLK * PAGE, page_size=PAGE,
+            kv_bits=kv_bits)).flops
+    else:
+        measured = counted_costs(
+            lambda: prefill_chunk(
+                params, pages, bt, torch.zeros((B, CHUNK), dtype=torch.int32),
+                torch.zeros((B,), dtype=torch.int32),
+                torch.full((B,), CHUNK, dtype=torch.int32), cfg, eng,
+                attn_backend="gather"))["flops"]
+        modeled = costs.total_cost(costs.prefill_chunk_costs(
+            dims, batch=B, chunk=CHUNK, context=NBLK * PAGE,
+            page_size=PAGE, kv_bits=kv_bits)).flops
+    assert measured > 0
+    ratio = modeled / measured
+    assert 1 - TOL <= ratio <= 1 + TOL, (
+        f"{kind} {cfg.name} kv{kv_bits}: modeled {modeled:.3e} vs "
+        f"counted {measured:.3e} (ratio {ratio:.4f})")
 
 
 # ------------------------------------------------- ledger in the engine

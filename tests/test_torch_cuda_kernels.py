@@ -104,6 +104,12 @@ qwen3-moe); the grouped launch over a rank's experts (llama4-scout 8 of
 rank processes on the card (``gloo``) running the ``sharded`` backend's
 column and row cuts against the unsharded GEMV.  The family shapes are
 read from the serving placement (``dist.sharding.rank_shapes``).
+The op counter (``-k priced``): each wrapper's call on card tensors under
+``roofline.op_cost.counting`` prices one call through the route whose
+launch counter moved, and the same call on ``meta`` tensors counts the
+same bytes and operations; the launch cells of reduced configs
+(``launch.steps``) count the same on the card and on ``meta``, and
+their launches by route equal their priced calls.
 
 The vlm, audio and hybrid families (``-k "family or hybrid"``): the
 bit-plane GEMV through every route at zamba2-7b's in_proj (ragged N
@@ -1910,3 +1916,127 @@ def test_mesh_ssd_scan_whole_block(cuda_device, arch):
     for out, ref in ((y, ry), (h, rh)):
         torch.testing.assert_close(out, ref, rtol=1e-4,
                                    atol=1e-4 * ref.abs().max().item())
+
+
+# ------------------------------------------------------------ op counter
+def _priced_cases(dev):
+    """name -> a call of that kernel's wrapper on inputs made on ``dev``
+    beforehand, at small shapes."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def ints(lo, hi, *shape, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen).to(dev, dtype)
+
+    def small(*shape, lo=0.0, span=1.0):
+        return (lo + span * torch.rand(shape, generator=gen)).to(dev)
+
+    packed, scale = ints(-128, 128, 64, 96), small(1, 96, lo=0.1)
+    gpacked, gscale = ints(-128, 128, 4, 64, 96), small(4, 1, 96, lo=0.1)
+    offsets = torch.tensor([0, 3, 3, 7, 8], dtype=torch.int32).to(dev)
+    q8, x8, x4 = ints(-127, 128, 128, 96), rnd(8, 128), rnd(4, 128)
+    kp, vp = ints(-127, 128, 33, 16, 2, 64), ints(-127, 128, 33, 16, 2, 64)
+    ks = small(33, 16, 2, span=0.02).to(torch.bfloat16)
+    vs = small(33, 16, 2, span=0.02).to(torch.bfloat16)
+    bt = (1 + torch.arange(32, dtype=torch.int32)).reshape(4, 8).to(dev)
+    pos = torch.full((4,), 100, dtype=torch.int32).to(dev)
+    pos0 = torch.full((4,), 84, dtype=torch.int32).to(dev)
+    qd, qp = rnd(4, 1, 8, 64), rnd(4, 16, 8, 64)
+    fq, fk, fv = rnd(2, 200, 8, 64), rnd(2, 200, 2, 64), rnd(2, 200, 2, 64)
+    sx, sla = rnd(2, 256, 4, 64), small(2, 256, 4, lo=-0.2, span=0.2)
+    sb, sc = rnd(2, 256, 64), rnd(2, 256, 64)
+    return {
+        "bitplane_gemv": lambda: bitplane_gemv(
+            packed, scale, x8, bits=4, out_dtype=torch.bfloat16),
+        "bitplane_gemv_grouped": lambda: bitplane_gemv_grouped(
+            gpacked, gscale, x8, offsets, max_rows=8, bits=4,
+            out_dtype=torch.bfloat16),
+        "int8_matvec": lambda: int8_matvec(q8, scale, x4,
+                                           out_dtype=torch.bfloat16),
+        "paged_decode_attention": lambda: paged_attention(
+            qd, kp, vp, bt, pos, 0, ks, vs),
+        "paged_prefill_attention": lambda: paged_prefill_attention(
+            qp, kp, vp, bt, pos0, pos, 0, ks, vs),
+        "flash_attention": lambda: flash_attention(fq, fk, fv),
+        "ssd_scan": lambda: ssd_scan(sx, sla, sb, sc, chunk=128),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bitplane_gemv", "bitplane_gemv_grouped",
+                                    "int8_matvec", "paged_decode_attention",
+                                    "paged_prefill_attention",
+                                    "flash_attention", "ssd_scan"])
+def test_priced_call_is_the_launch(cuda_device, kernel):
+    from repro_torch.roofline import op_cost
+
+    counts = {}
+    for dev in (cuda_device, torch.device("meta")):
+        call = _priced_cases(dev)[kernel]
+        before = (dict(_build.LAUNCHES), dict(_build.ROUTE_LAUNCHES))
+        with op_cost.counting() as counter:
+            call()
+        torch.cuda.synchronize()
+        counts[dev.type] = counter.result()
+        launched = {k: v - before[0][k] for k, v in _build.LAUNCHES.items()
+                    if v != before[0][k]}
+        routes = {k: v - before[1][k]
+                  for k, v in _build.ROUTE_LAUNCHES.items()
+                  if v != before[1][k]}
+        priced = counts[dev.type]["priced"]
+        assert sum(priced.values()) == 1
+        if dev.type == "cuda":
+            (key,) = priced
+            assert launched == {key.split("/")[0]: 1}
+            assert routes == ({key: 1} if "/" in key else {})
+        else:
+            assert not launched and not routes
+    for key in ("flops", "bytes", "priced"):
+        assert counts["cuda"][key] == counts["meta"][key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["paged_serve", "chunked_prefill", "serve",
+                                  "prefill", "train"])
+def test_priced_launch_cell_counts_on_card_and_meta(cuda_device, cell):
+    from repro_torch.config import RunConfig, ShapeConfig, TrainConfig
+    from repro_torch.dist.hints import dry_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.roofline import counted_costs
+
+    cfg = get_reduced("qwen2.5-3b")
+    kind, kw = {"paged_serve": ("decode", {"paged": True}),
+                "chunked_prefill": ("prefill", {"chunked": True}),
+                "serve": ("decode", {}), "prefill": ("prefill", {}),
+                "train": ("train", {})}[cell]
+    run = RunConfig(model=cfg, shape=ShapeConfig(cell, kind, 128, 4),
+                    train=TrainConfig(microbatches=2),
+                    serve=ServeConfig(engine=EngineConfig(
+                        weight_bits=4, kv_bits=8), page_size=16,
+                        prefill_chunk=32))
+    fn, args, _ = build_cell(run, make_host_mesh(device=cuda_device),
+                             abstract=False, device=cuda_device, **dict(kw))
+    fn(*args)
+    before = (dict(_build.LAUNCHES), dict(_build.ROUTE_LAUNCHES))
+    card = counted_costs(fn, *args)
+    torch.cuda.synchronize()
+    routes = {k: v - before[1][k] for k, v in _build.ROUTE_LAUNCHES.items()
+              if v != before[1][k]}
+    launched = {k: v - before[0][k] for k, v in _build.LAUNCHES.items()
+                if v != before[0][k]}
+    fn, args, _ = build_cell(run, dry_mesh((1, 1), ("data", "model")),
+                             **dict(kw))
+    meta = counted_costs(fn, *args)
+    for key in ("flops", "bytes", "transcendentals", "collectives",
+                "priced"):
+        assert card[key] == meta[key], key
+    assert routes == {k: n for k, n in card["priced"].items()
+                      if k in _build.ROUTE_LAUNCHES}
+    by_kernel = {}
+    for k, n in card["priced"].items():
+        by_kernel[k.split("/")[0]] = by_kernel.get(k.split("/")[0], 0) + n
+    assert launched == by_kernel
+    assert bool(card["priced"]) == (kind != "train")

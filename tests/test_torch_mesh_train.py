@@ -33,7 +33,10 @@ whole), the batch is split over the data shards by ``batch_shardings``.
   at ``(2, 4)``, ``(1, 2)`` and ``(2, 1)``; moe, ssm, hybrid, vlm and
   audio at ``(2, 2)``; moe with two microbatches at ``(2, 2)``;
   Adafactor with a clip that bites and two microbatches at ``(2, 2)``;
-  int8 error-feedback compression with two microbatches at ``(2, 4)``.  Every rank reports the same metrics, and a
+  int8 error-feedback compression with two microbatches at ``(2, 4)``;
+  FSDP (``make_train_step(mode="fsdp")``: params and AdamW state stored
+  as ``mesh_specs(mode="fsdp")`` places them, gathered a layer at a time)
+  for dense and moe at ``(2, 2)``, at the same bounds.  Every rank reports the same metrics, and a
   leaf whole on every model rank gets bit-equal gradients on all ranks.
 * ``pipeline_apply`` over ``(2, 2, 2)`` (``tests/test_pipeline.py``'s
   case: L 8, D 16, B 8, M 4, S 2): forward within 1e-5 and gradients
@@ -113,6 +116,9 @@ TRAIN_CASES = {
     "compress_2x4": ("2x4", "dense", dict(grad_compress_bits=8,
                                          microbatches=2)),
 }
+# FSDP cases: name -> (mesh, family, TrainConfig options)
+FSDP_CASES = {"fsdp_dense_2x2": ("2x2", "dense", {}),
+              "fsdp_moe_2x2": ("2x2", "moe", {})}
 ELASTIC_ARCH = "qwen2.5-3b"
 
 
@@ -200,12 +206,12 @@ for label, arch in case["seq"]:
         pos=all_gather(cache["pos"], data, 0), hkv=view.hkv)
 
 
-def train_state(cfg, tcfg, params, mesh):
+def train_state(cfg, tcfg, params, mesh, mode="tp"):
     sp = tree_map(lambda t: t.clone(), stack_layers(params))
     init_fn, _ = make_optimizer(tcfg.optimizer)
     opt = init_fn(sp)
     ef = ef_state_init(sp) if tcfg.grad_compress_bits else {}
-    specs = mesh_specs(cfg, tcfg, mesh)
+    specs = mesh_specs(cfg, tcfg, mesh, mode=mode)
     return specs, shard_train_state(specs, mesh, sp, opt, ef)
 
 
@@ -226,14 +232,15 @@ def run_steps(step, state, batches):
     return state, metrics
 
 
-for name, (label, arch, kw) in case["train"].items():
+for name, (label, arch, kw, mode) in case["train"].items():
     mesh = meshes[label]
     if mesh is None:
         continue
     cfg, params = case["models"][arch]
     tcfg = TrainConfig(**kw)
-    specs, state = train_state(cfg, tcfg, params, mesh)
-    state, metrics = run_steps(make_train_step(cfg, tcfg, mesh=mesh), state,
+    specs, state = train_state(cfg, tcfg, params, mesh, mode)
+    state, metrics = run_steps(make_train_step(cfg, tcfg, mesh=mesh,
+                                               mode=mode), state,
                                case["train_batches"][arch])
     whole = gather_train_state(specs, mesh, *state)
     out["train"][name] = dict(metrics=metrics,
@@ -404,15 +411,17 @@ def run(tmp_path_factory):
         "seq": [(label, a) for label in SEQ_MESHES for a in archs],
         "seq_batch": {a: _seq_batch(a) for a in archs},
         "seq_max_len": SEQ_MAX_LEN,
-        "train": {name: (label, FAMILIES[fam], _train_kw(opts))
-                  for name, (label, fam, opts) in TRAIN_CASES.items()},
+        "train": {name: (label, FAMILIES[fam], _train_kw(opts),
+                         "fsdp" if name in FSDP_CASES else "tp")
+                  for name, (label, fam, opts) in {
+                      **TRAIN_CASES, **FSDP_CASES}.items()},
         "train_batches": {a: _train_batches(a) for a in archs},
         "train_kw": TRAIN_KW, "grads_arch": ELASTIC_ARCH,
         "elastic_arch": ELASTIC_ARCH, "pipe": pipe,
     }, tmp / "case.pt")
     finish = _start_ranks(tmp, 8, RANK_CODE)
     refs = {"seq": {a: _jax_seq(a) for a in archs}, "jax": {}, "port": {}}
-    for name, (_, fam, opts) in TRAIN_CASES.items():
+    for name, (_, fam, opts) in {**TRAIN_CASES, **FSDP_CASES}.items():
         key = (FAMILIES[fam], tuple(sorted(opts.items())))
         if key not in refs["jax"]:
             refs["jax"][key] = _jax_steps(FAMILIES[fam], opts)
@@ -462,7 +471,7 @@ def change_rel_err(got, want, start):
 
 
 def _check_train(res, refs, name):
-    label, fam, opts = TRAIN_CASES[name]
+    label, fam, opts = {**TRAIN_CASES, **FSDP_CASES}[name]
     key = (FAMILIES[fam], tuple(sorted(opts.items())))
     jleaves, jmetrics = refs["jax"][key]
     tparams, tmetrics = refs["port"][key]
@@ -495,6 +504,12 @@ def _check_train(res, refs, name):
                                   if not n.startswith(("adafactor",
                                                        "compress"))])
 def test_train_step_matches_jax(run, name):
+    res, refs, _ = run
+    _check_train(res, refs, name)
+
+
+@pytest.mark.parametrize("name", list(FSDP_CASES))
+def test_fsdp_train_step_matches_jax(run, name):
     res, refs, _ = run
     _check_train(res, refs, name)
 
