@@ -141,19 +141,24 @@ exits non-zero:
                 --mesh-shape DxM --mesh-dir DIR`` (``gloo`` through host
                 memory on one card; NCCL, one rank a device, on two or
                 more), ``EngineConfig(weight_bits=4, kv_bits=8,
-                sharded=True)``, eager (a CUDA graph cannot capture the
-                collectives): the transport, every rank's tokens equal
-                and equal to the single-device engine's up to near ties,
-                each rank's launches by route (the GEMV's decode and
-                tensor-core routes and both attention kernels above 0),
-                tok/s, step and chunk ms, host ms in collectives a step,
-                peak memory and pool shape; at ``(1, 2)``,
+                sharded=True)``, each step a sequence of CUDA graph
+                segments cut at its ``gloo`` collectives, which the host
+                runs between their replays (75 a step at ``(1, 2)``, one
+                at ``(2, 1)``), then the same traffic eagerly: the
+                transport, every rank's tokens equal with graphs and
+                eager, equal over the ranks and to the single-device
+                engine's up to near ties, each rank's launches by route
+                equal in both runs (the GEMV's decode and tensor-core
+                routes and both attention kernels above 0), tok/s, step
+                and chunk ms, host ms in collectives and waiting a step,
+                segments a step, capture seconds, peak memory and pool
+                shape, graphs beside eager; at ``(1, 2)``,
                 ``psum_bits=8`` at layer 0's row-parallel w_down within
                 ``n·scale/2`` of the exact sum.  Then, in the same
                 spawn, each rank serves the family cells of
-                ``MESH_CELLS`` in turn, eager at ``weight_bits=4``, each
-                held against its single-device eager engine on the same
-                params: paged at ``(1, 2)``, ``main``'s first 8 prompts,
+                ``MESH_CELLS`` in turn on graph segments at
+                ``weight_bits=4``, each held against its single-device
+                engine on the same params: paged at ``(1, 2)``, ``main``'s first 8 prompts,
                 16 new tokens, ``kv_bits=8``: llava-next (8 of 32
                 layers), musicgen (24 of 48), llama4-scout (6 of 48: 8
                 of 16 experts a rank), qwen3-moe (4 of 94: 64 of 128),
@@ -165,7 +170,9 @@ exits non-zero:
                 one prompt past the 1024-token window) at ``(1, 2)``.
                 The bf16 MoE ranks replay one device's routing, and each
                 choice of their own that differs from it must be at a
-                router near tie (``replay_routes``).  ``mesh_parity``
+                router near tie (``replay_routes``); a replay runs no
+                Python, so these two cells run eagerly, on one device
+                and on the ranks (``MESH_REPLAY_EAGER``).  ``mesh_parity``
                 also holds every linear of each cell's rank (its untied
                 head included), the grouped launch at a rank's experts
                 and paged attention at each paged cell's rank heads,
@@ -175,8 +182,11 @@ exits non-zero:
                 in the same spawn, the cells of PR 27, each held against
                 one device (``mesh_slice_checks``): ``mesh_snapshot``
                 (``main``'s first 8 prompts on 4 lanes killed at a
-                restart point, saved by every rank, loaded and restored
-                into fresh rank engines: the uninterrupted run's tokens;
+                restart point, saved by every rank; restored in place
+                into the rank engines, their graphs captured (no new
+                capture, every address the segments replay unchanged),
+                and loaded and restored into fresh rank engines: the
+                uninterrupted run's tokens;
                 the same snapshot into the single-device engine: its
                 tokens up to near ties; save / load / restore s),
                 ``mesh_chaos`` at ``(1, 2)`` (``MESH_CHAOS``'s schedule
@@ -4439,15 +4449,21 @@ def replay_routes(torch, eng, path):
     return finish
 
 
+# why a ``replay`` cell runs eagerly on one device and on the ranks
+MESH_REPLAY_EAGER = ("replay_routes and record_routes are Python hooks run "
+                     "once a route call; a graph replay runs no Python")
+
+
 def mesh_cell_engine(torch, dev, cell, *, mesh=None, params=None):
-    """A family cell's eager engine at ``weight_bits=4``: on this rank's
-    shards with ``mesh`` (the ``sharded`` backend), else on one device;
-    ``params`` drawn from the seed unless given.  Returns ``(eng,
-    params, prompts, max_new)``."""
+    """A family cell's engine at ``weight_bits=4``: on this rank's shards
+    with ``mesh`` (the ``sharded`` backend; graphs in segments), else on
+    one device; ``params`` drawn from the seed unless given.  A
+    ``replay`` cell runs eagerly (``MESH_REPLAY_EAGER``).  Returns
+    ``(eng, params, prompts, max_new)``."""
     cfg, prompts, max_new, kw = mesh_cell_setup(cell)
     eng, params = build_engine(torch, dev, cfg, 4, kw.pop("kv_bits"),
                                max_new=max_new, params=params,
-                               cuda_graphs=False, mesh=mesh,
+                               cuda_graphs=not cell.replay, mesh=mesh,
                                sharded=mesh is not None, **kw)
     return eng, params, prompts, max_new
 
@@ -4456,7 +4472,8 @@ def mesh_cell_record(torch, eng, rec, tokens, init_s, top=None):
     """A family cell's record of one run (a rank's or the single
     device's): tokens, tok/s, step and chunk ms, host ms in collectives a
     step (slots mode: every prompt token is a step), peak memory,
-    launches by route; for moe, the experts this run holds and touched."""
+    launches by route, the graphs (segments a step on a rank, capture
+    seconds); for moe, the experts this run holds and touched."""
     steps = rec["decode_steps"] + (rec["prompt_tokens"]
                                    if eng.mode == "slots"
                                    else rec["prefill_chunks"])
@@ -4473,7 +4490,10 @@ def mesh_cell_record(torch, eng, rec, tokens, init_s, top=None):
         collective_ms_per_step=1e3 * sum(coll) / max(steps, 1),
         collective_wait_ms_per_step=1e3 * sum(wait) / max(steps, 1),
         collective_calls=len(coll), layout=eng.mesh_layout,
-        lanes=eng.lanes.tokens.shape[0])
+        lanes=eng.lanes.tokens.shape[0],
+        **(mesh_graph_record(eng) if eng.mesh is not None
+           else dict(cuda_graphs=eng.cuda_graphs,
+                     capture_s=sum(eng.timings["capture"]))))
     if eng.cfg.family == "moe":
         w_gate = eng.params["layers"][0]["moe"]["w_gate"]
         out.update(experts_held=w_gate.packed.shape[0],
@@ -4520,11 +4540,53 @@ def mesh_cell_run(torch, mesh, cell, label, rank):
     return out
 
 
+def mesh_graph_record(eng):
+    """A mesh engine's graphs: on or not, graph segments a step by kind
+    (a collective cuts a step, so ``(1, 2)`` steps run k + 1 segments
+    for k collectives and ``(2, 1)`` ones a single segment), captures
+    and their seconds."""
+    kinds = (("decode", "prefill") if eng.mode == "paged"
+             else ("decode",))
+    return dict(
+        cuda_graphs=eng.cuda_graphs,
+        segments=({k: g.segments for k, g in zip(kinds, eng._graphs)}
+                  if eng.cuda_graphs else None),
+        graphs_captured=len(eng.timings["capture"]),
+        capture_s=sum(eng.timings["capture"]))
+
+
+def mesh_main_record(eng, rec, tokens, top):
+    """One run of ``main``'s mesh traffic on a rank: tokens, step and
+    chunk ms, host ms in collectives and waiting a step, peak memory,
+    launches by route, the graphs' segments and capture seconds."""
+    coll, wait = eng.timings["collectives"], eng.timings["collective_wait"]
+    return dict(
+        tokens=tokens, tok_s=rec["tok_s"], seconds=rec["seconds"],
+        decode_steps=rec["decode_steps"],
+        decode_step_ms=rec["decode_step_ms"],
+        decode_step_ms_p50=rec["decode_step_ms_p50"],
+        prefill_chunks=rec["prefill_chunks"],
+        prefill_chunk_ms=rec["prefill_chunk_ms"],
+        prefill_chunk_ms_p50=rec["prefill_chunk_ms_p50"],
+        collective_ms_per_step=1e3 * sum(coll) / max(len(coll), 1),
+        collective_wait_ms_per_step=1e3 * sum(wait) / max(len(wait), 1),
+        collective_share=sum(coll) / max(sum(eng.timings["decode"])
+                                         + sum(eng.timings["prefill"]),
+                                         1e-12),
+        peak_mem_gib=rec["peak_mem_gib"], launches=rec["launches"],
+        route_launches=rec["route_launches"],
+        gemv_decode_launches=rec["gemv_decode_launches"],
+        gemv_tensor_core_launches=rec["gemv_tensor_core_launches"],
+        top={f"{rid}:{i}": cand for (rid, i), cand in top.items()},
+        **mesh_graph_record(eng))
+
+
 def mesh_rank_main(argv) -> int:
     """One rank of phase ``mesh``: ``chip_smoke.py --mesh-rank R
     --mesh-shape DxM --mesh-dir DIR`` (started by :func:`mesh_path`).
-    Serves ``main``'s first prompts on its shards, then each family cell
-    of ``MESH_CELLS`` on this mesh in turn, and writes its record to
+    Serves ``main``'s first prompts on its shards with graph segments,
+    then the same traffic eagerly; then each family cell of
+    ``MESH_CELLS`` on this mesh in turn, and writes its record to
     ``DIR/rank{R}.json``."""
     import torch
 
@@ -4545,40 +4607,35 @@ def mesh_rank_main(argv) -> int:
     prompts = prompts_for(cfg, 16, 33, 300, SEED)[:MESH_REQUESTS]
     t0 = time.perf_counter()
     eng, params = build_engine(torch, mesh.device, cfg, 4, 8,
-                               max_new=MESH_NEW, cuda_graphs=False,
-                               mesh=mesh, sharded=True)
+                               max_new=MESH_NEW, mesh=mesh, sharded=True)
     del params
     torch.cuda.empty_cache()
     init_s = time.perf_counter() - t0
-    top = _recording_top(eng)
-    rec, tokens = serve(torch, f"mesh_{label}_rank{rank}", eng, prompts,
-                        MESH_NEW)
-    coll, wait = eng.timings["collectives"], eng.timings["collective_wait"]
     res = dict(
         rank=rank, coord=mesh.coord, device=str(mesh.device),
         backend=backend, transport=transport(mesh), init_s=init_s,
         layout=eng.mesh_layout, pool=list(eng.pages.k.shape),
-        lanes=eng.lanes.tokens.shape[0],
-        tokens=tokens, tok_s=rec["tok_s"], seconds=rec["seconds"],
-        decode_steps=rec["decode_steps"],
-        decode_step_ms=rec["decode_step_ms"],
-        prefill_chunks=rec["prefill_chunks"],
-        prefill_chunk_ms=rec["prefill_chunk_ms"],
-        collective_ms_per_step=1e3 * sum(coll) / max(len(coll), 1),
-        collective_wait_ms_per_step=1e3 * sum(wait) / max(len(wait), 1),
-        collective_share=sum(coll) / max(sum(eng.timings["decode"])
-                                         + sum(eng.timings["prefill"]),
-                                         1e-12),
-        peak_mem_gib=rec["peak_mem_gib"], launches=rec["launches"],
-        route_launches=rec["route_launches"],
-        gemv_decode_launches=rec["gemv_decode_launches"],
-        gemv_tensor_core_launches=rec["gemv_tensor_core_launches"],
-        top={f"{rid}:{i}": cand for (rid, i), cand in top.items()})
-    if mesh.shape["model"] > 1:
-        res["psum8"] = mesh_psum_check(torch, eng, mesh, rank)
-    del eng, top
-    gc.collect()
-    torch.cuda.empty_cache()
+        lanes=eng.lanes.tokens.shape[0], runs={})
+    for run in ("graphs", "eager"):
+        if run == "eager":
+            # the same params, drawn again from the seed: a rank keeps
+            # only its shards while it serves
+            eng, params = build_engine(torch, mesh.device, cfg, 4, 8,
+                                       max_new=MESH_NEW, cuda_graphs=False,
+                                       mesh=mesh, sharded=True)
+            del params
+            torch.cuda.empty_cache()
+        top = _recording_top(eng)
+        rec, tokens = serve(
+            torch, f"mesh_{label}_rank{rank}" + ("_eager" if run == "eager"
+                                                 else ""),
+            eng, prompts, MESH_NEW)
+        res["runs"][run] = mesh_main_record(eng, rec, tokens, top)
+        if run == "eager" and mesh.shape["model"] > 1:
+            res["psum8"] = mesh_psum_check(torch, eng, mesh, rank)
+        del eng, top
+        gc.collect()
+        torch.cuda.empty_cache()
     res["cells"] = {cell.name: mesh_cell_run(torch, mesh, cell, label, rank)
                     for cell in MESH_CELLS if shape in cell.shapes}
     res["slice"] = mesh_slice_rank(torch, mesh, label)
@@ -4699,6 +4756,16 @@ def mesh_family_checks(label, shape, ranks, refs):
                 raise AssertionError(f"{name}: rank {r} launches "
                                      f"{rec['launches']} {gemv}, experts "
                                      f"{rec.get('experts_held')}")
+            # graphs on every cell but a replaying one; a step cut at its
+            # collectives at (1, 2), whole at (2, 1)
+            segs = set((rec["segments"] or {}).values())
+            if rec["cuda_graphs"] == cell.replay or (
+                    rec["cuda_graphs"] and not (
+                        segs == {1} if n_model == 1
+                        else min(segs) > 1)):
+                raise AssertionError(f"{name}: rank {r} graphs "
+                                     f"{rec['cuda_graphs']}, segments "
+                                     f"{rec['segments']}")
             if cell.replay and (rec["replay"]["max_margin"]
                                 > 2 * CHAOS_LOGIT_TOL):
                 raise AssertionError(f"{name}: rank {r} routes otherwise "
@@ -4731,7 +4798,8 @@ def mesh_family_checks(label, shape, ranks, refs):
             "decode_step_ms", "prefill_chunks", "prefill_chunk_ms",
             "collective_ms_per_step", "collective_wait_ms_per_step",
             "collective_calls", "peak_mem_gib", "launches", "lanes",
-            "layout")} | {"gemv_routes": g}
+            "layout", "cuda_graphs", "segments", "capture_s")}
+            | {"gemv_routes": g}
             | {k: rec[k] for k in ("experts_held", "replay") if k in rec}
             for rec, g in zip(recs, routes)]
         out[cell.name] = dict(
@@ -4743,11 +4811,13 @@ def mesh_family_checks(label, shape, ranks, refs):
             exact=sum(recs[0]["tokens"][rid] == w
                       for rid, w in want.items()),
             dtype=cell.dtype, replayed_routing=cell.replay, near_ties=ties,
+            **({"eager_because": MESH_REPLAY_EAGER} if cell.replay
+               else {}),
             experts_touched_summed=touched,
             steps_touching_as_one_device=same_touched,
             single={k: ref[k] for k in (
                 "init_s", "tok_s", "decode_step_ms", "prefill_chunk_ms",
-                "peak_mem_gib")})
+                "peak_mem_gib", "cuda_graphs")})
     return out
 
 
@@ -4784,21 +4854,37 @@ MESH_TRAIN_KW = dict(lr=3e-5, warmup_steps=1, total_steps=5, remat="block")
 MESH_TRAIN_TOL = dict(loss_rtol=1e-5, grad_norm_rtol=1e-5, change_rtol=1e-3)
 
 
+def mesh_graph_addresses(torch, eng):
+    """What a mesh engine's graphs replay by address: the pool, the lane
+    buffers, each step's segments, the buffers of the collectives
+    between them and the step's output."""
+    return dict(
+        pool={n: t.data_ptr() for n, t in eng._pool_tensors().items()},
+        lanes={n: t.data_ptr() for n, t in vars(eng.lanes).items()},
+        segments=[[id(seg) for seg in g.graph] for g in eng._graphs],
+        host=[[a.data_ptr() for h in g.host_steps for a in h.args
+               if isinstance(a, torch.Tensor)] for g in eng._graphs],
+        outputs=[g.output.data_ptr() for g in eng._graphs])
+
+
 def mesh_snapshot_rank(torch, mesh, label):
     """Cell ``mesh_snapshot`` on one rank: ``main``'s first 8 prompts on
-    4 lanes (4-bit weights, int8 pages), killed at the first restart
-    point (``_restart_point``), saved (``save_snapshot``: every rank
-    gathers, the first writes), run on to the end; a fresh rank engine
-    loads the checkpoint, restores it and runs to the end.  Tokens: the
-    uninterrupted run's, exactly or up to near ties."""
+    4 lanes (4-bit weights, int8 pages, graph segments), killed at the
+    first restart point (``_restart_point``), snapshotted in memory and
+    saved (``save_snapshot``: every rank gathers, the first writes), run
+    on to the end.  Then the same engine, both step graphs captured,
+    restores the in-memory snapshot in place (no new capture, every
+    address its graphs replay unchanged) and runs to the end again; and a
+    fresh rank engine loads the checkpoint, restores it and runs to the
+    end.  Tokens: the uninterrupted run's, exactly or up to near ties."""
     import torch.distributed as dist
 
     from repro_torch.ckpt import checkpoint as ckpt
 
     cfg = full_config()
     prompts = prompts_for(cfg, 16, 33, 300, SEED)[:MESH_REQUESTS]
-    kw = dict(n_slots=MESH_SNAP_SLOTS, max_new=MESH_NEW, cuda_graphs=False,
-              mesh=mesh, sharded=True)
+    kw = dict(n_slots=MESH_SNAP_SLOTS, max_new=MESH_NEW, mesh=mesh,
+              sharded=True)
     eng, params = build_engine(torch, mesh.device, cfg, 4, 8, **kw)
     reqs, k = _drive(eng, prompts, len(prompts), until=_restart_point)
     in_flight = sum(not r.done for r in reqs)
@@ -4806,6 +4892,7 @@ def mesh_snapshot_rank(torch, mesh, label):
     if mesh.rank == 0:
         shutil.rmtree(directory, ignore_errors=True)
     dist.barrier()
+    snap = eng.snapshot()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.save_snapshot(str(directory), k)
@@ -4814,7 +4901,28 @@ def mesh_snapshot_rank(torch, mesh, label):
         eng.step()
     want = {r.rid: r.output for r in reqs}
     n_pages = eng.alloc.n_pages
-    del eng
+    name = f"mesh_{label}_snapshot_rank{mesh.rank}"
+    check_graphs(f"{name}_uninterrupted", eng)
+    addresses = mesh_graph_addresses(torch, eng)
+    captures = len(eng.timings["capture"])
+    top = _recording_top(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.restore(snap)
+    torch.cuda.synchronize()
+    restore_in_place_s = time.perf_counter() - t0
+    got = _finish(f"{name}_in_place", eng, in_flight, MESH_NEW)
+    ties_in_place = near_ties(f"{name}_in_place",
+                              {rid: want[rid] for rid in got}, got, top)
+    exact_in_place = sum(got[r] == want[r] for r in got)
+    new_captures = len(eng.timings["capture"]) - captures
+    same_addresses = addresses == mesh_graph_addresses(torch, eng)
+    segments = mesh_graph_record(eng)["segments"]
+    if new_captures or not same_addresses:
+        raise AssertionError(f"{name}: the in-place restore captured "
+                             f"{new_captures} graphs, same addresses "
+                             f"{same_addresses}")
+    del eng, top, snap
     gc.collect()
     torch.cuda.empty_cache()
     fresh, _ = build_engine(torch, mesh.device, cfg, 4, 8, params=params,
@@ -4831,13 +4939,17 @@ def mesh_snapshot_rank(torch, mesh, label):
     fresh.restore({"arrays": arrays, "host": extra["host"]})
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
-    name = f"mesh_{label}_snapshot_rank{mesh.rank}"
     got = _finish(name, fresh, in_flight, MESH_NEW)
     ties = near_ties(name, {rid: want[rid] for rid in got}, got, top)
     rec = dict(k=k, in_flight=in_flight, save_s=save_s, load_s=load_s,
                restore_s=restore_s, n_pages=n_pages,
                layout=fresh.mesh_layout, pool=list(fresh.pages.k.shape),
                exact=sum(got[r] == want[r] for r in got), near_ties=ties,
+               restore_in_place_s=restore_in_place_s,
+               exact_in_place=exact_in_place,
+               near_ties_in_place=ties_in_place,
+               in_place_new_captures=new_captures,
+               in_place_same_addresses=same_addresses, segments=segments,
                tokens=want)
     del fresh, params, top
     gc.collect()
@@ -4848,8 +4960,8 @@ def mesh_snapshot_rank(torch, mesh, label):
 def mesh_chaos_run(torch, dev, mesh=None, params=None):
     """Cell ``mesh_chaos``'s traffic (``main``'s first 8 prompts on 4
     lanes, ``MESH_CHAOS``'s schedule, one retry a request) on this rank,
-    or on one device without ``mesh``: the injector's log, quarantines,
-    retries, finish reasons and tokens."""
+    or on one device without ``mesh``, on graphs: the injector's log,
+    quarantines, retries, finish reasons and tokens."""
     from repro_torch.ft import ChaosInjector
 
     cfg = full_config()
@@ -4857,8 +4969,7 @@ def mesh_chaos_run(torch, dev, mesh=None, params=None):
     chaos = ChaosInjector(**MESH_CHAOS)
     eng, params = build_engine(
         torch, dev, cfg, 4, 8, n_slots=MESH_SNAP_SLOTS, max_new=MESH_NEW,
-        params=params, cuda_graphs=False, chaos=chaos, mesh=mesh,
-        sharded=mesh is not None,
+        params=params, chaos=chaos, mesh=mesh, sharded=mesh is not None,
         serve_kw=dict(max_request_retries=MESH_CHAOS_RETRIES))
     top = _recording_top(eng)
     reqs = [eng.submit(p) for p in prompts]
@@ -5144,8 +5255,11 @@ def mesh_slice_checks(torch, dev, params, label, shape, ranks, refs):
         model=cfg.name, lanes=MESH_SNAP_SLOTS, requests=MESH_REQUESTS,
         k=snap[0]["k"], in_flight=snap[0]["in_flight"],
         layout=snap[0]["layout"], pool=snap[0]["pool"],
-        ranks=[{k: s[k] for k in ("save_s", "load_s", "restore_s",
-                                  "exact", "near_ties")} for s in snap],
+        ranks=[{k: s[k] for k in (
+            "save_s", "load_s", "restore_s", "exact", "near_ties",
+            "restore_in_place_s", "exact_in_place", "near_ties_in_place",
+            "in_place_new_captures", "in_place_same_addresses",
+            "segments")} for s in snap],
         one_device=dict(load_s=one_load_s, near_ties=one_ties,
                         exact=sum(got[r] == want[r] for r in got)))
     emit("mesh_snapshot", mesh=label, **out["snapshot"], card=CARD)
@@ -5252,15 +5366,17 @@ def mesh_slice_checks(torch, dev, params, label, shape, ranks, refs):
 
 def mesh_path(torch, dev, cfg, params, prompts):
     """Phase ``mesh``: the kernels at a rank's shapes, the single-device
-    eager engine on ``main``'s first prompts and on every family cell of
-    ``MESH_CELLS``, then the same traffic on each mesh of
-    ``MESH_SHAPES``, two rank processes on the one card (``gloo`` through
-    host memory; one rank a device, NCCL, where two or more are
-    visible), one spawn a mesh in which each rank serves ``main`` and
-    then its family cells in turn.  Every rank must launch the bit-plane
-    GEMV on its decode and tensor-core routes and both paged-attention
-    kernels, and return the same tokens, equal to the single-device
-    engine's up to near ties; the family cells as
+    eager engine on ``main``'s first prompts and the single-device
+    engine of every family cell of ``MESH_CELLS``, then the same traffic
+    on each mesh of ``MESH_SHAPES``, two rank processes on the one card
+    (``gloo`` through host memory), one spawn a mesh in which each rank
+    serves ``main`` with graph segments and then eagerly, then its family
+    cells in turn.  Every rank must launch the bit-plane GEMV on its
+    decode and tensor-core routes and both paged-attention kernels, run
+    ``2 + 2 * layers + 1`` segments a step at ``(1, 2)`` and one at
+    ``(2, 1)``, give its eager run's tokens and launches by route with
+    graphs, and return the same tokens as every rank, equal to the
+    single-device engine's up to near ties; the family cells as
     :func:`mesh_family_checks` says.  Then the slice's cells (PR 27) in
     the same spawn, after the family cells, each against its
     single-device reference (``mesh_slice_refs``, run before the spawn):
@@ -5284,33 +5400,60 @@ def mesh_path(torch, dev, cfg, params, prompts):
         t0 = time.perf_counter()
         ranks = run_mesh_ranks(shape)
         wall = time.perf_counter() - t0
-        got = dict(enumerate(ranks[0]["tokens"]))
+        graphs0 = ranks[0]["runs"]["graphs"]
+        got = dict(enumerate(graphs0["tokens"]))
+        # a (1, 2) step's collectives: the vocabulary lookup's sum, wo's
+        # and w_down's sums a layer, the logits' gather; none at (2, 1)
+        cuts = 2 + 2 * cfg.n_layers if shape[1] > 1 else 0
         for r in ranks:
-            if r["tokens"] != ranks[0]["tokens"]:
+            g, e = r["runs"]["graphs"], r["runs"]["eager"]
+            if g["tokens"] != graphs0["tokens"]:
                 raise AssertionError(f"mesh {label}: rank {r['rank']}'s "
                                      "tokens differ from rank 0's")
-            routes = route_counts("bitplane_gemv", r["route_launches"])
+            if g["tokens"] != e["tokens"]:
+                raise AssertionError(f"mesh {label}: rank {r['rank']}'s "
+                                     "graph tokens differ from its eager "
+                                     "run's")
+            if g["route_launches"] != e["route_launches"] or (
+                    g["launches"] != e["launches"]):
+                raise AssertionError(
+                    f"mesh {label}: rank {r['rank']}'s replays launched "
+                    f"{g['route_launches']}, its eager steps "
+                    f"{e['route_launches']}")
+            if not g["cuda_graphs"] or g["segments"] != {
+                    "decode": cuts + 1, "prefill": cuts + 1}:
+                raise AssertionError(f"mesh {label}: rank {r['rank']}'s "
+                                     f"graph segments {g['segments']}, "
+                                     f"wanted {cuts + 1} a step")
+            routes = route_counts("bitplane_gemv", g["route_launches"])
             if not (routes["decode"] and routes["tensor_core"]
-                    and all(r["launches"][k] for k in PAGED_KERNELS)):
+                    and all(g["launches"][k] for k in PAGED_KERNELS)):
                 raise AssertionError(f"mesh {label}: rank {r['rank']} "
-                                     f"launches {r['launches']} {routes}")
+                                     f"launches {g['launches']} {routes}")
         top = {}
-        for key, cand in ranks[0]["top"].items():
+        for key, cand in graphs0["top"].items():
             rid, i = map(int, key.split(":"))
             top[rid, i] = {int(t): v for t, v in cand.items()}
         ties = near_ties(f"mesh_{label}", want, got, top)
+        run_keys = (
+            "tok_s", "decode_steps", "decode_step_ms", "decode_step_ms_p50",
+            "prefill_chunks", "prefill_chunk_ms", "prefill_chunk_ms_p50",
+            "collective_ms_per_step", "collective_wait_ms_per_step",
+            "collective_share", "peak_mem_gib", "segments",
+            "graphs_captured", "capture_s")
         per_rank = [{k: r[k] for k in (
-            "rank", "coord", "device", "pool", "lanes", "init_s", "tok_s",
-            "decode_steps", "decode_step_ms", "prefill_chunks",
-            "prefill_chunk_ms", "collective_ms_per_step",
-            "collective_wait_ms_per_step", "collective_share",
-            "peak_mem_gib", "launches", "route_launches",
-            "gemv_decode_launches", "gemv_tensor_core_launches")}
+            "rank", "coord", "device", "pool", "lanes", "init_s")}
+            | {run: {k: r["runs"][run][k] for k in run_keys}
+               for run in ("graphs", "eager")}
+            | {k: r["runs"]["graphs"][k] for k in (
+                "launches", "route_launches", "gemv_decode_launches",
+                "gemv_tensor_core_launches")}
             for r in ranks]
         summary[label] = dict(
             transport=ranks[0]["transport"], layout=ranks[0]["layout"],
             ranks=per_rank, near_ties=ties,
             exact=sum(got[rid] == w for rid, w in want.items()),
+            graphs_equal_eager=True, segments_a_step=cuts + 1,
             requests=len(want), wall_s=wall,
             **({"psum8": [r["psum8"] for r in ranks]}
                if "psum8" in ranks[0] else {}))

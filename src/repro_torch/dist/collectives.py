@@ -23,8 +23,22 @@ their device.  Ranks sharing one card form a ``gloo`` group (NCCL refuses
 two ranks on one device); ``gloo`` takes every collective used here on
 CUDA tensors (``gloo_cuda_probe.py`` on the card: ``all_reduce``,
 ``all_gather_into_tensor`` and five more, torch 2.11) and moves them
-through host memory itself.  A collective is a host call either way, so
-a step that runs one cannot be captured in a CUDA graph.
+through host memory itself.  A ``gloo`` call is a host call, which a
+CUDA graph cannot hold.
+
+**Segment breaks.**  A serving step on a mesh is captured as a sequence
+of graphs instead (``serve/step_graph.py`` ``SegmentedStepGraph``), cut
+at its collectives.  While such a capture is open (:func:`cutting`),
+:func:`all_reduce` and :func:`all_gather` call no ``torch.distributed``:
+each one prepares its buffer in the current segment, hands the capture
+the host step that will run the collective on that buffer (the same
+``dist`` call on the same tensor), and goes on in the next segment, which
+captures the rest of the function.  A replay runs the segments in order
+with their host steps between them.  A group of one sums and gathers
+nothing and cuts nothing.  :func:`reduce_scatter` and the ring permute
+are not on the serving path and raise inside such a capture.  Nothing
+inside a capture synchronises the stream: the host step's wait for its
+segment's device work (``WAIT``) happens at replay.
 
 **Under autograd** (training on a mesh) the model code calls the
 differentiable forms at the end of this module: :func:`copy_to` ahead
@@ -35,7 +49,10 @@ pipeline stages.  Without autograd recording each is its plain call.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
+from typing import Callable, Optional
 
 import torch
 
@@ -50,21 +67,44 @@ SECONDS = [0.0]
 WAIT = [0.0]
 
 
+# the open segmented captures' cut functions, innermost last
+_CUTS: list = []
+
+
 def reset_seconds() -> None:
     SECONDS[0] = WAIT[0] = 0.0
+
+
+def backend() -> Optional[str]:
+    """The ``torch.distributed`` backend of this process's world (None
+    outside one)."""
+    import torch.distributed as dist
+
+    return dist.get_backend() if dist.is_initialized() else None
+
+
+@contextlib.contextmanager
+def cutting(cut: Callable[[Callable[[], None]], None]):
+    """Inside the block the collectives end the current graph segment:
+    each calls ``cut(host_step)`` in place of its ``torch.distributed``
+    call, where ``host_step()`` runs that call (timed, as outside) and
+    ``cut`` closes the segment, keeps the host step and opens the next."""
+    _CUTS.append(cut)
+    try:
+        yield
+    finally:
+        _CUTS.pop()
 
 
 def transport(mesh) -> str:
     """How the mesh's collectives travel, e.g. ``"gloo, 2 ranks on 1
     device"`` or ``"nccl, 4 ranks on 4 devices"``."""
-    import torch.distributed as dist
-
     if mesh.device.type == "cuda":
         n = min(mesh.size, torch.cuda.device_count())
         where = f"{n} device{'s' if n > 1 else ''}"
     else:
         where = "the CPU"
-    return f"{dist.get_backend()}, {mesh.size} ranks on {where}"
+    return f"{backend()}, {mesh.size} ranks on {where}"
 
 
 def _timed(call, x: torch.Tensor, *args, **kw):
@@ -75,6 +115,23 @@ def _timed(call, x: torch.Tensor, *args, **kw):
     call(*args, **kw)
     WAIT[0] += t1 - t0
     SECONDS[0] += time.perf_counter() - t1
+
+
+def _host_call(n: int, call, x: torch.Tensor, *args, **kw) -> None:
+    """Run the collective ``call`` on a group of ``n`` ranks now, or,
+    inside a segmented capture, hand it to the capture as the host step
+    between two segments (a group of one: no step and no cut)."""
+    if not _CUTS:
+        _timed(call, x, *args, **kw)
+    elif n > 1:
+        _CUTS[-1](functools.partial(_timed, call, x, *args, **kw))
+
+
+def _refuse_in_capture(what: str) -> None:
+    if _CUTS:
+        raise RuntimeError(
+            f"{what} inside a segmented graph capture: only all_reduce and "
+            "all_gather cut a serving step into segments")
 
 
 def _group_size(group) -> int:
@@ -105,7 +162,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         buf = x.to(torch.float32) if wide else x.clone()
         buf = buf.contiguous()
-        _timed(dist.all_reduce, buf, buf, op=rop, group=group)
+        _host_call(n, dist.all_reduce, buf, buf, op=rop, group=group)
         return buf.to(x.dtype)
 
 
@@ -125,7 +182,8 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         xt = x.movedim(dim, 0).contiguous()
         out = torch.empty((n * xt.shape[0],) + tuple(xt.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        _timed(dist.all_gather_into_tensor, xt, out, xt, group=group)
+        _host_call(n, dist.all_gather_into_tensor, xt, out, xt,
+                   group=group)
         return out.movedim(0, dim).contiguous()
 
 
@@ -138,6 +196,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = _group_size(group)
     if n == 1:
         return x
+    _refuse_in_capture("reduce_scatter")
     block = x.shape[dim] // n
     wide = x.dtype in (torch.bfloat16, torch.float16)
     out_bytes = _nbytes(x, torch.float32 if wide else None) // n
@@ -301,6 +360,7 @@ def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     n = _group_size(group)
     if n == 1:
         return x
+    _refuse_in_capture("the ring permute")
     with op_cost.collective("collective-permute", _nbytes(x), _nbytes(x)):
         P2P_CALLS[0] += 1
         if isinstance(group, DryGroup):

@@ -21,7 +21,7 @@ from repro_torch.serve.scheduler import (
     BudgetScheduler,
     PagedScheduler,
 )
-from repro_torch.serve.step_graph import StepGraph
+from repro_torch.serve.step_graph import SegmentedStepGraph, StepGraph
 
 __all__ = [
     "AdmissionRejected",
@@ -35,6 +35,7 @@ __all__ = [
     "PagedScheduler",
     "PrefixCache",
     "Request",
+    "SegmentedStepGraph",
     "ServeEngine",
     "ServeFrontend",
     "ShardedPageAllocator",

@@ -122,8 +122,17 @@ shard computes every lane) where the lanes do not divide, where a shard's
 range could not hold one ``max_len`` request, or with the prefix cache
 (a cached page may serve any lane).  ``mesh_layout`` says which.
 
-A step on a mesh runs host collectives (``gloo`` cannot be captured), so
-``cuda_graphs`` must be False there.  A snapshot on a mesh holds the pool
+On a CUDA device a mesh rank's steps are graphs too, in segments: a
+step's compute between two collectives is one captured graph, and the
+host runs each collective on ``gloo`` between the replays of the
+segments around it, on the buffers they read and write
+(:class:`~repro_torch.serve.step_graph.SegmentedStepGraph`).  A step on
+a mesh whose model axis has one rank runs no collective inside it and is
+one segment; the logits' gather over the data axes stays outside the
+graphs, before the host reads them.  On NCCL (one card a rank)
+``cuda_graphs`` must be False: the whole step captured over NCCL is
+``ROADMAP.md`` queue 1 item 8 (e)'s remaining part.  A snapshot on a
+mesh holds the pool
 at one device's names and shape (every rank gathers it: heads over
 ``model``, page ranges over data) and every rank returns the same one;
 a restore cuts each rank's block back out, so a snapshot moves between a
@@ -193,7 +202,7 @@ from repro_torch.serve.scheduler import (
     BudgetScheduler,
     PagedScheduler,
 )
-from repro_torch.serve.step_graph import StepGraph
+from repro_torch.serve.step_graph import SegmentedStepGraph, StepGraph
 
 logger = logging.getLogger(__name__)
 
@@ -285,15 +294,16 @@ def _check_slots_options(scfg: ServeConfig, prefix_cache: bool,
                        "(no page pool)")
 
 
-def _check_mesh_options(cuda_graphs: bool) -> None:
-    """What a mesh does not serve yet raises, naming where it is queued."""
-    if cuda_graphs:
+def _check_mesh_options(cuda_graphs: bool, backend: Optional[str]) -> None:
+    """What a mesh does not serve yet raises, naming where it is queued:
+    graphs over ``backend`` ``nccl``."""
+    if cuda_graphs and backend == "nccl":
         raise ValueError(
-            "cuda_graphs=True on a mesh: a step runs torch.distributed "
-            "collectives, which a CUDA graph cannot capture over gloo (the "
-            "transport of ranks sharing one card); pass cuda_graphs=False. "
-            "Graphs on a mesh wait for NCCL over two or more cards "
-            "(ROADMAP.md queue 1 item 8 (e))")
+            "cuda_graphs=True on an NCCL mesh: graphs on a mesh are cut at "
+            "its collectives, which run as host calls on gloo between the "
+            "segments; the whole step captured over NCCL on two or more "
+            "cards is not ported (ROADMAP.md queue 1 item 8 (e)); pass "
+            "cuda_graphs=False")
 
 
 def _host_tensor(a) -> torch.Tensor:
@@ -335,7 +345,8 @@ class ServeEngine:
     graph (the default) or eagerly (False); the params and the pool or
     cache are captured by address and must not be rebound.  ``mesh``:
     serve as this rank of a mesh (see the module docstring); its
-    ``device`` is the default device, and ``cuda_graphs`` must be False.
+    ``device`` is the default device; its steps' graphs are segmented at
+    the collectives, and ``cuda_graphs`` must be False on NCCL.
     ``timings`` records the host-clock seconds of every prefill chunk (in
     slots mode, every prompt's sequential prefill) and decode step, each
     measured up to the host sync that reads its logits, and apart from
@@ -395,7 +406,7 @@ class ServeEngine:
             # the allocator's page_grant site included
             chaos.obs = self.obs
         if mesh is not None:
-            _check_mesh_options(cuda_graphs)
+            _check_mesh_options(cuda_graphs, collectives.backend())
             if device is None:
                 device = mesh.device
         self.device = resolve_device(device)
@@ -538,10 +549,14 @@ class ServeEngine:
 
     def _step_fn(self, fn):
         """``fn`` as the engine runs it: a :class:`StepGraph` when graphs
-        are on, else ``fn`` itself."""
+        are on (on a mesh a :class:`SegmentedStepGraph`, cut at the
+        collectives), else ``fn`` itself.  Every step's graphs share the
+        engine's pool; each call replays all of a step's segments before
+        another step runs, as a shared pool needs."""
         if not self.cuda_graphs:
             return fn
-        graph = StepGraph(fn, pool=self._graph_pool)
+        kind = StepGraph if self.mesh is None else SegmentedStepGraph
+        graph = kind(fn, pool=self._graph_pool)
         self._graphs.append(graph)
         return graph
 
@@ -1082,7 +1097,9 @@ class ServeEngine:
         decoding reads none.
 
         On a mesh each rank writes its block of the snapshot's pool (its
-        KV heads, its data shard's pages), so a snapshot restores across
+        KV heads, its data shard's pages) in place as well, so its graph
+        segments, and the buffers their collectives share, replay on; a
+        snapshot restores across
         placements: mesh and one device either way, where the geometry
         agrees.  Pages this engine holds back (a data-sharded pool's
         per-shard null pages) leave the snapshot's free list; a lane that

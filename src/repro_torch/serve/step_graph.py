@@ -17,16 +17,31 @@ rebound after the capture.
 The launch counters of ``kernels/_build.py`` run in Python, so only the
 capture would count: the capture's counts are taken back out and added
 again on every replay (``_build.recording`` / ``add_launches``).
+
+**On a mesh** (:class:`SegmentedStepGraph`) a step runs collectives, and
+on ``gloo`` (ranks sharing one card) a collective is a host call that no
+graph can hold.  The step is captured as graph segments cut at its
+collectives instead (``dist/collectives.py`` ``cutting``): a step with k
+collectives on groups of more than one rank is k + 1 graphs, and a
+replay runs them in order with each collective between them, on the
+host, on the buffer its segment wrote.  The segments of a step share one
+memory pool (the engine's): a tensor one segment writes and a later one
+reads lives at the address both captured, because graphs that share a
+pool are safe when they replay in the order they were captured.  The
+engine's steps never interleave: each step replays all its segments
+before another step's first.  The host steps hold the collectives'
+buffers, so they live as long as the graph.
 """
 
 from __future__ import annotations
 
 import gc
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.kernels import _build
 
 
@@ -66,9 +81,12 @@ class StepGraph:
             return self.fn()
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        self._replay()
         _build.add_launches(self.launches)
         return self.output
+
+    def _replay(self) -> None:
+        self.graph.replay()
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
@@ -83,4 +101,98 @@ class StepGraph:
             if collecting:
                 gc.enable()
         self.graph, self.output, self.launches = graph, output, launches
+        self.capture_seconds = time.perf_counter() - t0
+
+
+class SegmentedStepGraph(StepGraph):
+    """``fn()``, a step of a mesh rank, as graph segments with its
+    collectives run by the host between their replays (the module
+    docstring).
+
+    Calls go as :class:`StepGraph`'s: the first runs ``fn`` eagerly, with
+    its collectives; the second captures every segment and replays them;
+    later calls replay.  ``graph`` is then the list of segments and
+    ``host_steps`` the collectives between them (``segments`` = ``len(
+    host_steps) + 1``); ``launches`` sums the segments' launches, added
+    once a replay.  The capture synchronises the device once, before its
+    first segment, and nothing inside it does: the collectives run only
+    at replay, each after waiting for its segment's device work.  A
+    capture that fails, in any segment, raises with the counts as they
+    were; the step never falls back to eager.
+    """
+
+    # the side stream every segment is captured on, made at the first
+    # capture (one process a rank, one device), as ``torch.cuda.graph``
+    # keeps its default capture stream
+    capture_stream = None
+
+    def __init__(self, fn: Callable[[], Any], *, pool=None):
+        super().__init__(fn, pool=pool)
+        self.host_steps: List[Callable[[], None]] = []
+
+    @property
+    def segments(self) -> int:
+        """Graph segments a replay runs (0 before the capture)."""
+        return 0 if self.graph is None else len(self.graph)
+
+    def _replay(self) -> None:
+        for graph, step in zip(self.graph, self.host_steps + [None]):
+            graph.replay()
+            if step is not None:
+                step()
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        pool = (self.pool if self.pool is not None
+                else torch.cuda.graph_pool_handle())
+        graphs: List[torch.cuda.CUDAGraph] = []
+        steps: List[Callable[[], None]] = []
+        open_ = [False]
+
+        def begin():
+            graph = torch.cuda.CUDAGraph()
+            graphs.append(graph)
+            graph.capture_begin(pool=pool)
+            open_[0] = True
+
+        def end():
+            open_[0] = False
+            graphs[-1].capture_end()
+
+        def cut(host_step):
+            end()
+            steps.append(host_step)
+            begin()
+
+        # as torch.cuda.graph prepares a capture, once for all segments
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        if SegmentedStepGraph.capture_stream is None:
+            SegmentedStepGraph.capture_stream = torch.cuda.Stream()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.recording() as launches, \
+                    torch.cuda.stream(SegmentedStepGraph.capture_stream), \
+                    collectives.cutting(cut):
+                begin()
+                try:
+                    output = self.fn()
+                except BaseException:
+                    if open_[0]:
+                        # end the broken capture; its own error is the
+                        # one that matters
+                        open_[0] = False
+                        try:
+                            graphs[-1].capture_end()
+                        except RuntimeError:
+                            pass
+                    raise
+                end()
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph, self.host_steps = graphs, steps
+        self.output, self.launches = output, launches
         self.capture_seconds = time.perf_counter() - t0

@@ -60,7 +60,11 @@ zeroes its private pages in place, and the engine's graphs, captured
 before it, replay over them and give a clean engine's tokens.  An
 in-place ``ServeEngine.restore`` into an engine with captured graphs
 (``-k restore``) keeps the pool's and the lane buffers' addresses,
-captures nothing, and gives the uninterrupted run's tokens.
+captures nothing, and gives the uninterrupted run's tokens.  On a mesh
+(``-k mesh_graph``), two rank processes over ``gloo`` serve with each
+step's graph cut into segments at its collectives
+(``serve.SegmentedStepGraph``): the eager mesh engine's tokens and
+launches, paged and in slots mode.
 
 The dense configs' shapes (``-k dense_groups``): both paged-attention
 kernels at G 2 (gemma3-27b, 16 KV heads) and G 12 (starcoder2-15b,
@@ -1851,6 +1855,102 @@ def test_mesh_sharded_gemv_two_ranks(cuda_device, tmp_path):
         for case, rec in res.items():
             want = "col" if case.startswith("wq") else "row"
             assert rec["shard"] == want and rec["ok"], (r, case, rec)
+
+
+MESH_GRAPH_RANK = """
+import json, os, sys
+sys.path.insert(0, {src!r})
+import dataclasses
+import torch
+from repro_torch.config import EngineConfig, ServeConfig, get_reduced
+from repro_torch.dist import close_rank, init_rank, make_mesh
+from repro_torch.kernels import _build
+from repro_torch.models import init_params
+from repro_torch.serve import ServeEngine
+
+rank, out = int(sys.argv[1]), sys.argv[2]
+shape = tuple(int(v) for v in sys.argv[3].split("x"))
+init_rank(rank, 2, os.path.join(out, "store"), backend="gloo")
+mesh = make_mesh(shape, ("data", "model"))
+torch.cuda.set_device(mesh.device)
+cfg = get_reduced("qwen2.5-3b")
+params = init_params(cfg, torch.Generator(device=mesh.device).manual_seed(0),
+                     engine_bits=4)
+prompts = [list(range(1 + i, 4 + 3 * i)) for i in range(5)]
+res = {{}}
+for mode in ("paged", "slots"):
+    kv_bits = 8 if mode == "paged" else 0
+    scfg = ServeConfig(max_new_tokens=6, page_size=4, prefill_chunk=5,
+                       engine=EngineConfig(weight_bits=4, kv_bits=kv_bits,
+                                           sharded=True))
+    for graphs in (True, False):
+        eng = ServeEngine(cfg, params, scfg, n_slots=4, max_len=48,
+                          mode=mode, cuda_graphs=graphs, mesh=mesh)
+        before = {{**_build.LAUNCHES, **_build.ROUTE_LAUNCHES}}
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        moved = {{k: v - before[k] for k, v in
+                 {{**_build.LAUNCHES, **_build.ROUTE_LAUNCHES}}.items()
+                 if v != before[k]}}
+        res[f"{{mode}}/{{graphs}}"] = dict(
+            tokens=[r.output for r in reqs], launches=moved,
+            graphs=eng.cuda_graphs,
+            segments=[g.segments for g in eng._graphs],
+            captures=len(eng.timings["capture"]),
+            collectives=len(eng.timings["collectives"]))
+        del eng
+with open(os.path.join(out, f"rank{{rank}}.json"), "w") as f:
+    json.dump(res, f)
+close_rank()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["1x2", "2x1"])
+def test_mesh_graph_engine_tokens_match_eager(cuda_device, tmp_path, shape):
+    """Two rank processes on the card (``gloo``) serve reduced qwen2.5-3b
+    (4-bit weights through the ``sharded`` backend) paged and in slots
+    mode, with segmented graphs and eagerly: every rank's tokens equal
+    the eager mesh engine's exactly, and the replays count the launches,
+    by kernel and by route, that the eager steps count.  At ``(1, 2)`` a
+    step's collectives (the vocabulary lookup's sum, two row-parallel
+    sums a layer, the logits' gather) cut it into segments; at ``(2, 1)``
+    the model group has one rank and a step is one segment."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    prog = tmp_path / "rank.py"
+    prog.write_text(textwrap.dedent(MESH_GRAPH_RANK.format(src=src)))
+    procs = [subprocess.Popen([sys.executable, str(prog), str(r),
+                               str(tmp_path), shape],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    res = [json.loads((tmp_path / f"rank{r}.json").read_text())
+           for r in range(2)]
+    cfg = get_reduced("qwen2.5-3b")
+    # the embedding's sum, wo's and w_down's sums a layer, the gather
+    cuts = 2 + 2 * cfg.n_layers if shape == "1x2" else 0
+    for r, rec in enumerate(res):
+        for mode in ("paged", "slots"):
+            g, e = rec[f"{mode}/True"], rec[f"{mode}/False"]
+            assert g["graphs"] and not e["graphs"]
+            assert g["tokens"] == e["tokens"], (r, mode)
+            assert all(len(t) == 6 for t in g["tokens"])
+            assert g["tokens"] == res[0][f"{mode}/True"]["tokens"]
+            assert g["launches"] == e["launches"], (r, mode)
+            assert g["launches"]["bitplane_gemv/decode"] > 0
+            assert g["segments"] == [cuts + 1] * len(g["segments"])
+            assert g["captures"] == len(g["segments"])
+            assert g["collectives"] == e["collectives"]
 
 
 # the full-sequence path on a mesh (``forward`` / ``prefill(mesh=)``):

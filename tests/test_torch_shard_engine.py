@@ -134,10 +134,12 @@ def model():
     return cfg, params, tcfg, tparams
 
 
-def test_what_a_mesh_refuses(model):
-    """Graphs on a mesh raise (``gloo`` collectives cannot be captured),
-    as do packed weights without the sharded backend; chaos injection
-    builds.  Slots mode and the moe family build and step: on a one-rank
+def test_what_a_mesh_refuses(model, monkeypatch):
+    """Graphs on an NCCL mesh raise, naming ROADMAP queue 1 item 8 (e)
+    (on ``gloo`` they are segmented at the collectives; the 8-rank test's
+    ``(2, 4)`` engine takes ``cuda_graphs=True`` and serves JAX's tokens,
+    eagerly on the CPU), as do packed weights without the sharded
+    backend; chaos injection builds.  Slots mode and the moe family build and step: on a one-rank
     mesh (no collective runs) they give one device's tokens, and a paged
     engine's snapshot there is one device's, which restores into a fresh
     one-rank engine."""
@@ -155,8 +157,12 @@ def test_what_a_mesh_refuses(model):
                                             tconfig.EngineConfig())),
             device="cpu", mesh=mesh, **kw)
 
-    with pytest.raises(ValueError, match="cannot capture"):
-        build(cuda_graphs=True)
+    from repro_torch.dist import collectives
+
+    with monkeypatch.context() as nccl:
+        nccl.setattr(collectives, "backend", lambda: "nccl")
+        with pytest.raises(ValueError, match=r"item 8 \(e\)"):
+            build(cuda_graphs=True)
     with pytest.raises(ValueError, match="sharded backend"):
         build(engine=tconfig.EngineConfig(weight_bits=8,
                                           backend="reference"))
@@ -343,7 +349,7 @@ cfg, params = case["cfg"], case["params"]
 
 
 def serve(mesh, kv_bits=0, weight_bits=0, n_slots=4, n_pages=None,
-          max_new=6, prompts=None, prefix_cache=False):
+          max_new=6, prompts=None, prefix_cache=False, cuda_graphs=False):
     ecfg = EngineConfig(kv_bits=kv_bits, weight_bits=weight_bits,
                         backend="reference", sharded=bool(weight_bits))
     eng = ServeEngine(cfg, params, ServeConfig(max_new_tokens=max_new,
@@ -351,7 +357,7 @@ def serve(mesh, kv_bits=0, weight_bits=0, n_slots=4, n_pages=None,
                       n_slots=n_slots, max_len=32, mode="paged",
                       page_size=4, n_pages=n_pages, prefill_chunk=3,
                       prefix_cache=prefix_cache, device="cpu",
-                      cuda_graphs=False, mesh=mesh)
+                      cuda_graphs=cuda_graphs, mesh=mesh)
     for p in prompts or case["prompts"]:
         eng.submit(list(p))
     toks = [r.output for r in sorted(eng.run(), key=lambda r: r.rid)]
@@ -368,9 +374,11 @@ for name, kw in case["serve"].items():
     if name == "kv0":
         out["snapshot_pool"] = tuple(eng.snapshot()["arrays"]["pages/k"].shape)
 m24 = make_mesh((2, 4), ("data", "model"), device="cpu")
-eng, toks = serve(m24)
+# a gloo mesh takes cuda_graphs=True (eager on the CPU)
+eng, toks = serve(m24, cuda_graphs=True)
 out["serve"]["mesh_2x4"] = dict(tokens=toks, layout=eng.mesh_layout,
-                                pool=tuple(eng.pages.k.shape))
+                                pool=tuple(eng.pages.k.shape),
+                                graphs=eng.cuda_graphs)
 put(out)
 """
 
@@ -462,7 +470,9 @@ def test_sharded_backend_and_mesh_serving_on_8_ranks(model, tmp_path):
     assert s["preempt"]["preemptions"] > 0
     assert s["prefix"]["layout"]["whole_over_data"]
     assert s["w8"]["backend"] == "sharded"
-    # (2, 4): the 2 KV heads stay whole on every rank
+    # (2, 4): the 2 KV heads stay whole on every rank; built with
+    # cuda_graphs=True on gloo, it served JAX's tokens eagerly on the CPU
     assert s["mesh_2x4"]["layout"]["kv_heads"] == 2
+    assert s["mesh_2x4"]["graphs"] is False
     # a snapshot gathers the pool to one device's shape on every rank
     assert all(out["snapshot_pool"][1:4] == (36, 4, 2) for out in res)
