@@ -1,0 +1,119 @@
+"""Whether what the timed path served is correct.
+
+Once the window has closed and the engine is freed, a sample of the
+requests finished in the window, drawn from the seed and holding the
+longest, is scored by the plain reference (``reference/model.py``), which
+runs each prompt with its served tokens in the configuration's
+precision.  Two numbers are compared, each held to the cell's limit
+(``cells/<workload>.json``):
+
+- ``max_gap``: at every served position, the gap by which the served
+  token's logit lies below the reference's best; the widest.  Decoding
+  is greedy, so a served token that is not the reference's best can only
+  be a near tie.  An altered token, or a lane served another lane's
+  logits, reads far over it.
+- ``logit_rms_err``: at the positions whose logits the client kept
+  (``client.py``: each request's last prompt position and a decode
+  position a step in turn), the root mean square, over those positions
+  and the vocabulary, of the program's logits less the reference's.  It
+  reads the precision of the whole step: a linear fed float8 reads
+  several times over it where ``max_gap`` moves less.
+
+``control=True`` also reads the control: the reference with float8
+inputs to every linear, whose top token at each position is scored in
+the reference's logits (``control_max_gap``) and whose logits at the kept
+positions are held against the reference's (``control_logit_rms_err``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from servebench.reference import model as reference
+
+
+def finished_in_window(records, t0: float, t1: float) -> List:
+    return [r for r in records
+            if r.finished is not None and t0 < r.finished <= t1
+            and r.req.finish_reason == "length" and r.req.output]
+
+
+def sample(records, t0: float, t1: float, seed: int, budget: int) -> List:
+    """The longest request finished in the window (most served tokens),
+    then others in an order drawn from ``seed`` while their prompts and
+    served tokens stay within ``budget`` tokens."""
+    done = finished_in_window(records, t0, t1)
+    if not done:
+        return []
+
+    def size(r):
+        return len(r.req.prompt) + len(r.req.output)
+
+    longest = max(done, key=lambda r: (len(r.req.output), size(r)))
+    chosen, total = [longest], size(longest)
+    rest = [r for r in done if r is not longest]
+    for i in np.random.default_rng([int(seed), 17]).permutation(len(rest)):
+        if total + size(rest[i]) <= budget:
+            chosen.append(rest[i])
+            total += size(rest[i])
+    return chosen
+
+
+def kept_rows(rec, logits: np.ndarray):
+    """The rows of the program's logits that the client kept at served
+    positions of ``rec`` (each predicting a served token), in position
+    order, copied out of the client's table: ``[(position, row)]``."""
+    lo = len(rec.req.prompt) - 1
+    hi = len(rec.req.prompt) + len(rec.req.output) - 1
+    return [(pos, torch.from_numpy(np.array(logits[row])))
+            for pos, row in sorted(rec.logit_rows) if lo <= pos < hi]
+
+
+def _rms_err(program: torch.Tensor, ref: torch.Tensor) -> float:
+    """The root mean square of ``program - ref`` over every row and
+    column."""
+    d = program.to(torch.float32) - ref.to(torch.float32)
+    return float(torch.sqrt(torch.mean(d * d)))
+
+
+def compare(model: Dict, engine: Dict, seed: int, chosen, device,
+            control: bool = False) -> Dict[str, float]:
+    """The numbers over ``chosen`` (each with ``req.prompt``,
+    ``req.output`` and ``rows``, from :func:`kept_rows`), with how many
+    tokens and kept rows were compared; with ``control`` the control's
+    too."""
+    seqs = [list(r.req.prompt) + list(r.req.output) for r in chosen]
+    positions = [range(len(r.req.prompt) - 1, len(s) - 1)
+                 for r, s in zip(chosen, seqs)]
+    keep = [[pos for pos, _ in r.rows] for r in chosen]
+    rows = [r.rows for r in chosen if r.rows]
+    low = None
+    if control:
+        low = reference.score(model, engine, seed, seqs, positions, device,
+                              act_format="fp8", keep=keep)
+    ref = reference.score(model, engine, seed, seqs, positions, device,
+                          keep=keep,
+                          extra=None if low is None
+                          else [rec["top"].tolist() for rec in low])
+    program = torch.cat([torch.stack([row for _, row in r]) for r in rows]
+                        ) if rows else None
+    ref_rows = torch.cat([rec["logits"] for rec, k in zip(ref, keep) if k]
+                         ) if rows else None
+    out = {"max_gap": max(float((r["best"] - r["next_logit"]).max())
+                          for r in ref),
+           "logit_rms_err": (None if program is None
+                             else _rms_err(program, ref_rows)),
+           "logit_rows": 0 if program is None else len(program),
+           "compared_tokens": sum(len(p) for p in positions),
+           "compared_requests": len(chosen)}
+    if control:
+        out["control_max_gap"] = max(
+            float((r["best"] - r["extra_logit"]).max()) for r in ref)
+        if rows:
+            low_rows = torch.cat([rec["logits"]
+                                  for rec, k in zip(low, keep) if k])
+            out["control_logit_rms_err"] = _rms_err(low_rows, ref_rows)
+    return out
