@@ -27,14 +27,14 @@ Typical use::
 ``enable(trace=False)`` keeps metrics, timelines and the ledger but
 skips trace-event collection; ``enable(annotations=True)`` additionally
 wraps each prefill / decode step in a ``torch.profiler.record_function``
-range, so host spans line up with a device profile.  The surface is the
+range, and inside it its launch (``<step>.launch``) and the wait for its
+logits (``<step>.wait``), so host spans line up with a device profile;
+with annotations off nothing opens a profiler range.  The surface is the
 JAX package's ``repro.obs`` (its ``jax_annotations`` is ``annotations``
 here).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 from repro_torch.obs import clock
 from repro_torch.obs import costs
@@ -86,7 +86,6 @@ __all__ = [
     "enable",
     "fork_cost",
     "gemv_cost",
-    "global_registry",
     "linear_specs",
     "model_dims",
     "prefill_chunk_costs",
@@ -101,7 +100,6 @@ __all__ = [
 enabled = False
 _trace = True
 _annotations = False
-_global_registry: Optional[MetricsRegistry] = None
 
 
 def enable(trace: bool = True, annotations: bool = False) -> None:
@@ -123,12 +121,3 @@ def telemetry(clock_fn=None):
     if not enabled:
         return NULL_TELEMETRY
     return Telemetry(clock_fn, trace=_trace, annotations=_annotations)
-
-
-def global_registry() -> MetricsRegistry:
-    """A process-wide registry for code with no engine in hand.  Created
-    lazily; survives enable()/disable() flips."""
-    global _global_registry
-    if _global_registry is None:
-        _global_registry = MetricsRegistry()
-    return _global_registry

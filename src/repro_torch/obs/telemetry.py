@@ -53,7 +53,9 @@ class Telemetry:
     and timelines but skips Chrome-event collection;
     ``annotations=True`` additionally wraps each prefill / decode step
     (its replay and the host read of its logits) in a
-    ``torch.profiler.record_function`` range.  Finished timelines are
+    ``torch.profiler.record_function`` range, with ``<name>.launch`` (the
+    step call) and ``<name>.wait`` (the logits read) inside it; without
+    annotations no range opens.  Finished timelines are
     kept in a bounded deque (``max_timelines``) so week-long runs do not
     grow host memory.
     """

@@ -20,7 +20,14 @@ Timestamps are microseconds on the telemetry clock, relative to tracer
 construction, so host spans line up with each other exactly; with
 ``annotations`` enabled the same dispatch sites also carry
 ``torch.profiler.record_function`` ranges so the host timeline can be
-aligned with a device profile captured by ``torch.profiler``.
+aligned with a device profile captured by ``torch.profiler``.  The
+export's ``otherData["clock_anchor"]`` places the trace on the
+profiler's timebase without any range: the tracer's start read at once
+on ``time.perf_counter`` (``perf_counter_s``) and in Unix nanoseconds
+on the real-time clock (``profiler_unix_ns``), the timebase to which
+``torch.profiler`` converts its events.  On the default clock
+(``perf_counter``) an event at ``ts`` µs lies at ``profiler_unix_ns +
+ts * 1e3``.
 
 The event buffer is bounded (``max_events``): a runaway run drops
 events past the cap (counted in ``dropped``) instead of eating the
@@ -30,6 +37,7 @@ host's memory — the exported metadata records the truncation.
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, List, Optional
 
 # fixed track ids: lanes are 1..n_slots, service tracks sit far above
@@ -48,6 +56,12 @@ class ChromeTracer:
 
     def __init__(self, clock, pid: int = 1, max_events: int = 500_000):
         self._clock = clock
+        # the anchor: the start on the profiler's timebase (Unix ns, the
+        # real-time clock its events are converted to) and on perf_counter
+        # (the mean of a reading before and one after)
+        before = time.perf_counter()
+        self._t0_unix_ns = time.time_ns()
+        self._t0_perf = (before + time.perf_counter()) / 2
         self._t0 = clock()
         self.pid = pid
         self.max_events = max_events
@@ -114,7 +128,10 @@ class ChromeTracer:
         return {
             "traceEvents": list(self.events),
             "displayTimeUnit": "ms",
-            "otherData": {"dropped_events": self.dropped},
+            "otherData": {"dropped_events": self.dropped,
+                          "clock_anchor": {
+                              "perf_counter_s": self._t0_perf,
+                              "profiler_unix_ns": self._t0_unix_ns}},
         }
 
     def write(self, path: str) -> str:

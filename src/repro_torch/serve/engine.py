@@ -43,6 +43,22 @@ counterpart of the JAX package's ``jax.jit`` of ``_dec``, ``_pf`` and
 ``_step``.  ``cuda_graphs=False`` runs them eagerly, as
 ``jax.disable_jit()`` would; on the CPU they always run eagerly.
 
+**Step anatomy** (``ServeEngine.timings``, always on, on
+``time.perf_counter``, never the injected clock): every ``step()``'s host
+seconds, and for each part (a paged prefill chunk, a slots prompt's
+prefill, a decode step) its host seconds, the host seconds inside its
+step calls (``_launch``: the graph launch and the launch counters; on a
+mesh every segment and the host collectives between them) and, on a
+card, two device readings from timing events: from an event recorded on
+the stream at the part's start to the step's first node (``_start``: the
+gap the lane loads and the launch open before the step runs), and from
+that node to the step's last (``_device``).  The step's events are its
+:class:`~repro_torch.serve.step_graph.MarkedStep` pair, captured into
+its graph; a slots prompt's prefill replays the step once a token, so
+its ``_device`` runs from an event recorded before its first step call,
+as on the eager path.  The events are read after the part's logits
+synchronise; no reading adds a sync.
+
 **Telemetry** (:mod:`repro_torch.obs`): with ``repro_torch.obs``
 enabled, or an explicit ``telemetry=``, every step is framed into admit /
 prefill / decode phases and every request transition, prefill chunk and
@@ -202,7 +218,11 @@ from repro_torch.serve.scheduler import (
     BudgetScheduler,
     PagedScheduler,
 )
-from repro_torch.serve.step_graph import SegmentedStepGraph, StepGraph
+from repro_torch.serve.step_graph import (
+    MarkedStep,
+    SegmentedStepGraph,
+    StepGraph,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -354,7 +374,13 @@ class ServeEngine:
     audit (``"audit"``); on a mesh, the seconds inside collectives
     (``"collectives"``) and waiting for the device before them
     (``"collective_wait"``) up to each logits read (a step; in slots
-    mode, a prompt's sequential prefill too).
+    mode, a prompt's sequential prefill too).  Beside ``"prefill"`` and
+    ``"decode"``, index for index, ``"<part>_launch"`` (host seconds
+    inside the part's step calls) and, on a card only,
+    ``"<part>_start"`` and ``"<part>_device"`` (device seconds; the
+    module docstring's step anatomy); ``"step"`` holds every ``step()``'s
+    host seconds, empty steps included.  Graph captures are left out of
+    each.
     """
 
     def __init__(
@@ -441,11 +467,22 @@ class ServeEngine:
         self._retry: Dict[int, RestartPolicy] = {}
         self._errored_step: List[Request] = []
         self.obs.attach_engine(n_slots, self.mode)
-        self.timings: Dict[str, List[float]] = {"prefill": [], "decode": [],
-                                                "capture": [], "audit": [],
-                                                "collectives": [],
-                                                "collective_wait": []}
+        self.timings: Dict[str, List[float]] = {
+            key: [] for key in (
+                "prefill", "prefill_launch", "prefill_start",
+                "prefill_device", "decode", "decode_launch", "decode_start",
+                "decode_device", "step", "capture", "audit", "collectives",
+                "collective_wait")}
         self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        # the step anatomy's device events (card only): each part's start,
+        # and the start of a part that calls its step more than once; each
+        # step function's pair, by the parts that run it
+        self._part_start = self._part_first = self._stream = None
+        if self.device.type == "cuda":
+            self._part_start = torch.cuda.Event(enable_timing=True)
+            self._part_first = torch.cuda.Event(enable_timing=True)
+        self._marks: Dict[str, MarkedStep] = {}
+        self._launch_s = 0.0
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.cuda_graphs else None)
         self._graphs: List[StepGraph] = []
@@ -517,11 +554,11 @@ class ServeEngine:
         self._decode_paged = self._step_fn(lambda: decode_step_paged(
             params, pages, lanes.block_tables, lanes.pos, lanes.active,
             lanes.tokens, cfg, plan, attn_backend=abk,
-            expert_counts=counts["decode"], mesh=mesh))
+            expert_counts=counts["decode"], mesh=mesh), "decode")
         self._prefill_paged = self._step_fn(lambda: _prefill_chunk_fn(
             params, pages, lanes.block_tables, lanes.chunk_tokens,
             lanes.pos0, lanes.seq_lens, cfg, plan, attn_backend=abk,
-            expert_counts=counts["prefill"], mesh=mesh))
+            expert_counts=counts["prefill"], mesh=mesh), "prefill")
         # the cost ledger's tables: the steps' shapes are fixed at
         # construction, so one table per step kind prices every step.
         # Built at the first charged step; with obs off they never exist.
@@ -545,14 +582,19 @@ class ServeEngine:
             self.mesh
         self._slots_step = self._step_fn(lambda: decode_step(
             params, cache, lanes.tokens, cfg, plan, attn_backend=abk,
-            active=lanes.active, mesh=mesh)[0])
+            active=lanes.active, mesh=mesh)[0], "prefill", "decode")
 
-    def _step_fn(self, fn):
+    def _step_fn(self, fn, *parts: str):
         """``fn`` as the engine runs it: a :class:`StepGraph` when graphs
         are on (on a mesh a :class:`SegmentedStepGraph`, cut at the
-        collectives), else ``fn`` itself.  Every step's graphs share the
-        engine's pool; each call replays all of a step's segments before
-        another step runs, as a shared pool needs."""
+        collectives), else ``fn`` itself; on a card ``fn`` runs between
+        its :class:`MarkedStep` events, the device marks of ``parts``.
+        Every step's graphs share the engine's pool; each call replays
+        all of a step's segments before another step runs, as a shared
+        pool needs."""
+        if self.device.type == "cuda":
+            fn = MarkedStep(fn)
+            self._marks.update(dict.fromkeys(parts, fn))
         if not self.cuda_graphs:
             return fn
         kind = StepGraph if self.mesh is None else SegmentedStepGraph
@@ -731,6 +773,7 @@ class ServeEngine:
         quarantined ones included.  Framed for the telemetry: a step span
         on the engine track, the step counter and its duration."""
         t0 = self.obs.now()
+        t_step, captured = time.perf_counter(), self.capture_seconds
         self.obs.step_begin()
         try:
             if self.mode == "slots":
@@ -738,6 +781,9 @@ class ServeEngine:
             return self._step_paged()
         finally:
             self.obs.step_end(t0)
+            self.timings["step"].append(
+                time.perf_counter() - t_step
+                - (self.capture_seconds - captured))
 
     def _step_paged(self) -> List[Request]:
         self._engine_step += 1
@@ -1273,15 +1319,62 @@ class ServeEngine:
         collectives.reset_seconds()
         return out
 
-    def _timed(self, part: str, t0: float, captured: float) -> None:
-        """Record a step that started at ``t0``, when the engine's captures
+    def _start_part(self) -> Tuple[float, float]:
+        """A part's start: ``(host clock, capture seconds so far)``, and on
+        a card its start event recorded on the stream."""
+        t0 = time.perf_counter()
+        if self._part_start is not None:
+            self._part_start.record(self._current_stream())
+        return t0, self.capture_seconds
+
+    def _current_stream(self) -> torch.cuda.Stream:
+        """The device's current stream, kept while its id holds: building
+        one (``torch.cuda.current_stream``) costs the host 8-10 µs on the
+        card, reading the id under 0.5 µs."""
+        stream = self._stream
+        if stream is None or torch._C._cuda_getCurrentStream(
+                stream.device_index)[0] != stream.stream_id:
+            stream = self._stream = torch.cuda.current_stream(self.device)
+        return stream
+
+    def _launch(self, step):
+        """``step()``, its host seconds added to the part's launch time."""
+        t0 = time.perf_counter()
+        out = step()
+        self._launch_s += time.perf_counter() - t0
+        return out
+
+    def _timed(self, part: str, t0: float, captured: float,
+               first: Optional[torch.cuda.Event] = None) -> None:
+        """Record a part that started at ``t0``, when the engine's captures
         had taken ``captured`` seconds: a capture made since goes to
-        ``timings["capture"]`` and is left out of the step's time."""
+        ``timings["capture"]`` and is left out of the part's time and its
+        launch time.  On a card, read its device marks (its logits have
+        synchronised): from the part's start event to ``first`` (default:
+        its step's first node) and from there to its step's last node,
+        less a capture made since in the span it fell in (the device
+        waited through it)."""
         spent = time.perf_counter() - t0
         capture = self.capture_seconds - captured
         if capture:
             self.timings["capture"].append(capture)
-        self.timings[part].append(spent - capture)
+        timings = self.timings
+        timings[part].append(spent - capture)
+        timings[part + "_launch"].append(self._launch_s - capture)
+        self._launch_s = 0.0
+        if self._part_start is not None:
+            marks = self._marks[part]
+            mark = first or marks.first
+            start = self._part_start.elapsed_time(mark) / 1e3
+            device = mark.elapsed_time(marks.last) / 1e3
+            # a capture precedes the step's own first node, and follows a
+            # first event the part recorded before its step calls
+            if first is None:
+                start -= capture
+            else:
+                device -= capture
+            timings[part + "_start"].append(start)
+            timings[part + "_device"].append(device)
 
     def _note_experts(self, kind: str) -> None:
         """The experts the latest ``kind`` step touched, summed over its
@@ -1325,12 +1418,15 @@ class ServeEngine:
             return
         tokens, pos0, seq_lens, lanes = batch
         t_obs = self.obs.now()
-        t0, captured = time.perf_counter(), self.capture_seconds
+        t0, captured = self._start_part()
         with self.obs.annotate("serve.prefill_chunk"):
             self._load_lanes(block_tables=self.alloc.block_tables,
                              chunk_tokens=tokens, pos0=pos0,
                              seq_lens=seq_lens)
-            lg = self._host_logits(self._prefill_paged())
+            with self.obs.annotate("serve.prefill_chunk.launch"):
+                out = self._launch(self._prefill_paged)
+            with self.obs.annotate("serve.prefill_chunk.wait"):
+                lg = self._host_logits(out)
         self._timed("prefill", t0, captured)
         self._note_experts("prefill")
         self.obs.on_prefill([(slot, self.slot_req[slot].rid, n)
@@ -1380,13 +1476,16 @@ class ServeEngine:
         tokens = self._lane_tokens({slot: self._emit(req, tnow)
                                     for slot, req in ready})
         t_obs = self.obs.now()
-        t0, captured = time.perf_counter(), self.capture_seconds
+        t0, captured = self._start_part()
         with self.obs.annotate("serve.decode_step"):
             self._load_lanes(
                 block_tables=self.alloc.block_tables, pos=self.alloc.pos,
                 active=self.sched.lane_mask(s for s, _ in ready),
                 tokens=tokens)
-            lg = self._host_logits(self._decode_paged())
+            with self.obs.annotate("serve.decode_step.launch"):
+                out = self._launch(self._decode_paged)
+            with self.obs.annotate("serve.decode_step.wait"):
+                lg = self._host_logits(out)
         self._timed("decode", t0, captured)
         self._note_experts("decode")
         self.obs.on_decode([(s, r.rid) for s, r in ready], t_obs)
@@ -1519,7 +1618,7 @@ class ServeEngine:
         step's buffer by a copy on the device, so the loop never waits on
         the host until the last logits are read."""
         t_obs = self.obs.now()
-        t0, captured = time.perf_counter(), self.capture_seconds
+        t0, captured = self._start_part()
         with self.obs.annotate("serve.prefill_slot"):
             prompt = torch.from_numpy(np.asarray(req.prompt, np.int32)).to(
                 self.device)
@@ -1527,12 +1626,16 @@ class ServeEngine:
                              active=self._lane_mask([slot]))
             lane = self._local_lane(slot)
             logits = None
-            for i in range(len(req.prompt)):
-                if lane is not None:
-                    self.lanes.tokens[lane].copy_(prompt[i:i + 1])
-                logits = self._slots_step()
-            req.last_logits = self._host_logits(logits)[slot, -1]
-        self._timed("prefill", t0, captured)
+            if self._part_first is not None:
+                self._part_first.record(self._current_stream())
+            with self.obs.annotate("serve.prefill_slot.launch"):
+                for i in range(len(req.prompt)):
+                    if lane is not None:
+                        self.lanes.tokens[lane].copy_(prompt[i:i + 1])
+                    logits = self._launch(self._slots_step)
+            with self.obs.annotate("serve.prefill_slot.wait"):
+                req.last_logits = self._host_logits(logits)[slot, -1]
+        self._timed("prefill", t0, captured, self._part_first)
         self.obs.on_prefill([(slot, req.rid, len(req.prompt))], t_obs)
 
     def _decode_one(self) -> None:
@@ -1548,10 +1651,13 @@ class ServeEngine:
             return
         tokens = self._lane_tokens(updates)
         t_obs = self.obs.now()
-        t0, captured = time.perf_counter(), self.capture_seconds
+        t0, captured = self._start_part()
         with self.obs.annotate("serve.decode_step"):
             self._load_lanes(tokens=tokens, active=self._lane_mask(updates))
-            lg = self._host_logits(self._slots_step())
+            with self.obs.annotate("serve.decode_step.launch"):
+                out = self._launch(self._slots_step)
+            with self.obs.annotate("serve.decode_step.wait"):
+                lg = self._host_logits(out)
         self._timed("decode", t0, captured)
         self.obs.on_decode([(s, self.slot_req[s].rid) for s in updates],
                            t_obs)

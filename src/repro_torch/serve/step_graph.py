@@ -31,6 +31,14 @@ pool are safe when they replay in the order they were captured.  The
 engine's steps never interleave: each step replays all its segments
 before another step's first.  The host steps hold the collectives'
 buffers, so they live as long as the graph.
+
+**Device marks** (:class:`MarkedStep`): on a card the engine wraps each
+step function in a pair of timing events recorded before and after it.
+Captured, they are the graph's first and last nodes (on a mesh, the
+first segment's first and the last segment's last), re-recorded by
+every replay, so the host reads the replay's device span once the step's
+logits have synchronised, with no sync of its own; run eagerly, they
+bracket the step's kernels from outside.
 """
 
 from __future__ import annotations
@@ -43,6 +51,22 @@ import torch
 
 from repro_torch.dist import collectives
 from repro_torch.kernels import _build
+
+
+class MarkedStep:
+    """``fn()`` between two timing events, ``first`` and ``last``, made
+    once (``external``: a capture records them as graph nodes)."""
+
+    def __init__(self, fn: Callable[[], Any]):
+        self.fn = fn
+        self.first = torch.cuda.Event(enable_timing=True, external=True)
+        self.last = torch.cuda.Event(enable_timing=True, external=True)
+
+    def __call__(self) -> Any:
+        self.first.record()
+        out = self.fn()
+        self.last.record()
+        return out
 
 
 class StepGraph:
