@@ -42,7 +42,10 @@ exits non-zero:
                 queries over bf16 and int8 pools); the
                 bit-plane GEMV at the vlm, audio and hybrid configs'
                 linears (zamba2's in_proj / out_proj, llava's w_down,
-                musicgen's lm_head) through every route; the SSD
+                musicgen's lm_head) through every route; the
+                serving benchmark's linears and heads (mistral-large-123b,
+                starcoder2-15b) on the decode route at M 1 and 8, bf16,
+                run twice, where pieces cross tile edges; the SSD
                 scan at 1, 16 and 32 chunks, N 64 and 128, bfloat16 and
                 float32 inputs, and chunks over 256 steps that the kernels
                 cut, with a shorter last chunk (``SSD_CASES``, every call
@@ -395,6 +398,13 @@ SSM_GEMV_SHAPES = [(768, 3352), (1536, 768)]
 # musicgen-medium's lm_head (2048 x 4 codebooks)
 FAMILY_GEMV_SHAPES = [(3584, 14576), (7168, 3584), (14336, 4096),
                       (1536, 8192)]
+# the serving benchmark's decode GEMVs (K, N), as ``decode_ab.py`` times
+# them: mistral-large-123b's wq / wo, wk / wv, w_gate / w_up, w_down and
+# head, then starcoder2-15b's; most cut tiles into pieces on the card
+SERVING_GEMV_SHAPES = [(12288, 12288), (12288, 1024), (12288, 28672),
+                       (28672, 12288), (12288, 32768), (6144, 6144),
+                       (6144, 512), (6144, 24576), (24576, 6144),
+                       (6144, 49152)]
 GEMV_NAMES.update({(3584, 14576): "zamba2 in_proj",
                    (7168, 3584): "zamba2 out_proj",
                    (14336, 4096): "llava w_down",
@@ -596,7 +606,7 @@ def route_counts(kernel, counts=None):
 
 
 def gemv_parity(torch, dev):
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, _gemv
     from repro_torch.kernels.bitplane_gemv.ops import bitplane_gemv
     from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
 
@@ -676,6 +686,36 @@ def gemv_parity(torch, dev):
             worst, worst_used = max(worst, err), max(worst_used, used)
             n_cases += 1
             del packed, scale, x, y, r
+    # the serving benchmark's linears and heads at 4 bits, bf16, on the
+    # decode route at M 1 and 8, twice for the same bits; on the card's
+    # grid most of them have pieces that cross a tile's edge (a block ends
+    # one tile's sum and starts the next's)
+    crossing = []
+    for (k, n) in SERVING_GEMV_SHAPES:
+        grid = _gemv.decode_launch_grid(k, n, 4, 8, torch.bfloat16, dev)
+        if len(_gemv.decode_pieces(k, n, grid)) > grid:
+            crossing.append(f"{k}x{n}")
+        for m in (1, 8):
+            packed, scale, x = gemv_case(torch, dev, gen, 4, k, n, m,
+                                         torch.bfloat16)
+            y = bitplane_gemv(packed, scale, x, bits=4,
+                              out_dtype=torch.bfloat16)
+            r = bitplane_gemv_ref(packed, scale, x, bits=4,
+                                  out_dtype=torch.bfloat16)
+            rtol, atol = gemv_tol(torch.bfloat16, r)
+            err, used = check_close("bitplane_gemv", y, r, rtol, atol,
+                                    bits=4, m=m, k=k, n=n, grid=grid,
+                                    dtype="bfloat16")
+            if not torch.equal(y, bitplane_gemv(packed, scale, x, bits=4,
+                                                out_dtype=torch.bfloat16)):
+                raise AssertionError(f"bitplane_gemv decode {k}x{n} M={m}: "
+                                     "two runs differ")
+            worst, worst_used = max(worst, err), max(worst_used, used)
+            n_cases += 1
+            del packed, scale, x, y, r
+    if not crossing:
+        raise AssertionError("bitplane_gemv parity: no serving shape has a "
+                             "piece that crosses a tile's edge")
     torch.cuda.synchronize()
     routes = {r: n for r, n in route_counts("bitplane_gemv").items()
               if not r.startswith("grouped_")}
@@ -689,7 +729,10 @@ def gemv_parity(torch, dev):
                "bits; 4 bits at the families' linears (zamba2 in_proj "
                "3584x14576, out_proj 7168x3584, llava w_down 14336x4096, "
                "musicgen lm_head 1536x8192) at M 8 (bf16, float32), 100 "
-               "(float32), 256 and 8192 (zamba2's, bf16)",
+               "(float32), 256 and 8192 (zamba2's, bf16); 4 bits, bf16 at "
+               "the serving benchmark's linears and heads (mistral-large-"
+               "123b, starcoder2-15b) at M 1 and 8, run twice",
+         crossing_tiles=crossing,
          tolerance="float32: rtol 1e-5, atol 1e-5*max|ref|; bfloat16 "
                    "output: rtol 2^-7 (one ulp), atol 1e-5*max|ref|",
          max_abs_err=worst, max_share_of_tol=worst_used, routes=routes)
@@ -698,6 +741,7 @@ def gemv_parity(torch, dev):
 def gemv_time(torch, dev, m, k, n, bits=4, radix=1, dt=None):
     from repro_torch.roofline import kernel_costs
     from repro_torch.core import unpack_weights
+    from repro_torch.kernels import _gemv
     from repro_torch.kernels._gemv import route
     from repro_torch.kernels.bitplane_gemv.kernel import bitplane_gemv_cuda
     from repro_torch.kernels.bitplane_gemv.ref import bitplane_gemv_ref
@@ -733,6 +777,11 @@ def gemv_time(torch, dev, m, k, n, bits=4, radix=1, dt=None):
     rec = dict(kernel="bitplane_gemv", linear=GEMV_NAMES.get((k, n), ""),
                m=m, k=k, n=n, bits=bits, radix=radix, dtype=dname,
                gemv_route=route(m, dt),
+               **({"decode_grid": _gemv.decode_launch_grid(k, n, bits, m, dt,
+                                                           dev),
+                   "sms": _gemv.sm_count(dev),
+                   "occupancy": _gemv.decode_occupancy(dev, bits, m, dt)}
+                  if route(m, dt) == "decode" else {}),
                max_abs_err=err, tol=dict(rtol=rtol, atol=atol), ms=ms,
                plain_ms=plain, library_ms=lib, library="torch.matmul on "
                "the dequantized weight", bytes=n_bytes, ops=n_ops,
@@ -1326,7 +1375,7 @@ def int8_parity(torch, dev):
 
 def int8_time(torch, dev, m, k, n, dt=None):
     from repro_torch.roofline import kernel_costs
-    from repro_torch.kernels._gemv import decode_splits, route, sm_count
+    from repro_torch.kernels._gemv import decode_launch_grid, route
     from repro_torch.kernels.int8_matvec.kernel import int8_matvec_cuda
     from repro_torch.kernels.int8_matvec.ref import int8_matvec_ref
 
@@ -1355,7 +1404,7 @@ def int8_time(torch, dev, m, k, n, dt=None):
     path = route(m, dt)
     rec = dict(kernel="int8_matvec", linear=GEMV_NAMES.get((k, n), ""), m=m,
                k=k, n=n, dtype=dname, gemv_route=path,
-               **({"decode_splits": decode_splits(k, n, sm_count(dev))}
+               **({"decode_grid": decode_launch_grid(k, n, 8, m, dt, dev)}
                   if path == "decode" else {}),
                earlier_ms=EARLIER_MS.get(("int8_matvec", m, k, n)),
                max_abs_err=err,
@@ -1560,7 +1609,7 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
     per_grouped = 3 * n_layers if family == "moe" else 0
     gemv_launches = {"prefill": 0, "decode": 0}
     grouped_launches = {"prefill": 0, "decode": 0}
-    attn_launches = 0
+    attn_launches, balanced_launches = 0, 0
     t0 = time.perf_counter()
     done = []
     while eng.has_work() or len(reqs) < len(prompts):
@@ -1573,9 +1622,15 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
             admitted = sum(len(r.prompt) for r in list(eng.queue)[:free])
         before = route_counts("bitplane_gemv")
         before_attn = route_counts("paged_prefill_attention")
+        balanced = _build.BALANCED_LAUNCHES
         done.extend(eng.step())
         moved = {k: v - before[k]
                  for k, v in route_counts("bitplane_gemv").items()}
+        if _build.BALANCED_LAUNCHES - balanced != moved["decode"]:
+            raise AssertionError(
+                f"{name}: {_build.BALANCED_LAUNCHES - balanced} balanced "
+                f"decode launches in a step of {moved['decode']}")
+        balanced_launches += moved["decode"]
         grouped = {k.removeprefix("grouped_"): moved.pop(k)
                    for k in list(moved) if k.startswith("grouped_")}
         moved_attn = {k: v - before_attn[k] for k, v in
@@ -1674,6 +1729,7 @@ def serve(torch, name, eng, prompts, max_new, *, first=None,
         launches=launches, route_launches=dict(_build.ROUTE_LAUNCHES),
         gemv_tensor_core_launches=gemv_launches["prefill"],
         gemv_decode_launches=gemv_launches["decode"],
+        gemv_balanced_launches=balanced_launches,
         gemv_grouped_tensor_core_launches=grouped_launches["prefill"],
         gemv_grouped_decode_launches=grouped_launches["decode"],
         prefill_attention_tensor_core_launches=attn_launches,

@@ -5,7 +5,13 @@ SSD scan of two checkouts on one GPU, in turns.
 Run from anywhere, with the roots of two checkouts (for instance this one
 and an earlier commit unpacked with ``git archive`` under ``build/``)::
 
-    python3 decode_ab.py TREE_A TREE_B [--rounds 2]
+    python3 decode_ab.py TREE_A TREE_B [--rounds 2] [--shapes serving]
+
+``--shapes serving`` times instead the bit-plane GEMV's decode route at
+M = 8, 4 bits, bf16, at the serving benchmark's shapes: the seven linears
+of a mistral-large-123b layer and the six of a starcoder2-15b layer (one
+row a shape: wq / wo, wk / wv, w_gate / w_up and w_down; starcoder's MLP
+has no w_gate) and both untied heads.
 
 Each round runs tree A, then tree B, each in its own process from its own
 root: the process imports that tree's ``chip_smoke.py`` (so each tree's
@@ -67,6 +73,16 @@ for d in (2048, 1983):
 c.ssd_time(torch, dev)
 """
 
+# the serving benchmark's decode GEMVs (K, N): mistral-large-123b's wq / wo,
+# wk / wv, w_gate / w_up, w_down and head, then starcoder2-15b's
+SERVING_SHAPES = [(12288, 12288), (12288, 1024), (12288, 28672),
+                  (28672, 12288), (12288, 32768), (6144, 6144), (6144, 512),
+                  (6144, 24576), (24576, 6144), (6144, 49152)]
+SERVING_CHILD = CHILD.split("_build.build()")[0] + f"""_build.build()
+for k, n in {SERVING_SHAPES!r}:
+    c.gemv_time(torch, dev, 8, k, n)
+"""
+
 
 def row_key(rec: dict) -> str:
     if rec["kernel"] == "bitplane_gemv":
@@ -81,8 +97,8 @@ def row_key(rec: dict) -> str:
     return f"{rec['kernel']} pools={rec['pools']}"
 
 
-def run_tree(tree: Path, timeout: int):
-    out = subprocess.run([sys.executable, "-c", CHILD], cwd=tree,
+def run_tree(tree: Path, timeout: int, child: str):
+    out = subprocess.run([sys.executable, "-c", child], cwd=tree,
                          capture_output=True, text=True, timeout=timeout)
     if out.returncode != 0:
         raise RuntimeError(f"{tree}: exit {out.returncode}\n"
@@ -101,7 +117,9 @@ def main() -> int:
     ap.add_argument("trees", nargs=2, type=Path)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--timeout", type=int, default=900)
+    ap.add_argument("--shapes", choices=("main", "serving"), default="main")
     args = ap.parse_args()
+    child = SERVING_CHILD if args.shapes == "serving" else CHILD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -109,7 +127,7 @@ def main() -> int:
     summary: dict = {}
     for rnd in range(args.rounds):
         for label, tree in zip("AB", args.trees):
-            for rec in run_tree(tree.resolve(), args.timeout):
+            for rec in run_tree(tree.resolve(), args.timeout, child):
                 print(json.dumps({"tree": label, "round": rnd, **rec}),
                       flush=True)
                 summary.setdefault(row_key(rec), {}).setdefault(

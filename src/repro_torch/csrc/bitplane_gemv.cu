@@ -18,9 +18,10 @@
 //   * rows (float32 x, M > 8): the CUDA-core design below with 32-row
 //     blocks, as a bf16 x would round float32 activations.
 //
-// Decode: `dec::` in csrc/gemv_decode.cuh (split-K over a thread-block
-// cluster, bf16 x on mma.sync), shared with the int8 baseline's decode
-// route.  A b <= 8-bit code is exact in bf16 and a bf16 x times it exact in
+// Decode: `dec::` in csrc/gemv_decode.cuh (a balanced stream-K schedule
+// over a grid the card holds at once, bf16 x on mma.sync), shared with the
+// int8 baseline's decode route.  A b <= 8-bit code is exact in bf16 and a
+// bf16 x times it exact in
 // float32, so its products are the TPU kernel's, which casts x to float32
 // and dots exact digits (kernel.py:60-79); only the order of the float32
 // sums differs.  The TPU kernel's radix-digit walk does not survive there:
@@ -41,27 +42,45 @@
 // y (M, N) = (x (M, K) @ unpack(packed (K*bits/8, N))) * scale (1, N).
 // x_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t.
 
-// M <= 8 (the decode route): `splits` K splits, 1 .. 8, each holding some
-// K (kernels/_gemv.py, `decode_splits`).  The result does not depend on
-// radix, which is checked and otherwise unused.
+// M <= 8 (the decode route): `grid` blocks, 1 .. dec::MAX_GRID and at most
+// the launch's (column tile, K step) units (kernels/_gemv.py `decode_grid`);
+// `scratch` the split tiles' sums and counters (`decode_scratch`).  The
+// result does not depend on radix, which is checked and otherwise unused.
 extern "C" int imagine_bitplane_gemv_decode(const void* packed,
                                             const void* scale, const void* x,
-                                            void* out, int M, int K, int N,
-                                            int bits, int radix, int splits,
-                                            int x_bf16, int out_bf16,
-                                            void* stream) {
+                                            void* out, void* scratch, int M,
+                                            int K, int N, int bits, int radix,
+                                            int grid, int x_bf16,
+                                            int out_bf16, void* stream) {
   if (int err = rows::check(M, K, N, bits, radix)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
     case 2:
-      return dec::launch<2>(packed, scale, x, out, M, K, N, splits, x_bf16,
-                            out_bf16, s);
+      return dec::launch<2>(packed, scale, x, out, scratch, M, K, N, grid,
+                            x_bf16, out_bf16, s);
     case 4:
-      return dec::launch<4>(packed, scale, x, out, M, K, N, splits, x_bf16,
-                            out_bf16, s);
+      return dec::launch<4>(packed, scale, x, out, scratch, M, K, N, grid,
+                            x_bf16, out_bf16, s);
     default:
-      return dec::launch<8>(packed, scale, x, out, M, K, N, splits, x_bf16,
-                            out_bf16, s);
+      return dec::launch<8>(packed, scale, x, out, scratch, M, K, N, grid,
+                            x_bf16, out_bf16, s);
+  }
+}
+
+// Blocks of the decode route's kernel for (bits, x_bf16, M) that one SM of
+// the current device holds at once, into `blocks` (both GEMVs' decode
+// routes instantiate the same kernel, the int8 baseline's at 8 bits).
+extern "C" int imagine_gemv_decode_occupancy(int bits, int x_bf16, int M,
+                                             int* blocks) {
+  switch (bits) {
+    case 2:
+      return dec::occupancy<2>(x_bf16, M, blocks);
+    case 4:
+      return dec::occupancy<4>(x_bf16, M, blocks);
+    case 8:
+      return dec::occupancy<8>(x_bf16, M, blocks);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -18,10 +18,11 @@
 // experts (b/8 bytes a weight) at decode, 2 * rows * K * N bf16 operations
 // in a prefill chunk.
 //
-// The three routes' kernels are csrc/gemv_decode.cuh's (`dec::`),
-// csrc/gemv_rows.cuh's (`rows::`) and csrc/tc_gemm.cuh's (`tc::`), each
-// instantiated here with its GROUPED switch on; this file is apart from
-// csrc/bitplane_gemv.cu so that the two compile side by side.
+// The three routes' kernels are csrc/gemv_decode.cuh's grouped cluster
+// kernels (`dec::launch_grouped`), csrc/gemv_rows.cuh's (`rows::`) and
+// csrc/tc_gemm.cuh's (`tc::`), the last two instantiated here with their
+// GROUPED switch on; this file is apart from csrc/bitplane_gemv.cu so that
+// the two compile side by side.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -18,9 +18,9 @@
 //     bound by device-memory bytes (one per weight).  The codes are byte
 //     for byte the bit-plane GEMV's 8-bit packed rows, so this route is
 //     that GEMV's decode design, `dec::launch<8>` of csrc/gemv_decode.cuh
-//     (split-K over a thread-block cluster, bf16 x on mma.sync, float32 x
-//     on the CUDA cores), with the same split count (kernels/_gemv.py
-//     `decode_splits`); this file defines no decode kernel of its own;
+//     (a balanced stream-K schedule, bf16 x on mma.sync, float32 x on the
+//     CUDA cores), with the same grid (kernels/_gemv.py `decode_grid`);
+//     this file defines no decode kernel of its own;
 //   * tensor_core (bfloat16 x, M > 8): the tile of csrc/tc_gemm.cuh at 8
 //     bits, shared with the bit-plane GEMV (its packed rows at b = 8 are
 //     these (K, N) codes), bound by 2*M*K*N bf16 tensor-core operations;
@@ -207,17 +207,17 @@ int launch(const void* q, const void* scale, const void* x, void* out, int M,
 // y (M, N) = (x (M, K) @ q (K, N)) * scale (1, N).
 // x_bf16 / out_bf16: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t.
 
-// M <= 8 (the decode route): the bit-plane GEMV's decode design at 8 bits,
-// `splits` K splits, 1 .. 8, each holding some K (kernels/_gemv.py,
-// `decode_splits`).
+// M <= 8 (the decode route): the bit-plane GEMV's decode design at 8 bits
+// on `grid` blocks (kernels/_gemv.py `decode_grid`), with its `scratch`
+// (`decode_scratch`).
 extern "C" int imagine_int8_matvec_decode(const void* q, const void* scale,
-                                          const void* x, void* out, int M,
-                                          int K, int N, int splits,
-                                          int x_bf16, int out_bf16,
+                                          const void* x, void* out,
+                                          void* scratch, int M, int K, int N,
+                                          int grid, int x_bf16, int out_bf16,
                                           void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  return dec::launch<8>(q, scale, x, out, M, K, N, splits, x_bf16, out_bf16,
-                        static_cast<cudaStream_t>(stream));
+  return dec::launch<8>(q, scale, x, out, scratch, M, K, N, grid, x_bf16,
+                        out_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // float32 x at M > 8 on the CUDA cores, 16 rows a block (bfloat16 x at

@@ -15,10 +15,13 @@ package, and only a launch on a CUDA tensor builds.
 ``"<kernel>/<route>"`` for the kernels with more than one design
 (``ROUTES``; see ``count``).  Each wrapper adds one where it launches its
 kernel and nowhere else, so a run can show that its path went through the
-kernels.  A CUDA graph replays launches without running the wrappers: its
-capture runs them once, inside ``recording``, which takes those counts
-back out and hands them over, and every replay adds them with
-``add_launches``.
+kernels.  ``BALANCED_LAUNCHES`` is a plain count of the GEMVs' dense
+decode-route launches, every one of which runs the balanced schedule of
+``csrc/gemv_decode.cuh`` (``count_balanced``), kept beside the route
+counts and not among their keys.  A CUDA graph replays launches without
+running the wrappers: its capture runs them once, inside ``recording``,
+which takes those counts back out and hands them over (the balanced count
+under ``BALANCED``), and every replay adds them with ``add_launches``.
 """
 
 from __future__ import annotations
@@ -70,15 +73,21 @@ ROUTES: Dict[str, Tuple[str, ...]] = {
 ROUTE_LAUNCHES: Dict[str, int] = {
     f"{kernel}/{route}": 0
     for kernel, routes in ROUTES.items() for route in routes}
+# dense decode-route launches (either GEMV) on the balanced schedule, and
+# their key in a graph's ``recording`` delta
+BALANCED_LAUNCHES = 0
+BALANCED = "balanced_decode"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
+    global BALANCED_LAUNCHES
     for counts in (LAUNCHES, ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    BALANCED_LAUNCHES = 0
 
 
 def count(kernel: str, route: Optional[str] = None) -> None:
@@ -89,13 +98,22 @@ def count(kernel: str, route: Optional[str] = None) -> None:
         ROUTE_LAUNCHES[f"{kernel}/{route}"] += 1
 
 
+def count_balanced() -> None:
+    """One dense decode-route launch on the balanced schedule."""
+    global BALANCED_LAUNCHES
+    BALANCED_LAUNCHES += 1
+
+
 @contextlib.contextmanager
 def recording() -> Iterator[Dict[str, int]]:
     """Launches counted inside the block are taken back out of the counts
-    and left in the yielded dictionary instead (``LAUNCHES`` names, and
-    ``ROUTE_LAUNCHES`` names with their ``/``): a CUDA graph's capture
-    records launches that run only when the graph is replayed."""
+    and left in the yielded dictionary instead (``LAUNCHES`` names,
+    ``ROUTE_LAUNCHES`` names with their ``/``, and ``BALANCED``): a CUDA
+    graph's capture records launches that run only when the graph is
+    replayed."""
+    global BALANCED_LAUNCHES
     before = (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
+    balanced = BALANCED_LAUNCHES
     delta: Dict[str, int] = {}
     try:
         yield delta
@@ -105,13 +123,20 @@ def recording() -> Iterator[Dict[str, int]]:
                 if n != old[name]:
                     delta[name] = n - old[name]
                     counts[name] = old[name]
+        if BALANCED_LAUNCHES != balanced:
+            delta[BALANCED] = BALANCED_LAUNCHES - balanced
+            BALANCED_LAUNCHES = balanced
 
 
 def add_launches(delta: Dict[str, int]) -> None:
     """Count the launches of one replay of a graph (``recording``'s
     dictionary)."""
+    global BALANCED_LAUNCHES
     for name, n in delta.items():
-        (ROUTE_LAUNCHES if "/" in name else LAUNCHES)[name] += n
+        if name == BALANCED:
+            BALANCED_LAUNCHES += n
+        else:
+            (ROUTE_LAUNCHES if "/" in name else LAUNCHES)[name] += n
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

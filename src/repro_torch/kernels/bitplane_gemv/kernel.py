@@ -5,8 +5,11 @@ Takes CUDA tensors only: it checks device, dtype, shape and contiguity,
 allocates the output (and the split-K partial sums) with ``torch.empty``,
 launches on the current stream and raises if the launch reports an error.
 ``_gemv.route`` picks one of three designs by M and the type of x, each its
-own C entry point; the decode route's K split is ``_gemv.decode_splits``.
-No route ever gives way to another or to the plain version.
+own C entry point; the decode route's grid is ``_gemv.decode_launch_grid``
+(the balanced schedule), its scratch ``_gemv.decode_scratch`` (one buffer a
+stream, so launches that share one stay in stream order), and each of its
+launches also counts in ``_build.BALANCED_LAUNCHES``.  No route ever gives
+way to another or to the plain version.
 
 ``bitplane_gemv_grouped_cuda`` is the expert-grouped launch of the same
 three designs over stacked MoE experts: one C entry point, the route
@@ -24,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._gemv import (
-    decode_splits,
+    decode_launch_grid,
+    decode_scratch,
     grouped_decode_splits,
     grouped_route,
     route,
@@ -38,7 +42,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     fn = getattr(_build.library(), f"imagine_bitplane_gemv_{name}")
-    n_ptr, n_int = {"tc": (5, 6), "decode": (4, 8), "rows": (4, 7),
+    n_ptr, n_int = {"tc": (5, 6), "decode": (5, 8), "rows": (4, 7),
                     "grouped": (5, 10)}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
@@ -85,7 +89,12 @@ def _check(packed, scale, x, bits, radix, out_dtype, stacked=False):
 def bitplane_gemv_cuda(packed: torch.Tensor, scale: torch.Tensor,
                        x: torch.Tensor, *, bits: int, radix: int,
                        out_dtype=torch.float32) -> torch.Tensor:
-    """``(x @ unpack(packed)) * scale`` on the card; x is ``(M, K)``."""
+    """``(x @ unpack(packed)) * scale`` on the card; x is ``(M, K)``.
+
+    At M <= 8 the launch uses the scratch of the current stream
+    (``_gemv.decode_scratch``): launches on one stream run in its order,
+    launches on concurrent streams each take their own buffer, and CUDA
+    graphs that hold such launches must not be replayed at once."""
     _build.refuse_grad("bitplane_gemv_cuda", packed, scale, x)
     _check(packed, scale, x, bits, radix, out_dtype)
     m, k = x.shape
@@ -100,8 +109,10 @@ def bitplane_gemv_cuda(packed: torch.Tensor, scale: torch.Tensor,
                            else partial.data_ptr(), m, k, n, bits, splits,
                            _DTYPE_CODES[out_dtype], _stream(x))
     elif path == "decode":
-        err = _entry(path)(*ptrs, m, k, n, bits, radix,
-                           decode_splits(k, n, sm_count(x.device)),
+        err = _entry(path)(*ptrs, decode_scratch(x.device).data_ptr(),
+                           m, k, n, bits, radix,
+                           decode_launch_grid(k, n, bits, m, x.dtype,
+                                              x.device),
                            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
                            _stream(x))
     else:
@@ -113,6 +124,8 @@ def bitplane_gemv_cuda(packed: torch.Tensor, scale: torch.Tensor,
                            f"{err} (M={m}, K={k}, N={n}, bits={bits}, "
                            f"radix={radix})")
     _build.count("bitplane_gemv", path)
+    if path == "decode":
+        _build.count_balanced()
     return out
 
 

@@ -5,9 +5,11 @@ allocates the output (and the split-K partial sums) with ``torch.empty``,
 launches on the current stream and raises if the launch reports an error.
 ``_gemv.route`` picks the design, as for the bit-plane GEMV, each its own
 C entry point: at 8 bits that GEMV's decode design (``dec::`` of
-``csrc/gemv_decode.cuh``, with the K split of ``_gemv.decode_splits``) and
-its tensor-core tile are this kernel's too.  No route ever gives way to
-another or to the plain version.
+``csrc/gemv_decode.cuh``, on the grid of ``_gemv.decode_launch_grid`` with
+the scratch of ``_gemv.decode_scratch``, each launch also counted in
+``_build.BALANCED_LAUNCHES``) and its tensor-core
+tile are this kernel's too.  No route ever gives way to another or to the
+plain version.
 """
 
 from __future__ import annotations
@@ -19,9 +21,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._gemv import (
-    decode_splits,
+    decode_launch_grid,
+    decode_scratch,
     route,
-    sm_count,
     tc_partial,
 )
 
@@ -31,7 +33,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _entry(name: str):
     fn = getattr(_build.library(), f"imagine_int8_matvec_{name}")
-    n_ptr, n_int = {"tc": (5, 5), "decode": (4, 6), "rows": (4, 5)}[name]
+    n_ptr, n_int = {"tc": (5, 5), "decode": (5, 6), "rows": (4, 5)}[name]
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -66,7 +68,10 @@ def _check(q, scale, x, out_dtype):
 
 def int8_matvec_cuda(q: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
                      *, out_dtype=torch.float32) -> torch.Tensor:
-    """``(x @ q) * scale`` on the card; q is ``(K, N)`` int8, x ``(M, K)``."""
+    """``(x @ q) * scale`` on the card; q is ``(K, N)`` int8, x ``(M, K)``.
+
+    At M <= 8 the launch uses the scratch of the current stream, as
+    ``bitplane_gemv_cuda``'s does (``_gemv.decode_scratch``)."""
     _build.refuse_grad("int8_matvec_cuda", q, scale, x)
     _check(q, scale, x, out_dtype)
     m, k = x.shape
@@ -81,8 +86,9 @@ def int8_matvec_cuda(q: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
                            else partial.data_ptr(), m, k, n, splits,
                            _DTYPE_CODES[out_dtype], stream)
     elif path == "decode":
-        err = _entry(path)(*ptrs, m, k, n,
-                           decode_splits(k, n, sm_count(x.device)),
+        err = _entry(path)(*ptrs, decode_scratch(x.device).data_ptr(),
+                           m, k, n,
+                           decode_launch_grid(k, n, 8, m, x.dtype, x.device),
                            _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
                            stream)
     else:
@@ -92,4 +98,6 @@ def int8_matvec_cuda(q: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
         raise RuntimeError(f"int8_matvec launch failed ({path}): cudaError "
                            f"{err} (M={m}, K={k}, N={n})")
     _build.count("int8_matvec", path)
+    if path == "decode":
+        _build.count_balanced()
     return out

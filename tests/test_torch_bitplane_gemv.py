@@ -21,8 +21,10 @@ wrapper against the Pallas kernel in interpret mode: float32 output within
 the float32 tolerance above (bf16 x converts exactly), bfloat16 output
 within one bf16 ulp (rtol 2^-7: one rounding of float32 sums that may
 differ in their last bits).  The decode route (M <= 8) splits K over a
-cluster of blocks (``_gemv.decode_splits``) and adds the splits' float32
-sums in split order: a plain model of that reduction (``_decode_model``)
+balanced schedule of blocks (``_gemv.decode_grid``, each block a
+contiguous piece of the (column tile, K step) units) and adds a tile's
+pieces' float32 sums in piece order: a plain model of that reduction
+(``_decode_model``)
 is held against the Pallas kernel in interpret mode for bits 2 / 4 / 8,
 M 1-8, ragged K and N, float32 and bfloat16 x (bf16 x converts exactly,
 and every product is exact).  Its K runs to 1000, where the sums grow
@@ -231,22 +233,27 @@ def test_prefill_ragged_matches_jax_pallas_interpret(bits, radix, out):
 
 
 # ------------------------------------------------------ the decode route
-def _decode_model(packed, scale, x, bits, splits):
-    """The decode route's sums in plain torch: split z of ``splits`` takes
-    the K steps [z * per, (z + 1) * per) of 16 (``_gemv.DECODE_K_STEP``),
-    its float32 sum of exact products; the splits are added in split order
-    and the sum scaled once."""
+def _decode_model(packed, scale, x, bits, grid):
+    """The decode route's sums in plain torch on the balanced schedule of
+    ``grid`` blocks: each piece of a column tile (``_gemv.decode_pieces``:
+    K steps [s0, s1) of 16, ``_gemv.DECODE_K_STEP``) is a float32 sum of
+    exact products; a tile's pieces are added in piece order and the sum
+    scaled once."""
     w = unpack_weights(packed, bits).float()             # (K, N) codes
-    k = w.shape[0]
-    step = _gemv.DECODE_K_STEP
-    k_steps = -(-k // step)
-    per = -(-k_steps // splits)
+    k, n = w.shape
+    step, cols = _gemv.DECODE_K_STEP, _gemv.DECODE_COLS
     xf = x.float()
-    total = torch.zeros((x.shape[0], w.shape[1]))
-    for z in range(splits):
-        lo, hi = z * per * step, min((z + 1) * per * step, k)
-        total = total + xf[:, lo:hi] @ w[lo:hi]
+    total = torch.zeros((x.shape[0], n))
+    for _, tile, s0, s1 in _gemv.decode_pieces(k, n, grid):
+        c0, c1 = tile * cols, min((tile + 1) * cols, n)
+        lo, hi = s0 * step, min(s1 * step, k)
+        total[:, c0:c1] = total[:, c0:c1] + xf[:, lo:hi] @ w[lo:hi, c0:c1]
     return total * scale
+
+
+def _split_tiles(k, n, grid):
+    tiles = [tile for _, tile, _, _ in _gemv.decode_pieces(k, n, grid)]
+    return {t for t in tiles if tiles.count(t) > 1}
 
 
 @pytest.mark.parametrize("k,n", [(200, 300), (1000, 1003)])
@@ -255,51 +262,211 @@ def _decode_model(packed, scale, x, bits, splits):
 @pytest.mark.parametrize("bits", [2, 4, 8])
 def test_decode_split_model_matches_jax_pallas_interpret(bits, m, xdt, k,
                                                          n):
+    """The card's grid for the shape (132 SMs, two blocks each) and one of
+    7 blocks, which cuts tiles at other places."""
     jlin, x = _case(bits, (m,), seed=400 + bits * 10 + m + k, k=k, n=n)
     lin = _port_lin(jlin)
     jx = jnp.asarray(x).astype(getattr(jnp, xdt))
     xt = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(
         getattr(torch, xdt))
     assert gemv_kernel.route(m, xt.dtype) == "decode"
-    splits = _gemv.decode_splits(k, n, sms=132)
-    assert splits > 1
+    grids = (_gemv.decode_grid(k, n, bits, sms=132, occupancy=2), 7)
+    assert any(_split_tiles(k, n, grid) for grid in grids)
     want = np.asarray(jax_gemv(jlin.packed, jlin.scale, jx, bits=bits,
                                radix=1, interpret=True))
-    got = _decode_model(lin.packed, lin.scale, xt, bits, splits)
     w = unpack_weights(lin.packed, bits).float()
     bound = (2.0 ** -20 * np.sqrt(k)
              * ((xt.float().abs() @ w.abs()) * lin.scale).numpy())
-    err = np.abs(got.numpy() - want)
-    assert (err <= bound).all(), float((err / bound).max())
+    for grid in grids:
+        got = _decode_model(lin.packed, lin.scale, xt, bits, grid)
+        err = np.abs(got.numpy() - want)
+        assert (err <= bound).all(), (grid, float((err / bound).max()))
+
+
+def _linears(arch, model=1):
+    """(K, N) of a layer's linears and the head of ``arch`` on one rank of
+    a ``(1, model)`` mesh: column cuts (wq, wk / wv, w_gate / w_up) divide
+    N, row cuts (wo, w_down) K; the head stays whole."""
+    from repro_torch.config import get_arch
+
+    c = get_arch(arch)
+    d, q, kv = c.d_model, c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    return [(d, q // model), (d, kv // model), (q // model, d),
+            (d, c.d_ff // model), (c.d_ff // model, d), (d, c.vocab_size)]
+
+
+SERVING_SHAPES = sorted({shape for arch in ("mistral-large-123b",
+                                            "starcoder2-15b", "qwen2.5-3b")
+                         for model in (1, 2)
+                         for shape in _linears(arch, model)})
 
 
 @pytest.mark.parametrize("k,n,want", [
-    (2048, 2048, 8),      # wq/wo: 16 column tiles, 8 splits
-    (2048, 256, 8),       # wk/wv: 2 column tiles
-    (2048, 11008, 2),     # w_gate/w_up: 86 column tiles, 172 blocks
-    (11008, 2048, 8),     # w_down
-    (768, 3352, 5),       # mamba2-130m's in_proj: 27 column tiles
-    (1536, 768, 8),       # and its out_proj
-    (2048, 151936, 1),    # an untied lm_head fills the card unsplit
-    (40, 33, 3),          # three K steps: one each
+    (12288, 12288, 264),   # mistral-large wq / wo: 96 tiles, 192 too few
+    (12288, 1024, 264),    # its wk / wv: 8 tiles x 33 pieces fill the card
+    (12288, 28672, 224),   # w_gate / w_up: a tile a block, 85% of 264
+    (6144, 6144, 240),     # starcoder2 wq / wo: 48 tiles x 5 pieces
+    (6144, 512, 96),       # its wk / wv: 16 KB pieces, 1,536 units
+    (6144, 49152, 264),    # its head: 384 tiles, pieces across tiles
+    (2048, 256, 16),       # qwen2.5-3b wk / wv: 256 units
+    (768, 3352, 81),       # mamba2-130m's in_proj: 27 tiles x 48 steps
+    (40, 33, 1),           # three K steps of one tile: one block
 ])
 def test_decode_splits(k, n, want):
-    assert _gemv.decode_splits(k, n, sms=132) == want
+    """The dense decode grid at 4 bits on 132 SMs holding two blocks each:
+    every block the card holds, fewer below 16 KB of codes a piece, or a
+    multiple of the tiles that keeps 5/6 of them busy."""
+    assert _gemv.decode_grid(k, n, 4, sms=132, occupancy=2) == want
 
 
-@pytest.mark.parametrize("sms", [1, 66, 132])
-@pytest.mark.parametrize("n", [1, 33, 256, 2048, 11008])
-@pytest.mark.parametrize("k", [4, 16, 17, 200, 2048, 11008])
-def test_decode_splits_leave_no_split_empty(k, n, sms):
-    """At most one cluster of 8, every split holds a K step, and the count
-    depends on the shapes and the card only; fewer than 8 splits only when
-    the column tiles fill the card or K runs out of steps."""
-    splits = _gemv.decode_splits(k, n, sms)
+# tiny and ragged K and N: a K step or a tile of their own, a cap under the
+# tiles, too few units for the cap, no multiple of the tiles below it
+EDGE_SHAPES = [(k, n) for k in (4, 16, 17, 200) for n in (1, 33)]
+
+
+@pytest.mark.parametrize("occupancy", [1, 2])
+@pytest.mark.parametrize("sms", [1, 66, 100, 132])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k,n", SERVING_SHAPES + EDGE_SHAPES)
+def test_decode_splits_leave_no_split_empty(k, n, bits, sms, occupancy):
+    """mistral-large-123b's, starcoder2-15b's and qwen2.5-3b's linears and
+    heads, their ``(1, 2)`` mesh halves, and tiny and ragged shapes on
+    cards of 1 to 132 SMs: every (column tile, K step)
+    falls in exactly one piece, in unit order; the blocks' pieces differ
+    by at most one step; no block is empty; the grid never exceeds the
+    blocks the card holds, nor needs more scratch than the kernel has; and
+    the schedule depends on the shapes, the bits and the card only."""
+    grid = _gemv.decode_grid(k, n, bits, sms, occupancy)
+    assert 1 <= grid <= min(sms * occupancy, _gemv.DECODE_MAX_GRID)
     k_steps = -(-k // _gemv.DECODE_K_STEP)
-    per = -(-k_steps // splits)
-    assert 1 <= splits <= _gemv.DECODE_MAX_SPLITS
-    assert splits <= k_steps and -(-k_steps // per) == splits
+    units = _gemv.decode_units(k, n)
+    assert units == -(-n // _gemv.DECODE_COLS) * k_steps
+    pieces = _gemv.decode_pieces(k, n, grid)
+    seen, sizes = 0, [0] * grid
+    for b, tile, s0, s1 in pieces:
+        assert 0 <= s0 < s1 <= k_steps
+        assert tile * k_steps + s0 == seen      # the next unit, once
+        seen += s1 - s0
+        sizes[b] += s1 - s0
+    assert seen == units
+    assert [p[0] for p in pieces] == sorted(p[0] for p in pieces)
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    # the cap: the resident blocks, or as many as give 16 KB pieces
+    unit_bytes = _gemv.DECODE_COLS * _gemv.DECODE_K_STEP * bits // 8
+    cap = min(sms * occupancy, _gemv.DECODE_MAX_GRID,
+              -(-units // max(1, _gemv.DECODE_MIN_PIECE // unit_bytes)))
     tiles = -(-n // _gemv.DECODE_COLS)
-    assert (splits == _gemv.DECODE_MAX_SPLITS or tiles * splits >= sms
-            or splits * per >= k_steps > (splits - 1) * per)
-    assert _gemv.decode_splits(k, n, sms) == splits
+    if grid < cap:
+        # a multiple of the tiles that keeps 5/6 of the cap busy: every
+        # piece inside one tile
+        assert grid % tiles == 0 and 6 * grid >= 5 * cap
+        assert len(pieces) == grid
+    else:
+        assert grid == cap
+    assert _gemv.decode_grid(k, n, bits, sms, occupancy) == grid
+    assert _gemv.decode_pieces(k, n, grid) == pieces
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 8])
+def test_decode_launch_takes_the_balanced_grid(monkeypatch, m, xdt):
+    """The launcher hands the decode entry ``decode_grid``'s blocks for the
+    card's SMs and the kernel's occupancy (both replaced here: the kernel
+    cannot run on the CPU), counts one decode launch and one balanced."""
+    calls = []
+
+    def entry(name):
+        def call(*args):
+            calls.append((name, args))
+            return 0
+        return call
+
+    class Stream:
+        cuda_stream = 0
+
+    k, n, bits = 6144, 512, 4
+    monkeypatch.setattr(gemv_kernel, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(gemv_kernel, "_entry", entry)
+    monkeypatch.setattr(_gemv, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_gemv, "_occupancy", lambda *a: 2)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(_gemv, "_SCRATCH", {})
+    monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(_build, "ROUTE_LAUNCHES", dict(_build.ROUTE_LAUNCHES))
+    monkeypatch.setattr(_build, "BALANCED_LAUNCHES", 0)
+    packed = torch.zeros((k * bits // 8, n), dtype=torch.int8)
+    x = torch.zeros((m, k), dtype=xdt)
+    y = gemv_kernel.bitplane_gemv_cuda(packed, torch.ones((1, n)), x,
+                                       bits=bits, radix=1, out_dtype=xdt)
+    assert y.shape == (m, n) and y.dtype == xdt
+    (name, args), = calls
+    assert name == "decode"
+    assert args[4] == _gemv._SCRATCH[0, 0].data_ptr()
+    assert args[5:11] == (m, k, n, bits, 1,
+                          _gemv.decode_grid(k, n, bits, 132, 2))
+    assert _build.ROUTE_LAUNCHES["bitplane_gemv/decode"] == 1
+    assert _build.BALANCED_LAUNCHES == 1
+
+
+def test_decode_scratch_a_buffer_a_stream(monkeypatch):
+    """Each stream's eager launches get a zeroed buffer of their own, the
+    same one every time; launches under a capture get the device's graph
+    buffer, which the first eager buffer made, so a capture allocates
+    nothing."""
+    class Stream:
+        def __init__(self, handle):
+            self.cuda_stream = handle
+
+    state = {"stream": 7, "capturing": False}
+    made = []
+    zeros = torch.zeros
+
+    def counted_zeros(*args, **kw):
+        made.append(state["capturing"])
+        return zeros(*args, **kw)
+
+    monkeypatch.setattr(_gemv, "_SCRATCH", {})
+    monkeypatch.setattr(torch, "zeros", counted_zeros)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: Stream(state["stream"]))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: state["capturing"])
+    dev = torch.device("cpu")
+    first = _gemv.decode_scratch(dev)
+    assert first.dtype == torch.int32 and not first.any()
+    assert first.numel() == _gemv.DECODE_SCRATCH_WORDS == (
+        (2 * _gemv.DECODE_ROWS * _gemv.DECODE_COLS + 1)
+        * _gemv.DECODE_MAX_GRID)
+    assert _gemv.decode_scratch(dev) is first
+    state["stream"] = 9
+    other = _gemv.decode_scratch(dev)
+    assert other is not first and _gemv.decode_scratch(dev) is other
+    state["capturing"] = True
+    graphs = _gemv.decode_scratch(dev)
+    assert graphs is _gemv._SCRATCH[0, None]
+    assert graphs is not first and graphs is not other
+    assert made == [False, False, False]   # the first call made two
+
+
+def test_recording_hands_over_the_balanced_count(monkeypatch):
+    """A graph's capture takes the balanced count out under its own key,
+    and each replay adds it back beside the route counts."""
+    monkeypatch.setattr(_build, "LAUNCHES", dict(_build.LAUNCHES))
+    monkeypatch.setattr(_build, "ROUTE_LAUNCHES", dict(_build.ROUTE_LAUNCHES))
+    monkeypatch.setattr(_build, "BALANCED_LAUNCHES", 0)
+    with _build.recording() as delta:
+        for _ in range(3):
+            _build.count("bitplane_gemv", "decode")
+            _build.count_balanced()
+    assert delta == {"bitplane_gemv": 3, "bitplane_gemv/decode": 3,
+                     _build.BALANCED: 3}
+    assert _build.BALANCED_LAUNCHES == 0
+    _build.add_launches(delta)
+    _build.add_launches(delta)
+    assert _build.BALANCED_LAUNCHES == 6
+    assert _build.ROUTE_LAUNCHES["bitplane_gemv/decode"] == 6
+    assert _build.BALANCED not in _build.ROUTE_LAUNCHES
+    _build.reset_launches()
+    assert _build.BALANCED_LAUNCHES == 0

@@ -312,9 +312,11 @@ def test_gemv_decode_route(cuda_device, xdt, bits, radix, m, shape):
     x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
     assert route(m, dt) == "decode"
     before = _build.ROUTE_LAUNCHES["bitplane_gemv/decode"]
+    balanced = _build.BALANCED_LAUNCHES
     y = bitplane_gemv(packed, scale, x, bits=bits, radix=radix, out_dtype=dt)
     torch.cuda.synchronize()
     assert _build.ROUTE_LAUNCHES["bitplane_gemv/decode"] == before + 1
+    assert _build.BALANCED_LAUNCHES == balanced + 1
     again = bitplane_gemv(packed, scale, x, bits=bits, radix=radix,
                           out_dtype=dt)
     assert torch.equal(y, again)
@@ -324,6 +326,106 @@ def test_gemv_decode_route(cuda_device, xdt, bits, radix, m, shape):
     rtol = 1e-5 if dt == torch.float32 else 2 ** -7
     torch.testing.assert_close(y.float(), r.float(), rtol=rtol,
                                atol=1e-5 * r.float().abs().max().item())
+
+
+def _serving_linears(arch, model):
+    """(K, N) of a layer's linears and the head of ``arch`` on one rank of
+    a ``(1, model)`` mesh (column cuts divide N, row cuts K)."""
+    c = get_arch(arch)
+    d, q, kv = c.d_model, c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    return [(d, q // model), (d, kv // model), (q // model, d),
+            (d, c.d_ff // model), (c.d_ff // model, d), (d, c.vocab_size)]
+
+
+# mistral-large-123b's, starcoder2-15b's and qwen2.5-3b's linears and heads,
+# whole and as (1, 2) mesh halves: the balanced schedule's serving shapes
+SERVING_SHAPES = sorted({shape for arch in ("mistral-large-123b",
+                                            "starcoder2-15b", "qwen2.5-3b")
+                         for model in (1, 2)
+                         for shape in _serving_linears(arch, model)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("k,n", SERVING_SHAPES)
+def test_gemv_decode_balanced_serving_shapes(cuda_device, k, n, m):
+    """The dense decode launch at the serving shapes, 4 bits, bf16: within
+    one bf16 ulp of the plain version, the same bits twice (tiles summed
+    from several pieces add them in piece order), one launch of the route
+    and one balanced launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w = torch.randn((k, n), generator=gen, device=cuda_device)
+    q, scale = quantize_symmetric(w, 4)
+    del w
+    packed = pack_weights(q, 4)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).bfloat16()
+    before = _build.ROUTE_LAUNCHES["bitplane_gemv/decode"]
+    balanced = _build.BALANCED_LAUNCHES
+    y = bitplane_gemv(packed, scale, x, bits=4, out_dtype=torch.bfloat16)
+    again = bitplane_gemv(packed, scale, x, bits=4, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES["bitplane_gemv/decode"] == before + 2
+    assert _build.BALANCED_LAUNCHES == balanced + 2
+    assert torch.equal(y, again)
+    r = bitplane_gemv_ref(packed, scale, x, bits=4, out_dtype=torch.float32)
+    torch.testing.assert_close(y.float(), r, rtol=2 ** -7,
+                               atol=1e-5 * r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_gemv_decode_streams_take_their_own_scratch(cuda_device):
+    """Dense decode launches at a shape whose pieces cross tile edges
+    (mistral-large-123b's wq), 8 rows, bf16: two side streams running
+    at once, each on a scratch buffer of its own, and a CUDA graph replayed
+    on a side stream after an event, on the device's graph buffer, give
+    the default stream's bits."""
+    from repro_torch.kernels import _gemv
+
+    k, n = 12288, 12288
+    grid = _gemv.decode_launch_grid(k, n, 4, 8, torch.bfloat16, cuda_device)
+    assert len(_gemv.decode_pieces(k, n, grid)) > grid   # pieces cross tiles
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    q, scale = quantize_symmetric(
+        torch.randn((k, n), generator=gen, device=cuda_device), 4)
+    packed = pack_weights(q, 4)
+    x = torch.randn((8, k), generator=gen, device=cuda_device).bfloat16()
+
+    def run():
+        return bitplane_gemv(packed, scale, x, bits=4,
+                             out_dtype=torch.bfloat16)
+
+    want = run()
+    side = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = [[], []]
+    for s in side:
+        s.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(20):
+        for s, out in zip(side, outs):
+            with torch.cuda.stream(s):
+                out.append(run())
+    buffers = set()
+    for s in side:
+        with torch.cuda.stream(s):
+            buffers.add(_gemv.decode_scratch(cuda_device).data_ptr())
+    buffers.add(_gemv.decode_scratch(cuda_device).data_ptr())
+    torch.cuda.synchronize()
+    assert len(buffers) == 3
+    for out in outs:
+        for y in out:
+            assert torch.equal(y, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = run()
+    s = side[0]
+    s.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(s):
+        y_graph.zero_()
+        graph.replay()
+    torch.cuda.current_stream(cuda_device).wait_stream(s)
+    torch.cuda.synchronize()
+    assert torch.equal(y_graph, want)
+    assert _gemv._SCRATCH[cuda_device.index or 0, None].data_ptr() \
+        not in buffers
 
 
 @pytest.mark.cuda
@@ -605,18 +707,18 @@ def test_int8_matvec_matches_plain(cuda_device, m, k, n, xdt):
 @pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
 def test_int8_matvec_decode_route(cuda_device, monkeypatch, xdt, m, shape):
     """The int8 baseline's decode route is the bit-plane GEMV's decode
-    design at 8 bits: one launch of that route with ``decode_splits``'
-    split count for the shape and the card, within the int8 tolerance of
-    the plain version, the same bits twice."""
+    design at 8 bits: one launch of that route on ``decode_launch_grid``'s
+    balanced grid for the shape and the card, counted as balanced, within
+    the int8 tolerance of the plain version, the same bits twice."""
     from repro_torch.kernels import _gemv
     from repro_torch.kernels.int8_matvec import kernel as int8_kernel
 
-    splits_seen, entry_args = [], []
-    real_splits, real_entry = int8_kernel.decode_splits, int8_kernel._entry
+    grids_seen, entry_args = [], []
+    real_grid, real_entry = int8_kernel.decode_launch_grid, int8_kernel._entry
 
-    def spy_splits(k, n, sms):
-        splits_seen.append(real_splits(k, n, sms))
-        return splits_seen[-1]
+    def spy_grid(*args):
+        grids_seen.append(real_grid(*args))
+        return grids_seen[-1]
 
     def spy_entry(name):
         fn = real_entry(name)
@@ -626,7 +728,7 @@ def test_int8_matvec_decode_route(cuda_device, monkeypatch, xdt, m, shape):
             return fn(*args)
         return call
 
-    monkeypatch.setattr(int8_kernel, "decode_splits", spy_splits)
+    monkeypatch.setattr(int8_kernel, "decode_launch_grid", spy_grid)
     monkeypatch.setattr(int8_kernel, "_entry", spy_entry)
     dt = getattr(torch, xdt)
     k, n = shape if shape != "ragged" else (2001, 1003)
@@ -636,13 +738,18 @@ def test_int8_matvec_decode_route(cuda_device, monkeypatch, xdt, m, shape):
     x = torch.randn((m, k), generator=gen, device=cuda_device).to(dt)
     assert route(m, dt) == "decode"
     before = _build.ROUTE_LAUNCHES["int8_matvec/decode"]
+    balanced = _build.BALANCED_LAUNCHES
     y = int8_matvec(q, scale, x, out_dtype=dt)
     torch.cuda.synchronize()
     assert _build.ROUTE_LAUNCHES["int8_matvec/decode"] == before + 1
-    want = _gemv.decode_splits(k, n, _gemv.sm_count(cuda_device))
-    assert splits_seen == [want]
+    assert _build.BALANCED_LAUNCHES == balanced + 1
+    want = _gemv.decode_grid(k, n, 8, _gemv.sm_count(cuda_device),
+                             _gemv.decode_occupancy(cuda_device, 8, m, dt))
+    assert grids_seen == [want]
+    assert 1 <= want <= 2 * _gemv.sm_count(cuda_device)
     (name, args), = entry_args
-    assert name == "decode" and args[4:8] == (m, k, n, want)
+    assert name == "decode" and args[5:9] == (m, k, n, want)
+    assert args[4] == _gemv.decode_scratch(cuda_device).data_ptr()
     again = int8_matvec(q, scale, x, out_dtype=dt)
     assert torch.equal(y, again)
     r = int8_matvec_ref(q, scale, x, out_dtype=dt)
@@ -696,7 +803,8 @@ def _graph_model(arch, dev, kv_bits=0):
 
 
 def _launch_counts():
-    return {**_build.LAUNCHES, **_build.ROUTE_LAUNCHES}
+    return {**_build.LAUNCHES, **_build.ROUTE_LAUNCHES,
+            _build.BALANCED: _build.BALANCED_LAUNCHES}
 
 
 def _moved(before):
@@ -795,6 +903,7 @@ def test_graph_paged_decode_matches_eager(cuda_device, kv_bits):
         load, lambda step: _same_pages(pages_g, pages_e) or pytest.fail(
             f"pools differ after step {step}"))
     assert graph.launches["bitplane_gemv/decode"] == 7 * cfg.n_layers
+    assert graph.launches[_build.BALANCED] == 7 * cfg.n_layers
     assert graph.launches["paged_decode_attention"] == cfg.n_layers
 
 

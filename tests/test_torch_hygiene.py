@@ -454,19 +454,50 @@ def _kernels_defined(text: str):
 
 
 def test_gemvs_share_one_decode_source():
+    """Both GEMVs' dense decode launches are ``dec::launch`` of
+    ``gemv_decode.cuh``, whose one dense kernel runs the balanced schedule
+    (the profiler finds the route by the ``dec::decode_`` prefix); the
+    grouped launch keeps the cluster kernels; no file defines a decode
+    kernel of its own."""
     header = (CSRC / "gemv_decode.cuh").read_text()
     assert "namespace dec" in header
-    assert {"decode_mma_kernel", "decode_fma_kernel"} <= set(
-        _kernels_defined(header))
-    for name in ("bitplane_gemv.cu", "int8_matvec.cu"):
+    assert set(_kernels_defined(header)) == {
+        "decode_balanced_kernel", "decode_mma_kernel", "decode_fma_kernel"}
+    for name in ("bitplane_gemv.cu", "int8_matvec.cu",
+                 "bitplane_gemv_grouped.cu"):
         text = (CSRC / name).read_text()
         assert '#include "gemv_decode.cuh"' in text, name
         assert "namespace dec" not in text, name
-        assert "dec::launch<" in text, name
         assert not [k for k in _kernels_defined(text) if "decode" in k], name
+    for name in ("bitplane_gemv.cu", "int8_matvec.cu"):
+        assert "dec::launch<" in (CSRC / name).read_text(), name
+    grouped = (CSRC / "bitplane_gemv_grouped.cu").read_text()
+    assert "dec::launch_grouped<" in grouped and "dec::launch<" not in grouped
     int8 = (CSRC / "int8_matvec.cu").read_text()
     assert _kernels_defined(int8) == ["int8_matvec_kernel"]
     assert "dec::launch<8>" in int8
+
+
+def test_decode_scratch_is_the_callers():
+    """The dense decode kernel keeps no state of its own in device
+    memory: its scratch comes from the caller (``_gemv.decode_scratch``),
+    sized as the header sizes it."""
+    import re
+
+    from repro_torch.kernels import _gemv
+
+    header = (CSRC / "gemv_decode.cuh").read_text()
+    assert not re.findall(r"^\s*(?:static\s+)?__device__\s+[\w:]+\s+\w+"
+                          r"\s*(?:\[|=|;)", header, re.M)
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", header))
+    names = {"ROWS": _gemv.DECODE_ROWS, "COLS": _gemv.DECODE_COLS,
+             "MAX_GRID": _gemv.DECODE_MAX_GRID}
+    assert {k: int(consts[k]) for k in names} == names
+    words = eval(consts["SCRATCH_WORDS"].replace(
+        "PARTIAL_WORDS", f"({consts['PARTIAL_WORDS']})"), {}, names)
+    assert words == _gemv.DECODE_SCRATCH_WORDS
+    for name in ("bitplane_gemv.cu", "int8_matvec.cu"):
+        assert "void* scratch" in (CSRC / name).read_text(), name
 
 
 # ------------------------------------------ observability, fault isolation

@@ -23,9 +23,11 @@ bfloat16 x), which that route takes on the card, goes through the ``ops``
 wrapper against the Pallas kernel in interpret mode at the tolerance above.
 At M <= 8 the launcher runs the bit-plane GEMV's decode design at 8 bits
 (``csrc/gemv_decode.cuh``): the int8 codes are byte for byte the 8-bit
-packed rows, and the launcher hands the C entry point the K split of
-``_gemv.decode_splits`` (checked here with the entry point replaced by a
-recorder, since the kernel cannot run on the CPU).
+packed rows, and the launcher hands the C entry point the balanced grid of
+``_gemv.decode_grid`` and counts the launch in
+``_build.BALANCED_LAUNCHES`` (checked here with the entry point, the SM
+count and the kernel's occupancy replaced, since the kernel cannot run on
+the CPU).
 """
 
 import jax.numpy as jnp
@@ -176,8 +178,13 @@ def test_decode_launch_takes_the_bitplane_decode_split(monkeypatch, m, k, n,
 
     monkeypatch.setattr(int8_kernel, "_check", lambda *a: None)
     monkeypatch.setattr(int8_kernel, "_entry", entry)
-    monkeypatch.setattr(int8_kernel, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_gemv, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(_gemv, "_occupancy", lambda *a: 2)
+    monkeypatch.setattr(int8_kernel._build, "BALANCED_LAUNCHES", 0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    monkeypatch.setattr(_gemv, "_SCRATCH", {})
     monkeypatch.setattr(int8_kernel._build, "LAUNCHES",
                         dict(int8_kernel._build.LAUNCHES))
     monkeypatch.setattr(int8_kernel._build, "ROUTE_LAUNCHES",
@@ -189,5 +196,7 @@ def test_decode_launch_takes_the_bitplane_decode_split(monkeypatch, m, k, n,
     assert y.shape == (m, n) and y.dtype == xdt
     (name, args), = calls
     assert name == "decode"
-    assert args[4:8] == (m, k, n, _gemv.decode_splits(k, n, 132))
+    assert args[4] == _gemv._SCRATCH[0, 0].data_ptr()
+    assert args[5:9] == (m, k, n, _gemv.decode_grid(k, n, 8, 132, 2))
     assert int8_kernel._build.ROUTE_LAUNCHES["int8_matvec/decode"] == 1
+    assert int8_kernel._build.BALANCED_LAUNCHES == 1
