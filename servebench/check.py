@@ -1,10 +1,14 @@
 """Whether what the timed path served is correct.
 
 Once the window has closed and the engine is freed, a sample of the
-requests finished in the window, drawn from the seed and holding the
-longest, is scored by the plain reference (``reference/model.py``), which
-runs each prompt with its served tokens in the configuration's
-precision.  Two numbers are compared, each held to the cell's limit
+window's requests, drawn from the seed (:func:`sample`: the longest that
+finished in it, and one that the window admitted and that was still
+running at its close, so that a prompt prefilled by the window's chunk
+steps on a recycled lane is always scored), is scored by the plain
+reference of the configuration's family
+(the family module's ``score``: ``reference/model.py`` for the dense
+family), which runs each prompt with its served tokens in the
+configuration's precision.  Two numbers are compared, each held to the cell's limit
 (``cells/<workload>.json``):
 
 - ``max_gap``: at every served position, the gap by which the served
@@ -20,19 +24,17 @@ precision.  Two numbers are compared, each held to the cell's limit
   several times over it where ``max_gap`` moves less.
 
 ``control=True`` also reads the control: the reference with float8
-inputs to every linear, whose top token at each position is scored in
+inputs to every packed linear, whose top token at each position is scored in
 the reference's logits (``control_max_gap``) and whose logits at the kept
 positions are held against the reference's (``control_logit_rms_err``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
-
-from servebench.reference import model as reference
 
 
 def finished_in_window(records, t0: float, t1: float) -> List:
@@ -41,33 +43,59 @@ def finished_in_window(records, t0: float, t1: float) -> List:
             and r.req.finish_reason == "length" and r.req.output]
 
 
-def sample(records, t0: float, t1: float, seed: int, budget: int) -> List:
-    """The longest request finished in the window (most served tokens),
-    then others in an order drawn from ``seed`` while their prompts and
-    served tokens stay within ``budget`` tokens."""
+def served_by(rec, t1: float) -> int:
+    """How many of ``rec``'s output tokens were served by ``t1``."""
+    return sum(stamp <= t1 for stamp in rec.stamps)
+
+
+def running_at_close(records, t0: float, t1: float) -> List:
+    """The requests sent in the window and still running at its close
+    that had a token served by then: the window prefilled their
+    prompts."""
+    return [r for r in records
+            if r.sent > t0 and (r.finished is None or r.finished > t1)
+            and served_by(r, t1) > 0]
+
+
+def sample(records, t0: float, t1: float, seed: int,
+           budget: int) -> List[Tuple[object, int]]:
+    """``(record, output tokens compared)`` of: the longest request
+    finished in the window (most served tokens); one request of
+    :func:`running_at_close`, drawn from ``seed``, with the tokens served
+    by the close; then the others of both kinds in an order drawn from
+    ``seed`` while their prompts and served tokens stay within ``budget``
+    tokens.  Nothing where no request finished in the window."""
     done = finished_in_window(records, t0, t1)
     if not done:
         return []
+    running = running_at_close(records, t0, t1)
+    served = {id(r): len(r.req.output) for r in done}
+    served.update((id(r), served_by(r, t1)) for r in running)
 
     def size(r):
-        return len(r.req.prompt) + len(r.req.output)
+        return len(r.req.prompt) + served[id(r)]
 
+    rng = np.random.default_rng([int(seed), 17])
     longest = max(done, key=lambda r: (len(r.req.output), size(r)))
-    chosen, total = [longest], size(longest)
-    rest = [r for r in done if r is not longest]
-    for i in np.random.default_rng([int(seed), 17]).permutation(len(rest)):
+    chosen = [longest]
+    if running:
+        chosen.append(running[int(rng.integers(len(running)))])
+    total = sum(size(r) for r in chosen)
+    rest = [r for r in done + running if all(r is not c for c in chosen)]
+    for i in rng.permutation(len(rest)):
         if total + size(rest[i]) <= budget:
             chosen.append(rest[i])
             total += size(rest[i])
-    return chosen
+    return [(r, served[id(r)]) for r in chosen]
 
 
-def kept_rows(rec, logits: np.ndarray):
-    """The rows of the program's logits that the client kept at served
-    positions of ``rec`` (each predicting a served token), in position
-    order, copied out of the client's table: ``[(position, row)]``."""
+def kept_rows(rec, logits: np.ndarray, served: int):
+    """The rows of the program's logits that the client kept at the
+    positions of ``rec`` that predict its first ``served`` output tokens,
+    in position order, copied out of the client's table:
+    ``[(position, row)]``."""
     lo = len(rec.req.prompt) - 1
-    hi = len(rec.req.prompt) + len(rec.req.output) - 1
+    hi = len(rec.req.prompt) + served - 1
     return [(pos, torch.from_numpy(np.array(logits[row])))
             for pos, row in sorted(rec.logit_rows) if lo <= pos < hi]
 
@@ -79,10 +107,11 @@ def _rms_err(program: torch.Tensor, ref: torch.Tensor) -> float:
     return float(torch.sqrt(torch.mean(d * d)))
 
 
-def compare(model: Dict, engine: Dict, seed: int, chosen, device,
+def compare(family, model: Dict, engine: Dict, seed: int, chosen, device,
             control: bool = False) -> Dict[str, float]:
     """The numbers over ``chosen`` (each with ``req.prompt``,
-    ``req.output`` and ``rows``, from :func:`kept_rows`), with how many
+    ``req.output`` and ``rows``, from :func:`kept_rows`), scored by
+    ``family.score`` (the configuration's family module), with how many
     tokens and kept rows were compared; with ``control`` the control's
     too."""
     seqs = [list(r.req.prompt) + list(r.req.output) for r in chosen]
@@ -92,12 +121,12 @@ def compare(model: Dict, engine: Dict, seed: int, chosen, device,
     rows = [r.rows for r in chosen if r.rows]
     low = None
     if control:
-        low = reference.score(model, engine, seed, seqs, positions, device,
-                              act_format="fp8", keep=keep)
-    ref = reference.score(model, engine, seed, seqs, positions, device,
-                          keep=keep,
-                          extra=None if low is None
-                          else [rec["top"].tolist() for rec in low])
+        low = family.score(model, engine, seed, seqs, positions, device,
+                           act_format="fp8", keep=keep)
+    ref = family.score(model, engine, seed, seqs, positions, device,
+                       keep=keep,
+                       extra=None if low is None
+                       else [rec["top"].tolist() for rec in low])
     program = torch.cat([torch.stack([row for _, row in r]) for r in rows]
                         ) if rows else None
     ref_rows = torch.cat([rec["logits"] for rec, k in zip(ref, keep) if k]

@@ -6,9 +6,10 @@ engine's host sync on the logits, then stamps each token that the step
 appended to a request's output with the clock read after it.  A step's
 record says whether it ran a prefill chunk and a decode step (from the
 engine's ``timings``), the prompt rows it computed (the scheduler's
-``prefill_computed``) and, a request at a time, the positions of the
-prompt tokens it computed and of the token each decoding lane fed, which
-the metric readers price.
+``prefill_computed``), the experts its decode part touched (the moe
+family's ``experts_touched["decode"]``) and, a request at a time, the
+positions of the prompt tokens it computed and of the token each
+decoding lane fed, which the metric readers price.
 
 The client also keeps some of the logits the engine handed back, for the
 check: each request's logits at its last prompt position (as the chunk
@@ -69,6 +70,9 @@ class StepRecord:
     prefill_spans: List = dataclasses.field(default_factory=list)
     # position of the token each decoding lane fed
     decode_positions: List[int] = dataclasses.field(default_factory=list)
+    # (layer, expert) pairs the decode part computed rows for, summed over
+    # its layers (the moe family's; None for a family without experts)
+    experts_touched: Optional[int] = None
 
 
 class Client:
@@ -157,6 +161,8 @@ class Client:
             self.send_due()
         eng = self.eng
         n_chunk, n_dec = len(eng.timings["prefill"]), len(eng.timings["decode"])
+        touched = eng.experts_touched["decode"]
+        n_touched = len(touched)
         rows0 = eng.prefill_computed
         t0 = self.clock()
         finished = eng.step()
@@ -167,6 +173,8 @@ class Client:
             rec.chunk_s = eng.timings["prefill"][-1]
         if rec.decode:
             rec.decode_s = eng.timings["decode"][-1]
+            if len(touched) > n_touched:
+                rec.experts_touched = touched[-1]
         rec.prefill_rows = eng.prefill_computed - rows0
         resident = {id(r) for r in eng.slot_req if r is not None}
         fresh = []

@@ -5,11 +5,15 @@ Everything is found by name from ``BENCHMARK.json``: the cell names its
 configuration (``configs/<config>.json``, the file that ``BENCHMARK.json``
 gives) and its traffic mix (``traffic/<mix>.json``); its limits are in
 ``cells/<workload>.json``; each metric is read by
-``metrics/<metric>.py``.  ``README.md`` gives the formats.
+``metrics/<metric>.py``; the configuration's family (the port's
+``ModelConfig.family`` of the file's model) is ``families/<family>.py``,
+which draws and packs the weights, scores the check's reference and
+prices a token and a decode step.  ``README.md`` gives the formats.
 
 The program under test is the port's ``repro_torch.serve.ServeEngine``;
-the harness imports nothing else of it but the weight packing, the
-config registry and, in a traced run, the kernels' launch counts.
+the harness imports nothing else of it but the config registry and, in a
+traced run, the kernels' launch counts (the family module packs the
+weights with the port's packing).
 """
 
 from __future__ import annotations
@@ -76,13 +80,29 @@ def metrics_for(spec: Dict, workload: str, trace: bool) -> List[Dict]:
             if workload in m.get("workloads", [workload])]
 
 
-def reader(root: Path, name: str):
-    path = root / "servebench" / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(
-        f"servebench_metric_{name.replace('.', '_')}", path)
+def _load(path: Path, module: str):
+    mod_spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(root: Path, name: str):
+    return _load(root / "servebench" / "metrics" / f"{name}.py",
+                 f"servebench_metric_{name.replace('.', '_')}").read
+
+
+def family_module(root: Path, name: str):
+    """``families/<name>.py``: its ``build_params``, ``score``,
+    ``token_flops`` and ``decode_step_bytes``."""
+    return _load(root / "servebench" / "families" / f"{name}.py",
+                 f"servebench_family_{name.replace('.', '_')}")
+
+
+def family_of(root: Path, conf: Dict):
+    """The family module of the configuration's family, as the port
+    reads it (``port_config(conf).family``)."""
+    return family_module(root, port_config(conf).family)
 
 
 # ------------------------------------------------------------------- set-up
@@ -119,38 +139,6 @@ def port_config(conf: Dict):
     from repro_torch.config.registry import get_arch
 
     return dataclasses.replace(get_arch(conf["registry"]), **conf["model"])
-
-
-def build_params(cfg, model: Dict, bits: int, seed: int, device) -> Dict:
-    """The weights drawn from ``seed`` (``reference/draw.py``), each layer
-    packed by the port's ``quantize_params`` as it is drawn; the tensors
-    left dense in the model's dtype."""
-    from repro_torch.models import quantize_params
-
-    from servebench.reference import draw
-
-    import torch
-
-    dtype = getattr(torch, cfg.dtype)
-
-    def pack(tree):
-        return quantize_params(tree, cfg, bits)
-
-    layers = []
-    for i in range(model["n_layers"]):
-        w = draw.draw_layer(model, seed, i, device)
-        mlp = {k: {"w": w[k]} for k in ("w_gate", "w_up", "w_down")
-               if k in w}
-        layer = {"ln1": w["ln1"].to(dtype), "ln2": w["ln2"].to(dtype),
-                 "mlp": mlp,
-                 "attn": {k: {"w": w[k]} for k in ("wq", "wk", "wv", "wo")}}
-        layers.append(pack({"layers": [layer]})["layers"][0])
-        del w, layer, mlp
-    head = draw.draw_head(model, seed, device)
-    params = pack({"lm_head": {"w": head["lm_head"]}, "layers": []})
-    params.update(embed=draw.draw_embed(model, seed, device).to(dtype),
-                  layers=layers, final_norm=head["final_norm"].to(dtype))
-    return params
 
 
 def build_engine(cfg, conf: Dict, mix: Dict, params, seed: int, device,
@@ -204,6 +192,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     metrics = metrics_for(spec, workload, trace)
     readers = {m["name"]: reader(root, m["name"]) for m in metrics}
     use_checkout(root)
+    family = family_of(root, conf)
     if require:
         require_chip(cell["chips"])
     import torch
@@ -232,7 +221,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     with torch.no_grad():
         t0 = time.perf_counter()
-        params = build_params(cfg, model, bits, seed, device)
+        params = family.build_params(cfg, model, bits, seed, device)
         phase("weights_s", t0)
         t0 = time.perf_counter()
         eng, serve = build_engine(cfg, conf, mix, params, seed, device,
@@ -251,7 +240,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         window = cli.run_window(seconds)
         profile = trace_span(cli, mix["profile"]) if trace else None
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    run = Run(cli, window, model, engine_conf, serve, setup_s, peak, profile)
+    run = Run(cli, window, model, engine_conf, serve, setup_s, peak, profile,
+              family)
     values = {}
     for m in metrics:
         v = readers[m["name"]](run)
@@ -260,29 +250,33 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     attempted = len(cli.attempted)
     failed = sum(getattr(r.req, "finish_reason", None) not in (None, "length")
                  for r in cli.attempted)
+    w0, w1 = window["t0"], window["t1"]
+    sampled = check.sample(cli.records, w0, w1, seed, mix["check_tokens"])
     chosen = [SimpleNamespace(req=SimpleNamespace(
-        prompt=list(r.req.prompt), output=list(r.req.output)),
-        rows=check.kept_rows(r, cli.logits))
-        for r in check.sample(cli.records, window["t0"], window["t1"], seed,
-                              mix["check_tokens"])]
+        prompt=list(r.req.prompt), output=list(r.req.output[:served])),
+        rows=check.kept_rows(r, cli.logits, served))
+        for r, served in sampled]
+    running = check.running_at_close(cli.records, w0, w1)
     info = {"window_s": run.seconds, "steps": len(run.steps),
             "chunk_steps": sum(s.chunk for s in run.steps),
-            "finished": len(check.finished_in_window(
-                cli.records, window["t0"], window["t1"])),
+            "finished": len(check.finished_in_window(cli.records, w0, w1)),
+            "running_at_close": len(running),
+            "compared_running": sum(any(r is x for x in running)
+                                    for r, _ in sampled),
             "lag_max_s": max((r.sent - r.due for r in cli.attempted),
                              default=0.0),
             "most_outstanding": cli.most_live,
             "logit_rows_kept": cli.n_logits,
             "pool": _pool_counts(eng)}
     # the program's state goes before the reference runs
-    del eng, cli, run
+    del eng, cli, run, sampled, running
     gc.collect()
     if on_card:
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    numbers = (check.compare(model, engine_conf, seed, chosen, device,
-                             control=control) if chosen else {})
+    numbers = (check.compare(family, model, engine_conf, seed, chosen,
+                             device, control=control) if chosen else {})
     info["compared_tokens"] = numbers.get("compared_tokens", 0)
     info["reference_s"] = time.perf_counter() - t0
     info["setup"] = phases

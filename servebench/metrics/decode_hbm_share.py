@@ -1,8 +1,9 @@
 """The decode steps' share of the HBM roofline over the window, in %: the
-bytes each decode step must move (``costs.decode_step_bytes``: every code
-and scale once, the K/V of each decoding lane at its real length, the new
-K/V) summed over the window's decode steps, over their host seconds times
-3.35 TB/s."""
+bytes each decode step must move, as the configuration's family module
+prices them (``decode_step_bytes``; the dense family's every code and
+scale once, the K/V of each decoding lane at its real length, the new
+K/V), summed over the window's decode steps, over their host seconds
+times 3.35 TB/s.  None where a step cannot be priced."""
 
 from servebench import costs
 
@@ -11,8 +12,10 @@ def read(run):
     steps = [s for s in run.steps if s.decode]
     if not steps:
         return None
-    nbytes = sum(costs.decode_step_bytes(
-        run.model, run.engine["weight_bits"], run.engine["kv_bits"],
-        run.serve["lanes"], s.decode_positions) for s in steps)
+    nbytes = [run.family.decode_step_bytes(
+        run.model, run.engine, run.serve["lanes"], s.decode_positions, s)
+        for s in steps]
+    if None in nbytes:
+        return None
     seconds = sum(s.decode_s for s in steps)
-    return 100.0 * nbytes / (seconds * costs.PEAK_BYTES)
+    return 100.0 * sum(nbytes) / (seconds * costs.PEAK_BYTES)

@@ -21,7 +21,9 @@ is rounded but the int8 attention's operands.
 
 ``score`` runs each sequence through every layer in turn, all sequences
 at once a layer and attention in blocks of queries, so that it fits on
-the card beside what is left of the engine.  ``act_format="fp8"`` is the
+the card beside what is left of the engine.  A family whose layers hold
+another block in place of the MLP hands ``score`` its own ``layers``
+(``dense_layer``'s contract).  ``act_format="fp8"`` is the
 control of ``check.py``: the same model with the input of every linear
 (the head's too) in float8 e4m3 at a scale a row, the precision below
 the configuration's bfloat16, where a faster GEMV would tempt a program
@@ -30,7 +32,7 @@ to take it.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -138,11 +140,32 @@ def causal_attention(q, k, v, kv8: bool = False) -> torch.Tensor:
     return out.reshape(s, hq * dh)
 
 
+def dense_layer(model: Dict, seed: int, layer: int, device):
+    """One layer's weights (``draw.draw_layer``), of which ``score`` reads
+    ``ln1``, ``wq``, ``wk``, ``wv``, ``wo`` and ``ln2``, and its block
+    after the attention: ``block(h, linear, rd)``, the MLP's output for
+    the normed rows ``h``, each linear through ``linear`` and rounded by
+    ``rd`` as the model hands it on."""
+    w = draw.draw_layer(model, seed, layer, device)
+
+    def block(h, linear, rd):
+        up = linear(h, w["w_up"])
+        if "w_gate" in w:
+            act = rd(rd(F.silu(linear(h, w["w_gate"]))) * up)
+        else:
+            act = rd(F.gelu(up, approximate="tanh"))
+        del up
+        return linear(act, w["w_down"])
+
+    return w, block
+
+
 def score(model: Dict, engine: Dict, seed: int,
           sequences: Sequence[Sequence[int]], positions: Sequence[range],
           device, act_format: str = "model",
           extra: Optional[Sequence[Sequence[int]]] = None,
-          keep: Optional[Sequence[Sequence[int]]] = None) -> List[Dict]:
+          keep: Optional[Sequence[Sequence[int]]] = None,
+          layers: Callable = dense_layer) -> List[Dict]:
     """Logits of the model drawn from ``seed`` over each token sequence,
     read at ``positions[i]`` (positions of ``sequences[i]``, each
     predicting the token after it).
@@ -154,7 +177,8 @@ def score(model: Dict, engine: Dict, seed: int,
     logit), and where ``keep`` names some of the positions ``logits``
     (``(len(keep[i]), V)``, on the host).  ``model``: the configuration's
     sizes and ``dtype``; ``engine``: its ``weight_bits`` and ``kv_bits``;
-    ``act_format``: ``model`` or ``fp8`` (the control).
+    ``act_format``: ``model`` or ``fp8`` (the control); ``layers``: each
+    layer's weights and block (:func:`dense_layer`).
     """
     if model.get("tie_embeddings"):
         raise ValueError("the reference draws an untied head")
@@ -180,7 +204,7 @@ def score(model: Dict, engine: Dict, seed: int,
         return rd(torch.matmul(lin_in(h), dequantized(w, bits)))
 
     for layer in range(model["n_layers"]):
-        w = draw.draw_layer(model, seed, layer, device)
+        w, block = layers(model, seed, layer, device)
         h = rd(rms_norm(x, w["ln1"], eps))
         q, k, v = (linear(h, w[n]) for n in ("wq", "wk", "wv"))
         o = torch.empty((x.shape[0], hq * dh), dtype=torch.float32,
@@ -193,14 +217,8 @@ def score(model: Dict, engine: Dict, seed: int,
         del q, k, v
         x = rd(x + linear(o, w["wo"]))
         h = rd(rms_norm(x, w["ln2"], eps))
-        up = linear(h, w["w_up"])
-        if "w_gate" in w:
-            act = rd(rd(F.silu(linear(h, w["w_gate"]))) * up)
-        else:
-            act = rd(F.gelu(up, approximate="tanh"))
-        del up
-        x = rd(x + linear(act, w["w_down"]))
-        del w, h, act, o
+        x = rd(x + block(h, linear, rd))
+        del w, block, h, o
     head = draw.draw_head(model, seed, device)
     w_head = dequantized(head["lm_head"], bits)
     out = []

@@ -88,3 +88,29 @@ def test_traced_run_reports_per_layer_metrics(tmp_path):
             "peak_mem_gib"} == set(metrics)
     assert 0 < metrics["prefix_hit_share"]["value"] < 100
     assert "busy_s" in out["result"]["device"]
+
+
+def test_moe_cell_found_by_name(tmp_path):
+    """A configuration of another family (the port's ``family`` ``moe``)
+    and its cell, added as new files and new entries, run correct through the
+    family's weights, reference and step costs; no file is edited."""
+    root = testing.make_root(tmp_path)
+    before = digest(root)
+    cell = testing.add_moe(root, "tiny-moe-shared")
+    sb = root / "servebench"
+    after = digest(root)
+    assert all(after[p] == h for p, h in before.items())   # nothing edited
+    assert set(after) - set(before) == {
+        p.relative_to(root) for p in (
+            sb / "configs" / "tiny-moe-shared.json",
+            sb / "cells" / f"{cell}.json")}
+    out = testing.run_tiny(root, cell)
+    assert out["result"]["correct"]
+    assert out["info"]["compared_tokens"] >= 40
+    traced = testing.run_tiny(root, cell, trace=True)
+    metrics = traced["result"]["metrics"]
+    # the whole step's shares list no cells: every cell has them, priced
+    # by its family
+    assert metrics["mfu"]["value"] > 0
+    assert metrics["decode_hbm_share"]["value"] > 0
+    assert traced["result"]["correct"]

@@ -128,3 +128,92 @@ def test_kept_logits_are_the_served_tokens(root):
             if pos < len(seq) - 1:
                 assert int(np.argmax(cli.logits[row])) == seq[pos + 1]
     assert harness.COMPARED == ("max_gap", "logit_rms_err")
+
+
+def _client_of_run(root, **kw):
+    """Run the tiny cell; return its result and the client it drove."""
+    from servebench.client import Client
+
+    seen = {}
+    real = Client.__init__
+
+    def init(self, *a, **k):
+        real(self, *a, **k)
+        seen["client"] = self
+    Client.__init__ = init
+    try:
+        out = testing.run_tiny(root, CELL, **kw)
+    finally:
+        Client.__init__ = real
+    return out, seen["client"]
+
+
+def test_a_request_running_at_close_is_compared(root):
+    """One request that the window admitted and that still runs at its
+    close is scored, its tokens served by the close; a token altered in
+    those requests alone, none of which finishes in the window, reads not
+    correct."""
+    from servebench import check
+
+    out, cli = _client_of_run(root)
+    info = out["info"]
+    assert out["result"]["correct"]
+    assert info["running_at_close"] >= 1 and info["compared_running"] == 1
+    t0, t1 = cli.t_open, max(s.t1 for s in cli.steps)
+    late = check.running_at_close(cli.records, t0, t1)
+    assert late and all(r.finished is None or r.finished > t1 for r in late)
+    targets = {tuple(r.req.prompt) for r in late}
+
+    def altered_late(eng):
+        sample = eng._sample_next
+
+        def altered(req):
+            tok = sample(req)
+            if tuple(req.prompt) in targets:
+                return (tok + 1) % eng.cfg.vocab_size
+            return tok
+        eng._sample_next = altered
+
+    faulty = testing.run_tiny(root, CELL, hooks=altered_late)
+    assert faulty["info"]["compared_running"] == 1
+    assert not faulty["result"]["correct"]
+    mg = faulty["result"]["check"]["max_gap"]
+    assert mg["value"] > mg["limit"]
+
+
+def test_sample_takes_the_longest_and_one_running_at_close():
+    """``check.sample`` on made-up records: the longest finished request,
+    one request sent in the window and running at its close (cut to the
+    tokens served by then; not one sent before the window, nor one with
+    no token yet), then others within the budget."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from servebench import check
+
+    def rec(prompt, out, sent, stamps, finished=None):
+        req = SimpleNamespace(prompt=[1] * prompt, output=[2] * out,
+                              finish_reason="length" if finished else None)
+        return SimpleNamespace(req=req, sent=sent, stamps=stamps,
+                               finished=finished)
+
+    t0, t1 = 10.0, 20.0
+    longest = rec(5, 6, 1.0, [9.0 + i for i in range(6)], finished=15.0)
+    short = rec(5, 2, 11.0, [12.0, 13.0], finished=13.0)
+    running = rec(7, 5, 12.0, [18.0, 19.0, 21.0, 22.0, 23.0])
+    from_setup = rec(3, 4, 1.0, [9.0, 11.0, 12.0, 13.0])     # sent before
+    prefilling = rec(30, 0, 19.0, [])                        # no token yet
+    records = [longest, short, running, from_setup, prefilling]
+    assert check.running_at_close(records, t0, t1) == [running]
+    for seed in (1, 2 ** 31 + 9):
+        got = check.sample(records, t0, t1, seed, budget=11 + 9)
+        assert got[:2] == [(longest, 6), (running, 2)]
+        assert got == [(longest, 6), (running, 2)]      # short: over budget
+        got = check.sample(records, t0, t1, seed, budget=11 + 9 + 7)
+        assert got == [(longest, 6), (running, 2), (short, 2)]
+    assert check.sample([running, from_setup], t0, t1, 1, 100) == []
+    rows = SimpleNamespace(req=running.req,
+                           logit_rows=[(6, 0), (7, 1), (8, 2), (9, 3)])
+    logits = np.arange(8, dtype=np.float32).reshape(4, 2)
+    assert [p for p, _ in check.kept_rows(rows, logits, 2)] == [6, 7]

@@ -41,7 +41,7 @@ def make_run(streams, t0=0.0, t1=10.0, steps=(), profile=None,
     return Run(client, {"t0": t0, "t1": t1, "first_step": 0,
                         "last_step": len(steps)},
                MODEL["model"], MODEL["engine"], SERVE, 12.5, 3 * 2 ** 30,
-               profile)
+               profile, harness.family_of(ROOT, MODEL))
 
 
 def steady(n_req=8, period=0.05, t1=10.0):

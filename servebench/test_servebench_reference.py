@@ -1,7 +1,8 @@
 """The plain reference against the port's plain CPU engine at the reduced
-sizes of the two registry entries: the full-sequence forward with the
-same packed weights, the int8 K/V rounding, and a whole served run in
-float32 (where the widest gap is rounding) and in bfloat16."""
+sizes of the registry entries (the dense family's two, and the moe
+family's with and without a shared expert): the full-sequence forward
+with the same packed weights, the int8 K/V rounding, and a whole served
+run in float32 (where the widest gap is rounding) and in bfloat16."""
 
 import pytest
 import torch
@@ -13,16 +14,27 @@ from servebench.reference import model as reference
 SEED = 2 ** 31 + 77
 
 
-@pytest.mark.parametrize("name", sorted(testing.TINY_MODELS))
+def tiny_conf(name, dtype):
+    if name in testing.TINY_MOE:
+        return testing.tiny_moe(name, dtype)
+    return testing.tiny_model(name, dtype)
+
+
+# float32 on both sides: what differs is the order of the sums (2e-4 on
+# logits of about 1-3), and a near tie of the top token; a moe layer's
+# routing is float32 too, so a pair flips only on a tie within rounding
+@pytest.mark.parametrize("name", sorted(testing.TINY_MODELS)
+                         + sorted(testing.TINY_MOE))
 def test_reference_equals_the_ports_forward(name):
     from repro_torch.config.base import EngineConfig
     from repro_torch.engine import resolve_plan
     from repro_torch.models import forward
 
-    conf = testing.tiny_model(name, dtype="float32")
+    conf = tiny_conf(name, "float32")
+    family = harness.family_of(testing.REPO, conf)
     cfg = harness.port_config(conf)
     m = conf["model"]
-    params = harness.build_params(cfg, m, 4, SEED, "cpu")
+    params = family.build_params(cfg, m, 4, SEED, "cpu")
     tokens = torch.randint(0, m["vocab_size"], (1, 40),
                            generator=torch.Generator().manual_seed(5))
     plan = resolve_plan(EngineConfig(weight_bits=4, **testing.CPU_ENGINE),
@@ -31,8 +43,8 @@ def test_reference_equals_the_ports_forward(name):
                         attn_backend="gather")
     logits = logits[0].double()
     seq = tokens[0].tolist()
-    ref = reference.score(m, {"weight_bits": 4, "kv_bits": 0}, SEED, [seq],
-                          [range(0, 39)], "cpu")[0]
+    ref = family.score(m, {"weight_bits": 4, "kv_bits": 0}, SEED, [seq],
+                       [range(0, 39)], "cpu")[0]
     best, top = logits[:39].max(dim=-1)
     torch.testing.assert_close(ref["best"].double(), best, atol=2e-4,
                                rtol=1e-4)

@@ -1,9 +1,10 @@
 """Tiny cells for the CPU tests: a checkout-like directory holding a
 ``BENCHMARK.json`` with two small configurations (a SwiGLU and a GELU
 decoder at the reduced sizes of the port's registry entries), their
-mixes, limits and the real metric readers, and the program's ``src/``
-linked in.  ``run_tiny`` drives ``harness.run_cell`` there on the CPU
-with the port's plain backends.
+mixes, limits, the real metric readers and family modules, and the
+program's ``src/`` linked in.  ``run_tiny`` drives ``harness.run_cell``
+there on the CPU with the port's plain backends.  ``tiny_moe`` gives a
+configuration of the moe family, which a test adds as new files.
 """
 
 from __future__ import annotations
@@ -25,6 +26,19 @@ TINY_MODELS = {
     "tiny-gelu": ("starcoder2-15b", dict(
         n_layers=3, d_model=64, n_heads=4, n_kv_heads=1, head_dim=16,
         d_ff=256, vocab_size=256)),
+}
+
+TINY_MOE = {
+    # the port's reduced() sizes of the two moe registry entries: routed
+    # experts alone, and one expert a token beside a shared expert
+    "tiny-moe": ("qwen3-moe-235b-a22b", dict(
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=96, vocab_size=256, n_experts=8, top_k=2, moe_d_ff=96,
+        n_shared_experts=0)),
+    "tiny-moe-shared": ("llama4-scout-17b-a16e", dict(
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=256, n_experts=4, top_k=1, moe_d_ff=128,
+        n_shared_experts=1)),
 }
 
 MIX = {"loop": "closed", "clients": 4, "requests": 64,
@@ -55,15 +69,28 @@ def tiny_model(name: str, dtype: str = "bfloat16") -> Dict:
     return conf
 
 
+def tiny_moe(name: str, dtype: str = "bfloat16") -> Dict:
+    """A moe configuration on the tiny SwiGLU's serving settings, with
+    the capacity factor ``n_experts / top_k`` that lets the port drop no
+    pair (``families/moe.py``)."""
+    registry, sizes = TINY_MOE[name]
+    conf = tiny_model("tiny-swiglu", dtype)
+    conf.update(name=name, registry=registry)
+    conf["model"].update(sizes, family="moe",
+                         capacity_factor=sizes["n_experts"] / sizes["top_k"])
+    return conf
+
+
 def make_root(path: Path, dtype: str = "bfloat16") -> Path:
     """A tiny checkout at ``path``: cells ``<model>.mix`` and
     ``<model>.shared`` of both tiny models."""
     sb = path / "servebench"
     for sub in ("configs", "traffic", "cells"):
         (sb / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "servebench" / "metrics", sb / "metrics",
-                    ignore=shutil.ignore_patterns("__pycache__"),
-                    dirs_exist_ok=True)
+    for sub in ("metrics", "families"):
+        shutil.copytree(REPO / "servebench" / sub, sb / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"),
+                        dirs_exist_ok=True)
     if not (path / "src").exists():
         os.symlink(REPO / "src", path / "src")
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -92,6 +119,28 @@ def make_root(path: Path, dtype: str = "bfloat16") -> Path:
     (sb / "traffic" / "mix.json").write_text(json.dumps(MIX))
     (sb / "traffic" / "shared.json").write_text(json.dumps(SHARED))
     return path
+
+
+def add_moe(root: Path, name: str, mix: str = "mix",
+            dtype: str = "bfloat16") -> str:
+    """Add the tiny moe configuration ``name`` and its cell
+    ``<name>.<mix>`` to a tree of :func:`make_root` as new files and new
+    entries of its ``BENCHMARK.json``; returns the cell's name."""
+    sb = root / "servebench"
+    conf = tiny_moe(name, dtype)
+    (sb / "configs" / f"{name}.json").write_text(json.dumps(conf))
+    cell = f"{name}.{mix}"
+    (sb / "cells" / f"{cell}.json").write_text(
+        json.dumps({"limits": TINY_LIMITS}))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({
+        "name": name, "source": "https://arxiv.org/abs/2505.09388",
+        "file": f"servebench/configs/{name}.json", "reduced": [],
+        "why": "tiny"})
+    spec["workloads"].append({"name": cell, "config": name, "traffic": mix,
+                              "chips": 1, "why": "tiny"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
+    return cell
 
 
 class TickClock:

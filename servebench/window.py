@@ -2,10 +2,11 @@
 
 ``Run`` holds the client's records, the window's bounds on the host
 clock, the configuration's sizes and serving settings, set-up's seconds,
-the peak of device memory and, in a ``--trace 1`` run, the traced span's
-summary (``profile.py``).  Its helpers cut the records to the window:
-every number a reader gives is taken over all the window's work and all
-its time.
+the peak of device memory, in a ``--trace 1`` run the traced span's
+summary (``profile.py``), and the configuration's family module, whose
+``token_flops`` and ``decode_step_bytes`` price the steps.  Its helpers
+cut the records to the window: every number a reader gives is taken over
+all the window's work and all its time.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def percentile(values: List[float], q: float) -> float:
 class Run:
     def __init__(self, client, window: Dict, model: Dict, engine: Dict,
                  serve: Dict, setup_s: float, memory_peak_bytes: int,
-                 profile: Optional[Dict] = None):
+                 profile: Optional[Dict] = None, family=None):
         self.client = client
         self.t0, self.t1 = window["t0"], window["t1"]
         self.steps = client.steps[window["first_step"]:window["last_step"]]
@@ -35,6 +36,7 @@ class Run:
         self.setup_s = setup_s
         self.memory_peak_bytes = memory_peak_bytes
         self.profile = profile or {}
+        self.family = family
 
     @property
     def seconds(self) -> float:
